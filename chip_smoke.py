@@ -1,0 +1,538 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one GPU and check it end to end.
+
+Run from the root of a checkout, with no arguments, on a machine with one
+NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``radler_tpu_torch/csrc``, compares each
+kernel with its plain PyTorch version on the card, runs Högbom CLEAN through
+``radler_tpu_torch.Radler(...).perform`` on CUDA tensors (the 4096^2
+headline problem, a joined-channel cube, and the point-source contract),
+and prints what it measured.  The line before the last is a JSON object
+describing each kernel; the last line is
+``{"ok": true, "device": {...}}``.  Any failure raises and the script exits
+with a non-zero code; without a CUDA device it exits at once.
+
+It imports nothing of JAX or of the ``radler_tpu`` package.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 7
+SIZE = 4096
+N_SOURCES = 300
+ITERATIONS = 5000
+GAIN = 0.1
+THRESHOLD = 0.05
+RAGGED = (1000, 1300)
+TRACE_ITERATIONS = 200
+# Kernel and plain version perform the same float32 operations in the same
+# order, so they are expected to agree bit for bit; this bounds what the
+# smoke test accepts.
+TOLERANCE = 1e-6
+DEVICE = "cuda"
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Problems, made with NumPy from a seed
+# ---------------------------------------------------------------------------
+
+
+def _pad_center(img, n):
+    out = np.zeros((n, n), img.dtype)
+    h, w = img.shape
+    top, left = n // 2 - h // 2, n // 2 - w // 2
+    out[top : top + h, left : left + w] = img
+    return out
+
+
+def _crop_center(img, n):
+    h, w = img.shape
+    top, left = h // 2 - n // 2, w // 2 - n // 2
+    return img[top : top + n, left : left + n]
+
+
+def make_problem(size, n_sources, seed=SEED):
+    """Point sources convolved with a Gaussian PSF with a faint sidelobe
+    ring: the problem of ``bench.py --engine dense`` (``make_problem``)."""
+    rng = np.random.default_rng(seed)
+    psf = np.zeros((size, size), np.float32)
+    yy, xx = np.mgrid[0:size, 0:size]
+    r2 = (yy - size // 2) ** 2.0 + (xx - size // 2) ** 2.0
+    psf += np.exp(-r2 / (2.0 * 2.5**2)).astype(np.float32)
+    ring = np.exp(-((np.sqrt(r2) - 12.0) ** 2) / (2.0 * 2.0**2))
+    psf += 0.08 * ring.astype(np.float32)
+    sky = np.zeros((size, size), np.float32)
+    margin = size // 8
+    ys = rng.integers(margin, size - margin, n_sources)
+    xs = rng.integers(margin, size - margin, n_sources)
+    amps = rng.uniform(0.2, 1.0, n_sources).astype(np.float32)
+    np.add.at(sky, (ys, xs), amps)
+    pad = 1 << (size - 1).bit_length()
+    psf_f = np.fft.rfft2(np.fft.ifftshift(_pad_center(psf, 2 * pad)))
+    sky_f = np.fft.rfft2(_pad_center(sky, 2 * pad))
+    conv = np.fft.irfft2(psf_f * sky_f, s=(2 * pad, 2 * pad))
+    residual = _crop_center(conv, size).astype(np.float32)
+    return psf, residual
+
+
+def rms(t):
+    return float(torch.sqrt(torch.mean(t.double() ** 2)))
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+
+
+def phase_card():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    say(f"nvidia-smi: {smi}")
+    say(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"device: {torch.cuda.get_device_name(0)}")
+    from radler_tpu_torch.kernels import _build
+
+    start = time.perf_counter()
+    _build.library()
+    say(f"kernel library: {_build.BuildInfo.path} "
+        f"(nvcc {_build.BuildInfo.seconds:.1f} s, load "
+        f"{time.perf_counter() - start:.1f} s)")
+    for line in _build.BuildInfo.log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            say(f"  ptxas: {line.strip()}")
+    return smi
+
+
+# (name, mode, n_channels, n_polarizations, squared_joins)
+KERNEL_CASES = [
+    ("signed 1x1", "signed", 1, 1, False),
+    ("normal 4ch x 1pol", "normal", 4, 1, False),
+    ("normal 2ch x IQUV", "normal", 2, 4, False),
+    ("squared 2ch x IQUV", "squared", 2, 4, True),
+    ("linear 4 planes", "linear", 4, 1, False),
+]
+
+
+def _case_inputs(mode, C, P, squared, height, width, seed):
+    """A residual cube with sources on noise, per-channel PSFs, weights and
+    the kernel coefficients of the case, all on the card."""
+    from radler_tpu_torch.image_set import (
+        CubeMeta,
+        linear_integration_coefficients,
+    )
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    rng = np.random.default_rng(seed)
+    n = C * P
+    weights = tuple(float(w) for w in rng.uniform(0.5, 2.0, C))
+    meta = CubeMeta(C, P, weights, (True,) * P, 1.0, squared,
+                    tuple(1e8 + 1e7 * c for c in range(C)))
+    if mode == "linear":
+        chan, pol = linear_integration_coefficients(meta), np.ones(1)
+    else:
+        got, chan, pol = hs.integration_coefficients(meta)
+        assert got == mode, (got, mode)
+    res = rng.normal(scale=0.01, size=(n, height, width)).astype(np.float32)
+    for _ in range(40):
+        y, x = rng.integers(0, height), rng.integers(0, width)
+        res[:, y, x] += rng.uniform(0.5, 2.0, n).astype(np.float32)
+    yy, xx = np.mgrid[0:height, 0:width]
+    r2 = (yy - height // 2) ** 2.0 + (xx - width // 2) ** 2.0
+    psfs = np.stack(
+        [np.exp(-r2 / (2.0 * (2.0 + 0.25 * c) ** 2)) for c in range(C)]
+    ).astype(np.float32)
+    weight = rng.uniform(0.0, 1.0, (height, width)).astype(np.float32)
+    dev = torch.device(DEVICE)
+    return dict(
+        res=torch.as_tensor(res, device=dev),
+        psfs=torch.as_tensor(psfs, device=dev),
+        weight=torch.as_tensor(weight, device=dev),
+        coefs=torch.as_tensor(hs.kernel_coefficients(mode, chan, pol),
+                              device=dev),
+        P=P,
+    )
+
+
+def _trace(inputs, mode, use_weight, allow_negative, plain):
+    """TRACE_ITERATIONS iterations of step + select from the brightest
+    pixel of plane 0; returns the (y, x) of every iteration and the final
+    tensors."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    res = inputs["res"].clone()
+    model = torch.zeros_like(res)
+    n, height, width = res.shape
+    flat = int(torch.argmax(res[0].abs()))
+    y0, x0 = divmod(flat, width)
+    state = torch.tensor([y0, x0, 1, 0, 0, 1, flat, 0], dtype=torch.int32,
+                         device=res.device)
+    raw = res[:, y0, x0].clone()
+    params = hs.LoopParams.make(GAIN, 0.0, float(raw.abs().max()), 0.0,
+                                TRACE_ITERATIONS, False)
+    buffers = hs.LoopBuffers(state, torch.zeros(1, device=res.device), raw,
+                             raw * params.gain)
+    step = hs.hogbom_step_reference if plain else hs.hogbom_step
+    select = hs.hogbom_select_reference if plain else hs.hogbom_select
+    weight = inputs["weight"] if use_weight else None
+    peaks = []
+    for _ in range(TRACE_ITERATIONS):
+        partials = step(res, model, inputs["psfs"], buffers.values,
+                        buffers.state, inputs["coefs"], weight, mode=mode,
+                        n_polarizations=inputs["P"],
+                        allow_negative=allow_negative)
+        select(partials, res, buffers, params)
+        peaks.append(buffers.state[:2].clone())
+    torch.cuda.synchronize()
+    return torch.stack(peaks), res, model, buffers
+
+
+def phase_kernels_vs_plain():
+    """Every integration mode, weight on and off, negatives allowed or not,
+    at the main path's size and at a ragged shape: the kernel loop against
+    the plain loop on the card."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    worst = {"hogbom_step": 0.0, "hogbom_select": 0.0}
+    for height, width in ((SIZE, SIZE), RAGGED):
+        for name, mode, C, P, squared in KERNEL_CASES:
+            inputs = _case_inputs(mode, C, P, squared, height, width,
+                                  seed=C * 10 + P)
+            for use_weight in (False, True):
+                for allow_negative in (True, False):
+                    pk, rk, mk, bk = _trace(inputs, mode, use_weight,
+                                            allow_negative, plain=False)
+                    pp, rp, mp, bp = _trace(inputs, mode, use_weight,
+                                            allow_negative, plain=True)
+                    it_k = int(bk.state[hs.ITERATION])
+                    it_p = int(bp.state[hs.ITERATION])
+                    same_peaks = bool(torch.equal(pk, pp))
+                    d_res = float((rk - rp).abs().max())
+                    d_mod = float((mk - mp).abs().max())
+                    d_sel = max(
+                        float((bk.value - bp.value).abs().max()),
+                        float((bk.values - bp.values).abs().max()),
+                    )
+                    say(f"  {height}x{width} {name:20s} weight={use_weight:d} "
+                        f"allow_negative={allow_negative:d}: iterations "
+                        f"{it_k}/{it_p}, same peaks {same_peaks}, "
+                        f"max|dres| {d_res:.3g}, max|dmodel| {d_mod:.3g}, "
+                        f"max|dvalue| {d_sel:.3g}")
+                    if not (it_k == it_p and same_peaks and d_res <= TOLERANCE
+                            and d_mod <= TOLERANCE and d_sel <= TOLERANCE
+                            and torch.equal(bk.state, bp.state)):
+                        raise AssertionError(
+                            f"kernel and plain loop disagree: {height}x{width} "
+                            f"{name} weight={use_weight} "
+                            f"allow_negative={allow_negative}"
+                        )
+                    worst["hogbom_step"] = max(worst["hogbom_step"], d_res,
+                                               d_mod)
+                    worst["hogbom_select"] = max(worst["hogbom_select"], d_sel)
+            del inputs
+            torch.cuda.empty_cache()
+    return worst
+
+
+def _time_ms(fn, repeats):
+    """Mean milliseconds of ``fn`` over ``repeats`` calls, after two warm-up
+    calls: (device time by CUDA events, host time to enqueue).  A spin of
+    about half a second on the card before the first event lets the host
+    queue every launch first, so the events time the device work and not
+    the host's launch rate, unless the host needs longer than the spin."""
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    start.record()
+    host_start = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    host_ms = (time.perf_counter() - host_start) * 1e3 / repeats
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats, host_ms
+
+
+def phase_kernel_times(psf, residual):
+    """Each kernel against its plain version at the main path's shapes
+    (4096^2, one plane, no weight), in turns: plain, kernel, kernel, plain."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    dev = torch.device(DEVICE)
+    res = torch.as_tensor(residual, device=dev)[None].clone()
+    model = torch.zeros_like(res)
+    psfs = torch.as_tensor(psf, device=dev)[None]
+    coefs = torch.ones(1, device=dev)
+    flat = int(torch.argmax(res[0].abs()))
+    y0, x0 = divmod(flat, SIZE)
+    params = hs.LoopParams.make(GAIN, 0.0, 1.0, 0.0, 2**30, False)
+
+    def buffers():
+        state = torch.tensor([y0, x0, 1, 0, 0, 1, flat, 0], dtype=torch.int32,
+                             device=dev)
+        raw = res[:, y0, x0].clone()
+        return hs.LoopBuffers(state, torch.zeros(1, device=dev), raw,
+                              raw * params.gain)
+
+    b = buffers()
+    kw = dict(mode="signed", n_polarizations=1, allow_negative=True)
+    partials = hs.hogbom_step(res, model, psfs, b.values, b.state, coefs,
+                              None, **kw)
+    times = {"hogbom_step": [], "hogbom_select": []}
+    for plain in (True, False, False, True):
+        step = hs.hogbom_step_reference if plain else hs.hogbom_step
+        select = hs.hogbom_select_reference if plain else hs.hogbom_select
+        b = buffers()
+        t_step, h_step = _time_ms(
+            lambda: step(res, model, psfs, b.values, b.state, coefs, None,
+                         **kw), 20)
+        t_select, h_select = _time_ms(
+            lambda: select(partials, res, b, params), 50)
+        times["hogbom_step"].append(t_step)
+        times["hogbom_select"].append(t_select)
+        say(f"  {'plain ' if plain else 'kernel'} hogbom_step {t_step:.4f} ms "
+            f"(host enqueue {h_step:.4f} ms), hogbom_select {t_select:.4f} ms "
+            f"(host enqueue {h_select:.4f} ms)")
+    out = {}
+    for name, (p1, k1, k2, p2) in times.items():
+        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    return out
+
+
+def _counts():
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    return hs.hogbom_step.launches, hs.hogbom_select.launches
+
+
+def _reset_counts():
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    hs.hogbom_step.launches = 0
+    hs.hogbom_select.launches = 0
+
+
+def _settings(size, iterations):
+    import radler_tpu_torch as rd
+
+    s = rd.Settings()
+    s.trimmed_image_width = size
+    s.trimmed_image_height = size
+    s.minor_iteration_count = iterations
+    s.absolute_threshold = THRESHOLD
+    s.minor_loop_gain = GAIN
+    s.generic.use_sub_minor_optimization = False
+    return s
+
+
+def _perform(psf, res, iterations, **kwargs):
+    """One major iteration on fresh CUDA copies; returns (iterations,
+    seconds, launch counts, residual, model)."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    res = res.clone()
+    model = torch.zeros_like(res)
+    r = rd.Radler(_settings(res.shape[-1], iterations), psf, res, model, 0.0,
+                  **kwargs)
+    torch.cuda.synchronize()
+    _reset_counts()
+    start = time.perf_counter()
+    r.perform(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = _counts()
+    n = r.iteration_number
+    if not (counts[0] == counts[1] and n <= counts[0] < n + hs.CHUNK):
+        raise AssertionError(f"launch counts {counts} for {n} iterations")
+    if n == iterations and counts[0] != n:
+        raise AssertionError(f"launch counts {counts} != {n} iterations")
+    table = r._table
+    out_res = torch.stack([e.residual_accessor.array for e in table])
+    out_mod = torch.stack([e.model_accessor.array for e in table])
+    if not (torch.isfinite(out_res).all() and torch.isfinite(out_mod).all()):
+        raise AssertionError("non-finite residual or model")
+    return n, seconds, counts, out_res, out_mod
+
+
+def phase_main_path(psf, residual):
+    """Config 1: 4096^2 Högbom through Radler.perform on CUDA tensors."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+    from radler_tpu_torch.image_set import CubeMeta
+
+    dev = torch.device(DEVICE)
+    psf_d = torch.as_tensor(psf, device=dev)
+    res_d = torch.as_tensor(residual, device=dev)
+    _perform(psf_d, res_d, ITERATIONS)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_perform(psf_d, res_d, ITERATIONS) for _ in range(3)]
+    n, _, counts, out_res, out_mod = runs[0]
+    best = min(r[1] for r in runs)
+    say(f"  perform: {n} iterations; seconds "
+        f"{', '.join(f'{r[1]:.4f}' for r in runs)}; best "
+        f"{n / best:.1f} minor iterations/s; launches hogbom_step "
+        f"{counts[0]}, hogbom_select {counts[1]}")
+    say(f"  residual rms {rms(res_d):.6g} -> {rms(out_res):.6g}; model sum "
+        f"{float(out_mod.double().sum()):.6g}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if not rms(out_res) < rms(res_d):
+        raise AssertionError("the residual did not shrink")
+    main_counts = counts
+
+    # The minor loop alone, kernel against plain, in turns, on the same
+    # tensors (1000 iterations each: the plain loop is slow).
+    meta = CubeMeta(1, 1, (1.0,), (True,), 1.0, False, (0.0,))
+    flat = int(torch.argmax(res_d.abs()))
+    y0, x0 = divmod(flat, SIZE)
+    value0 = float(res_d.view(-1)[flat])
+    rates = {True: [], False: []}
+    finals = {}
+    for plain in (False, True, True, False):
+        r = res_d[None].clone()
+        m = torch.zeros_like(r)
+        params = hs.LoopParams.make(GAIN, THRESHOLD, abs(value0), 4.0, 1000,
+                                    False)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = hs.hogbom_loop(r, m, psf_d[None], None, None,
+                             (value0, x0, y0, True), params, 0, meta=meta,
+                             allow_negative=True, plain=plain)
+        torch.cuda.synchronize()
+        rates[plain].append(out.iteration / (time.perf_counter() - start))
+        finals[plain] = (out, r, m)
+    (out_k, r_k, m_k), (out_p, r_p, m_p) = finals[False], finals[True]
+    d = max(float((r_k - r_p).abs().max()), float((m_k - m_p).abs().max()))
+    say(f"  hogbom_loop kernel vs plain: {out_k} / {out_p}, max|diff| {d:.3g}")
+    if out_k != out_p or d > TOLERANCE:
+        raise AssertionError("kernel and plain hogbom_loop disagree")
+    say(f"  hogbom_loop 1000 iterations: kernel "
+        f"{', '.join(f'{v:.1f}' for v in rates[False])} it/s; plain "
+        f"{', '.join(f'{v:.1f}' for v in rates[True])} it/s")
+    return main_counts, n / best
+
+
+def phase_joined_channels(psf, residual):
+    """4096^2 x 4 channels through perform, channel weights, NO_FITTING."""
+    import radler_tpu_torch as rd
+
+    dev = torch.device(DEVICE)
+    C = 4
+    freqs = np.array([[1.0e8 + c * 2e7, 1.2e8 + c * 2e7] for c in range(C)])
+    scale = ((freqs.mean(1) / freqs.mean()) ** -0.7).astype(np.float32)
+    res = torch.as_tensor(residual, device=dev)[None] * torch.as_tensor(
+        scale, device=dev)[:, None, None]
+    psfs = torch.as_tensor(psf, device=dev)[None].repeat(C, 1, 1)
+    weights = np.array([1.0, 0.8, 1.2, 0.5])
+    kwargs = dict(frequencies=freqs, weights=weights)
+    assert _settings(SIZE, 1).spectral_fitting.mode == (
+        rd.SpectralFittingMode.NO_FITTING)
+    n, seconds, counts, out_res, _ = _perform(psfs, res, 2000, **kwargs)
+    say(f"  perform 4 channels: {n} iterations in {seconds:.4f} s, "
+        f"{n / seconds:.1f} minor iterations/s; launches {counts}; "
+        f"residual rms {rms(res):.6g} -> {rms(out_res):.6g}")
+    if not rms(out_res) < rms(res):
+        raise AssertionError("the residual did not shrink")
+
+
+def phase_contract():
+    """The point-source contract of tests/test_radler.py on the card."""
+    import radler_tpu_torch as rd
+
+    size = 64
+    point = np.array([[0.0, 0.4, 0.0], [0.25, 1.0, 0.5], [0.0, 0.6, 0.0]],
+                     np.float32)
+    for sx, sy in ((0, 0), (-9, 15)):
+        psf = np.zeros((size, size), np.float32)
+        psf[31:34, 31:34] = point
+        res = np.zeros((size, size), np.float32)
+        cy, cx = size // 2 + sy, size // 2 + sx
+        res[cy - 1 : cy + 2, cx - 1 : cx + 2] = 2.5 * point
+        s = _settings(size, 1000)
+        s.absolute_threshold = 1e-8
+        dev = torch.device(DEVICE)
+        res_d = torch.as_tensor(res, device=dev)
+        model_d = torch.zeros_like(res_d)
+        r = rd.Radler(s, torch.as_tensor(psf, device=dev), res_d, model_d,
+                      0.0)
+        if r.perform(0) is not False:
+            raise AssertionError("perform asked for another major iteration")
+        out_res = r._table.front.residual_accessor.array.cpu().numpy()
+        out_mod = r._table.front.model_accessor.array.cpu().numpy()
+        peak = out_mod[cy, cx]
+        others = np.delete(out_mod.ravel(), cy * size + cx)
+        say(f"  shift ({sx},{sy}): {r.iteration_number} iterations, "
+            f"max|residual| {np.abs(out_res).max():.3g}, model peak "
+            f"{peak:.7f}, max|model elsewhere| {np.abs(others).max():.3g}")
+        if not (np.abs(out_res).max() < 2e-6 and abs(peak - 2.5) <= 2.5e-4
+                and np.abs(others).max() < 2e-6):
+            raise AssertionError("the point-source contract failed")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device; none is available",
+              file=sys.stderr)
+        return 1
+    import radler_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    say("== the card ==")
+    smi = phase_card()
+    say("== kernels against their plain versions ==")
+    worst = phase_kernels_vs_plain()
+    say("== the 4096^2 problem (seed 7, 300 sources) ==")
+    psf, residual = make_problem(SIZE, N_SOURCES)
+    say("== kernel times at the main path's shapes ==")
+    times = phase_kernel_times(psf, residual)
+    say("== config 1 through Radler.perform ==")
+    counts, rate = phase_main_path(psf, residual)
+    say("== joined channels through Radler.perform ==")
+    phase_joined_channels(psf, residual)
+    say("== point-source contract ==")
+    phase_contract()
+
+    kernels = []
+    for name, launches in zip(("hogbom_step", "hogbom_select"), counts):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "radler_tpu_torch/csrc/hogbom_step.cu",
+            "replaces": "radler_tpu/ops/pallas/hogbom_step.py:37",
+            "launches": launches,
+            "max_abs_err": worst[name],
+            "ms": times[name][0],
+            "plain_ms": times[name][1],
+        })
+    say(f"config 1: {rate:.1f} minor iterations/s through perform")
+    print(smi)  # name, power limit: as nvidia-smi gives them
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,518 @@
+"""The Högbom minor iteration: CUDA kernels, their plain versions, the loop.
+
+Port of ``radler_tpu.ops.pallas.hogbom_step`` (the TPU kernel
+``_step_kernel`` behind ``fused_clean_step`` and its device loop
+``hogbom_loop_pallas``).  One iteration is two launches of
+``csrc/hogbom_step.cu``:
+
+* :func:`hogbom_step` adds the component values to the model at the current
+  peak, subtracts the shifted PSF from every plane of the residual (in
+  place), forms the joined integration, weights it and reduces each block of
+  pixels to a partial ``(max, smallest flat index, signed integrated
+  value)``.
+* :func:`hogbom_select` reduces the partials to the new peak and updates the
+  loop state on the device: the signed value at the peak, ``found``, the
+  divergence and stop tests, the iteration count and the next component
+  values.
+
+What bounds the pair, and how the design meets it, is in the note at the top
+of the CUDA source.  Each wrapper runs its plain PyTorch version
+(:func:`hogbom_step_reference`, :func:`hogbom_select_reference`) when given
+CPU tensors, and launches its kernel (or raises) when given CUDA tensors.
+The plain versions perform the same float32 operations in the same order as
+the kernels, so the two agree bit for bit.
+
+The loop state is a small int32 tensor on the device (layout below) plus a
+float32 value; both kernels return at once when ``state[ACTIVE]`` is 0, so
+:func:`hogbom_loop` enqueues ``CHUNK`` iterations at a time and reads the
+state back only between chunks.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.peak_finder import FLT_MIN
+from ..ops.psf_subtract import subtract_psf_from_cube
+
+MODES = ("signed", "linear", "normal", "squared")
+# Flat pixels one step block reduces to one partial (256 threads x 16).
+PIXELS_PER_BLOCK = 4096
+# Iterations enqueued between two host reads of the loop state.
+CHUNK = 64
+# Loop-state slots (int32), shared with csrc/hogbom_step.cu.
+Y, X, FOUND, DIVERGING, ITERATION, ACTIVE, INDEX = range(7)
+STATE_SIZE = 8
+
+
+def integration_coefficients(meta) -> Tuple[str, np.ndarray, np.ndarray]:
+    """(mode, chan_coefs, pol_coefs) reproducing the reference's square
+    integration (``image_set.cc:309-421``) inside the kernel."""
+    C = meta.n_channels
+    w = np.asarray(meta.weights, dtype=np.float64)
+    wsum = w[w != 0].sum()
+    linked = np.asarray(meta.linked, np.float64)
+    if meta.n_images == 1:
+        return "signed", np.ones(1, np.float32), np.ones(1, np.float32)
+    if meta.squared_joins:
+        chan = w * (meta.polarization_norm_factor / wsum) if wsum > 0 else w * 0
+        return "squared", chan.astype(np.float32), linked.astype(np.float32)
+    if C == 1:
+        chan = np.asarray([np.sqrt(meta.polarization_norm_factor)], np.float64)
+    else:
+        chan = (
+            w * (np.sqrt(meta.polarization_norm_factor) / wsum)
+            if wsum > 0
+            else w * 0
+        )
+    return "normal", chan.astype(np.float32), linked.astype(np.float32)
+
+
+def kernel_coefficients(
+    mode: str, chan_coefs: np.ndarray, pol_coefs: np.ndarray
+) -> np.ndarray:
+    """The kernels' coefficient array: one coefficient per cube plane, then
+    (normal mode only) one per channel.
+
+    ``chan_coefs`` holds one coefficient per plane in signed and linear
+    mode, one per channel otherwise.  The squared-mode plane coefficient is
+    the float32 rounding of the float64 product, as the TPU kernel bakes it.
+    """
+    chan = np.asarray(chan_coefs, np.float32)
+    pol = np.asarray(pol_coefs, np.float32)
+    if mode in ("signed", "linear"):
+        return chan.copy()
+    if mode == "normal":
+        return np.concatenate([np.tile(pol, chan.size), chan])
+    if mode == "squared":
+        return np.asarray(
+            [float(c) * float(p) for c in chan for p in pol], np.float32
+        )
+    raise ValueError(f"unknown integration mode {mode!r}")
+
+
+class LoopParams(NamedTuple):
+    """Scalars of one minor loop, each rounded to float32 as the device
+    compares them."""
+
+    gain: float
+    first_threshold: float
+    initial_abs_peak: float
+    divergence_limit: float
+    max_iterations: int
+    stop_on_negative: bool
+
+    @classmethod
+    def make(cls, gain, first_threshold, initial_abs_peak, divergence_limit,
+             max_iterations, stop_on_negative) -> "LoopParams":
+        f32 = lambda v: float(np.float32(v))  # noqa: E731
+        return cls(f32(gain), f32(first_threshold), f32(initial_abs_peak),
+                   f32(divergence_limit), int(max_iterations),
+                   bool(stop_on_negative))
+
+
+@dataclasses.dataclass
+class LoopBuffers:
+    """Device-resident loop state between launches."""
+
+    state: torch.Tensor  # int32 [STATE_SIZE]
+    value: torch.Tensor  # float32 [1]: signed rms-weighted peak value
+    peak: torch.Tensor  # float32 [N]: residual values at the peak
+    values: torch.Tensor  # float32 [N]: this iteration's component values
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _integrate(planes: torch.Tensor, coefs: torch.Tensor, mode: str,
+               n_polarizations: int) -> torch.Tensor:
+    """The joined integration, one float32 operation at a time in the
+    kernel's order (``hogbom_step.py:134-166`` of the TPU kernel)."""
+    n = planes.shape[0]
+    per_plane, chan = coefs[:n], coefs[n:]
+    if mode == "signed":
+        return planes[0] * per_plane[0]
+    if mode == "linear":
+        integ = planes[0] * per_plane[0]
+        for i in range(1, n):
+            integ = integ + planes[i] * per_plane[i]
+        return integ
+    if mode == "squared":
+        sq = planes[0] * planes[0] * per_plane[0]
+        for i in range(1, n):
+            sq = sq + planes[i] * planes[i] * per_plane[i]
+        return torch.sqrt(torch.clamp_min(sq, 0.0))
+    integ = None
+    for c in range(n // n_polarizations):
+        if n_polarizations == 1:
+            per_chan = planes[c]
+        else:
+            sq = None
+            for p in range(n_polarizations):
+                i = c * n_polarizations + p
+                term = planes[i] * planes[i] * per_plane[i]
+                sq = term if sq is None else sq + term
+            per_chan = torch.sqrt(torch.clamp_min(sq, 0.0))
+        term = per_chan * chan[c]
+        integ = term if integ is None else integ + term
+    return integ
+
+
+def hogbom_step_reference(
+    residual: torch.Tensor,
+    model: torch.Tensor,
+    psfs: torch.Tensor,
+    values: torch.Tensor,
+    state: torch.Tensor,
+    coefs: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+    *,
+    mode: str,
+    n_polarizations: int,
+    allow_negative: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`hogbom_step`; reads nothing back to the host."""
+    n, height, width = residual.shape
+    dev = residual.device
+    active = state[ACTIVE] != 0
+    y, x = state[Y].long(), state[X].long()
+    at = (y * width + x).view(1)
+    flat_model = model.view(n, height * width)
+    cur = flat_model.index_select(1, at)[:, 0]
+    flat_model.index_copy_(1, at, torch.where(active, cur + values, cur)[:, None])
+    psf_indices = torch.arange(n, device=dev) // n_polarizations
+    new = subtract_psf_from_cube(residual, psfs, psf_indices, x, y, values)
+    residual.copy_(torch.where(active, new, residual))
+
+    integ = _integrate(residual, coefs, mode, n_polarizations).reshape(-1)
+    weighted = integ * weight.reshape(-1) if weight is not None else integ
+    cmp = weighted.abs() if allow_negative else weighted
+    n_parts = -(-cmp.numel() // PIXELS_PER_BLOCK)
+    pad = n_parts * PIXELS_PER_BLOCK - cmp.numel()
+    blocks = F.pad(cmp, (0, pad), value=-np.inf).view(n_parts, -1)
+    part_cmp, arg = blocks.max(dim=1)  # first maximum of each block
+    part_idx = arg + torch.arange(n_parts, device=dev) * PIXELS_PER_BLOCK
+    part_integ = integ[part_idx.clamp(max=integ.numel() - 1)]
+    return part_cmp, part_idx.to(torch.int32), part_integ
+
+
+def hogbom_select_reference(
+    partials: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    residual: torch.Tensor,
+    buffers: LoopBuffers,
+    params: LoopParams,
+    rms: Optional[torch.Tensor] = None,
+) -> None:
+    """Plain version of :func:`hogbom_select`; reads nothing back to the
+    host."""
+    part_cmp, part_idx, part_integ = partials
+    n, height, width = residual.shape
+    state = buffers.state
+    active = state[ACTIVE] != 0
+    # Blocks hold ascending pixel ranges, so the first block attaining the
+    # maximum holds the smallest flat index among equal maxima.
+    best = torch.argmax(part_cmp).view(1)
+    cmp = part_cmp[best]
+    idx = part_idx[best].long()
+    value = part_integ[best]
+    if rms is not None:
+        value = value * rms.reshape(-1)[idx]
+    found = cmp > FLT_MIN
+    if params.divergence_limit != 0.0:
+        bound = float(
+            np.float32(params.initial_abs_peak)
+            * np.float32(params.divergence_limit)
+        )
+        diverging = found & (value.abs() > bound)
+    else:
+        diverging = torch.zeros_like(found)
+    iteration = state[ITERATION:ITERATION + 1] + 1
+    go = (
+        found
+        & (value.abs() > params.first_threshold)
+        & (iteration < params.max_iterations)
+        & ~diverging
+    )
+    if params.stop_on_negative:
+        go = go & (value >= 0.0)
+    new_state = torch.cat([
+        t.to(torch.int32)
+        for t in (idx // width, idx % width, found, diverging, iteration,
+                  go, idx, state[STATE_SIZE - 1:])
+    ])
+    state.copy_(torch.where(active, new_state, state))
+    buffers.value.copy_(torch.where(active, value, buffers.value))
+    raw = residual.view(n, -1).index_select(1, idx)[:, 0]
+    buffers.peak.copy_(torch.where(active, raw, buffers.peak))
+    buffers.values.copy_(torch.where(active, raw * params.gain, buffers.values))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_bound_lib = None
+
+
+def _lib():
+    """The kernel library with its C signatures declared."""
+    global _bound_lib
+    if _bound_lib is None:
+        from . import _build
+
+        lib = _build.library()
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.hogbom_step.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
+        lib.hogbom_step.restype = i32
+        lib.hogbom_select.argtypes = (
+            [ptr] * 3 + [i32] + [ptr] * 2 + [i32] * 3 + [ptr] * 4
+            + [f32] * 4 + [i32] * 2 + [ptr]
+        )
+        lib.hogbom_select.restype = i32
+        _bound_lib = lib
+    return _bound_lib
+
+
+def _check(t: Optional[torch.Tensor], name: str, device, shape, dtype):
+    if t is None:
+        return None
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t.data_ptr()
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def hogbom_step(
+    residual: torch.Tensor,
+    model: torch.Tensor,
+    psfs: torch.Tensor,
+    values: torch.Tensor,
+    state: torch.Tensor,
+    coefs: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+    *,
+    mode: str,
+    n_polarizations: int,
+    allow_negative: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Add ``values`` to ``model`` at the peak in ``state``, subtract the
+    shifted PSFs from ``residual`` (both in place) and return the per-block
+    partials ``(cmp, idx, integ)``.  A no-op when ``state[ACTIVE]`` is 0.
+
+    ``residual`` and ``model`` are ``[N, H, W]``, ``psfs`` the un-padded
+    ``[C, H, W]`` PSFs (plane n uses PSF ``n // n_polarizations``),
+    ``coefs`` the :func:`kernel_coefficients`, ``weight`` the optional
+    ``[H, W]`` peak-search weight.
+    """
+    args = (residual, model, psfs, values, state, coefs, weight)
+    kw = dict(mode=mode, n_polarizations=n_polarizations,
+              allow_negative=allow_negative)
+    if residual.device.type == "cpu":
+        return hogbom_step_reference(*args, **kw)
+    if residual.device.type != "cuda":
+        raise ValueError(f"hogbom_step: unsupported device {residual.device}")
+    n, height, width = residual.shape
+    n_chan = n // n_polarizations
+    if n_chan * n_polarizations != n or height * width >= 2**31:
+        raise ValueError(f"hogbom_step: bad cube shape {tuple(residual.shape)}")
+    if mode == "signed" and n != 1:
+        raise ValueError("hogbom_step: signed mode takes one plane")
+    n_coefs = n + (n_chan if mode == "normal" else 0)
+    dev, f32 = residual.device, torch.float32
+    n_parts = -(-height * width // PIXELS_PER_BLOCK)
+    part_cmp = torch.empty(n_parts, dtype=f32, device=dev)
+    part_idx = torch.empty(n_parts, dtype=torch.int32, device=dev)
+    part_integ = torch.empty(n_parts, dtype=f32, device=dev)
+    ptrs = [
+        _check(residual, "residual", dev, (n, height, width), f32),
+        _check(model, "model", dev, (n, height, width), f32),
+        _check(psfs, "psfs", dev, (n_chan, height, width), f32),
+        _check(weight, "weight", dev, (height, width), f32),
+        _check(coefs, "coefs", dev, (n_coefs,), f32),
+        _check(values, "values", dev, (n,), f32),
+        _check(state, "state", dev, (STATE_SIZE,), torch.int32),
+        part_cmp.data_ptr(),
+        part_idx.data_ptr(),
+        part_integ.data_ptr(),
+    ]
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hogbom_step(
+            *ptrs, n_parts, n, n_polarizations, height, width,
+            PIXELS_PER_BLOCK, MODES.index(mode), int(allow_negative), stream,
+        )
+    _raise_on(err, "hogbom_step")
+    hogbom_step.launches += 1
+    return part_cmp, part_idx, part_integ
+
+
+hogbom_step.launches = 0
+
+
+def hogbom_select(
+    partials: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    residual: torch.Tensor,
+    buffers: LoopBuffers,
+    params: LoopParams,
+    rms: Optional[torch.Tensor] = None,
+) -> None:
+    """Reduce the step's partials to the new peak and update ``buffers``
+    (state, value, peak values, next component values) on the device.
+    A no-op when ``state[ACTIVE]`` is 0."""
+    if residual.device.type == "cpu":
+        return hogbom_select_reference(partials, residual, buffers, params, rms)
+    if residual.device.type != "cuda":
+        raise ValueError(f"hogbom_select: unsupported device {residual.device}")
+    part_cmp, part_idx, part_integ = partials
+    n, height, width = residual.shape
+    n_parts = part_cmp.shape[0]
+    dev, f32 = residual.device, torch.float32
+    ptrs_in = [
+        _check(part_cmp, "part_cmp", dev, (n_parts,), f32),
+        _check(part_idx, "part_idx", dev, (n_parts,), torch.int32),
+        _check(part_integ, "part_integ", dev, (n_parts,), f32),
+    ]
+    res_ptr = _check(residual, "residual", dev, (n, height, width), f32)
+    rms_ptr = _check(rms, "rms", dev, (height, width), f32)
+    ptrs_out = [
+        _check(buffers.state, "state", dev, (STATE_SIZE,), torch.int32),
+        _check(buffers.value, "value", dev, (1,), f32),
+        _check(buffers.peak, "peak", dev, (n,), f32),
+        _check(buffers.values, "values", dev, (n,), f32),
+    ]
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hogbom_select(
+            *ptrs_in, n_parts, res_ptr, rms_ptr, n, height, width, *ptrs_out,
+            params.gain, params.first_threshold, params.initial_abs_peak,
+            params.divergence_limit, params.max_iterations,
+            int(params.stop_on_negative), stream,
+        )
+    _raise_on(err, "hogbom_select")
+    hogbom_select.launches += 1
+
+
+hogbom_select.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The minor loop
+# ---------------------------------------------------------------------------
+
+
+class LoopResult(NamedTuple):
+    iteration: int
+    value: float
+    found: bool
+    diverging: bool
+
+
+def hogbom_loop(
+    residual: torch.Tensor,  # [N, H, W], updated in place
+    model: torch.Tensor,  # [N, H, W], updated in place
+    psfs: torch.Tensor,  # [C, H, W] centered PSFs at image size
+    weight: Optional[torch.Tensor],  # [H, W] mask x border x rms, or None
+    rms: Optional[torch.Tensor],  # [H, W] rms factor, or None
+    peak0: Tuple[float, int, int, bool],  # (value, x, y, found)
+    params: LoopParams,
+    start_iteration: int,
+    *,
+    meta,
+    allow_negative: bool,
+    fitter=None,
+    plain: bool = False,
+) -> LoopResult:
+    """The Högbom minor loop (``generic_clean.cc:163-206``), with the same
+    contract as the JAX package's ``hogbom_loop_pallas`` and
+    ``_hogbom_loop``.
+
+    On CUDA tensors each iteration is the two kernel launches (``plain``
+    runs their plain versions instead, for comparison); on CPU tensors it is
+    the plain versions.  Between launches, only device-side torch ops run
+    (the spectral fit, when a fitter is active); the host reads the state
+    once per ``CHUNK`` iterations.
+    """
+    n, height, width = residual.shape
+    dev = residual.device
+    mode, chan_np, pol_np = integration_coefficients(meta)
+    coefs = torch.as_tensor(kernel_coefficients(mode, chan_np, pol_np),
+                            device=dev)
+    step = hogbom_step_reference if plain else hogbom_step
+    select = hogbom_select_reference if plain else hogbom_select
+    C, P = meta.n_channels, meta.n_polarizations
+
+    def fitted_values(raw: torch.Tensor) -> torch.Tensor:
+        """The fit of the raw peak values, gain-scaled (the loop body's
+        ``fit_and_evaluate(...) * gain``), without a host read."""
+        forced = None
+        if fitter._forced_terms is not None:
+            terms = fitter._forced_terms
+            forced = terms.reshape(terms.shape[0], -1).index_select(
+                1, buffers.state[INDEX:INDEX + 1].long()
+            )[:, 0]
+        vals = fitter.fit_and_evaluate(raw.view(C, P), forced_terms=forced)
+        return vals.reshape(-1) * params.gain
+
+    value0, x0, y0, found0 = peak0
+    value0 = float(np.float32(value0))
+    active0 = (
+        found0
+        and abs(value0) > params.first_threshold
+        and start_iteration < params.max_iterations
+        and (value0 >= 0.0 or not params.stop_on_negative)
+    )
+    state = torch.tensor(
+        [y0, x0, int(found0), 0, start_iteration, int(active0),
+         y0 * width + x0, 0],
+        dtype=torch.int32, device=dev,
+    )
+    raw = residual[:, y0, x0].clone()
+    buffers = LoopBuffers(
+        state=state,
+        value=torch.tensor([value0], dtype=torch.float32, device=dev),
+        peak=raw,
+        values=raw * params.gain,
+    )
+    if fitter is not None:
+        buffers.values = fitted_values(raw)
+
+    iteration, active = start_iteration, active0
+    while active:
+        for _ in range(min(CHUNK, params.max_iterations - iteration)):
+            partials = step(
+                residual, model, psfs, buffers.values, buffers.state, coefs,
+                weight, mode=mode, n_polarizations=P,
+                allow_negative=allow_negative,
+            )
+            select(partials, residual, buffers, params, rms)
+            if fitter is not None:
+                buffers.values.copy_(fitted_values(buffers.peak))
+        host = buffers.state.tolist()
+        iteration, active = host[ITERATION], bool(host[ACTIVE])
+    host = buffers.state.tolist()
+    return LoopResult(
+        iteration=host[ITERATION],
+        value=float(buffers.value.item()),
+        found=bool(host[FOUND]),
+        diverging=bool(host[DIVERGING]),
+    )

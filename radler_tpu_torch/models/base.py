@@ -1,0 +1,71 @@
+"""Algorithm base: shared knobs, result type, the spectral fitter.
+
+Port of ``radler_tpu.models.base`` (``cpp/algorithms/deconvolution_algorithm.{h,cc}``).
+Concrete algorithms update ``[n_images, H, W]`` tensor cubes; the base class
+carries host-side configuration (thresholds, gains, masks) and the per-run
+iteration counter.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..settings import OptimizationAlgorithm
+from ..ops.spectral_fitting import SpectralFitter
+
+
+@dataclasses.dataclass
+class DeconvolutionResult:
+    """Mirrors ``cpp/algorithms/deconvolution_algorithm.h:31-58``."""
+
+    starting_peak_value: Optional[float] = None
+    final_peak_value: float = 0.0
+    another_iteration_required: bool = False
+    is_diverging: bool = False
+
+
+class DeconvolutionAlgorithm:
+    """Common settings & state (``deconvolution_algorithm.h:60-210``)."""
+
+    def __init__(self):
+        # Defaults mirror ``deconvolution_algorithm.h:189-202``.
+        self.threshold: float = 0.0
+        self.major_iteration_threshold: float = 0.0
+        self.minor_loop_gain: float = 0.1
+        self.major_loop_gain: float = 1.0
+        self.clean_border_ratio: float = 0.05
+        self.max_iterations: int = 500
+        self.divergence_limit: float = 4.0
+        self.allow_negative_components: bool = True
+        self.stop_on_negative_components: bool = False
+        self.component_optimization_algorithm = OptimizationAlgorithm.CLEAN
+        self.clean_mask: Optional[np.ndarray] = None  # bool [H, W]
+        self.rms_factor_image: Optional[torch.Tensor] = None
+        self.iteration_number: int = 0
+        self.spectral_fitter: Optional[SpectralFitter] = None
+        self.n_polarizations: int = 1
+
+    # -- configuration ----------------------------------------------------
+    def set_spectral_fitter(self, fitter: SpectralFitter, n_polarizations: int):
+        self.spectral_fitter = fitter
+        self.n_polarizations = n_polarizations
+
+    def set_spectrally_forced_images(self, term_images: torch.Tensor):
+        self.spectral_fitter.set_forced_terms(term_images)
+
+    # -- interface ---------------------------------------------------------
+    def execute_major_iteration(
+        self, dirty_set, model_set, psfs
+    ) -> DeconvolutionResult:
+        """Run one major deconvolution iteration.
+
+        ``dirty_set`` / ``model_set`` are
+        :class:`radler_tpu_torch.image_set.ImageSet` (updated in place);
+        ``psfs`` is a ``[n_channels, h, w]`` tensor for the selected
+        direction's PSFs.
+        """
+        raise NotImplementedError

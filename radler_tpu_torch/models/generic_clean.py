@@ -1,0 +1,183 @@
+"""Generic (Högbom) CLEAN with joined channels & polarizations.
+
+Port of the Högbom branch of ``radler_tpu.models.generic_clean``
+(``cpp/algorithms/generic_clean.{h,cc}``): the initial peak search on the
+linear integration, the major-loop threshold, and the minor loop of
+:func:`radler_tpu_torch.kernels.hogbom_step.hogbom_loop`, which runs the
+CUDA kernels on CUDA tensors and their plain PyTorch versions on CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..image_set import CubeMeta, get_linear_integrated
+from ..kernels.hogbom_step import LoopParams, hogbom_loop
+from ..ops.convolution import untrim
+from ..ops.peak_finder import border_from_ratio, find_peak, window_mask
+from ..settings import OptimizationAlgorithm
+from .base import DeconvolutionAlgorithm, DeconvolutionResult
+
+
+class GenericClean(DeconvolutionAlgorithm):
+    """``cpp/algorithms/generic_clean.{h,cc}``, Högbom minor loop only."""
+
+    def __init__(self, use_sub_minor_optimization: bool = True):
+        super().__init__()
+        if use_sub_minor_optimization:
+            raise NotImplementedError(
+                "settings.generic.use_sub_minor_optimization=True (the Clark "
+                "subminor loop) is not ported yet; ROADMAP queue A, item 2 "
+                "brings it.  Set it to False for Högbom CLEAN."
+            )
+        self.convolution_padding = 1.1
+        self.use_sub_minor_optimization = use_sub_minor_optimization
+
+    # ------------------------------------------------------------------
+    def _find_peak(self, integrated: torch.Tensor):
+        """``GenericClean::FindPeak`` (``generic_clean.cc:255-277``)."""
+        img = integrated
+        if self.rms_factor_image is not None:
+            img = integrated * self.rms_factor_image
+        h, w = img.shape
+        hb, vb = border_from_ratio(w, h, self.clean_border_ratio)
+        return find_peak(
+            img, self.allow_negative_components, hb, vb, self.clean_mask
+        )
+
+    def _peak_search_weight(self, height: int, width: int, device):
+        """The kernel's peak-search weight, mask x border x rms, or None
+        when none of them is set (then the kernel reads no weight plane)."""
+        hb, vb = border_from_ratio(width, height, self.clean_border_ratio)
+        if (
+            hb == 0
+            and vb == 0
+            and self.clean_mask is None
+            and self.rms_factor_image is None
+        ):
+            return None
+        host = window_mask(height, width, hb, vb).astype(np.float32)
+        if self.clean_mask is not None:
+            host = host * np.asarray(self.clean_mask, np.float32)
+        weight = torch.as_tensor(host, device=device)
+        if self.rms_factor_image is not None:
+            weight = weight * self.rms_factor_image
+        return weight.contiguous()
+
+    # ------------------------------------------------------------------
+    def execute_major_iteration(
+        self, dirty_set, model_set, psfs: torch.Tensor
+    ) -> DeconvolutionResult:
+        meta: CubeMeta = dirty_set.meta
+        width, height = dirty_set.width, dirty_set.height
+        iteration_counter_at_start = self.iteration_number
+        if self.stop_on_negative_components:
+            self.allow_negative_components = True
+
+        integrated = get_linear_integrated(dirty_set.data, meta)
+        pk = self._find_peak(integrated)
+        # One host read for the initial peak.
+        pk_value, pk_found, pk_x, pk_y = torch.stack(
+            [pk.value, pk.found.float(), pk.x.float(), pk.y.float()]
+        ).tolist()
+        found = bool(pk_found)
+        result = DeconvolutionResult()
+        result.starting_peak_value = pk_value if found else None
+        result.final_peak_value = pk_value if found else 0.0
+        if not found:
+            return result
+        if self.iteration_number >= self.max_iterations:
+            # Enables the facet layer's peak-only phase-1 pass
+            # (generic_clean.cc:83-88).
+            return result
+
+        if self.component_optimization_algorithm != OptimizationAlgorithm.CLEAN:
+            raise NotImplementedError(
+                "component optimization "
+                f"{self.component_optimization_algorithm.name} is not ported "
+                "yet; ROADMAP queue A, item 5 brings it."
+            )
+
+        initial_max_value = abs(pk_value)
+        first_threshold = self.threshold
+        major_iter_threshold = max(
+            self.major_iteration_threshold,
+            initial_max_value * (1.0 - self.major_loop_gain),
+        )
+        if major_iter_threshold > first_threshold:
+            first_threshold = major_iter_threshold
+
+        if psfs.shape[-2:] != (height, width):
+            psfs = untrim(psfs, height, width)
+        fit = (
+            self.spectral_fitter
+            if self.spectral_fitter is not None and self.spectral_fitter.is_active
+            else None
+        )
+        rms = self.rms_factor_image
+        out = hogbom_loop(
+            dirty_set.data,
+            model_set.data,
+            psfs.contiguous(),
+            self._peak_search_weight(height, width, dirty_set.data.device),
+            rms.contiguous() if rms is not None else None,
+            (pk_value, int(pk_x), int(pk_y), found),
+            LoopParams.make(
+                self.minor_loop_gain,
+                first_threshold,
+                initial_max_value,
+                self.divergence_limit,
+                self.max_iterations,
+                self.stop_on_negative_components,
+            ),
+            self.iteration_number,
+            meta=meta,
+            allow_negative=self.allow_negative_components,
+            fitter=fit,
+        )
+        self.iteration_number = out.iteration
+        return self._finish_result(
+            result,
+            out.diverging,
+            out.value if out.found else None,
+            iteration_counter_at_start,
+            major_iter_threshold,
+        )
+
+    def _finish_result(
+        self,
+        result: DeconvolutionResult,
+        diverging: bool,
+        max_value,
+        iteration_counter_at_start: int,
+        major_iter_threshold: float,
+    ) -> DeconvolutionResult:
+        """Stop-reason reporting (generic_clean.cc:208-251)."""
+        if diverging:
+            if max_value is not None:
+                result.final_peak_value = max_value
+            result.another_iteration_required = False
+            result.is_diverging = True
+        elif max_value is not None:
+            final_threshold_reached = (
+                abs(max_value) <= self.threshold or max_value == 0.0
+            )
+            negative_reached = (
+                max_value < 0.0 and self.stop_on_negative_components
+            )
+            mgain_reached = abs(max_value) <= major_iter_threshold
+            did_work = (
+                self.iteration_number - iteration_counter_at_start
+            ) != 0
+            result.another_iteration_required = (
+                mgain_reached
+                and did_work
+                and not negative_reached
+                and not final_threshold_reached
+            )
+            result.final_peak_value = max_value
+        else:
+            result.another_iteration_required = False
+        return result
