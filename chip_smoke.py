@@ -6,14 +6,21 @@ NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``radler_tpu_torch/csrc``, compares each
-kernel with its plain PyTorch version on the card, runs Högbom CLEAN through
-``radler_tpu_torch.Radler(...).perform`` on CUDA tensors (the 4096^2
-headline problem, a joined-channel cube, and the point-source contract),
-and prints what it measured.  The line before the last is a JSON object
-describing each kernel; the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises and the script exits
-with a non-zero code; without a CUDA device it exits at once.
+It builds the CUDA kernels from ``radler_tpu_torch/csrc`` (one ``nvcc``
+per source, all at once), compares each kernel with its plain PyTorch
+version on the card, runs ``radler_tpu_torch.Radler(...).perform`` on CUDA
+tensors and prints what it measured:
+
+* Högbom CLEAN: the 4096^2 headline problem (config 1), a joined-channel
+  cube, and the point-source contract;
+* the Clark subminor loop, the library's default: the 2048^2 problem of
+  config 2 with the time split of a perform, the point-source contract,
+  and one perform with local-RMS weighting;
+* the batched inverse FFT against per-plane inverses and NumPy, once.
+
+The line before the last is a JSON object describing each kernel; the last
+line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
+script exits with a non-zero code; without a CUDA device it exits at once.
 
 It imports nothing of JAX or of the ``radler_tpu`` package.
 """
@@ -34,6 +41,15 @@ GAIN = 0.1
 THRESHOLD = 0.05
 RAGGED = (1000, 1300)
 TRACE_ITERATIONS = 200
+# Config 2: ``bench.py --engine clark --size 2048``.
+CLARK_SIZE = 2048
+# The subminor kernel against its plain version: candidate sets of a few
+# thousand pixels from a 512^2 cube, 300 iterations each.
+SUBMINOR_SIZE = 512
+SUBMINOR_K = 3000
+SUBMINOR_ITERATIONS = 300
+# Iterations of one timed subminor launch at config 2's shapes.
+SUBMINOR_TIMED_ITERATIONS = 200
 # Kernel and plain version perform the same float32 operations in the same
 # order, so they are expected to agree bit for bit; this bounds what the
 # smoke test accepts.
@@ -325,12 +341,14 @@ def _counts():
 
 def _reset_counts():
     from radler_tpu_torch.kernels import hogbom_step as hs
+    from radler_tpu_torch.kernels import subminor_loop as sl
 
     hs.hogbom_step.launches = 0
     hs.hogbom_select.launches = 0
+    sl.subminor_loop.launches = 0
 
 
-def _settings(size, iterations):
+def _settings(size, iterations, clark=False):
     import radler_tpu_torch as rd
 
     s = rd.Settings()
@@ -339,7 +357,7 @@ def _settings(size, iterations):
     s.minor_iteration_count = iterations
     s.absolute_threshold = THRESHOLD
     s.minor_loop_gain = GAIN
-    s.generic.use_sub_minor_optimization = False
+    s.generic.use_sub_minor_optimization = clark
     return s
 
 
@@ -452,9 +470,11 @@ def phase_joined_channels(psf, residual):
         raise AssertionError("the residual did not shrink")
 
 
-def phase_contract():
-    """The point-source contract of tests/test_radler.py on the card."""
+def phase_contract(clark=False):
+    """The point-source contract of tests/test_radler.py on the card, with
+    the Högbom loop or the Clark loop."""
     import radler_tpu_torch as rd
+    from radler_tpu_torch.kernels import subminor_loop as sl
 
     size = 64
     point = np.array([[0.0, 0.4, 0.0], [0.25, 1.0, 0.5], [0.0, 0.6, 0.0]],
@@ -465,15 +485,18 @@ def phase_contract():
         res = np.zeros((size, size), np.float32)
         cy, cx = size // 2 + sy, size // 2 + sx
         res[cy - 1 : cy + 2, cx - 1 : cx + 2] = 2.5 * point
-        s = _settings(size, 1000)
+        s = _settings(size, 1000, clark=clark)
         s.absolute_threshold = 1e-8
         dev = torch.device(DEVICE)
         res_d = torch.as_tensor(res, device=dev)
         model_d = torch.zeros_like(res_d)
         r = rd.Radler(s, torch.as_tensor(psf, device=dev), res_d, model_d,
                       0.0)
+        _reset_counts()
         if r.perform(0) is not False:
             raise AssertionError("perform asked for another major iteration")
+        if clark and (sl.subminor_loop.launches, _counts()) != (1, (0, 0)):
+            raise AssertionError("the Clark perform did not launch B2 once")
         out_res = r._table.front.residual_accessor.array.cpu().numpy()
         out_mod = r._table.front.model_accessor.array.cpu().numpy()
         peak = out_mod[cy, cx]
@@ -486,6 +509,380 @@ def phase_contract():
             raise AssertionError("the point-source contract failed")
 
 
+# ---------------------------------------------------------------------------
+# The Clark subminor loop
+# ---------------------------------------------------------------------------
+
+
+def _subminor_state(C, P, use_rms, allow_negative, seed, bad_psf=False):
+    """A candidate set of about SUBMINOR_K pixels from a SUBMINOR_SIZE^2
+    cube of positive and negative sources on noise, selected by the port's
+    SubMinorLoop.  Returns the loop's inputs on the card."""
+    from radler_tpu_torch.image_set import (
+        CubeMeta,
+        linear_integration_coefficients,
+    )
+    from radler_tpu_torch.models.subminor import SubMinorLoop
+
+    rng = np.random.default_rng(seed)
+    size = SUBMINOR_SIZE
+    yy, xx = np.mgrid[0:size, 0:size]
+    r2 = (yy - size // 2) ** 2.0 + (xx - size // 2) ** 2.0
+    psfs = np.stack([
+        np.exp(-r2 / (2.0 * (2.0 + 0.3 * c) ** 2))
+        + 0.08 * np.exp(-((np.sqrt(r2) - 12.0) ** 2) / 8.0)
+        for c in range(C)
+    ]).astype(np.float32)
+    if bad_psf:  # every subtraction grows the peak: the loop diverges
+        psfs *= np.float32(-2.5)
+    sky = np.zeros((size, size), np.float32)
+    ys, xs = rng.integers(size // 8, 7 * size // 8, (2, 60))
+    np.add.at(sky, (ys, xs), rng.uniform(-1.0, 1.0, 60).astype(np.float32))
+    planes = []
+    for c in range(C):
+        conv = np.fft.irfft2(np.fft.rfft2(sky) * np.fft.rfft2(
+            np.fft.ifftshift(np.abs(psfs[c]))), s=(size, size))
+        for p in range(P):
+            planes.append(conv * (1.0 - 0.2 * p) * (1.0 + 0.1 * c))
+    cube = np.stack(planes) + rng.normal(scale=0.005, size=(C * P, size, size))
+    dev = torch.device(DEVICE)
+    cube_d = torch.as_tensor(cube.astype(np.float32), device=dev)
+    meta = CubeMeta(C, P, tuple(float(w) for w in rng.uniform(0.5, 2.0, C)),
+                    (True,) * P, 1.0, False,
+                    tuple(1e8 + 2e7 * c for c in range(C)))
+    coef = torch.as_tensor(linear_integration_coefficients(meta), device=dev)
+    integrated = torch.einsum("i,ihw->hw", coef, cube_d).abs()
+    loop = SubMinorLoop(size, size, 2 * size, 2 * size)
+    loop.set_threshold(float(integrated.flatten().sort().values[-SUBMINOR_K]),
+                       0.0)
+    loop.allow_negative_components = allow_negative
+    if use_rms:
+        loop.rms_factor_image = torch.as_tensor(
+            (0.6 + 0.8 * xx / size).astype(np.float32), device=dev)
+    k = loop.find_peak_positions(cube_d, meta)
+    return dict(loop=loop, k=k, psfs=torch.as_tensor(psfs, device=dev),
+                coef=coef, meta=meta)
+
+
+def _subminor_run(state, params, proj, plain):
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    loop = state["loop"]
+    res = loop._residual_k.clone()
+    model = torch.zeros_like(res)
+    run = sl.subminor_loop_reference if plain else sl.subminor_loop
+    out = run(res, model, loop._rms_k, loop._xs, loop._ys, state["psfs"], state["coef"], proj, params,
+              n_polarizations=state["meta"].n_polarizations)
+    torch.cuda.synchronize()
+    return out, res, model
+
+
+def _subminor_cases():
+    """(name, C, P, use_rms, allow_negative, fit, divergence_limit,
+    stop_on_negative, bad_psf)."""
+    cases = []
+    for C, P in ((1, 1), (4, 1), (2, 2)):
+        for use_rms in (False, True):
+            for allow_negative in (True, False):
+                fits = ("NO_FITTING", "POLYNOMIAL") if C > 1 else ("NO_FITTING",)
+                for fit in fits:
+                    divergence = 4.0 if use_rms != allow_negative else 0.0
+                    cases.append((f"{C}ch x {P}pol", C, P, use_rms,
+                                  allow_negative, fit, divergence, False, False))
+    cases.append(("stop on negative", 1, 1, False, True, "NO_FITTING", 0.0,
+                  True, False))
+    cases.append(("diverging", 2, 1, False, True, "POLYNOMIAL", 4.0, False,
+                  True))
+    return cases
+
+
+def phase_subminor_vs_plain():
+    """Kernel B2 against its plain version on the card, over plane counts,
+    rms factor, negatives, spectral fit, divergence and stop-on-negative:
+    equal output bits and state, max |difference| 0."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+    from radler_tpu_torch.ops.spectral_fitting import SpectralFitter
+    from radler_tpu_torch.settings import SpectralFittingMode
+
+    worst = 0.0
+    for i, (name, C, P, use_rms, allow_negative, fit, divergence, stop_neg,
+            bad_psf) in enumerate(_subminor_cases()):
+        state = _subminor_state(C, P, use_rms, allow_negative, seed=20 + i,
+                                bad_psf=bad_psf)
+        proj = None
+        if fit == "POLYNOMIAL":
+            fitter = SpectralFitter(SpectralFittingMode.POLYNOMIAL, 2,
+                                    state["meta"].frequencies,
+                                    state["meta"].weights)
+            proj = torch.as_tensor(
+                np.asarray(fitter._projection, np.float32), device=DEVICE)
+        params = sl.SubminorParams.make(
+            float(state["loop"].threshold) * 0.3, GAIN, 0,
+            SUBMINOR_ITERATIONS, divergence, allow_negative, stop_neg)
+        out_k, res_k, mod_k = _subminor_run(state, params, proj, plain=False)
+        out_p, res_p, mod_p = _subminor_run(state, params, proj, plain=True)
+        got_k, got_p = sl.read_result(out_k), sl.read_result(out_p)
+        d = max(float((res_k - res_p).abs().max()),
+                float((mod_k - mod_p).abs().max()))
+        say(f"  {name:17s} rms={use_rms:d} allow_negative={allow_negative:d} "
+            f"{fit:10s} divergence={divergence:g} K={state['k']}: kernel "
+            f"{got_k}, plain {got_p}, max|diff| {d:.3g}")
+        if not (torch.equal(out_k, out_p) and d == 0.0):
+            raise AssertionError(f"subminor kernel and plain disagree: {name}")
+        if stop_neg and not (got_k[0] < SUBMINOR_ITERATIONS and got_k[1] < 0):
+            raise AssertionError("the stop-on-negative case did not stop")
+        if bad_psf and not got_k[2]:
+            raise AssertionError("the diverging case did not diverge")
+        worst = max(worst, d)
+        del state
+    return worst
+
+
+def _clark_loop(res_d, meta, settings):
+    """A SubMinorLoop configured as GenericClean configures it for one
+    perform on ``res_d`` (the initial peak's major-loop threshold included),
+    with the candidate set selected."""
+    from radler_tpu_torch.models.subminor import (
+        SubMinorLoop,
+        choose_padded_size,
+    )
+    from radler_tpu_torch.ops.peak_finder import border_from_ratio
+
+    size = res_d.shape[-1]
+    initial = float(res_d.abs().max())
+    threshold = max(settings.absolute_threshold,
+                    initial * (1.0 - settings.major_loop_gain))
+    ph, pw = choose_padded_size(size, size, 1.1)
+    loop = SubMinorLoop(size, size, pw, ph)
+    loop.set_iteration_info(0, settings.minor_iteration_count)
+    loop.set_threshold(threshold, threshold * 0.99)
+    loop.set_gain(settings.minor_loop_gain)
+    loop.divergence_limit = settings.divergence_limit
+    loop.set_clean_borders(*border_from_ratio(size, size,
+                                              settings.border_ratio))
+    return loop
+
+
+def phase_subminor_times(psf, residual):
+    """B2 at config 2's candidate set.  First the whole run of config 2's
+    perform, kernel against plain, each on its own copy of the selected
+    state: equal output, residual and model.  Then both timed in turns
+    plain, kernel, kernel, plain, one launch of SUBMINOR_TIMED_ITERATIONS
+    iterations each, and the PSF gather that replaces the TPU's interaction
+    matrix, alone.  Returns (max |difference|, kernel ms, plain ms)."""
+    from radler_tpu_torch.image_set import (
+        CubeMeta,
+        linear_integration_coefficients,
+    )
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    dev = torch.device(DEVICE)
+    res_d = torch.as_tensor(residual, device=dev)[None]
+    psfs = torch.as_tensor(psf, device=dev)[None]
+    meta = CubeMeta(1, 1, (1.0,), (True,), 1.0, False, (0.0,))
+    loop = _clark_loop(res_d[0], meta,
+                       _settings(CLARK_SIZE, ITERATIONS, clark=True))
+    k = loop.find_peak_positions(res_d, meta)
+    coef = torch.as_tensor(linear_integration_coefficients(meta), device=dev)
+
+    def launch(plain, params, res_k, model_k):
+        run = sl.subminor_loop_reference if plain else sl.subminor_loop
+        return run(res_k, model_k, None, loop._xs, loop._ys, psfs, coef, None,
+                   params, n_polarizations=1)
+
+    perform_params = sl.SubminorParams.make(
+        loop.threshold, loop.gain, loop.current_iteration, loop.max_iterations,
+        loop.divergence_limit, loop.allow_negative_components,
+        loop.stop_on_negative_component)
+    finals = []
+    for plain in (False, True):
+        res_k = loop._residual_k.clone()
+        model_k = torch.zeros_like(res_k)
+        out = launch(plain, perform_params, res_k, model_k)
+        torch.cuda.synchronize()
+        finals.append((out, res_k, model_k))
+    (out_k, res_k, mod_k), (out_p, res_p, mod_p) = finals
+    d = max(float((res_k - res_p).abs().max()),
+            float((mod_k - mod_p).abs().max()))
+    say(f"  K = {k}, config 2's whole run: kernel {sl.read_result(out_k)}, "
+        f"plain {sl.read_result(out_p)}, max|diff| {d:.3g}")
+    if not (torch.equal(out_k, out_p) and torch.equal(res_k, res_p)
+            and torch.equal(mod_k, mod_p)):
+        raise AssertionError("subminor kernel and plain disagree at config 2")
+    if sl.read_result(out_k)[0] == 0:
+        raise AssertionError("config 2's subminor run made no iteration")
+
+    params = sl.SubminorParams.make(0.0, GAIN, 0, SUBMINOR_TIMED_ITERATIONS,
+                                    0.0, True, False)
+    res_k = loop._residual_k.clone()
+    model_k = torch.zeros_like(res_k)
+    times = {True: [], False: []}
+    for plain in (True, False, False, True):
+        ms, host_ms = _time_ms(
+            lambda: launch(plain, params, res_k, model_k), 1 if plain else 5)
+        times[plain].append(ms)
+        say(f"  {'plain ' if plain else 'kernel'} subminor_loop: {ms:.4f} ms "
+            f"per launch of {SUBMINOR_TIMED_ITERATIONS} iterations, "
+            f"{ms * 1e3 / SUBMINOR_TIMED_ITERATIONS:.2f} us per iteration "
+            f"(host enqueue {host_ms:.4f} ms)")
+
+    # The PSF values at every candidate relative to one component: what the
+    # kernel gathers per iteration, as plain torch ops.
+    psf_flat = psfs.reshape(1, -1)
+    m = k // 2
+    xs, ys = loop._xs.long(), loop._ys.long()
+
+    def gather():
+        sy = ys - ys[m] + CLARK_SIZE // 2
+        sx = xs - xs[m] + CLARK_SIZE // 2
+        inside = (sy >= 0) & (sy < CLARK_SIZE) & (sx >= 0) & (sx < CLARK_SIZE)
+        src = sy.clamp(0, CLARK_SIZE - 1) * CLARK_SIZE + sx.clamp(
+            0, CLARK_SIZE - 1)
+        return torch.where(inside, psf_flat[:, src], 0.0)
+
+    gather_ms, _ = _time_ms(gather, 200)
+    say(f"  PSF gather at the candidates (plain torch ops) "
+        f"{gather_ms * 1e3:.2f} us per iteration; the interaction matrix "
+        f"it replaces would hold {k * k * 4 / 1e9:.1f} GB")
+    return d, sum(times[False]) / 2, sum(times[True]) / 2
+
+
+def phase_config2(psf, residual):
+    """Config 2, the Clark loop at 2048^2, through Radler.perform: one B2
+    launch per perform, the rate, and the time split of a perform."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.image_set import CubeMeta
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    dev = torch.device(DEVICE)
+    psf_d = torch.as_tensor(psf, device=dev)
+    res_d = torch.as_tensor(residual, device=dev)
+    settings = _settings(CLARK_SIZE, ITERATIONS, clark=True)
+
+    def perform():
+        res = res_d.clone()
+        model = torch.zeros_like(res)
+        r = rd.Radler(settings, psf_d, res, model, 0.0)
+        torch.cuda.synchronize()
+        _reset_counts()
+        start = time.perf_counter()
+        r.perform(0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = (sl.subminor_loop.launches, *_counts())
+        if counts != (1, 0, 0):
+            raise AssertionError(f"launch counts {counts} for a Clark perform")
+        table = r._table
+        return (r.iteration_number, seconds, counts[0],
+                table.front.residual_accessor.array,
+                table.front.model_accessor.array)
+
+    perform()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    runs = [perform() for _ in range(3)]
+    n, _, launches, out_res, out_mod = runs[-1]
+    best = min(r[1] for r in runs)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if not (torch.isfinite(out_res).all() and torch.isfinite(out_mod).all()):
+        raise AssertionError("non-finite residual or model")
+    if not rms(out_res) < rms(res_d):
+        raise AssertionError("the residual did not shrink")
+
+    # The split of one perform's main steps, each synchronized: candidate
+    # selection, the B2 launch and its result read, the FFT correction.
+    meta = CubeMeta(1, 1, (1.0,), (True,), 1.0, False, (0.0,))
+    cube = res_d[None].clone()
+    loop = _clark_loop(res_d, meta, settings)
+    split = {}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    k = loop.find_peak_positions(cube, meta)
+    torch.cuda.synchronize()
+    split["selection"] = time.perf_counter() - start
+    start = time.perf_counter()
+    loop.run(cube, meta, psf_d[None])
+    torch.cuda.synchronize()
+    split["B2 launch"] = time.perf_counter() - start
+    start = time.perf_counter()
+    new_res, full_model = loop.correct_residual_dirty(cube, psf_d[None])
+    torch.cuda.synchronize()
+    split["FFT correction"] = time.perf_counter() - start
+    d_split = float((new_res[0] - out_res).abs().max())
+    if loop.current_iteration != n or d_split > TOLERANCE:
+        raise AssertionError(
+            f"the split run differs from perform's: {loop.current_iteration} "
+            f"iterations, max|dres| {d_split:.3g}")
+    say(f"  perform: K = {k}, {n} iterations; seconds "
+        f"{', '.join(f'{r[1]:.4f}' for r in runs)}; best "
+        f"{n / best:.1f} minor iterations/s; subminor_loop launches "
+        f"{launches} per perform")
+    say("  split of one perform: " + ", ".join(
+        f"{name} {sec * 1e3:.3f} ms" for name, sec in split.items()))
+    say(f"  residual rms {rms(res_d):.6g} -> {rms(out_res):.6g}; model sum "
+        f"{float(out_mod.double().sum()):.6g}; max_memory_allocated "
+        f"{peak_mib:.1f} MiB")
+    return launches, n / best
+
+
+def phase_local_rms(psf, residual):
+    """One perform with local-RMS weighting (RMS_WINDOW) at 2048^2, Clark."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    dev = torch.device(DEVICE)
+    res = torch.as_tensor(residual, device=dev)
+    noise = np.random.default_rng(SEED).normal(scale=0.01, size=res.shape)
+    res = res + torch.as_tensor(noise.astype(np.float32), device=dev)
+    before = rms(res)
+    s = _settings(CLARK_SIZE, 2000, clark=True)
+    # The weighting divides by the local RMS, which is high around the
+    # sources: their weighted peaks are a few times the noise (0.01).
+    s.absolute_threshold = 0.02
+    s.pixel_scale.x = s.pixel_scale.y = np.deg2rad(1.0 / 3600.0)
+    s.local_rms.method = rd.LocalRmsMethod.RMS_WINDOW
+    s.local_rms.window = 5.0
+    r = rd.Radler(s, torch.as_tensor(psf, device=dev), res,
+                  torch.zeros_like(res), 5.0 * s.pixel_scale.x)
+    _reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    r.perform(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    out = r._table.front.residual_accessor.array
+    say(f"  RMS_WINDOW perform: {r.iteration_number} iterations in "
+        f"{seconds:.4f} s; subminor_loop launches {sl.subminor_loop.launches}; "
+        f"residual rms {before:.6g} -> {rms(out):.6g}")
+    if sl.subminor_loop.launches != 1 or r.iteration_number == 0:
+        raise AssertionError("the local-RMS perform did not run B2")
+    if not (torch.isfinite(out).all() and rms(out) < before):
+        raise AssertionError("the local-RMS perform went wrong")
+
+
+def phase_batched_irfft():
+    """The batched inverse FFT against per-plane inverses on the card and
+    against NumPy, once: the JAX package maps inverses per plane for a TPU
+    fault that the port does not work around."""
+    rng = np.random.default_rng(SEED)
+    s = (CLARK_SIZE, CLARK_SIZE)
+    images = rng.normal(size=(8, *s)).astype(np.float32)
+    spec = torch.fft.rfft2(torch.as_tensor(images, device=DEVICE))
+    batched = torch.fft.irfft2(spec, s=s)
+    planes = torch.stack([torch.fft.irfft2(p, s=s) for p in spec])
+    scale = float(planes.abs().max())
+    rel = float((batched - planes).abs().max()) / scale
+    ref = np.fft.irfft2(spec[0].cpu().numpy().astype(np.complex128), s=s)
+    rel_np = float(np.abs(batched[0].cpu().numpy() - ref).max()
+                   / np.abs(ref).max())
+    rel_img = float(np.abs(batched.cpu().numpy() - images).max()
+                    / np.abs(images).max())
+    say(f"  [8, {CLARK_SIZE}, {CLARK_SIZE}] irfft2: batched vs per-plane "
+        f"max rel {rel:.3g}; batched plane 0 vs NumPy float64 max rel "
+        f"{rel_np:.3g}; round trip max rel {rel_img:.3g}")
+    if max(rel, rel_np, rel_img) > 1e-5:
+        raise AssertionError("the batched inverse FFT is inaccurate")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -493,20 +890,39 @@ def main():
         return 1
     import radler_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    start = time.perf_counter()
     say("== the card ==")
     smi = phase_card()
-    say("== kernels against their plain versions ==")
+    say("== Högbom kernels against their plain versions ==")
     worst = phase_kernels_vs_plain()
     say("== the 4096^2 problem (seed 7, 300 sources) ==")
     psf, residual = make_problem(SIZE, N_SOURCES)
-    say("== kernel times at the main path's shapes ==")
+    say("== Högbom kernel times at the main path's shapes ==")
     times = phase_kernel_times(psf, residual)
     say("== config 1 through Radler.perform ==")
     counts, rate = phase_main_path(psf, residual)
     say("== joined channels through Radler.perform ==")
     phase_joined_channels(psf, residual)
-    say("== point-source contract ==")
+    del psf, residual
+    say("== point-source contract, Högbom ==")
     phase_contract()
+    say("== the subminor kernel against its plain version ==")
+    worst_small = phase_subminor_vs_plain()
+    say("== the 2048^2 problem (seed 7, 300 sources) ==")
+    psf2, residual2 = make_problem(CLARK_SIZE, N_SOURCES)
+    say("== the subminor kernel at config 2's shapes ==")
+    worst_config2, kernel_ms, plain_ms = phase_subminor_times(psf2, residual2)
+    worst["subminor_loop"] = max(worst_small, worst_config2)
+    times["subminor_loop"] = (kernel_ms, plain_ms)
+    say("== config 2 (Clark) through Radler.perform ==")
+    clark = phase_config2(psf2, residual2)
+    say("== local RMS through Radler.perform, Clark ==")
+    phase_local_rms(psf2, residual2)
+    say("== point-source contract, Clark ==")
+    phase_contract(clark=True)
+    say("== batched irfft2 ==")
+    phase_batched_irfft()
+    say(f"phases took {time.perf_counter() - start:.1f} s")
 
     kernels = []
     for name, launches in zip(("hogbom_step", "hogbom_select"), counts):
@@ -520,7 +936,18 @@ def main():
             "ms": times[name][0],
             "plain_ms": times[name][1],
         })
-    say(f"config 1: {rate:.1f} minor iterations/s through perform")
+    kernels.append({
+        "name": "subminor_loop",
+        "route": "cuda",
+        "source": "radler_tpu_torch/csrc/subminor_loop.cu",
+        "replaces": "radler_tpu/ops/pallas/subminor_fused.py:89",
+        "launches": clark[0],
+        "max_abs_err": worst["subminor_loop"],
+        "ms": times["subminor_loop"][0],
+        "plain_ms": times["subminor_loop"][1],
+    })
+    say(f"config 1: {rate:.1f} minor iterations/s through perform (Högbom)")
+    say(f"config 2: {clark[1]:.1f} minor iterations/s through perform (Clark)")
     print(smi)  # name, power limit: as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

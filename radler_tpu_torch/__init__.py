@@ -5,8 +5,7 @@ The same public surface as ``radler_tpu`` (``python/pyradler.cc``), on
 hand-written kernels of ``radler_tpu_torch/csrc``::
 
     import radler_tpu_torch as rd
-    settings = rd.Settings()
-    settings.generic.use_sub_minor_optimization = False
+    settings = rd.Settings()   # generic CLEAN with the Clark subminor loop
     ...
     r = rd.Radler(settings, psf, residual, model, beam_size)
     another_needed = r.perform(0)

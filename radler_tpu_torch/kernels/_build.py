@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface.  The library lands in
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared
+library with a plain C interface.  The library lands in
 ``build/radler_tpu_torch/<hash>/`` at the root of the checkout, keyed by a
 hash of the sources and flags, so an edited source builds anew and an
 unchanged one is reused.  Nothing here runs for CPU tensors: the wrappers
@@ -27,7 +28,6 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -37,8 +37,9 @@ NVCC_FLAGS = (
 
 class BuildInfo:
     """What the last build in this process did: the library's path, the
-    seconds ``nvcc`` took (0.0 when a cached library was reused) and the
-    compiler's output, which holds the ``-Xptxas -v`` register lines."""
+    wall seconds of the compiles and the link (0.0 when a cached library was
+    reused) and the compilers' output, which holds the ``-Xptxas -v``
+    register lines."""
 
     path: Path = None
     seconds: float = 0.0
@@ -74,22 +75,36 @@ def library() -> ctypes.CDLL:
     target = out_dir / "libradler_tpu_torch.so"
     if not target.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        # Build to a private name and rename, so concurrent processes never
-        # load a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BuildInfo.seconds = time.perf_counter() - start
-        BuildInfo.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{BuildInfo.log}"
-            )
-        os.replace(tmp, target)
+        # Build to private names and rename, so concurrent processes never
+        # load a half-written library.
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            objects = [str(Path(tmp) / f"{src.stem}.o") for src in SOURCES]
+            steps = [
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(SOURCES, objects)
+            ]
+            procs = [
+                subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for cmd in steps
+            ]
+            results = [(cmd, proc.communicate()[0], proc.returncode)
+                       for cmd, proc in zip(steps, procs)]
+            lib = str(Path(tmp) / target.name)
+            if all(rc == 0 for _, _, rc in results):
+                link = [_nvcc(), "-shared", "-o", lib, *objects]
+                proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                results.append((link, proc.stdout, proc.returncode))
+            BuildInfo.seconds = time.perf_counter() - start
+            BuildInfo.log = "".join(log for _, log, _ in results)
+            for cmd, log, rc in results:
+                if rc != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}"
+                    )
+            os.replace(lib, target)
     BuildInfo.path = target
     _lib = ctypes.CDLL(str(target))
     return _lib

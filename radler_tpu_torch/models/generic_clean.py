@@ -1,10 +1,12 @@
-"""Generic (Högbom) CLEAN with joined channels & polarizations.
+"""Generic (Högbom/Clark) CLEAN with joined channels & polarizations.
 
-Port of the Högbom branch of ``radler_tpu.models.generic_clean``
-(``cpp/algorithms/generic_clean.{h,cc}``): the initial peak search on the
-linear integration, the major-loop threshold, and the minor loop of
-:func:`radler_tpu_torch.kernels.hogbom_step.hogbom_loop`, which runs the
-CUDA kernels on CUDA tensors and their plain PyTorch versions on CPU
+Port of ``radler_tpu.models.generic_clean``
+(``cpp/algorithms/generic_clean.{h,cc}``) for one device: the initial peak
+search on the linear integration, the major-loop threshold, then either the
+Clark subminor loop of :class:`radler_tpu_torch.models.subminor.SubMinorLoop`
+followed by one FFT residual correction, or the Högbom minor loop of
+:func:`radler_tpu_torch.kernels.hogbom_step.hogbom_loop`.  Both run their
+CUDA kernels on CUDA tensors and the kernels' plain PyTorch versions on CPU
 tensors.
 """
 
@@ -17,21 +19,21 @@ from ..image_set import CubeMeta, get_linear_integrated
 from ..kernels.hogbom_step import LoopParams, hogbom_loop
 from ..ops.convolution import untrim
 from ..ops.peak_finder import border_from_ratio, find_peak, window_mask
-from ..settings import OptimizationAlgorithm
+from ..settings import OptimizationAlgorithm, SpectralFittingMode
 from .base import DeconvolutionAlgorithm, DeconvolutionResult
+from .subminor import SubMinorLoop, choose_padded_size
+
+# The largest image (pixels) whose Clark run falls back to the Högbom kernel
+# on the card when the spectral fit is not a constant projection, as the
+# JAX package routes it on a TPU (generic_clean.py:420-425).
+_HOGBOM_FALLBACK_PIXELS = 4096 * 4096
 
 
 class GenericClean(DeconvolutionAlgorithm):
-    """``cpp/algorithms/generic_clean.{h,cc}``, Högbom minor loop only."""
+    """``cpp/algorithms/generic_clean.{h,cc}``."""
 
     def __init__(self, use_sub_minor_optimization: bool = True):
         super().__init__()
-        if use_sub_minor_optimization:
-            raise NotImplementedError(
-                "settings.generic.use_sub_minor_optimization=True (the Clark "
-                "subminor loop) is not ported yet; ROADMAP queue A, item 2 "
-                "brings it.  Set it to False for Högbom CLEAN."
-            )
         self.convolution_padding = 1.1
         self.use_sub_minor_optimization = use_sub_minor_optimization
 
@@ -116,6 +118,18 @@ class GenericClean(DeconvolutionAlgorithm):
             if self.spectral_fitter is not None and self.spectral_fitter.is_active
             else None
         )
+        if self.use_sub_minor_optimization and self._clark_runs(
+            dirty_set.data.device, fit, height, width
+        ):
+            return self._run_clark(
+                dirty_set,
+                model_set,
+                psfs,
+                first_threshold,
+                iteration_counter_at_start,
+                major_iter_threshold,
+                result,
+            )
         rms = self.rms_factor_image
         out = hogbom_loop(
             dirty_set.data,
@@ -142,6 +156,77 @@ class GenericClean(DeconvolutionAlgorithm):
             result,
             out.diverging,
             out.value if out.found else None,
+            iteration_counter_at_start,
+            major_iter_threshold,
+        )
+
+    @staticmethod
+    def _clark_runs(device, fit, height: int, width: int) -> bool:
+        """Whether the Clark subminor loop runs, or the Högbom loop instead.
+
+        CPU tensors always run it (its plain version, as the JAX package
+        does off the TPU).  On the card its kernel bakes no fit or the
+        polynomial projection; with another fit an image up to 4096^2 runs
+        the Högbom kernel, which applies any fit between launches, as the
+        JAX package routes it on a TPU (generic_clean.py:420-425)."""
+        if device.type == "cpu" or fit is None:
+            return True
+        if fit.mode == SpectralFittingMode.POLYNOMIAL:
+            return True
+        if height * width <= _HOGBOM_FALLBACK_PIXELS:
+            return False
+        raise NotImplementedError(
+            f"the Clark subminor loop with {fit.mode.name} spectral fitting "
+            f"on a {height}x{width} image on the card is not ported; ROADMAP "
+            "queue A, item 2b brings it."
+        )
+
+    def _run_clark(
+        self,
+        dirty_set,
+        model_set,
+        psfs: torch.Tensor,
+        first_threshold: float,
+        iteration_counter_at_start: int,
+        major_iter_threshold: float,
+        result: DeconvolutionResult,
+    ) -> DeconvolutionResult:
+        """The sub-minor ("Clark") optimization (``generic_clean.cc:115-162``):
+        the subminor loop over the candidate set, then one FFT correction of
+        the full residual and the model update."""
+        width, height = dirty_set.width, dirty_set.height
+        padded_h, padded_w = choose_padded_size(
+            width, height, self.convolution_padding
+        )
+        sub = SubMinorLoop(width, height, padded_w, padded_h)
+        sub.set_iteration_info(self.iteration_number, self.max_iterations)
+        sub.set_threshold(first_threshold, first_threshold * 0.99)
+        sub.set_gain(self.minor_loop_gain)
+        sub.allow_negative_components = self.allow_negative_components
+        sub.stop_on_negative_component = self.stop_on_negative_components
+        sub.divergence_limit = self.divergence_limit
+        sub.rms_factor_image = self.rms_factor_image
+        sub.mask = self.clean_mask
+        sub.set_clean_borders(
+            *border_from_ratio(width, height, self.clean_border_ratio)
+        )
+        diverging, max_value = sub.run(
+            dirty_set.data, dirty_set.meta, psfs, self.spectral_fitter
+        )
+        self.iteration_number = sub.current_iteration
+        if max_value is not None:
+            new_residual, full_model = sub.correct_residual_dirty(
+                dirty_set.data, psfs
+            )
+            dirty_set.data = new_residual
+            model_set.data = model_set.data + full_model
+        # When the subminor loop selected no pixels, the reference's fallback
+        # FindPeak runs over a zeroed scratch buffer and finds nothing
+        # (generic_clean.cc:156-162): max_value stays unset.
+        return self._finish_result(
+            result,
+            diverging,
+            max_value,
             iteration_counter_at_start,
             major_iter_threshold,
         )

@@ -1,13 +1,26 @@
-"""Centered trim and untrim of image planes.
+"""FFT convolution primitives and centered trim/untrim.
 
-Port of ``radler_tpu.ops.convolution.untrim`` / ``trim``.  The FFT
-convolution of that module comes with the Clark slice.
+Port of ``radler_tpu.ops.convolution`` (the schaapcommon FFTW path of the
+reference: ``PrepareConvolutionKernel`` + ``Convolve`` +
+``PaddedConvolution``, called from ``cpp/algorithms/subminor_loop.cc:195-218``
+and the local-RMS maps).
+
+All convolutions here are *centered*: the kernel's origin is pixel
+``(H//2, W//2)``, matching the reference's PSF conventions.  Images are
+zero-padded to a 7-smooth size to avoid wrap-around, convolved with
+``torch.fft.rfft2``/``irfft2`` (cuFFT on the card), batched over every
+leading dimension, and trimmed back.  The JAX package's matmul FFT and its
+per-plane inverse are TPU workarounds and are not carried.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
+
+from ..utils.fft_size import calculate_good_fft_size
 
 
 def untrim(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -28,3 +41,49 @@ def trim(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
     top = h // 2 - height // 2
     left = w // 2 - width // 2
     return image[..., top : top + height, left : left + width]
+
+
+def _centered_kernel_fft(
+    kernel: torch.Tensor, shape: Tuple[int, int]
+) -> torch.Tensor:
+    """rfft2 of the kernel re-origined so its center pixel is at (0, 0)
+    (``schaapcommon::math::PrepareConvolutionKernel``)."""
+    h, w = kernel.shape[-2:]
+    rolled = torch.roll(kernel, (-(h // 2), -(w // 2)), dims=(-2, -1))
+    return torch.fft.rfft2(rolled, s=tuple(shape))
+
+
+def convolve_same(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Circular centered convolution at the image's own size.
+
+    Equivalent of ``schaapcommon::math::Convolve`` on pre-padded buffers:
+    out[p] = sum_q image[q] * kernel[p - q + center].  Batched over the
+    leading dims of ``image`` and ``kernel``, which broadcast.
+    """
+    h, w = image.shape[-2:]
+    if kernel.shape[-2:] != (h, w):
+        raise ValueError("convolve_same requires an image-sized kernel")
+    spec = torch.fft.rfft2(image) * _centered_kernel_fft(kernel, (h, w))
+    return torch.fft.irfft2(spec, s=(h, w)).to(image.dtype)
+
+
+def padded_convolve(
+    image: torch.Tensor,
+    kernel: torch.Tensor,
+    padding: float = 1.1,
+    padded_shape: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """Zero-padded centered convolution returning the input-sized result.
+
+    Equivalent of ``schaapcommon::math::PaddedConvolution`` and of the
+    untrim/convolve/trim of ``cpp/algorithms/subminor_loop.cc:195-218``.
+    ``padded_shape`` overrides the automatically chosen 7-smooth size.
+    """
+    h, w = image.shape[-2:]
+    if padded_shape is None:
+        ph = calculate_good_fft_size(int(padding * h))
+        pw = calculate_good_fft_size(int(padding * w))
+    else:
+        ph, pw = padded_shape
+    out = convolve_same(untrim(image, ph, pw), untrim(kernel, ph, pw))
+    return trim(out, h, w)

@@ -41,6 +41,7 @@ from .image_set import ImageSet, get_linear_integrated
 from .component_list import ComponentList
 from .models.base import DeconvolutionAlgorithm
 from .models.generic_clean import GenericClean
+from .ops import rms_image as rms_ops
 from .ops.noise import median_and_stddev_from_mad
 from .ops.spectral_fitting import create_spectral_fitter
 from .parallel.parallel_deconvolution import ParallelDeconvolution
@@ -226,14 +227,6 @@ class Radler:
                 "not ported yet; ROADMAP queue A, item "
                 f"{_PENDING_ALGORITHMS[settings.algorithm_type]} brings it."
             )
-        if settings.local_rms.image or (
-            settings.local_rms.method != LocalRmsMethod.NONE
-        ):
-            raise NotImplementedError(
-                "local RMS weighting (settings.local_rms) needs the FFT "
-                "convolution of the Clark slice; ROADMAP queue A, item 2 "
-                "brings it."
-            )
         if settings.parallel.use_device_mesh:
             raise NotImplementedError(
                 "a device mesh (settings.parallel.use_device_mesh) is not "
@@ -338,6 +331,14 @@ class Radler:
                 )
         else:
             self._parallel.set_minor_loop_gain(settings.minor_loop_gain)
+            rms_image = self._local_rms_image(integrated)
+            if rms_image is not None:
+                # The lowest local RMS takes the noise estimate's place in
+                # the thresholds below, as in the JAX package.
+                factor, stddev = rms_ops.make_rms_factor_image(
+                    rms_image, settings.local_rms.strength
+                )
+                self._parallel.set_rms_factor_image(factor)
 
         # Thresholds (``cpp/radler.cc:222-238``).
         threshold_bias = median if settings.squared_joins else 0.0
@@ -430,6 +431,35 @@ class Radler:
             self._parallel.first_algorithm.spectral_fitter
         )
         return another_iteration_required
+
+    def _local_rms_image(self, integrated: torch.Tensor):
+        """The local-RMS map of ``settings.local_rms``, or None (the
+        local-RMS branch of the reference's ``Radler::Perform``): read from a
+        FITS file, or made from the integrated residual."""
+        local_rms = self.settings.local_rms
+        if local_rms.image:
+            from .utils.fits import read_fits_image
+
+            return torch.as_tensor(
+                np.asarray(read_fits_image(local_rms.image), np.float32),
+                device=self._device,
+            )
+        if local_rms.method == LocalRmsMethod.NONE:
+            return None
+        make = (
+            rms_ops.make_rms_image
+            if local_rms.method == LocalRmsMethod.RMS_WINDOW
+            else rms_ops.make_with_negativity_limit
+        )
+        return make(
+            integrated,
+            local_rms.window,
+            self._beam_size,
+            self._beam_size,
+            0.0,
+            self._pixel_scale_x,
+            self._pixel_scale_y,
+        )
 
     # ------------------------------------------------------------------
     def _read_forced_spectrum_images(self) -> None:

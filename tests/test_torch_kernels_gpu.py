@@ -17,6 +17,8 @@ import torch
 import radler_tpu_torch as rd
 from radler_tpu_torch.image_set import CubeMeta, linear_integration_coefficients
 from radler_tpu_torch.kernels import hogbom_step as hs
+from radler_tpu_torch.kernels import subminor_loop as sl
+from radler_tpu_torch.models.subminor import SubMinorLoop
 from radler_tpu_torch.ops.spectral_fitting import SpectralFitter
 
 pytestmark = pytest.mark.gpu
@@ -208,3 +210,187 @@ def test_numpy_inputs_run_on_the_device_argument(cuda):
     np.testing.assert_array_equal(res, plain_res)
     np.testing.assert_array_equal(model, plain_model)
     assert model[30, 40] > 1.0
+
+
+# ---------------------------------------------------------------------------
+# The Clark subminor loop (kernel B2)
+# ---------------------------------------------------------------------------
+
+
+def subminor_case(C, P, use_rms, allow_negative, device, seed=0):
+    """A candidate set of the ragged cube of :func:`make_case`, selected by
+    SubMinorLoop."""
+    c = make_case(("linear", C, P, False), device, seed)
+    loop = SubMinorLoop(WIDTH, HEIGHT, 2 * WIDTH, 2 * HEIGHT)
+    loop.set_threshold(0.01, 0.0)
+    loop.allow_negative_components = allow_negative
+    if use_rms:
+        loop.rms_factor_image = c["weight"] + 0.5
+    assert loop.find_peak_positions(c["res"], c["meta"]) > 100
+    coef = torch.as_tensor(linear_integration_coefficients(c["meta"]),
+                           device=device)
+    proj = None
+    if C > 1:
+        fitter = SpectralFitter(rd.SpectralFittingMode.POLYNOMIAL, 2,
+                                c["meta"].frequencies, c["meta"].weights)
+        proj = torch.as_tensor(np.asarray(fitter._projection, np.float32),
+                               device=device)
+    return loop, c["psfs"], coef, proj
+
+
+# (C, P, polynomial fit, rms factor, allow negative, stop on negative); a
+# fit needs more than one channel, stopping on negatives allows them.
+SUBMINOR_CASES = [
+    (C, P, fit, use_rms, allow_negative, stop_on_negative)
+    for C, P in ((1, 1), (4, 1), (2, 2))
+    for fit in ((False, True) if C > 1 else (False,))
+    for use_rms in (False, True)
+    for allow_negative, stop_on_negative in ((True, False), (False, False),
+                                             (True, True))
+]
+
+
+@pytest.mark.parametrize(
+    "case", SUBMINOR_CASES,
+    ids=lambda c: "{}x{}-fit{:d}-rms{:d}-neg{:d}-stop{:d}".format(*c),
+)
+def test_subminor_loop_bit_equal_to_plain(cuda, case):
+    C, P, fit, use_rms, allow_negative, stop_on_negative = case
+    loop, psfs, coef, proj = subminor_case(C, P, use_rms, allow_negative, cuda)
+    params = sl.SubminorParams.make(0.005, 0.1, 3, 250, 4.0, allow_negative,
+                                    stop_on_negative)
+    outs = []
+    for run in (sl.subminor_loop, sl.subminor_loop_reference):
+        res = loop._residual_k.clone()
+        model = torch.zeros_like(res)
+        out = run(res, model, loop._rms_k, loop._xs, loop._ys,
+                  psfs, coef, proj if fit else None, params,
+                  n_polarizations=P)
+        torch.cuda.synchronize()
+        outs.append((out, res, model))
+    (ok, rk, mk), (op, rp, mp) = outs
+    assert torch.equal(ok, op)
+    assert torch.equal(rk, rp) and torch.equal(mk, mp)
+    assert sl.read_result(ok)[0] > 3
+
+
+def test_subminor_loop_diverges_like_plain(cuda):
+    loop, psfs, coef, _ = subminor_case(1, 1, False, True, cuda, seed=2)
+    params = sl.SubminorParams.make(0.01, 0.1, 0, 200, 4.0, True, False)
+    outs = []
+    for run in (sl.subminor_loop, sl.subminor_loop_reference):
+        res = loop._residual_k.clone()
+        model = torch.zeros_like(res)
+        outs.append(run(res, model, None, loop._xs, loop._ys,
+                        -2.5 * psfs, coef, None, params, n_polarizations=1))
+    assert torch.equal(outs[0], outs[1])
+    assert sl.read_result(outs[0])[2]
+
+
+def test_subminor_wrapper_rejects_bad_inputs(cuda):
+    loop, psfs, coef, _ = subminor_case(1, 1, False, True, cuda)
+    params = sl.SubminorParams.make(0.01, 0.1, 0, 10, 0.0, True, False)
+    res = loop._residual_k.clone()
+    args = [res, torch.zeros_like(res), None, loop._xs, loop._ys, psfs, coef,
+            None, params]
+    bad = {
+        1: (torch.zeros_like(res).double(), TypeError),
+        2: (torch.ones(7, device=cuda), ValueError),
+        3: (loop._xs.long(), TypeError),
+        4: (loop._ys.cpu(), ValueError),
+        5: (psfs.transpose(1, 2), ValueError),
+    }
+    for index, (value, error) in bad.items():
+        broken = list(args)
+        broken[index] = value
+        with pytest.raises(error):
+            sl.subminor_loop(*broken, n_polarizations=1)
+    with pytest.raises(ValueError):  # the kernel bakes no general fit
+        sl.subminor_loop(*args, n_polarizations=1, fit=lambda v, x, y: v)
+    with pytest.raises(ValueError):  # more planes than the kernel takes
+        n, k = sl.MAX_IMAGES + 1, 10
+        big = torch.zeros(n, k, device=cuda)
+        sl.subminor_loop(big, big.clone(), None, loop._xs[:k], loop._ys[:k],
+                         torch.zeros(n, 8, 8, device=cuda),
+                         torch.ones(n, device=cuda), None, params,
+                         n_polarizations=1)
+
+
+def test_subminor_loop_many_planes(cuda):
+    """80 planes (20 channels x 4 polarizations), beyond any fixed small
+    per-plane buffer: kernel and plain version bit-equal."""
+    loop, psfs, coef, _ = subminor_case(1, 1, False, True, cuda, seed=4)
+    k = 2000
+    n_chan, n_pols = 20, 4
+    scale = torch.linspace(0.5, 1.5, n_chan * n_pols, device=cuda)[:, None]
+    state = (loop._residual_k[:, :k] * scale).contiguous()
+    psfs = psfs.repeat(n_chan, 1, 1).contiguous()
+    coef = torch.full((n_chan * n_pols,), 1.0 / (n_chan * n_pols),
+                      device=cuda)
+    params = sl.SubminorParams.make(0.001, 0.1, 0, 200, 4.0, True, False)
+    outs = []
+    for run in (sl.subminor_loop, sl.subminor_loop_reference):
+        res = state.clone()
+        model = torch.zeros_like(res)
+        out = run(res, model, None, loop._xs[:k].contiguous(),
+                  loop._ys[:k].contiguous(), psfs,
+                  coef, None, params, n_polarizations=n_pols)
+        torch.cuda.synchronize()
+        outs.append((out, res, model))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert torch.equal(outs[0][2], outs[1][2])
+    assert sl.read_result(outs[0][0])[0] == 200
+
+
+def test_perform_clark_point_source_and_count(cuda):
+    """The reference contract through Radler.perform with the default Clark
+    loop on CUDA tensors: one B2 launch, no Högbom launch."""
+    size = 64
+    point = np.array([[0.0, 0.4, 0.0], [0.25, 1.0, 0.5], [0.0, 0.6, 0.0]],
+                     np.float32)
+    psf = np.zeros((size, size), np.float32)
+    psf[31:34, 31:34] = point
+    res = np.zeros((size, size), np.float32)
+    res[46:49, 22:25] = 2.5 * point
+    s = rd.Settings()
+    s.trimmed_image_width = s.trimmed_image_height = size
+    s.minor_iteration_count = 1000
+    s.absolute_threshold = 1e-8
+    r = rd.Radler(s, torch.as_tensor(psf, device=cuda),
+                  torch.as_tensor(res, device=cuda),
+                  torch.zeros(size, size, device=cuda), 0.0)
+    sl.subminor_loop.launches = 0
+    hs.hogbom_step.launches = 0
+    assert r.perform(0) is False
+    assert sl.subminor_loop.launches == 1 and hs.hogbom_step.launches == 0
+    front = r._table.front
+    out_res = front.residual_accessor.array.cpu().numpy()
+    out_mod = front.model_accessor.array.cpu().numpy()
+    assert np.abs(out_res).max() < 2e-6
+    assert out_mod[47, 23] == pytest.approx(2.5, rel=1e-4)
+
+
+def test_perform_clark_log_fit_runs_hogbom(cuda):
+    """With a fit the kernel does not bake, a Clark perform on the card
+    runs the Högbom kernels, never the plain subminor loop."""
+    C, size = 3, 96
+    rng = np.random.default_rng(6)
+    psf = np.zeros((C, size, size), np.float32)
+    psf[:, size // 2, size // 2] = 1.0
+    res = (rng.normal(scale=0.01, size=(C, size, size))).astype(np.float32)
+    res[:, 30, 40] += np.array([1.5, 1.3, 1.1], np.float32)
+    s = rd.Settings()
+    s.trimmed_image_width = s.trimmed_image_height = size
+    s.minor_iteration_count = 100
+    s.absolute_threshold = 0.05
+    s.spectral_fitting.mode = rd.SpectralFittingMode.LOG_POLYNOMIAL
+    s.spectral_fitting.terms = 2
+    freqs = np.array([[1e8 + 2e7 * c, 1.2e8 + 2e7 * c] for c in range(C)])
+    t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    r = rd.Radler(s, t(psf), t(res), t(np.zeros_like(res)), 0.0,
+                  frequencies=freqs)
+    sl.subminor_loop.launches = 0
+    hs.hogbom_step.launches = 0
+    r.perform(0)
+    assert sl.subminor_loop.launches == 0 and hs.hogbom_step.launches > 0

@@ -20,6 +20,7 @@ import torch
 import radler_tpu as jrd
 import radler_tpu_torch as rd
 from radler_tpu_torch.interop import settings_from_reference
+from radler_tpu_torch.utils.fits import write_fits_image
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 from bench import make_problem  # noqa: E402
@@ -172,20 +173,14 @@ def test_point_source_tensor_accessors(settings):
 @pytest.mark.parametrize(
     "setting, value",
     [
-        ("use_subminor", True),
         ("algorithm_type", rd.AlgorithmType.MULTISCALE),
-        ("local_rms", rd.LocalRmsMethod.RMS_WINDOW),
         ("grid", 2),
         ("mesh", True),
     ],
 )
 def test_unported_settings_raise(settings, setting, value):
-    if setting == "use_subminor":
-        settings.generic.use_sub_minor_optimization = value
-    elif setting == "algorithm_type":
+    if setting == "algorithm_type":
         settings.algorithm_type = value
-    elif setting == "local_rms":
-        settings.local_rms.method = value
     elif setting == "grid":
         settings.parallel.grid_width = value
     else:
@@ -195,7 +190,8 @@ def test_unported_settings_raise(settings, setting, value):
         rd.Radler(settings, image, image.copy(), image.copy(), BEAM_SIZE)
 
 
-def run_both(jax_settings, psf, residual, model=None, **kwargs):
+def run_both(jax_settings, psf, residual, model=None, beam_size=0.0,
+             **kwargs):
     """One perform of each package from the same Settings and arrays;
     returns ((again, iterations, residual, model), ...) for JAX, port."""
     out = []
@@ -205,7 +201,7 @@ def run_both(jax_settings, psf, residual, model=None, **kwargs):
     ):
         res = residual.copy()
         mod = np.zeros_like(res) if model is None else model.copy()
-        r = package.Radler(settings, psf, res, mod, 0.0, **kwargs)
+        r = package.Radler(settings, psf, res, mod, beam_size, **kwargs)
         again = r.perform(0)
         out.append((again, r.iteration_number, res, mod))
     return out
@@ -283,3 +279,119 @@ def test_auto_mask_two_phases_parity_with_jax():
     assert steps_t == steps_j
     np.testing.assert_allclose(res_t, res_j, atol=2e-6)
     np.testing.assert_allclose(mod_t, mod_j, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The Clark subminor loop (the default, use_sub_minor_optimization=True) and
+# local RMS
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("source_shift", [(0, 0), (-9, 15)])
+def test_point_source_clark(settings, source_shift):
+    """The reference contract with the library's default Clark loop, and
+    parity with the JAX package."""
+    settings.generic.use_sub_minor_optimization = True
+    scale = 2.5
+    psf = get_psf()
+    residual = get_residual(scale, *source_shift)
+    model = np.zeros_like(residual)
+    r = rd.Radler(settings, psf, residual, model, BEAM_SIZE)
+    assert r.perform(0) is False
+    np.testing.assert_allclose(residual, np.zeros_like(residual), atol=2e-6)
+    check_model_point_source(model, scale, *source_shift)
+
+    s = jrd.Settings()
+    s.trimmed_image_width = WIDTH
+    s.trimmed_image_height = HEIGHT
+    s.minor_iteration_count = MINOR_ITERATION_COUNT
+    s.absolute_threshold = 1e-8
+    jax_out, port_out = run_both(s, psf, get_residual(scale, *source_shift))
+    assert port_out[1] == r.iteration_number
+    assert_parity(jax_out, port_out)
+
+
+def bench_settings(size, iterations, threshold, **fields):
+    s = jrd.Settings()
+    s.trimmed_image_width = size
+    s.trimmed_image_height = size
+    s.minor_iteration_count = iterations
+    s.absolute_threshold = threshold
+    s.minor_loop_gain = 0.1
+    for name, value in fields.items():
+        setattr(s, name, value)
+    return s
+
+
+@pytest.mark.parametrize("major_loop_gain", [1.0, 0.5])
+def test_multi_source_clark_parity_with_jax(major_loop_gain):
+    """The bench problem at 256^2 (30 sources, 500 iterations) through both
+    Radlers with the Clark loop."""
+    psf, residual = make_problem(256, 30, seed=7)
+    s = bench_settings(256, 500, 0.05, major_loop_gain=major_loop_gain)
+    assert s.generic.use_sub_minor_optimization
+    jax_out, port_out = run_both(s, psf, residual)
+    assert port_out[1] > 0
+    assert_parity(jax_out, port_out)
+
+
+@pytest.mark.parametrize("stop_on_negative", [False, True])
+def test_border_and_negatives_clark_parity_with_jax(stop_on_negative):
+    """A clean border, negative components and stop-on-negative, Clark."""
+    psf, residual = make_problem(128, 12, seed=3)
+    residual -= np.float32(0.3) * np.roll(residual, (17, -23), (0, 1))
+    s = bench_settings(128, 400, 0.02, border_ratio=0.1,
+                       stop_on_negative_components=stop_on_negative)
+    jax_out, port_out = run_both(s, psf, residual)
+    assert_parity(jax_out, port_out)
+
+
+def test_polynomial_channels_clark_parity_with_jax():
+    """4 channels with a 2-term polynomial spectral fit, Clark (the kernel's
+    baked projection)."""
+    size, C = 128, 4
+    psf, residual = make_problem(size, 12, seed=9)
+    freqs = np.array([[1.0e8 + c * 2e7, 1.2e8 + c * 2e7] for c in range(C)])
+    scale = ((freqs.mean(1) / freqs.mean()) ** -0.7).astype(np.float32)
+    cube = residual[None] * scale[:, None, None]
+    psfs = np.repeat(psf[None], C, axis=0)
+    s = bench_settings(size, 300, 0.02)
+    s.spectral_fitting.mode = jrd.SpectralFittingMode.POLYNOMIAL
+    s.spectral_fitting.terms = 2
+    jax_out, port_out = run_both(
+        s, psfs, cube, frequencies=freqs, weights=np.array([1.0, 0.8, 1.2, 0.5])
+    )
+    assert port_out[1] > 0
+    assert_parity(jax_out, port_out)
+
+
+@pytest.mark.parametrize("use_subminor", [True, False])
+@pytest.mark.parametrize(
+    "method", ["RMS_WINDOW", "RMS_AND_MINIMUM_WINDOW", "FITS_IMAGE"]
+)
+def test_local_rms_parity_with_jax(method, use_subminor, tmp_path):
+    """Local-RMS weighting made from the residual or read from a FITS
+    image, with the Clark loop and with Högbom."""
+    size = 128
+    psf, residual = make_problem(size, 12, seed=5)
+    rng = np.random.default_rng(2)
+    noise = rng.normal(scale=0.01, size=residual.shape).astype(np.float32)
+    noise[: size // 2] *= 4.0  # a noisier half for the weighting to see
+    residual += noise
+    # The weighting divides by the local RMS, which is high around bright
+    # sources, so the weighted peaks are small.
+    s = bench_settings(size, 300, 0.002)
+    s.generic.use_sub_minor_optimization = use_subminor
+    s.pixel_scale.x = s.pixel_scale.y = PIXEL_SCALE
+    if method == "FITS_IMAGE":
+        yy, xx = np.mgrid[0:size, 0:size]
+        rms_map = (0.01 + 0.03 * np.exp(-((xx - 40.0) ** 2 + (yy - 70.0) ** 2)
+                                       / 800.0)).astype(np.float32)
+        s.local_rms.image = str(tmp_path / "rms.fits")
+        write_fits_image(s.local_rms.image, rms_map)
+    else:
+        s.local_rms.method = getattr(jrd.LocalRmsMethod, method)
+        s.local_rms.window = 3.0
+    jax_out, port_out = run_both(s, psf, residual, beam_size=5 * PIXEL_SCALE)
+    assert port_out[1] > 0
+    assert_parity(jax_out, port_out)
