@@ -16,7 +16,13 @@ tensors and prints what it measured:
 * the Clark subminor loop, the library's default: the 2048^2 problem of
   config 2 with the time split of a perform, the point-source contract,
   and one perform with local-RMS weighting;
-* the batched inverse FFT against per-plane inverses and NumPy, once.
+* the batched inverse FFT against per-plane inverses and NumPy, once;
+* IUWT: the à-trous kernel against its plain version (5 shapes at 1 to 5
+  scales, 4096^2 at 6 to 9), its times at 4096^2 for 1 to 9 scales beside
+  cuDNN's dilated convolution, config 4 (IUWT 4096^2, 16 structure
+  iterations) with the time split of a perform, the kernel against its
+  plain version at every shape config 4 gave it, and the 128^2
+  diffuse-source contract.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -55,6 +61,27 @@ SUBMINOR_TIMED_ITERATIONS = 200
 # smoke test accepts.
 TOLERANCE = 1e-6
 DEVICE = "cuda"
+# Config 4: ``bench.py --engine iuwt --size 4096 --iters 16``.
+IUWT_SIZE = 4096
+IUWT_ITERATIONS = 16
+IUWT_SEED = 5
+# B3 against its plain version: (shape, label, scale counts).  Config 4
+# decomposes its 4096^2 images at 9 scales.
+ATROUS_SHAPES = [((4096, 4096), "4096^2", range(1, 10)),
+                 ((1000, 1300), "1000x1300", range(1, 6)),
+                 ((200, 300), "200x300", range(1, 6)),
+                 ((128, 128), "128^2", range(1, 6)),
+                 ((3, 200, 300), "batch of 3 x 200x300", range(1, 6))]
+# B3's times at 4096^2: 1 to 9 scales; the kernels line reports the scale
+# count that config 4 gives B3 most often.
+ATROUS_TIMED_SCALES = range(1, 10)
+# The IUWT contract: the card's residual against the port's CPU run of the
+# same inputs, absolute per pixel and relative in rms (read: under 4e-6).
+CARD_VS_CPU = 1e-4
+# The card's published peaks (H100 SXM data sheet, 700 W): device memory
+# and float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 
 
 def say(*parts):
@@ -104,8 +131,54 @@ def make_problem(size, n_sources, seed=SEED):
     return psf, residual
 
 
+def make_diffuse_problem(size, n_channels, seed=IUWT_SEED):
+    """Extended emission convolved with a Gaussian PSF with a sidelobe ring:
+    the problem of configs 3 and 4 (``bench.py``'s
+    ``make_diffuse_problem``), regenerated in NumPy."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    r2 = (yy - size // 2) ** 2 + (xx - size // 2) ** 2
+    psfs = []
+    for c in range(n_channels):
+        w = 2.5 * (1.0 + 0.04 * c)
+        p = np.exp(-r2 / (2 * w * w))
+        p += 0.06 * np.exp(-((np.sqrt(r2) - 14 * (1 + 0.03 * c)) ** 2) / 6)
+        psfs.append(p.astype(np.float32))
+    psfs = np.stack(psfs)
+    sky = np.zeros((size, size), np.float32)
+    for _ in range(60):
+        cy, cx = rng.integers(size // 8, 7 * size // 8, 2)
+        s = rng.uniform(1.5, 25)
+        a = rng.uniform(0.2, 1.0)
+        m = max(1, int(4 * s))
+        y0, y1 = max(0, cy - m), min(size, cy + m)
+        x0, x1 = max(0, cx - m), min(size, cx + m)
+        sky[y0:y1, x0:x1] += a * np.exp(
+            -((yy[y0:y1, x0:x1] - cy) ** 2 + (xx[y0:y1, x0:x1] - cx) ** 2)
+            / (2 * s * s)
+        )
+    residual = np.empty((n_channels, size, size), np.float32)
+    for c in range(n_channels):
+        fp = np.fft.rfft2(np.fft.ifftshift(psfs[c]))
+        residual[c] = np.fft.irfft2(
+            np.fft.rfft2(sky * (1 + 0.1 * c)) * fp, s=(size, size)
+        ).astype(np.float32)
+    return psfs, residual
+
+
 def rms(t):
     return float(torch.sqrt(torch.mean(t.double() ** 2)))
+
+
+def bound_ms(n_bytes, n_flops=0.0):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the float32 operations over the peak rate; returns
+    (ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_flops / FP32_FLOPS_PER_S
+    if t_ops > t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +403,14 @@ def phase_kernel_times(psf, residual):
     out = {}
     for name, (p1, k1, k2, p2) in times.items():
         out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    # The least bytes each must move: the step reads the residual and the
+    # PSF and writes the residual; the select reads the partials and the
+    # residual's values at the peak.
+    out["bytes"] = {
+        "hogbom_step": 3 * res.numel() * 4,
+        "hogbom_select": sum(p.numel() * p.element_size() for p in partials)
+        + res.shape[0] * 4,
+    }
     return out
 
 
@@ -341,11 +422,13 @@ def _counts():
 
 def _reset_counts():
     from radler_tpu_torch.kernels import hogbom_step as hs
+    from radler_tpu_torch.kernels import iuwt_atrous as ia
     from radler_tpu_torch.kernels import subminor_loop as sl
 
     hs.hogbom_step.launches = 0
     hs.hogbom_select.launches = 0
     sl.subminor_loop.launches = 0
+    ia.atrous_decompose_lo.launches = 0
 
 
 def _settings(size, iterations, clark=False):
@@ -744,7 +827,14 @@ def phase_subminor_times(psf, residual):
     say(f"  PSF gather at the candidates (plain torch ops) "
         f"{gather_ms * 1e3:.2f} us per iteration; the interaction matrix "
         f"it replaces would hold {k * k * 4 / 1e9:.1f} GB")
-    return d, sum(times[False]) / 2, sum(times[True]) / 2
+    # The timed launch's least work: the [1, K] residual and model, the
+    # positions, the coefficient and the whole PSF read once, residual and
+    # model written once; per iteration and candidate one fused
+    # multiply-add, the integration and a compare.
+    n_bytes = 4 * (4 * k + 2 * k + 1 + psfs.numel())
+    n_flops = SUBMINOR_TIMED_ITERATIONS * k * 4
+    return d, sum(times[False]) / 2, sum(times[True]) / 2, bound_ms(
+        n_bytes, n_flops)
 
 
 def phase_config2(psf, residual):
@@ -883,6 +973,342 @@ def phase_batched_irfft():
         raise AssertionError("the batched inverse FFT is inaccurate")
 
 
+# ---------------------------------------------------------------------------
+# IUWT
+# ---------------------------------------------------------------------------
+
+
+def _atrous_case(img, n_lo, label, quiet=False):
+    """B3 and its plain version on ``img``: raises unless they are
+    bit-equal; returns the largest |difference|."""
+    from radler_tpu_torch.kernels import iuwt_atrous as ia
+
+    w, smooth = ia.atrous_decompose_lo(img, n_lo)
+    pw, psmooth = ia.atrous_decompose_lo_reference(img, n_lo)
+    torch.cuda.synchronize()
+    d = max(float((w - pw).abs().max()),
+            float((smooth - psmooth).abs().max()))
+    same = torch.equal(w, pw) and torch.equal(smooth, psmooth)
+    if not quiet or not same:
+        say(f"  {label:22s} n_lo={n_lo}: bit-equal {same}, max|diff| {d:.3g}")
+    if not same:
+        raise AssertionError(f"B3 and its plain version disagree: {label}, "
+                             f"n_lo={n_lo}")
+    return d
+
+
+def phase_atrous_vs_plain():
+    """Kernel B3 against its plain version on the card: every shape of
+    ATROUS_SHAPES at its scale counts, bit-equal.  Returns the largest
+    |difference| (0 when all agree)."""
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for shape, label, scale_counts in ATROUS_SHAPES:
+        img = torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                              device=DEVICE)
+        for n_lo in scale_counts:
+            worst = max(worst, _atrous_case(img, n_lo, label))
+        del img
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_atrous_main_shapes(cases):
+    """B3 against its plain version at every (input shape, scale count)
+    that config 4's perform gave it (``cases``, a Counter of calls), on
+    random inputs, bit-equal.  Returns the largest |difference|."""
+    rng = np.random.default_rng(SEED + 1)
+    worst = 0.0
+    for shape, n_lo in sorted(cases):
+        img = torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                              device=DEVICE)
+        worst = max(worst, _atrous_case(img, n_lo, "x".join(map(str, shape)),
+                                        quiet=True))
+    listed = ", ".join(f"{list(shape)} at {n_lo} scales: {calls} calls"
+                       for (shape, n_lo), calls in sorted(cases.items()))
+    say(f"  {len(cases)} distinct cases ({listed}): all bit-equal, "
+        f"max|diff| {worst:.3g}")
+    return worst
+
+
+def _conv_cascade(image, n_lo, kh, kv):
+    """The same scales with cuDNN: per scale two dilated 1x5 and 5x1
+    convolutions with zero padding, twice, and the difference (the library
+    yardstick of B3; the port never calls it)."""
+    import torch.nn.functional as F
+    from radler_tpu_torch.kernels.iuwt_atrous import dilation
+
+    x = image[None, None]
+    planes = []
+    for s in range(n_lo):
+        d = dilation(s)
+
+        def smooth(v):
+            v = F.conv2d(v, kh, padding=(0, 2 * d), dilation=(1, d))
+            return F.conv2d(v, kv, padding=(2 * d, 0), dilation=(d, 1))
+
+        i1 = smooth(x)
+        planes.append(x - smooth(i1))
+        x = i1
+    return planes, x
+
+
+def phase_atrous_times():
+    """B3 at 4096^2 for each of ATROUS_TIMED_SCALES against its plain
+    version (in turns plain, kernel, kernel, plain) and against the same
+    cascade as cuDNN dilated convolutions (TF32 off).  Returns
+    {n_lo: (kernel ms, plain ms, library ms, bytes, flops)}."""
+    from radler_tpu_torch.kernels import iuwt_atrous as ia
+
+    rng = np.random.default_rng(SEED)
+    img = torch.as_tensor(
+        rng.standard_normal((IUWT_SIZE, IUWT_SIZE)).astype(np.float32),
+        device=DEVICE)
+    taps = torch.tensor(ia.TAPS, dtype=torch.float32, device=DEVICE)
+    kh, kv = taps.reshape(1, 1, 1, 5), taps.reshape(1, 1, 5, 1)
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    pixels = img.numel()
+    for n_lo in ATROUS_TIMED_SCALES:
+        w, smooth = ia.atrous_decompose_lo(img, n_lo)
+        lib_w, lib_smooth = _conv_cascade(img, n_lo, kh, kv)
+        d_lib = max(max(float((a - b).abs().max()) for a, b in
+                        zip(w, lib_w)),
+                    float((lib_smooth[0, 0] - smooth).abs().max()))
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = (ia.atrous_decompose_lo if which == "kernel"
+                  else ia.atrous_decompose_lo_reference)
+            ms, _ = _time_ms(lambda: fn(img, n_lo), 10)
+            times[which].append(ms)
+        lib_ms, _ = _time_ms(lambda: _conv_cascade(img, n_lo, kh, kv), 10)
+        k_ms = sum(times["kernel"]) / 2
+        p_ms = sum(times["plain"]) / 2
+        # The function's least work: one plane read, n_lo + 1 written; per
+        # scale and pixel four 5-tap passes (9 flops each) and a subtraction.
+        n_bytes = (n_lo + 2) * pixels * 4
+        n_flops = n_lo * 37 * pixels
+        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        out[n_lo] = (k_ms, p_ms, lib_ms, n_bytes, n_flops)
+        say(f"  n_lo={n_lo}: kernel {times['kernel'][0]:.4f}, "
+            f"{times['kernel'][1]:.4f} ms ({n_lo} launches); plain "
+            f"{times['plain'][0]:.4f}, {times['plain'][1]:.4f} ms; cuDNN "
+            f"cascade {lib_ms:.4f} ms (max|diff| to B3 {d_lib:.3g}); bound "
+            f"{b_ms * 1e3:.1f} us ({b_by}, {n_bytes / 1e6:.1f} MB); "
+            f"{n_bytes / (k_ms * 1e-3) / 1e9:.0f} GB/s")
+        if d_lib > 1e-5:
+            raise AssertionError("B3 and the cuDNN cascade disagree")
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def _iuwt_settings(size, iterations, major_loop_gain=1.0):
+    import radler_tpu_torch as rd
+
+    s = rd.Settings()
+    s.algorithm_type = rd.AlgorithmType.IUWT
+    s.trimmed_image_width = s.trimmed_image_height = size
+    s.minor_iteration_count = iterations
+    s.major_loop_gain = major_loop_gain
+    return s
+
+
+def _count_syncs(run):
+    """Run ``run()`` with CUDA's sync debug mode on and count the
+    synchronizing operations it warns about (reads to the host, blocking
+    copies)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _timed_split(split):
+    """Wrap the IUWT's main steps with synchronized timers that add to
+    ``split``; returns a function that restores them."""
+    from radler_tpu_torch.models import iuwt as iuwt_model
+    from radler_tpu_torch.ops import iuwt as iuwt_ops
+
+    saved = []
+
+    def wrap(module, name, label):
+        fn = getattr(module, name)
+        saved.append((module, name, fn))
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls, seconds = split.get(label, (0, 0.0))
+            split[label] = (calls + 1, seconds + time.perf_counter() - start)
+            return out
+
+        setattr(module, name, timed)
+
+    wrap(iuwt_ops, "decompose", "decompose (B3)")
+    wrap(iuwt_ops, "recompose", "recompose (shifted adds)")
+    wrap(iuwt_ops, "convolve_same_prefft", "FFT convolution in the CG")
+    wrap(iuwt_ops, "convolve_same", "other FFT convolutions")
+    wrap(iuwt_model, "convolve_same", "other FFT convolutions")
+    wrap(iuwt_ops, "mad_sigma_batched", "MAD sigma (sort)")
+    wrap(iuwt_ops, "structure_stats_select", "stats + selection (inclusive)")
+    wrap(iuwt_ops, "conjugate_gradient", "CG solve (inclusive)")
+
+    def restore():
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+    return restore
+
+
+def phase_config4():
+    """Config 4: IUWT 4096^2, one channel, 16 structure iterations, major
+    gain 0.8, through Radler.perform on CUDA tensors: a warm-up and the
+    best of 2, B3 launches and host syncs per perform, peak memory, then
+    the split of one perform's time.  Returns (B3 launches, structure
+    iterations per second, a Counter of the (input shape, scale count)
+    calls that the warm-up gave B3)."""
+    from collections import Counter
+
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.kernels import iuwt_atrous as ia
+    from radler_tpu_torch.ops import iuwt as iuwt_ops
+
+    start = time.perf_counter()
+    psfs, residual = make_diffuse_problem(IUWT_SIZE, 1)
+    say(f"  problem made in {time.perf_counter() - start:.1f} s (NumPy)")
+    psf_d = torch.as_tensor(psfs[0], device=DEVICE)
+    res_d = torch.as_tensor(residual[0], device=DEVICE)
+    del psfs, residual
+
+    def perform(count_syncs=False):
+        res = res_d.clone()
+        r = rd.Radler(_iuwt_settings(IUWT_SIZE, IUWT_ITERATIONS, 0.8), psf_d,
+                      res, torch.zeros_like(res), 0.0)
+        torch.cuda.synchronize()
+        _reset_counts()
+        begin = time.perf_counter()
+        syncs = None
+        if count_syncs:
+            syncs = _count_syncs(lambda: r.perform(0))
+        else:
+            r.perform(0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - begin
+        front = r._table.front
+        return (r.iteration_number, seconds, ia.atrous_decompose_lo.launches,
+                syncs, front.residual_accessor.array,
+                front.model_accessor.array)
+
+    b3_cases = Counter()
+    real_b3 = iuwt_ops.atrous_decompose_lo
+
+    def recording_b3(image, n_lo, **kwargs):
+        b3_cases[(tuple(image.shape), n_lo)] += 1
+        return real_b3(image, n_lo, **kwargs)
+
+    iuwt_ops.atrous_decompose_lo = recording_b3
+    try:
+        warm = perform()
+    finally:
+        iuwt_ops.atrous_decompose_lo = real_b3
+    say(f"  warm-up perform: {warm[0]} structure iterations in "
+        f"{warm[1]:.4f} s")
+    torch.cuda.reset_peak_memory_stats()
+    runs = [perform() for _ in range(2)]
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    n, _, launches, _, out_res, out_mod = runs[-1]
+    best = min(r[1] for r in runs)
+    if any(r[0] != n or r[2] != launches for r in runs + [warm]):
+        raise AssertionError("config 4's performs differ in iterations or "
+                             "B3 launches")
+    if not (torch.isfinite(out_res).all() and torch.isfinite(out_mod).all()):
+        raise AssertionError("non-finite residual or model")
+    if not (n > 0 and launches > 0 and rms(out_res) < rms(res_d)):
+        raise AssertionError("config 4 did not clean through B3")
+    counted = perform(count_syncs=True)
+    say(f"  perform: {n} structure iterations; seconds "
+        f"{', '.join(f'{r[1]:.4f}' for r in runs)}; best "
+        f"{n / best:.3f} structure iterations/s; B3 launches {launches} per "
+        f"perform; host syncs {counted[3]} per perform (sync debug mode on, "
+        f"{counted[1]:.4f} s)")
+    say(f"  residual rms {rms(res_d):.6g} -> {rms(out_res):.6g}; model sum "
+        f"{float(out_mod.double().sum()):.6g}; max_memory_allocated "
+        f"{peak_mib:.1f} MiB")
+    split = {}
+    restore = _timed_split(split)
+    try:
+        timed = perform()
+    finally:
+        restore()
+    say(f"  split of one perform ({timed[1]:.4f} s with a synchronize "
+        f"around each step; inclusive times, steps nest):")
+    for label, (calls, seconds) in split.items():
+        say(f"    {label}: {calls} calls, {seconds * 1e3:.1f} ms")
+    return launches, n / best, b3_cases
+
+
+def phase_iuwt_contract():
+    """The 128^2 diffuse source of the IUWT tests on CUDA tensors against
+    the port's CPU run of the same inputs, at 40 and 50 structure
+    iterations: the residual within CARD_VS_CPU absolute and relative rms
+    (the same code on the same inputs), and at 50 (the JAX test's setting)
+    the JAX test's gates."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.kernels import iuwt_atrous as ia
+    from radler_tpu_torch.ops.convolution import padded_convolve
+
+    size = 128
+    yy, xx = np.mgrid[0:size, 0:size]
+    r2 = (yy - size // 2) ** 2 + (xx - size // 2) ** 2
+    psf = np.exp(-r2 / 8.0).astype(np.float32)
+    sky = np.exp(-((yy - 60.0) ** 2 + (xx - 70.0) ** 2) / 32.0).astype(
+        np.float32)
+    res = padded_convolve(torch.as_tensor(sky), torch.as_tensor(psf)).numpy()
+    res += np.random.default_rng(0).normal(scale=1e-3, size=res.shape).astype(
+        np.float32)
+    host_rms = lambda a: float(np.sqrt((a.astype(np.float64) ** 2).mean()))  # noqa: E731
+    for iterations in (40, 50):
+        cpu_res, cpu_model = res.copy(), np.zeros_like(res)
+        rd.Radler(_iuwt_settings(size, iterations), psf, cpu_res, cpu_model,
+                  0.0, device="cpu").perform(0)
+        _reset_counts()
+        r = rd.Radler(_iuwt_settings(size, iterations),
+                      torch.as_tensor(psf, device=DEVICE),
+                      torch.as_tensor(res, device=DEVICE),
+                      torch.zeros(size, size, device=DEVICE), 0.0)
+        r.perform(0)
+        front = r._table.front
+        out_res = front.residual_accessor.array.cpu().numpy()
+        out_mod = front.model_accessor.array.cpu().numpy()
+        d = float(np.abs(out_res - cpu_res).max())
+        rel = abs(host_rms(out_res) - host_rms(cpu_res)) / host_rms(cpu_res)
+        flux_rel = abs(out_mod.sum() - cpu_model.sum()) / cpu_model.sum()
+        say(f"  {iterations} iterations: card {r.iteration_number}, B3 "
+            f"launches {ia.atrous_decompose_lo.launches}; residual rms "
+            f"{host_rms(res):.6g} -> {host_rms(out_res):.6g} (CPU "
+            f"{host_rms(cpu_res):.6g}); max|dres| to CPU {d:.3g}, rms rel "
+            f"{rel:.3g}; model flux {out_mod.sum():.6g} (CPU "
+            f"{cpu_model.sum():.6g}, sky {sky.sum():.6g})")
+        ok = (r.iteration_number == iterations and d <= CARD_VS_CPU
+              and rel <= CARD_VS_CPU and flux_rel <= 1e-3
+              and ia.atrous_decompose_lo.launches > 0)
+        if iterations == 50:
+            ok = ok and (host_rms(out_res) <= 0.25 * host_rms(res)
+                         and np.abs(out_res).max() <= 0.1 * np.abs(res).max()
+                         and abs(out_mod.sum() - sky.sum()) < 0.2 * sky.sum())
+        if not ok:
+            raise AssertionError(f"the IUWT contract failed at {iterations} "
+                                 "iterations")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -911,7 +1337,8 @@ def main():
     say("== the 2048^2 problem (seed 7, 300 sources) ==")
     psf2, residual2 = make_problem(CLARK_SIZE, N_SOURCES)
     say("== the subminor kernel at config 2's shapes ==")
-    worst_config2, kernel_ms, plain_ms = phase_subminor_times(psf2, residual2)
+    worst_config2, kernel_ms, plain_ms, b2_bound = phase_subminor_times(
+        psf2, residual2)
     worst["subminor_loop"] = max(worst_small, worst_config2)
     times["subminor_loop"] = (kernel_ms, plain_ms)
     say("== config 2 (Clark) through Radler.perform ==")
@@ -922,10 +1349,22 @@ def main():
     phase_contract(clark=True)
     say("== batched irfft2 ==")
     phase_batched_irfft()
+    say("== the à-trous kernel (B3) against its plain version ==")
+    worst["atrous_decompose_lo"] = phase_atrous_vs_plain()
+    say("== B3 times at 4096^2 ==")
+    atrous = phase_atrous_times()
+    say("== config 4 (IUWT 4096^2) through Radler.perform ==")
+    iuwt = phase_config4()
+    say("== B3 against its plain version at config 4's shapes ==")
+    worst["atrous_decompose_lo"] = max(worst["atrous_decompose_lo"],
+                                       phase_atrous_main_shapes(iuwt[2]))
+    say("== the IUWT diffuse-source contract ==")
+    phase_iuwt_contract()
     say(f"phases took {time.perf_counter() - start:.1f} s")
 
     kernels = []
     for name, launches in zip(("hogbom_step", "hogbom_select"), counts):
+        b_ms, b_by = bound_ms(times["bytes"][name])
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -935,6 +1374,9 @@ def main():
             "max_abs_err": worst[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
         })
     kernels.append({
         "name": "subminor_loop",
@@ -945,9 +1387,37 @@ def main():
         "max_abs_err": worst["subminor_loop"],
         "ms": times["subminor_loop"][0],
         "plain_ms": times["subminor_loop"][1],
+        "bound_ms": b2_bound[0],
+        "bound_by": b2_bound[1],
+        "library_ms": None,
+    })
+    # B3 at the case config 4 gave it most often.
+    (shape, n_main), _ = iuwt[2].most_common(1)[0]
+    if shape != (IUWT_SIZE, IUWT_SIZE):
+        raise AssertionError(f"config 4 ran B3 mostly at {shape}, which "
+                             "phase_atrous_times does not time")
+    k_ms, p_ms, lib_ms, n_bytes, n_flops = atrous[n_main]
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    kernels.append({
+        "name": "atrous_decompose_lo",
+        "route": "cuda",
+        "source": "radler_tpu_torch/csrc/iuwt_atrous.cu",
+        "replaces": "radler_tpu/ops/pallas/iuwt_atrous.py:74",
+        "launches": iuwt[0],
+        "max_abs_err": worst["atrous_decompose_lo"],
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": lib_ms,
     })
     say(f"config 1: {rate:.1f} minor iterations/s through perform (Högbom)")
     say(f"config 2: {clark[1]:.1f} minor iterations/s through perform (Clark)")
+    b3_ms, b3_bound = atrous[3][0], bound_ms(*atrous[3][3:])[0]
+    say(f"config 4: {iuwt[1]:.3f} structure iterations/s through perform "
+        f"(IUWT); B3 at 4096^2, 3 scales: {b3_ms * 1e3:.1f} us against its "
+        f"{b3_bound * 1e3:.1f} us bound; at config 4's most frequent "
+        f"{n_main} scales: {k_ms * 1e3:.1f} us against {b_ms * 1e3:.1f} us")
     print(smi)  # name, power limit: as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -26,6 +26,7 @@ from .settings import (
     has_full_circular_polarization,
     has_full_linear_polarization,
 )
+from .utils.device_consts import device_const
 from .work_table import TensorImageAccessor, WorkTable
 
 
@@ -119,13 +120,6 @@ def _linked_mask(meta: CubeMeta) -> np.ndarray:
     return np.asarray(meta.linked, dtype=np.float32)
 
 
-def _const(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """Host constants as a float32 tensor on ``like``'s device."""
-    return torch.as_tensor(
-        np.asarray(values, np.float32), device=like.device
-    )
-
-
 def linear_integration_coefficients(meta: CubeMeta) -> np.ndarray:
     """Per-plane coefficients such that the linear integration is a single
     weighted sum over the cube (``cpp/image_set.cc:423-462``)."""
@@ -150,7 +144,7 @@ def get_linear_integrated(data: torch.Tensor, meta: CubeMeta) -> torch.Tensor:
         return _square_integrated_squared_channels(data, meta)
     if meta.n_images == 1:
         return data[0]
-    coefs = _const(linear_integration_coefficients(meta), data)
+    coefs = device_const(linear_integration_coefficients(meta), data.device)
     return torch.einsum("i,ihw->hw", coefs, data)
 
 
@@ -172,7 +166,7 @@ def _square_integrated_normal_channels(
     C, P = meta.n_channels, meta.n_polarizations
     H, W = data.shape[-2:]
     cube = data.reshape(C, P, H, W)
-    linked = _const(_linked_mask(meta), data)
+    linked = device_const(_linked_mask(meta), data.device)
     n_linked = int(_linked_mask(meta).sum())
     if C == 1:
         if P == 1:
@@ -191,7 +185,7 @@ def _square_integrated_normal_channels(
         per_chan = data.new_zeros((C, H, W))
     else:
         per_chan = torch.sqrt(torch.einsum("p,cphw->chw", linked, cube * cube))
-    dest = torch.einsum("c,chw->hw", _const(w, data), per_chan)
+    dest = torch.einsum("c,chw->hw", device_const(w, data.device), per_chan)
     return dest * float(
         np.float32(np.sqrt(meta.polarization_norm_factor) / weight_sum)
     )
@@ -204,15 +198,28 @@ def _square_integrated_squared_channels(
     C, P = meta.n_channels, meta.n_polarizations
     H, W = data.shape[-2:]
     cube = data.reshape(C, P, H, W)
-    linked = _const(_linked_mask(meta), data)
+    linked = device_const(_linked_mask(meta), data.device)
     w = np.asarray(meta.weights, dtype=np.float64)
     weight_sum = w[w != 0].sum()
     if weight_sum == 0.0:
         return data.new_zeros((H, W))
-    sq = torch.einsum("c,p,cphw->hw", _const(w, data), linked, cube * cube)
+    sq = torch.einsum("c,p,cphw->hw", device_const(w, data.device), linked,
+                      cube * cube)
     return torch.sqrt(sq) * float(
         np.float32(np.sqrt(meta.polarization_norm_factor / weight_sum))
     )
+
+
+def get_integrated_psf(psfs: torch.Tensor, meta: CubeMeta) -> torch.Tensor:
+    """Channel-weighted average PSF (``cpp/image_set.cc:499-530``); ``psfs``
+    is ``[n_channels, h, w]``."""
+    if meta.n_channels == 1:
+        return psfs[0]
+    w = np.asarray(meta.weights, dtype=np.float64)
+    weight_sum = w[w != 0].sum()
+    factor = 0.0 if weight_sum == 0.0 else 1.0 / weight_sum
+    return torch.einsum("c,chw->hw", device_const(w * factor, psfs.device),
+                        psfs)
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +261,10 @@ class ImageSet:
         linked_polarizations: Set[Polarization],
         width: int,
         height: int,
-        device="cpu",
+        device,
     ) -> "ImageSet":
+        """An empty set for ``table`` on ``device``, which the caller names
+        (the port's entry points resolve it, see ``Radler``)."""
         first_group = table.original_groups[0]
         n_pol = len(first_group)
         n_chan = len(table.deconvolution_groups)
@@ -455,3 +464,6 @@ class ImageSet:
 
     def get_square_integrated(self) -> torch.Tensor:
         return get_square_integrated(self.data, self.meta)
+
+    def get_integrated_psf(self, psfs: torch.Tensor) -> torch.Tensor:
+        return get_integrated_psf(psfs, self.meta)

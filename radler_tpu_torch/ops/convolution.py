@@ -67,6 +67,21 @@ def convolve_same(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return torch.fft.irfft2(spec, s=(h, w)).to(image.dtype)
 
 
+def prepare_kernel_fft(kernel: torch.Tensor) -> torch.Tensor:
+    """rfft2 of a centered kernel at its own size, for reuse across many
+    :func:`convolve_same_prefft` calls (batched over leading dims)."""
+    return _centered_kernel_fft(kernel, kernel.shape[-2:])
+
+
+def convolve_same_prefft(image: torch.Tensor,
+                         ker_f: torch.Tensor) -> torch.Tensor:
+    """Circular centered convolution at the image's size with a kernel
+    spectrum from :func:`prepare_kernel_fft`."""
+    h, w = image.shape[-2:]
+    return torch.fft.irfft2(torch.fft.rfft2(image) * ker_f, s=(h, w)).to(
+        image.dtype)
+
+
 def padded_convolve(
     image: torch.Tensor,
     kernel: torch.Tensor,

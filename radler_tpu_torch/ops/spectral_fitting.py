@@ -29,12 +29,7 @@ import numpy as np
 import torch
 
 from ..settings import SpectralFittingMode
-
-
-def _const(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(
-        np.asarray(values, np.float32), device=like.device
-    )
+from ..utils.device_consts import device_const
 
 
 class SpectralFitter:
@@ -70,7 +65,6 @@ class SpectralFitter:
         self._projection: Optional[np.ndarray] = None  # [C, C]
         self._x: Optional[np.ndarray] = None  # [C] fitting abscissa
         self._mean_weights = self.weights / max(self.weights.sum(), 1e-300)
-        self._device_consts = {}  # (attribute name, device) -> tensor
         if self.is_active and n > 0:
             terms = min(self.n_terms, n) if self.n_terms > 0 else 0
             if terms > 0:
@@ -98,10 +92,7 @@ class SpectralFitter:
         """The host constant ``self.<name>`` as float32 on ``like``'s device,
         copied there once: a blocking copy inside the minor loop would wait
         for the device on every iteration."""
-        key = (name, like.device)
-        if key not in self._device_consts:
-            self._device_consts[key] = _const(getattr(self, name), like)
-        return self._device_consts[key]
+        return device_const(getattr(self, name), like.device)
 
     def _abscissa(self, freq) -> np.ndarray:
         """Fitting abscissa: nu/nu_ref - 1 (linear polynomial, so the 0th
@@ -238,12 +229,16 @@ class SpectralFitter:
         x = float(self._abscissa(np.asarray([frequency]))[0])
         if self.mode == SpectralFittingMode.POLYNOMIAL:
             powers = [x**t for t in range(terms.shape[0])]
-            return torch.einsum("t,thw->hw", _const(powers, terms), terms)
+            return torch.einsum(
+                "t,thw->hw", device_const(powers, terms.device), terms
+            )
         if self.mode == SpectralFittingMode.LOG_POLYNOMIAL:
             coeffs, sign, nonzero = terms[:-2], terms[-2], terms[-1]
             powers = [x**t for t in range(coeffs.shape[0])]
             out = torch.exp(
-                torch.einsum("t,thw->hw", _const(powers, terms), coeffs)
+                torch.einsum(
+                    "t,thw->hw", device_const(powers, terms.device), coeffs
+                )
             )
             return out * sign * nonzero
         raise RuntimeError("evaluate_image does not support forced-term fitting")

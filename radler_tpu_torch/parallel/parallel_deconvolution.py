@@ -96,9 +96,10 @@ class ParallelDeconvolution:
         self.first_algorithm.set_spectrally_forced_images(images)
 
     # -- component list -------------------------------------------------
-    def get_component_list(self, table: WorkTable, device="cpu") -> ComponentList:
+    def get_component_list(self, table: WorkTable, device) -> ComponentList:
         """``parallel_deconvolution.cc:184-207`` for the single-scale
-        algorithms: every non-zero model pixel is a component."""
+        algorithms (generic CLEAN, IUWT): every non-zero model pixel is a
+        component.  The model is loaded onto ``device``."""
         if self.settings.algorithm_type == AlgorithmType.MULTISCALE:
             raise NotImplementedError(
                 "multiscale component lists come with the multiscale slice "

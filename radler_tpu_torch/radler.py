@@ -10,8 +10,10 @@ another major iteration (predict/invert round) is required
 
 The device comes from the caller's data: ``torch.Tensor`` images stay on
 their device (a CUDA tensor runs the minor loop through the CUDA kernels and
-never leaves the card), NumPy images are moved to ``device`` (default
-``"cpu"``) for the run and written back at its end.
+never leaves the card), NumPy images are moved to ``device`` for the run and
+written back at its end.  ``device`` defaults to ``"cuda"``: a run on the CPU
+(the kernels' plain versions) is asked for with ``device="cpu"``, and without
+a CUDA device any other request raises.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from .image_set import ImageSet, get_linear_integrated
 from .component_list import ComponentList
 from .models.base import DeconvolutionAlgorithm
 from .models.generic_clean import GenericClean
+from .models.iuwt import IuwtDeconvolution
 from .ops import rms_image as rms_ops
 from .ops.noise import median_and_stddev_from_mad
 from .ops.spectral_fitting import create_spectral_fitter
@@ -50,7 +53,6 @@ from .utils import logging as log
 # The ROADMAP queue-A item that ports each algorithm not ported yet.
 _PENDING_ALGORITHMS = {
     AlgorithmType.MULTISCALE: 3,
-    AlgorithmType.IUWT: 4,
     AlgorithmType.ADAPTIVE_SCALE_PIXEL: 5,
     AlgorithmType.MORE_SANE: 5,
     AlgorithmType.PYTHON: 5,
@@ -71,15 +73,22 @@ def _check_image(name: str, array, settings: Settings) -> None:
         raise RuntimeError(f"Mismatch in {name} image size")
 
 
-def _table_device(table: WorkTable, default) -> torch.device:
-    """The device of a table's images: that of its tensors, else
-    ``default``."""
+def _table_device(table: WorkTable, device) -> torch.device:
+    """The device of a table's images: that of its tensors, else ``device``,
+    else the card.  Raises when that is a CUDA device and there is none:
+    a run never falls back to the CPU."""
     for entry in table.entries[:1]:
         for accessor in (*entry.psf_accessors, entry.residual_accessor):
             image = accessor.load() if accessor is not None else None
             if isinstance(image, torch.Tensor):
                 return image.device
-    return torch.device(default)
+    resolved = torch.device("cuda" if device is None else device)
+    if resolved.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"NumPy images run on {resolved} (device={device!r}), and no "
+            "CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return resolved
 
 
 class Radler:
@@ -96,7 +105,7 @@ class Radler:
         frequencies: Optional[np.ndarray] = None,
         weights: Optional[np.ndarray] = None,
         n_deconvolution_groups: int = 0,
-        device="cpu",
+        device=None,
     ):
         settings.validate()
         self.settings = settings
@@ -221,7 +230,7 @@ class Radler:
             self._beam_size = 0.0
 
         settings = self.settings
-        if settings.algorithm_type != AlgorithmType.GENERIC_CLEAN:
+        if settings.algorithm_type in _PENDING_ALGORITHMS:
             raise NotImplementedError(
                 f"{settings.algorithm_type.name} (settings.algorithm_type) is "
                 "not ported yet; ROADMAP queue A, item "
@@ -232,7 +241,12 @@ class Radler:
                 "a device mesh (settings.parallel.use_device_mesh) is not "
                 "ported yet; ROADMAP queue A, item 7 brings multi-GPU."
             )
-        algorithm = GenericClean(settings.generic.use_sub_minor_optimization)
+        algorithm: DeconvolutionAlgorithm
+        if settings.algorithm_type == AlgorithmType.IUWT:
+            algorithm = IuwtDeconvolution()
+        else:
+            algorithm = GenericClean(
+                settings.generic.use_sub_minor_optimization)
         algorithm.max_iterations = settings.minor_iteration_count
         algorithm.threshold = settings.absolute_threshold
         algorithm.minor_loop_gain = settings.minor_loop_gain

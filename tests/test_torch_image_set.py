@@ -124,7 +124,7 @@ def test_integrations_match_jax(name):
     jax_table, port_table = make_tables(pols, weights)
     jax_linked, port_linked = linked_sets(linked)
     js = JaxImageSet.from_table(jax_table, squared, jax_linked, 4, 4)
-    ts = ImageSet.from_table(port_table, squared, port_linked, 4, 4)
+    ts = ImageSet.from_table(port_table, squared, port_linked, 4, 4, "cpu")
     assert tuple(ts.meta) == tuple(js.meta)
     js.data = jnp.asarray(data)
     ts.data = torch.as_tensor(data)
@@ -156,7 +156,7 @@ def test_load_and_average_matches_jax(weights, n_deconv):
         [["STOKES_I"]] * n, weights, n_deconv, images, psfs
     )
     js = JaxImageSet.from_table(jax_table, False, set(), 4, 4)
-    ts = ImageSet.from_table(port_table, False, set(), 4, 4)
+    ts = ImageSet.from_table(port_table, False, set(), 4, 4, "cpu")
     js.load_and_average(True)
     ts.load_and_average(True)
     np.testing.assert_allclose(ts.data.numpy(), np.asarray(js.data),
@@ -196,7 +196,7 @@ def test_tensor_accessor_keeps_the_device():
     e.residual_accessor = rd.TensorImageAccessor(image)
     e.model_accessor = rd.TensorImageAccessor(image.clone())
     table.add_entry(e)
-    s = ImageSet.from_table(table, False, set(), 4, 4)
+    s = ImageSet.from_table(table, False, set(), 4, 4, "cpu")
     s.load_and_average(True)
     s.data = s.data + 1.0
     s.assign_and_store_residual()

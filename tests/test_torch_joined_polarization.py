@@ -72,7 +72,8 @@ def run_table(package, settings, pol_names, images, psf, weights=None):
                 models[(ch, name)]
             )
             table.add_entry(e)
-    r = package.Radler(settings, table, beam_size=0.0)
+    device = {"device": "cpu"} if package is rd else {}
+    r = package.Radler(settings, table, beam_size=0.0, **device)
     again = r.perform(0)
     return again, r.iteration_number, residuals, models
 

@@ -17,8 +17,11 @@ import torch
 import radler_tpu_torch as rd
 from radler_tpu_torch.image_set import CubeMeta, linear_integration_coefficients
 from radler_tpu_torch.kernels import hogbom_step as hs
+from radler_tpu_torch.kernels import iuwt_atrous as ia
 from radler_tpu_torch.kernels import subminor_loop as sl
 from radler_tpu_torch.models.subminor import SubMinorLoop
+from radler_tpu_torch.ops import iuwt as iuwt_ops
+from radler_tpu_torch.ops.convolution import padded_convolve
 from radler_tpu_torch.ops.spectral_fitting import SpectralFitter
 
 pytestmark = pytest.mark.gpu
@@ -205,7 +208,7 @@ def test_numpy_inputs_run_on_the_device_argument(cuda):
     before = hs.hogbom_step.launches
     plain_res, plain_model = res.copy(), model.copy()
     rd.Radler(s, psf, res, model, 0.0, device=cuda).perform(0)
-    rd.Radler(s, psf, plain_res, plain_model, 0.0).perform(0)  # CPU, plain
+    rd.Radler(s, psf, plain_res, plain_model, 0.0, device="cpu").perform(0)
     assert hs.hogbom_step.launches > before
     np.testing.assert_array_equal(res, plain_res)
     np.testing.assert_array_equal(model, plain_model)
@@ -394,3 +397,131 @@ def test_perform_clark_log_fit_runs_hogbom(cuda):
     hs.hogbom_step.launches = 0
     r.perform(0)
     assert sl.subminor_loop.launches == 0 and hs.hogbom_step.launches > 0
+
+
+# ---------------------------------------------------------------------------
+# The à-trous IUWT (kernel B3)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_lo", [1, 2, 3, 5, 8, 9])
+@pytest.mark.parametrize("shape", [(HEIGHT, WIDTH), (64, 64), (3, 200, 300),
+                                   (5, 17)])
+def test_atrous_bit_equal_to_plain(cuda, shape, n_lo):
+    img = np.random.default_rng(n_lo).standard_normal(shape)
+    img = torch.as_tensor(img.astype(np.float32), device=cuda)
+    w, smooth = ia.atrous_decompose_lo(img, n_lo)
+    pw, psmooth = ia.atrous_decompose_lo_reference(img, n_lo)
+    torch.cuda.synchronize()
+    assert torch.equal(w, pw) and torch.equal(smooth, psmooth)
+
+
+def test_atrous_rejects_bad_inputs(cuda):
+    img = torch.zeros(40, 50, device=cuda)
+    bad = [
+        (img.t(), 2, ValueError),  # not contiguous
+        (img.double(), 2, TypeError),
+        (img, 0, ValueError),
+        (img, ia.MAX_SCALES + 1, ValueError),
+        (img[None, None], 2, ValueError),
+    ]
+    for image, n_lo, error in bad:
+        with pytest.raises(error):
+            ia.atrous_decompose_lo(image, n_lo)
+    with pytest.raises(ValueError):  # an output on another device
+        ia.atrous_decompose_lo(img, 2, w=torch.zeros(2, 40, 50))
+
+
+def test_decompose_launches_b3(cuda):
+    """Every decompose on the card sends each of its scales through B3, one
+    launch per scale, and equals the CPU decompose bit for bit; past B3's
+    most scales it raises."""
+    img = np.random.default_rng(9).standard_normal((96, 130))
+    img = img.astype(np.float32)
+    for n_scales in (2, 6, 11, ia.MAX_SCALES):
+        before = ia.atrous_decompose_lo.launches
+        got = iuwt_ops.decompose(torch.as_tensor(img, device=cuda), n_scales)
+        assert ia.atrous_decompose_lo.launches - before == n_scales
+        assert torch.equal(got.cpu(), iuwt_ops.decompose(torch.as_tensor(img),
+                                                         n_scales))
+    with pytest.raises(ValueError):
+        iuwt_ops.decompose(torch.as_tensor(img, device=cuda),
+                           ia.MAX_SCALES + 1)
+
+
+def test_perform_iuwt_on_card_matches_cpu(cuda):
+    """The 128^2 diffuse source of the IUWT tests through Radler.perform on
+    CUDA tensors: B3 launches, the JAX test's gates, and the residual
+    within 1e-4 absolute and 1e-4 relative rms of the port's CPU run (the
+    same code on the same inputs; chip_smoke.py read at most 3.5e-6 on an
+    NVIDIA H100, PERF.md)."""
+    size = 128
+    yy, xx = np.mgrid[0:size, 0:size]
+    r2 = (yy - size // 2) ** 2 + (xx - size // 2) ** 2
+    psf = np.exp(-r2 / 8.0).astype(np.float32)
+    sky = np.exp(-((yy - 60.0) ** 2 + (xx - 70.0) ** 2) / 32.0)
+    res = padded_convolve(torch.as_tensor(sky.astype(np.float32)),
+                          torch.as_tensor(psf)).numpy()
+    res += np.random.default_rng(0).normal(scale=1e-3, size=res.shape).astype(
+        np.float32)
+    s = rd.Settings()
+    s.algorithm_type = rd.AlgorithmType.IUWT
+    s.trimmed_image_width = s.trimmed_image_height = size
+    s.minor_iteration_count = 50
+    cpu_res, cpu_model = res.copy(), np.zeros_like(res)
+    rd.Radler(s, psf, cpu_res, cpu_model, 0.0, device="cpu").perform(0)
+    ia.atrous_decompose_lo.launches = 0
+    r = rd.Radler(s, torch.as_tensor(psf, device=cuda),
+                  torch.as_tensor(res, device=cuda),
+                  torch.zeros(size, size, device=cuda), 0.0)
+    r.perform(0)
+    assert ia.atrous_decompose_lo.launches > 0
+    assert r.iteration_number == 50
+    front = r._table.front
+    out_res = front.residual_accessor.array.cpu().numpy()
+    out_model = front.model_accessor.array.cpu().numpy()
+    rms = lambda a: float(np.sqrt((a.astype(np.float64) ** 2).mean()))  # noqa
+    assert rms(out_res) <= 0.25 * rms(res)
+    assert np.abs(out_res).max() <= 0.1 * np.abs(res).max()
+    assert abs(out_model.sum() - sky.sum()) < 0.2 * sky.sum()
+    assert np.abs(out_res - cpu_res).max() <= 1e-4
+    assert rms(out_res) == pytest.approx(rms(cpu_res), rel=1e-4)
+    assert out_model.sum() == pytest.approx(cpu_model.sum(), rel=1e-3)
+
+
+def test_perform_iuwt_two_channels_on_card_matches_cpu(cuda):
+    """Two channels of NumPy images through IUWT with no ``device``, which
+    runs them on the card, the per-image flux refit included (host
+    labelling, the label map copied to the card once per accepted
+    structure): the card's run within 5e-3 of the port's CPU run and each
+    channel's flux within 1e-3."""
+    size = 96
+    yy, xx = np.mgrid[0:size, 0:size]
+    r2 = (yy - size // 2) ** 2 + (xx - size // 2) ** 2
+    psf = np.exp(-r2 / 8.0).astype(np.float32)
+    sky = np.exp(-((yy - 40.0) ** 2 + (xx - 50.0) ** 2) / 32.0)
+    conv = padded_convolve(torch.as_tensor(sky.astype(np.float32)),
+                           torch.as_tensor(psf)).numpy()
+    res = np.stack([conv, 1.6 * conv])
+    res += np.random.default_rng(1).normal(scale=1e-3, size=res.shape).astype(
+        np.float32)
+    psfs = np.stack([psf, psf])
+    s = rd.Settings()
+    s.algorithm_type = rd.AlgorithmType.IUWT
+    s.trimmed_image_width = s.trimmed_image_height = size
+    s.minor_iteration_count = 30
+    freqs = np.array([[1.0e8, 1.1e8], [1.2e8, 1.3e8]])
+    cpu_res, cpu_model = res.copy(), np.zeros_like(res)
+    rd.Radler(s, psfs, cpu_res, cpu_model, 0.0, frequencies=freqs,
+              device="cpu").perform(0)
+    card_res, card_model = res.copy(), np.zeros_like(res)
+    ia.atrous_decompose_lo.launches = 0
+    r = rd.Radler(s, psfs, card_res, card_model, 0.0, frequencies=freqs)
+    assert r._device.type == "cuda"
+    r.perform(0)
+    assert ia.atrous_decompose_lo.launches > 0
+    assert np.abs(card_res - cpu_res).max() <= 5e-3
+    np.testing.assert_allclose(card_model.sum(axis=(1, 2)),
+                               cpu_model.sum(axis=(1, 2)), rtol=1e-3)
+    flux = card_model.sum(axis=(1, 2))
+    assert flux[1] / flux[0] == pytest.approx(1.6, rel=0.1)

@@ -8,6 +8,8 @@ Tolerances: peak positions and found flags exact; the MAD noise bit-equal
 float32 matmuls that may sum in another order).
 """
 
+from collections import OrderedDict
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ from radler_tpu_torch.ops import noise, peak_finder, psf_subtract
 from radler_tpu_torch.ops import spectral_fitting
 from radler_tpu_torch.ops.convolution import trim, untrim
 from radler_tpu_torch.settings import SpectralFittingMode
+from radler_tpu_torch.utils import device_consts
 
 # Several test processes share the machine's cores; one intra-op thread
 # each keeps the small CPU tensor ops from contending for them.
@@ -206,8 +209,9 @@ def test_fitter_copies_its_constants_once(monkeypatch, mode_name):
     if mode_name == "FORCED_TERMS":
         tf.set_forced_terms(torch.ones(2, 6, 7))
     copies = []
-    real = spectral_fitting._const
-    monkeypatch.setattr(spectral_fitting, "_const",
+    real = device_consts._upload
+    monkeypatch.setattr(device_consts, "_cache", OrderedDict())
+    monkeypatch.setattr(device_consts, "_upload",
                         lambda *a: copies.append(a) or real(*a))
     values = torch.ones(5, 2)
     first = tf.fit_and_evaluate(values, 4, 2)

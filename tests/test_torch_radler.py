@@ -85,11 +85,14 @@ def test_input_dtype(settings):
     residual = get_residual(1.0, 0, 0)
     model = np.zeros_like(residual)
     with pytest.raises(TypeError):
-        rd.Radler(settings, psf.astype(np.float64), residual, model, BEAM_SIZE)
+        rd.Radler(settings, psf.astype(np.float64), residual, model, BEAM_SIZE,
+                  device="cpu")
     with pytest.raises(TypeError):
-        rd.Radler(settings, psf, residual.astype(np.float16), model, BEAM_SIZE)
+        rd.Radler(settings, psf, residual.astype(np.float16), model, BEAM_SIZE,
+                  device="cpu")
     with pytest.raises(TypeError):
-        rd.Radler(settings, psf, residual, model.astype(int), BEAM_SIZE)
+        rd.Radler(settings, psf, residual, model.astype(int), BEAM_SIZE,
+                  device="cpu")
     with pytest.raises(TypeError):
         rd.Radler(
             settings,
@@ -98,7 +101,7 @@ def test_input_dtype(settings):
             torch.as_tensor(model),
             BEAM_SIZE,
         )
-    rd.Radler(settings, psf, residual, model, BEAM_SIZE)
+    rd.Radler(settings, psf, residual, model, BEAM_SIZE, device="cpu")
 
 
 def test_matching_arrays(settings):
@@ -111,21 +114,24 @@ def test_matching_arrays(settings):
         BEAM_SIZE,
         frequencies=np.zeros((3, 2), dtype=np.float64),
         weights=np.zeros((3,), dtype=np.float64),
+        device="cpu",
     )
     bad = np.zeros((42,), dtype=np.float32)
     with pytest.raises(RuntimeError):
-        rd.Radler(settings, bad, bad, bad, BEAM_SIZE)
+        rd.Radler(settings, bad, bad, bad, BEAM_SIZE, device="cpu")
     nonmatching = np.zeros((3, WIDTH + 42, HEIGHT + 42), dtype=np.float32)
     with pytest.raises(RuntimeError):
-        rd.Radler(settings, valid, valid, nonmatching, BEAM_SIZE)
+        rd.Radler(settings, valid, valid, nonmatching, BEAM_SIZE,
+                  device="cpu")
     with pytest.raises(RuntimeError):
         rd.Radler(
             settings, valid, valid, valid, BEAM_SIZE,
-            frequencies=np.zeros((42, 2)),
+            frequencies=np.zeros((42, 2)), device="cpu",
         )
     with pytest.raises(RuntimeError):
         rd.Radler(
-            settings, valid, valid, valid, BEAM_SIZE, weights=np.zeros((42,))
+            settings, valid, valid, valid, BEAM_SIZE, weights=np.zeros((42,)),
+            device="cpu",
         )
 
 
@@ -133,7 +139,7 @@ def test_require_frequencies(settings):
     image = np.zeros((HEIGHT, WIDTH), dtype=np.float32)
     settings.spectral_fitting.mode = rd.SpectralFittingMode.POLYNOMIAL
     with pytest.raises(RuntimeError):
-        rd.Radler(settings, image, image, image, BEAM_SIZE)
+        rd.Radler(settings, image, image, image, BEAM_SIZE, device="cpu")
 
 
 @pytest.mark.parametrize("source_shift", [(0, 0), (-9, 15)])
@@ -143,7 +149,8 @@ def test_point_source_generic(settings, source_shift):
     residual = get_residual(scale, *source_shift)
     model = np.zeros_like(residual)
     r = rd.Radler(
-        settings, psf, residual, model, BEAM_SIZE, rd.Polarization.STOKES_I
+        settings, psf, residual, model, BEAM_SIZE, rd.Polarization.STOKES_I,
+        device="cpu",
     )
     assert r.perform(0) is False
     assert r.iteration_number <= settings.minor_iteration_count
@@ -187,7 +194,8 @@ def test_unported_settings_raise(settings, setting, value):
         settings.parallel.use_device_mesh = value
     image = get_psf()
     with pytest.raises(NotImplementedError):
-        rd.Radler(settings, image, image.copy(), image.copy(), BEAM_SIZE)
+        rd.Radler(settings, image, image.copy(), image.copy(), BEAM_SIZE,
+                  device="cpu")
 
 
 def run_both(jax_settings, psf, residual, model=None, beam_size=0.0,
@@ -195,13 +203,14 @@ def run_both(jax_settings, psf, residual, model=None, beam_size=0.0,
     """One perform of each package from the same Settings and arrays;
     returns ((again, iterations, residual, model), ...) for JAX, port."""
     out = []
-    for package, settings in (
-        (jrd, jax_settings),
-        (rd, settings_from_reference(jax_settings)),
+    for package, settings, device in (
+        (jrd, jax_settings, {}),
+        (rd, settings_from_reference(jax_settings), {"device": "cpu"}),
     ):
         res = residual.copy()
         mod = np.zeros_like(res) if model is None else model.copy()
-        r = package.Radler(settings, psf, res, mod, beam_size, **kwargs)
+        r = package.Radler(settings, psf, res, mod, beam_size, **kwargs,
+                           **device)
         again = r.perform(0)
         out.append((again, r.iteration_number, res, mod))
     return out
@@ -269,10 +278,12 @@ def test_auto_mask_two_phases_parity_with_jax():
     s.auto_threshold_sigma = 2.0
     s.generic.use_sub_minor_optimization = False
     results = []
-    for package, settings in ((jrd, s), (rd, settings_from_reference(s))):
+    for package, settings, device in (
+        (jrd, s, {}), (rd, settings_from_reference(s), {"device": "cpu"})
+    ):
         res = residual.copy()
         mod = np.zeros_like(res)
-        r = package.Radler(settings, psf, res, mod, 0.0)
+        r = package.Radler(settings, psf, res, mod, 0.0, **device)
         steps = [(r.perform(i), r.iteration_number) for i in range(2)]
         results.append((steps, res, mod))
     (steps_j, res_j, mod_j), (steps_t, res_t, mod_t) = results
@@ -296,7 +307,7 @@ def test_point_source_clark(settings, source_shift):
     psf = get_psf()
     residual = get_residual(scale, *source_shift)
     model = np.zeros_like(residual)
-    r = rd.Radler(settings, psf, residual, model, BEAM_SIZE)
+    r = rd.Radler(settings, psf, residual, model, BEAM_SIZE, device="cpu")
     assert r.perform(0) is False
     np.testing.assert_allclose(residual, np.zeros_like(residual), atol=2e-6)
     check_model_point_source(model, scale, *source_shift)
