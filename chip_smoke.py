@@ -22,7 +22,13 @@ tensors and prints what it measured:
   cuDNN's dilated convolution, config 4 (IUWT 4096^2, 16 structure
   iterations) with the time split of a perform, the kernel against its
   plain version at every shape config 4 gave it, and the 128^2
-  diffuse-source contract.
+  diffuse-source contract;
+* the mesh Högbom loop, its shards all on the one card: the shard-local
+  kernel (B4) and the Högbom step on row shards against their plain
+  versions, B4's time, the joined-channel cube on a chan 4 x tile 2 mesh
+  against the single-device perform, 2 channels x 2 polarizations with
+  squared joins on chan 2 x tile 4, and the point-source contract on
+  chan 1 x tile 8.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -78,6 +84,34 @@ ATROUS_TIMED_SCALES = range(1, 10)
 # The IUWT contract: the card's residual against the port's CPU run of the
 # same inputs, absolute per pixel and relative in rms (read: under 4e-6).
 CARD_VS_CPU = 1e-4
+# The mesh configuration: the joined-channel cube through Radler.perform on
+# MESH_DEVICES shards (chan 4 x tile 2), all on the one card.
+MESH_DEVICES = 8
+MESH_ITERATIONS = 2000
+# A mesh perform against the single-device perform of the same cube: equal
+# iteration counts and residual and model within this (the JAX package's
+# own mesh-against-single-device gate, tests/test_mesh_clean.py).
+MESH_VS_SINGLE = 2e-6
+# B4 against its plain version: (label, mode, planes, polarizations, image
+# height, width, tiles, shard index).  The first is the mesh
+# configuration's shard; the ragged image's 250-row tiles are a shape the
+# TPU kernel could not take (8-row blocks).
+B4_CASES = [
+    ("normal 1 plane", "normal", 1, 1, 4096, 4096, 2, 1),
+    ("normal 1ch x 2pol", "normal", 2, 2, 4096, 4096, 4, 1),
+    ("squared 1ch x 2pol", "squared", 2, 2, 4096, 4096, 4, 2),
+    ("signed", "signed", 1, 1, 4096, 4096, 2, 0),
+    ("linear 2 planes", "linear", 2, 1, 4096, 4096, 4, 3),
+    ("ragged normal 2ch", "normal", 2, 1, 1000, 1300, 4, 1),
+    ("ragged squared 1ch x 2pol", "squared", 2, 2, 1000, 1300, 4, 2),
+]
+# B1 on row shards against its plain version (same fields): every plane of
+# the shard's rows, as the mesh runs it when it splits no channels.
+B1_SHARD_CASES = [
+    ("normal 4ch", "normal", 4, 1, 4096, 4096, 8, 3),
+    ("squared 2ch x 2pol", "squared", 4, 2, 4096, 4096, 8, 7),
+    ("ragged signed", "signed", 1, 1, 1000, 1300, 4, 2),
+]
 # The card's published peaks (H100 SXM data sheet, 700 W): device memory
 # and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -424,11 +458,13 @@ def _reset_counts():
     from radler_tpu_torch.kernels import hogbom_step as hs
     from radler_tpu_torch.kernels import iuwt_atrous as ia
     from radler_tpu_torch.kernels import subminor_loop as sl
+    from radler_tpu_torch.kernels import subtract_integrate as si
 
     hs.hogbom_step.launches = 0
     hs.hogbom_select.launches = 0
     sl.subminor_loop.launches = 0
     ia.atrous_decompose_lo.launches = 0
+    si.subtract_integrate.launches = 0
 
 
 def _settings(size, iterations, clark=False):
@@ -530,10 +566,10 @@ def phase_main_path(psf, residual):
     return main_counts, n / best
 
 
-def phase_joined_channels(psf, residual):
-    """4096^2 x 4 channels through perform, channel weights, NO_FITTING."""
-    import radler_tpu_torch as rd
-
+def _joined_inputs(psf, residual):
+    """The joined-channel cube on the card: config 1's problem scaled to 4
+    channels by a spectral index of -0.7, channel weights (1, 0.8, 1.2,
+    0.5).  Returns (psfs, residual, Radler keyword arguments)."""
     dev = torch.device(DEVICE)
     C = 4
     freqs = np.array([[1.0e8 + c * 2e7, 1.2e8 + c * 2e7] for c in range(C)])
@@ -542,7 +578,14 @@ def phase_joined_channels(psf, residual):
         scale, device=dev)[:, None, None]
     psfs = torch.as_tensor(psf, device=dev)[None].repeat(C, 1, 1)
     weights = np.array([1.0, 0.8, 1.2, 0.5])
-    kwargs = dict(frequencies=freqs, weights=weights)
+    return psfs, res, dict(frequencies=freqs, weights=weights)
+
+
+def phase_joined_channels(psf, residual):
+    """4096^2 x 4 channels through perform, channel weights, NO_FITTING."""
+    import radler_tpu_torch as rd
+
+    psfs, res, kwargs = _joined_inputs(psf, residual)
     assert _settings(SIZE, 1).spectral_fitting.mode == (
         rd.SpectralFittingMode.NO_FITTING)
     n, seconds, counts, out_res, _ = _perform(psfs, res, 2000, **kwargs)
@@ -553,11 +596,14 @@ def phase_joined_channels(psf, residual):
         raise AssertionError("the residual did not shrink")
 
 
-def phase_contract(clark=False):
+def phase_contract(clark=False, mesh=False):
     """The point-source contract of tests/test_radler.py on the card, with
-    the Högbom loop or the Clark loop."""
+    the Högbom loop, the Clark loop, or the Högbom loop on a mesh of
+    MESH_DEVICES shards (chan 1 x tile 8: B1 on row shards)."""
     import radler_tpu_torch as rd
+    from radler_tpu_torch.kernels import hogbom_step as hs
     from radler_tpu_torch.kernels import subminor_loop as sl
+    from radler_tpu_torch.kernels import subtract_integrate as si
 
     size = 64
     point = np.array([[0.0, 0.4, 0.0], [0.25, 1.0, 0.5], [0.0, 0.6, 0.0]],
@@ -570,6 +616,8 @@ def phase_contract(clark=False):
         res[cy - 1 : cy + 2, cx - 1 : cx + 2] = 2.5 * point
         s = _settings(size, 1000, clark=clark)
         s.absolute_threshold = 1e-8
+        s.parallel.use_device_mesh = mesh
+        s.parallel.n_devices = MESH_DEVICES if mesh else 0
         dev = torch.device(DEVICE)
         res_d = torch.as_tensor(res, device=dev)
         model_d = torch.zeros_like(res_d)
@@ -580,11 +628,21 @@ def phase_contract(clark=False):
             raise AssertionError("perform asked for another major iteration")
         if clark and (sl.subminor_loop.launches, _counts()) != (1, (0, 0)):
             raise AssertionError("the Clark perform did not launch B2 once")
+        n = r.iteration_number
+        if mesh and not (si.subtract_integrate.launches == 0
+                         and hs.hogbom_select.launches == 0
+                         and n * MESH_DEVICES <= hs.hogbom_step.launches
+                         < (n + hs.CHUNK) * MESH_DEVICES):
+            raise AssertionError(
+                f"the mesh perform's launches: B1 {hs.hogbom_step.launches}, "
+                f"select {hs.hogbom_select.launches}, B4 "
+                f"{si.subtract_integrate.launches} for {n} iterations")
         out_res = r._table.front.residual_accessor.array.cpu().numpy()
         out_mod = r._table.front.model_accessor.array.cpu().numpy()
         peak = out_mod[cy, cx]
         others = np.delete(out_mod.ravel(), cy * size + cx)
-        say(f"  shift ({sx},{sy}): {r.iteration_number} iterations, "
+        launched = f"B1 launches {hs.hogbom_step.launches}, " if mesh else ""
+        say(f"  shift ({sx},{sy}): {n} iterations, {launched}"
             f"max|residual| {np.abs(out_res).max():.3g}, model peak "
             f"{peak:.7f}, max|model elsewhere| {np.abs(others).max():.3g}")
         if not (np.abs(out_res).max() < 2e-6 and abs(peak - 2.5) <= 2.5e-4
@@ -1309,6 +1367,327 @@ def phase_iuwt_contract():
                                  "iterations")
 
 
+# ---------------------------------------------------------------------------
+# The mesh Högbom loop
+# ---------------------------------------------------------------------------
+
+
+def _gaussian_psfs(count, height, width):
+    yy, xx = np.mgrid[0:height, 0:width]
+    r2 = (yy - height // 2) ** 2.0 + (xx - width // 2) ** 2.0
+    return np.stack([np.exp(-r2 / (2.0 * (2.0 + 0.25 * c) ** 2))
+                     for c in range(count)]).astype(np.float32)
+
+
+def _shard_inputs(case, seed):
+    """One shard of a case of B4_CASES or B1_SHARD_CASES on the card: its
+    rows of a residual with sources on noise, the PSFs of its channels at
+    the full image size, component values, B4's plane and polarization
+    coefficients, B1's coefficients and a weight for its rows."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+    from radler_tpu_torch.kernels import subtract_integrate as si
+
+    _, mode, n, P, height, width, tiles, shard = case
+    h_loc = height // tiles
+    rng = np.random.default_rng(seed)
+    res = rng.normal(scale=0.01, size=(n, h_loc, width)).astype(np.float32)
+    for _ in range(40):
+        y, x = rng.integers(0, h_loc), rng.integers(0, width)
+        res[:, y, x] += rng.uniform(0.5, 2.0, n).astype(np.float32)
+    n_chan = n // P
+    chan = rng.uniform(0.2, 1.2, n if mode in ("signed", "linear")
+                       else n_chan).astype(np.float32)
+    pol = rng.uniform(0.3, 1.0, P).astype(np.float32)
+    dev = torch.device(DEVICE)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return dict(
+        res=t(res), psfs=t(_gaussian_psfs(n_chan, height, width)),
+        values=t(rng.uniform(-0.5, 0.8, n).astype(np.float32)),
+        coefs=t(si.plane_coefficients(mode, chan, P)), pol=t(pol),
+        b1_coefs=t(hs.kernel_coefficients(mode, chan, pol)),
+        weight=t(rng.uniform(0.0, 1.0, (h_loc, width)).astype(np.float32)),
+        r0=shard * h_loc, h_loc=h_loc,
+    )
+
+
+def _shard_peaks(r0, h_loc, height, width):
+    """Peaks in the shard, in a shard above and below where there is one,
+    and at the image's four corners."""
+    peaks = [(r0 + h_loc // 3, width // 3)]
+    if r0 >= 37:
+        peaks.append((r0 - 37, width - 5))
+    if r0 + h_loc + 41 < height:
+        peaks.append((r0 + h_loc + 41, 7))
+    return peaks + [(0, 0), (0, width - 1), (height - 1, 0),
+                    (height - 1, width - 1)]
+
+
+def _state_at(y, x, width):
+    return torch.tensor([y, x, 1, 0, 0, 1, y * width + x, 0],
+                        dtype=torch.int32, device=DEVICE)
+
+
+def _compare(label, kernel_out, plain_out):
+    """Raise unless the kernel's tensors equal the plain version's bit for
+    bit; return the largest |difference|."""
+    torch.cuda.synchronize()
+    d = max(float((a.double() - b.double()).abs().max())
+            for a, b in zip(kernel_out, plain_out))
+    if not all(torch.equal(a, b) for a, b in zip(kernel_out, plain_out)):
+        raise AssertionError(f"kernel and plain version disagree: {label}, "
+                             f"max|diff| {d:.3g}")
+    return d
+
+
+def phase_mesh_kernels_vs_plain():
+    """B4 at B4_CASES and B1 with a row offset at B1_SHARD_CASES against
+    their plain versions, at every peak of _shard_peaks: residual, model,
+    B4's integration part and B1's partials bit-equal.  Returns the largest
+    |difference| of each."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+    from radler_tpu_torch.kernels import subtract_integrate as si
+
+    worst = {"subtract_integrate": 0.0, "hogbom_step": 0.0}
+    for i, case in enumerate(B4_CASES + B1_SHARD_CASES):
+        is_b4 = i < len(B4_CASES)
+        label, mode, n, P, height, width = case[:6]
+        c = _shard_inputs(case, seed=40 + i)
+        r0, h_loc = c["r0"], c["h_loc"]
+        peaks = _shard_peaks(r0, h_loc, height, width)
+        for y, x in peaks:
+            outs = []
+            for plain in (False, True):
+                res = c["res"].clone()
+                model = torch.zeros_like(res)
+                state = _state_at(y, x, width)
+                if is_b4:
+                    part = torch.full((h_loc, width), 3.0, device=DEVICE)
+                    run = (si.subtract_integrate_reference if plain
+                           else si.subtract_integrate)
+                    run(res, model, c["psfs"], c["values"], state,
+                        c["coefs"], c["pol"], part, mode=mode,
+                        n_polarizations=P, row_offset=r0)
+                    outs.append((res, model, part))
+                else:
+                    step = (hs.hogbom_step_reference if plain
+                            else hs.hogbom_step)
+                    parts = step(res, model, c["psfs"], c["values"], state,
+                                 c["b1_coefs"], c["weight"], mode=mode,
+                                 n_polarizations=P, allow_negative=True,
+                                 row_offset=r0)
+                    outs.append((res, model, *parts))
+            name = "subtract_integrate" if is_b4 else "hogbom_step"
+            worst[name] = max(worst[name], _compare(
+                f"{name} {label} peak {(y, x)}", *outs))
+        say(f"  {'B4' if is_b4 else 'B1'} {label:26s} shard [{n}, {h_loc}, "
+            f"{width}] at row {r0} of {height}: {len(peaks)} peaks, "
+            "bit-equal")
+        del c
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_b4_times():
+    """B4 at the mesh configuration's shard, [1, 2048, 4096] in normal mode
+    with its peak inside the shard, against its plain version, in turns
+    plain, kernel, kernel, plain.  Returns (kernel ms, plain ms, (bound ms,
+    bound_by), bytes)."""
+    from radler_tpu_torch.kernels import subtract_integrate as si
+
+    case = B4_CASES[0]
+    c = _shard_inputs(case, seed=40)
+    _, mode, n, P, height, width = case[:6]
+    r0, h_loc = c["r0"], c["h_loc"]
+    state = _state_at(r0 + h_loc // 3, width // 3, width)
+    res = c["res"].clone()
+    model = torch.zeros_like(res)
+    part = torch.empty((h_loc, width), device=DEVICE)
+    times = {True: [], False: []}
+    for plain in (True, False, False, True):
+        run = si.subtract_integrate_reference if plain else (
+            si.subtract_integrate)
+        ms, host_ms = _time_ms(
+            lambda: run(res, model, c["psfs"], c["values"], state,
+                        c["coefs"], c["pol"], part, mode=mode,
+                        n_polarizations=P, row_offset=r0), 20)
+        times[plain].append(ms)
+        say(f"  {'plain ' if plain else 'kernel'} subtract_integrate "
+            f"[{n}, {h_loc}, {width}]: {ms:.4f} ms (host enqueue "
+            f"{host_ms:.4f} ms)")
+    # The least bytes: the residual read and written, the PSF window under
+    # the shard's rows read, the part written; per pixel and plane a
+    # multiply and a subtraction, then the coefficient's multiply.
+    n_bytes = (3 * n + 1) * h_loc * width * 4
+    n_flops = 3 * n * h_loc * width
+    k_ms, p_ms = sum(times[False]) / 2, sum(times[True]) / 2
+    b = bound_ms(n_bytes, n_flops)
+    say(f"  bound {b[0] * 1e3:.1f} us ({b[1]}, {n_bytes / 1e6:.1f} MB, the "
+        f"PSF window; the whole PSF plane would add "
+        f"{(height - h_loc) * width * 4 / 1e6:.1f} MB); kernel "
+        f"{n_bytes / (k_ms * 1e-3) / 1e9:.0f} GB/s")
+    return k_ms, p_ms, b
+
+
+def _mesh_settings(size, iterations, use_mesh):
+    s = _settings(size, iterations)
+    s.parallel.use_device_mesh = use_mesh
+    s.parallel.n_devices = MESH_DEVICES if use_mesh else 0
+    return s
+
+
+def _launch_counts():
+    """(B4, B1 step, B1 select) launches since the last _reset_counts."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+    from radler_tpu_torch.kernels import subtract_integrate as si
+
+    return (si.subtract_integrate.launches, hs.hogbom_step.launches,
+            hs.hogbom_select.launches)
+
+
+def _run_perform(make_radler, count_syncs=False):
+    """Build a Radler with ``make_radler()``, then time one perform with the
+    launch counts reset just before it.  Returns (iterations, seconds,
+    (B4, B1 step, B1 select) launches, host syncs or None, residual cube,
+    model cube, the perform's peak device memory above what was allocated
+    before it, in MiB)."""
+    r = make_radler()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start = time.perf_counter()
+    syncs = None
+    if count_syncs:
+        syncs = _count_syncs(lambda: r.perform(0))
+    else:
+        r.perform(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = _launch_counts()
+    out_res = torch.stack([e.residual_accessor.array for e in r._table])
+    out_mod = torch.stack([e.model_accessor.array for e in r._table])
+    if not (torch.isfinite(out_res).all() and torch.isfinite(out_mod).all()):
+        raise AssertionError("non-finite residual or model")
+    peak_mib = (torch.cuda.max_memory_allocated() - before) / 2**20
+    return (r.iteration_number, seconds, counts, syncs, out_res, out_mod,
+            peak_mib)
+
+
+def _check_mesh_run(label, mesh_run, single_run, chan):
+    """A mesh perform against the single-device perform of the same cube:
+    equal iteration counts, residual and model within MESH_VS_SINGLE, and
+    one launch of the shard kernel per shard and iteration (B4 when the
+    mesh splits channels, B1 otherwise), none of the other."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    n, _, counts = mesh_run[:3]
+    d_res = float((mesh_run[4] - single_run[4]).abs().max())
+    d_mod = float((mesh_run[5] - single_run[5]).abs().max())
+    say(f"  {label}: {n} iterations (single device {single_run[0]}), "
+        f"max|dres| {d_res:.3g}, max|dmodel| {d_mod:.3g} against the "
+        f"single-device perform; launches B4 {counts[0]}, B1 step "
+        f"{counts[1]}, B1 select {counts[2]}")
+    shard_kernel, other = (counts[0], counts[1]) if chan > 1 else (
+        counts[1], counts[0])
+    if not (n * MESH_DEVICES <= shard_kernel < (n + hs.CHUNK) * MESH_DEVICES
+            and other == 0 and counts[2] == 0 and n > 0):
+        raise AssertionError(f"{label}: launches {counts} for {n} iterations")
+    if n != single_run[0] or max(d_res, d_mod) > MESH_VS_SINGLE:
+        raise AssertionError(f"{label}: the mesh and single-device performs "
+                             "differ")
+    return max(d_res, d_mod)
+
+
+def phase_mesh_perform(psf, residual):
+    """The mesh configuration: the joined-channel cube (4 x 4096^2,
+    MESH_ITERATIONS iterations, Högbom) through Radler.perform on a chan 4 x
+    tile 2 mesh on the card: a warm-up and the best of 3 (minor iterations
+    per second), launches, host syncs per perform and peak memory, against
+    the single-device perform of the same cube (best of 2).  Returns (B4
+    launches, mesh rate, single-device rate)."""
+    import radler_tpu_torch as rd
+
+    psfs, res, kwargs = _joined_inputs(psf, residual)
+
+    def radler(use_mesh):
+        return lambda: rd.Radler(
+            _mesh_settings(SIZE, MESH_ITERATIONS, use_mesh), psfs,
+            res.clone(), torch.zeros_like(res), 0.0, **kwargs)
+
+    def timed(use_mesh, count):
+        """``count`` performs; the first one's cubes and every one's
+        numbers (later cubes are dropped so as not to count in the peak
+        memory of the runs after them)."""
+        runs = []
+        for i in range(count):
+            run = _run_perform(radler(use_mesh))
+            runs.append(run if i == 0 else run[:4] + (None, None) + run[6:])
+        return runs
+
+    singles = timed(False, 2)
+    timed(True, 1)  # warm-up
+    runs = timed(True, 3)
+    counted = _run_perform(radler(True), count_syncs=True)
+    if any(r[0] != runs[0][0] or r[2] != runs[0][2] for r in runs + [counted]):
+        raise AssertionError("the mesh performs differ in iterations or "
+                             "launches")
+    _check_mesh_run("chan 4 x tile 2", runs[0], singles[0], chan=4)
+    n = runs[0][0]
+    best = min(r[1] for r in runs)
+    best_single = min(r[1] for r in singles)
+    say(f"  mesh perform: seconds {', '.join(f'{r[1]:.4f}' for r in runs)}; "
+        f"best {n / best:.1f} minor iterations/s (single device "
+        f"{n / best_single:.1f}, seconds "
+        f"{', '.join(f'{r[1]:.4f}' for r in singles)}); host syncs "
+        f"{counted[3]} per perform (sync debug mode on, {counted[1]:.4f} s)")
+    say(f"  peak device memory of a perform above its inputs: mesh "
+        f"{max(r[6] for r in runs):.1f} MiB, single device "
+        f"{max(r[6] for r in singles):.1f} MiB (inputs: the 4 x {SIZE}^2 "
+        f"residual and PSFs, {2 * res.numel() * 4 / 2**20:.1f} MiB)")
+    say(f"  residual rms {rms(res):.6g} -> {rms(runs[0][4]):.6g}")
+    return runs[0][2][0], n / best, n / best_single
+
+
+def phase_mesh_squared(psf2, residual2):
+    """2 channels x 2 linked polarizations (XX, YY) with squared joins at
+    2048^2, 1000 iterations, through Radler.perform on a chan 2 x tile 4
+    mesh (B4 in squared mode) against the single-device perform."""
+    import radler_tpu_torch as rd
+
+    dev = torch.device(DEVICE)
+    psf_d = torch.as_tensor(psf2, device=dev)
+    base = torch.as_tensor(residual2, device=dev)
+
+    def radler(use_mesh):
+        def make():
+            s = _mesh_settings(CLARK_SIZE, 1000, use_mesh)
+            s.squared_joins = True
+            table = rd.WorkTable([], 2, 2)
+            for ch in range(2):
+                for p, name in enumerate(("XX", "YY")):
+                    e = rd.WorkTableEntry()
+                    e.polarization = getattr(rd.Polarization, name)
+                    e.original_channel_index = ch
+                    e.image_weight = 1.0
+                    e.band_start_frequency = 1.0e8 + ch * 2e7
+                    e.band_end_frequency = 1.2e8 + ch * 2e7
+                    if p == 0:
+                        e.psf_accessors = [rd.TensorImageAccessor(psf_d)]
+                    img = base * ((1.0 + 0.1 * ch) * (1.0 - 0.3 * p))
+                    e.residual_accessor = rd.TensorImageAccessor(img)
+                    e.model_accessor = rd.TensorImageAccessor(
+                        torch.zeros_like(img))
+                    table.add_entry(e)
+            return rd.Radler(s, table, beam_size=0.0)
+        return make
+
+    single = _run_perform(radler(False))
+    mesh = _run_perform(radler(True))
+    _check_mesh_run("2ch x 2pol squared, chan 2 x tile 4", mesh, single,
+                    chan=2)
+    say(f"  seconds: mesh {mesh[1]:.4f}, single device {single[1]:.4f}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -1329,9 +1708,20 @@ def main():
     counts, rate = phase_main_path(psf, residual)
     say("== joined channels through Radler.perform ==")
     phase_joined_channels(psf, residual)
+    say("== B4 and B1 on row shards against their plain versions ==")
+    worst_mesh = phase_mesh_kernels_vs_plain()
+    worst["hogbom_step"] = max(worst["hogbom_step"], worst_mesh["hogbom_step"])
+    worst["subtract_integrate"] = worst_mesh["subtract_integrate"]
+    say("== B4 time at the mesh configuration's shard ==")
+    b4_times = phase_b4_times()
+    say("== the mesh configuration (joined channels, chan 4 x tile 2) "
+        "through Radler.perform ==")
+    mesh = phase_mesh_perform(psf, residual)
     del psf, residual
     say("== point-source contract, Högbom ==")
     phase_contract()
+    say("== point-source contract, Högbom on a chan 1 x tile 8 mesh ==")
+    phase_contract(mesh=True)
     say("== the subminor kernel against its plain version ==")
     worst_small = phase_subminor_vs_plain()
     say("== the 2048^2 problem (seed 7, 300 sources) ==")
@@ -1345,6 +1735,8 @@ def main():
     clark = phase_config2(psf2, residual2)
     say("== local RMS through Radler.perform, Clark ==")
     phase_local_rms(psf2, residual2)
+    say("== 2ch x 2pol squared joins on a chan 2 x tile 4 mesh ==")
+    phase_mesh_squared(psf2, residual2)
     say("== point-source contract, Clark ==")
     phase_contract(clark=True)
     say("== batched irfft2 ==")
@@ -1411,6 +1803,20 @@ def main():
         "bound_by": b_by,
         "library_ms": lib_ms,
     })
+    b4_ms, b4_plain_ms, (b4_bound_ms, b4_bound_by) = b4_times
+    kernels.append({
+        "name": "subtract_integrate",
+        "route": "cuda",
+        "source": "radler_tpu_torch/csrc/subtract_integrate.cu",
+        "replaces": "radler_tpu/ops/pallas/hogbom_step.py:329",
+        "launches": mesh[0],
+        "max_abs_err": worst["subtract_integrate"],
+        "ms": b4_ms,
+        "plain_ms": b4_plain_ms,
+        "bound_ms": b4_bound_ms,
+        "bound_by": b4_bound_by,
+        "library_ms": None,
+    })
     say(f"config 1: {rate:.1f} minor iterations/s through perform (Högbom)")
     say(f"config 2: {clark[1]:.1f} minor iterations/s through perform (Clark)")
     b3_ms, b3_bound = atrous[3][0], bound_ms(*atrous[3][3:])[0]
@@ -1418,6 +1824,10 @@ def main():
         f"(IUWT); B3 at 4096^2, 3 scales: {b3_ms * 1e3:.1f} us against its "
         f"{b3_bound * 1e3:.1f} us bound; at config 4's most frequent "
         f"{n_main} scales: {k_ms * 1e3:.1f} us against {b_ms * 1e3:.1f} us")
+    say(f"mesh: {mesh[1]:.1f} minor iterations/s through perform (4 x "
+        f"4096^2, chan 4 x tile 2 on one card; single device "
+        f"{mesh[2]:.1f}); B4 at [1, 2048, 4096]: {b4_ms * 1e3:.1f} us "
+        f"against its {b4_bound_ms * 1e3:.1f} us bound")
     print(smi)  # name, power limit: as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -41,6 +41,14 @@
 // with no contraction, so the two agree bit for bit and pick the same peak
 // on near-ties.
 //
+// Row shards: a shard of a taller image (the mesh loop, chan == 1) passes
+// its first image row as row_offset and the PSFs at the image's full height
+// psf_height; the peak (y, x) is in image rows, the model update happens on
+// the shard that holds row y, and partial indices are shard-local.  Row
+// shards run their own instantiation of the kernel: in the single-device
+// one the offset and the PSF height fold away, which keeps its registers
+// (the PSF's own plane stride cost a spill and 1% of config 1's time).
+//
 // Loop control stays on the device: both kernels return at once when the
 // state's `active` flag is 0, so iterations enqueued after the stop leave
 // every tensor unchanged, and the host reads the state only every few
@@ -129,7 +137,7 @@ __device__ __forceinline__ float clamp_min0(float x) {
 // one per plane; normal: the polarization coefficient of the plane; squared:
 // channel x polarization coefficient), then [C] channel coefficients
 // (normal mode only).
-template <int kMode>
+template <int kMode, bool kRowShard>
 __global__ void __launch_bounds__(kStepThreads)
     hogbom_step_kernel(float* __restrict__ res, float* __restrict__ model,
                        const float* __restrict__ psf,
@@ -141,21 +149,28 @@ __global__ void __launch_bounds__(kStepThreads)
                        int* __restrict__ part_idx,
                        float* __restrict__ part_integ, int n_images,
                        int n_pols, int height, int width,
+                       int shard_psf_height, int shard_row_offset,
                        int pixels_per_block, int allow_negative) {
   if (state[kActive] == 0) return;
   const int y = state[kY];
   const int x = state[kX];
+  const int psf_height = kRowShard ? shard_psf_height : height;
+  const int row_offset = kRowShard ? shard_row_offset : 0;
   const int64_t plane = static_cast<int64_t>(height) * width;
+  const int64_t psf_plane =
+      kRowShard ? static_cast<int64_t>(psf_height) * width : plane;
 
-  if (blockIdx.x == 0) {
+  const int local_y = y - row_offset;
+  if (blockIdx.x == 0 && local_y >= 0 && local_y < height) {
     for (int n = threadIdx.x; n < n_images; n += blockDim.x) {
-      float* m = model + n * plane + static_cast<int64_t>(y) * width + x;
+      float* m = model + n * plane + static_cast<int64_t>(local_y) * width + x;
       *m = __fadd_rn(*m, values[n]);
     }
   }
 
   const float* chan_coefs = coefs + n_images;
-  const int oy = height / 2 - y;
+  // Local row py is image row py + row_offset, and reads PSF row py + oy.
+  const int oy = row_offset + psf_height / 2 - y;
   const int ox = width / 2 - x;
   const int begin = blockIdx.x * pixels_per_block;
   const int end = min(begin + pixels_per_block, static_cast<int>(plane));
@@ -165,14 +180,14 @@ __global__ void __launch_bounds__(kStepThreads)
     const int px = p - py * width;
     const int sy = py + oy;
     const int sx = px + ox;
-    const bool inside = sy >= 0 && sy < height && sx >= 0 && sx < width;
+    const bool inside = sy >= 0 && sy < psf_height && sx >= 0 && sx < width;
     const int64_t src = static_cast<int64_t>(sy) * width + sx;
     float integ = 0.0f;
     float sq = 0.0f;
     for (int n = 0; n < n_images; ++n) {
       const int c = n / n_pols;
       const int pol = n - c * n_pols;
-      const float shifted = inside ? psf[c * plane + src] : 0.0f;
+      const float shifted = inside ? psf[c * psf_plane + src] : 0.0f;
       float* r = res + n * plane + p;
       const float v = __fsub_rn(*r, __fmul_rn(values[n], shifted));
       *r = v;
@@ -274,33 +289,39 @@ int hogbom_step(float* res, float* model, const float* psf,
                 const float* weight, const float* coefs, const float* values,
                 const int* state, float* part_cmp, int* part_idx,
                 float* part_integ, int n_parts, int n_images, int n_pols,
-                int height, int width, int pixels_per_block, int mode,
-                int allow_negative, void* stream) {
+                int height, int width, int psf_height, int row_offset,
+                int pixels_per_block, int mode, int allow_negative,
+                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool row_shard = row_offset != 0 || psf_height != height;
 #define RADLER_STEP_ARGS                                                  \
   res, model, psf, weight, coefs, values, state, part_cmp, part_idx,      \
-      part_integ, n_images, n_pols, height, width, pixels_per_block,      \
-      allow_negative
+      part_integ, n_images, n_pols, height, width, psf_height,            \
+      row_offset, pixels_per_block, allow_negative
+#define RADLER_STEP_LAUNCH(MODE)                                          \
+  if (row_shard)                                                          \
+    hogbom_step_kernel<MODE, true><<<n_parts, kStepThreads, 0, s>>>(      \
+        RADLER_STEP_ARGS);                                                \
+  else                                                                    \
+    hogbom_step_kernel<MODE, false><<<n_parts, kStepThreads, 0, s>>>(     \
+        RADLER_STEP_ARGS)
   switch (mode) {
     case kSigned:
-      hogbom_step_kernel<kSigned><<<n_parts, kStepThreads, 0, s>>>(
-          RADLER_STEP_ARGS);
+      RADLER_STEP_LAUNCH(kSigned);
       break;
     case kLinear:
-      hogbom_step_kernel<kLinear><<<n_parts, kStepThreads, 0, s>>>(
-          RADLER_STEP_ARGS);
+      RADLER_STEP_LAUNCH(kLinear);
       break;
     case kNormal:
-      hogbom_step_kernel<kNormal><<<n_parts, kStepThreads, 0, s>>>(
-          RADLER_STEP_ARGS);
+      RADLER_STEP_LAUNCH(kNormal);
       break;
     case kSquared:
-      hogbom_step_kernel<kSquared><<<n_parts, kStepThreads, 0, s>>>(
-          RADLER_STEP_ARGS);
+      RADLER_STEP_LAUNCH(kSquared);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef RADLER_STEP_LAUNCH
 #undef RADLER_STEP_ARGS
   return static_cast<int>(cudaGetLastError());
 }

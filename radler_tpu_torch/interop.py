@@ -2,8 +2,10 @@
 
 ``radler_tpu`` objects are read by duck typing, so this module imports
 nothing of JAX: a ``radler_tpu.Settings`` (or any object with the same
-fields) becomes the port's :class:`~radler_tpu_torch.settings.Settings`, and
-a ``radler_tpu`` ``CubeMeta`` the port's.  Arrays cross as NumPy.
+fields) becomes the port's :class:`~radler_tpu_torch.settings.Settings`, a
+``radler_tpu`` ``CubeMeta`` the port's, and a JAX ``("chan", "tile")`` mesh
+the port's :class:`~radler_tpu_torch.parallel.mesh.Mesh`.  Arrays cross as
+NumPy.
 """
 
 from __future__ import annotations
@@ -11,8 +13,11 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+import torch
+
 from . import settings as _settings
 from .image_set import CubeMeta
+from .parallel.mesh import Mesh
 
 
 def _convert(value):
@@ -42,3 +47,11 @@ def settings_from_reference(obj) -> _settings.Settings:
 def cube_meta_from_reference(meta) -> CubeMeta:
     """The port's ``CubeMeta`` from a ``radler_tpu.image_set.CubeMeta``."""
     return CubeMeta(**{name: getattr(meta, name) for name in CubeMeta._fields})
+
+
+def mesh_from_jax(mesh, device="cuda") -> Mesh:
+    """The port's ``Mesh`` of the same ``("chan", "tile")`` shape as
+    ``mesh``, a ``jax.sharding.Mesh`` (read through its ``shape``
+    mapping), with every shard on ``device``."""
+    shape = dict(mesh.shape)
+    return Mesh(int(shape["chan"]), int(shape["tile"]), torch.device(device))

@@ -166,6 +166,53 @@ def _integrate(planes: torch.Tensor, coefs: torch.Tensor, mode: str,
     return integ
 
 
+def _fold(terms: torch.Tensor) -> torch.Tensor:
+    """``terms[0] + terms[1] + ...`` summed left to right along dim 0."""
+    acc = terms[0]
+    for i in range(1, terms.shape[0]):
+        acc = acc + terms[i]
+    return acc
+
+
+def integrate_values(vals: torch.Tensor, mode: str, chan_coefs: torch.Tensor,
+                     pol_coefs: torch.Tensor,
+                     n_polarizations: int) -> torch.Tensor:
+    """The joined integration of one pixel's ``[N]`` values
+    (``hogbom_step.py:529-558`` of the JAX package): the mesh loop's signed
+    value at a found peak.  ``chan_coefs`` holds one coefficient per plane
+    in signed and linear mode, one per channel otherwise.  Left folds in the
+    kernels' order, so a chan x tile split with one plane per shard gives
+    B1's value bit for bit; squared mode takes B4's products
+    ``((v*v)*c)*p`` and the sqrt.  Returns a 0-d tensor."""
+    if mode in ("signed", "linear"):
+        return _fold(vals * chan_coefs)
+    cube = vals.view(-1, n_polarizations)
+    if mode == "squared":
+        return torch.sqrt(torch.clamp_min(
+            _fold((cube * cube * chan_coefs[:, None] * pol_coefs).view(-1)),
+            0.0))
+    if n_polarizations == 1:
+        per_chan = cube[:, 0]
+    else:
+        per_chan = torch.sqrt(torch.clamp_min(
+            _fold((cube * cube * pol_coefs).t()), 0.0))
+    return _fold(per_chan * chan_coefs)
+
+
+def add_at_peak(model: torch.Tensor, values: torch.Tensor,
+                local_y: torch.Tensor, x: torch.Tensor,
+                active: torch.Tensor) -> None:
+    """``model[:, local_y, x] += values`` when ``active`` and the row lies in
+    ``model``'s rows (a row shard holds the peak or does not); the kernels'
+    fused model update, as device ops."""
+    n, height, width = model.shape
+    own = active & (local_y >= 0) & (local_y < height)
+    at = (local_y.clamp(0, height - 1) * width + x).view(1)
+    flat_model = model.view(n, height * width)
+    cur = flat_model.index_select(1, at)[:, 0]
+    flat_model.index_copy_(1, at, torch.where(own, cur + values, cur)[:, None])
+
+
 def hogbom_step_reference(
     residual: torch.Tensor,
     model: torch.Tensor,
@@ -178,18 +225,17 @@ def hogbom_step_reference(
     mode: str,
     n_polarizations: int,
     allow_negative: bool,
+    row_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of :func:`hogbom_step`; reads nothing back to the host."""
     n, height, width = residual.shape
     dev = residual.device
     active = state[ACTIVE] != 0
     y, x = state[Y].long(), state[X].long()
-    at = (y * width + x).view(1)
-    flat_model = model.view(n, height * width)
-    cur = flat_model.index_select(1, at)[:, 0]
-    flat_model.index_copy_(1, at, torch.where(active, cur + values, cur)[:, None])
+    add_at_peak(model, values, y - row_offset, x, active)
     psf_indices = torch.arange(n, device=dev) // n_polarizations
-    new = subtract_psf_from_cube(residual, psfs, psf_indices, x, y, values)
+    new = subtract_psf_from_cube(residual, psfs, psf_indices, x, y, values,
+                                 row_offset)
     residual.copy_(torch.where(active, new, residual))
 
     integ = _integrate(residual, coefs, mode, n_polarizations).reshape(-1)
@@ -215,8 +261,6 @@ def hogbom_select_reference(
     host."""
     part_cmp, part_idx, part_integ = partials
     n, height, width = residual.shape
-    state = buffers.state
-    active = state[ACTIVE] != 0
     # Blocks hold ascending pixel ranges, so the first block attaining the
     # maximum holds the smallest flat index among equal maxima.
     best = torch.argmax(part_cmp).view(1)
@@ -225,7 +269,20 @@ def hogbom_select_reference(
     value = part_integ[best]
     if rms is not None:
         value = value * rms.reshape(-1)[idx]
-    found = cmp > FLT_MIN
+    raw = residual.view(n, -1).index_select(1, idx)[:, 0]
+    advance_state(buffers, params, cmp > FLT_MIN, value, idx, width, raw)
+
+
+def advance_state(buffers: LoopBuffers, params: LoopParams,
+                  found: torch.Tensor, value: torch.Tensor, idx: torch.Tensor,
+                  width: int, raw: torch.Tensor) -> None:
+    """The loop body's epilogue once the new peak is known (``found``,
+    its signed rms-weighted ``value``, flat ``idx``, all ``[1]``, and the
+    ``[N]`` residual values ``raw`` there): the divergence and stop tests,
+    the iteration count and the next gain-scaled component values, written
+    into ``buffers`` only while ``state[ACTIVE]`` is set."""
+    state = buffers.state
+    active = state[ACTIVE] != 0
     if params.divergence_limit != 0.0:
         bound = float(
             np.float32(params.initial_abs_peak)
@@ -250,7 +307,6 @@ def hogbom_select_reference(
     ])
     state.copy_(torch.where(active, new_state, state))
     buffers.value.copy_(torch.where(active, value, buffers.value))
-    raw = residual.view(n, -1).index_select(1, idx)[:, 0]
     buffers.peak.copy_(torch.where(active, raw, buffers.peak))
     buffers.values.copy_(torch.where(active, raw * params.gain, buffers.values))
 
@@ -270,7 +326,7 @@ def _lib():
 
         lib = _build.library()
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hogbom_step.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
+        lib.hogbom_step.argtypes = [ptr] * 10 + [i32] * 10 + [ptr]
         lib.hogbom_step.restype = i32
         lib.hogbom_select.argtypes = (
             [ptr] * 3 + [i32] + [ptr] * 2 + [i32] * 3 + [ptr] * 4
@@ -312,27 +368,35 @@ def hogbom_step(
     mode: str,
     n_polarizations: int,
     allow_negative: bool,
+    row_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Add ``values`` to ``model`` at the peak in ``state``, subtract the
     shifted PSFs from ``residual`` (both in place) and return the per-block
     partials ``(cmp, idx, integ)``.  A no-op when ``state[ACTIVE]`` is 0.
 
     ``residual`` and ``model`` are ``[N, H, W]``, ``psfs`` the un-padded
-    ``[C, H, W]`` PSFs (plane n uses PSF ``n // n_polarizations``),
+    ``[C, H_psf, W]`` PSFs (plane n uses PSF ``n // n_polarizations``),
     ``coefs`` the :func:`kernel_coefficients`, ``weight`` the optional
-    ``[H, W]`` peak-search weight.
+    ``[H, W]`` peak-search weight.  A row shard of a taller image passes
+    its first image row as ``row_offset`` and the PSFs at the image's full
+    height ``H_psf``; the peak in ``state`` is in image rows, and the
+    partials' indices are flat indices within the shard.
     """
     args = (residual, model, psfs, values, state, coefs, weight)
     kw = dict(mode=mode, n_polarizations=n_polarizations,
-              allow_negative=allow_negative)
+              allow_negative=allow_negative, row_offset=row_offset)
     if residual.device.type == "cpu":
         return hogbom_step_reference(*args, **kw)
     if residual.device.type != "cuda":
         raise ValueError(f"hogbom_step: unsupported device {residual.device}")
     n, height, width = residual.shape
     n_chan = n // n_polarizations
-    if n_chan * n_polarizations != n or height * width >= 2**31:
-        raise ValueError(f"hogbom_step: bad cube shape {tuple(residual.shape)}")
+    psf_height = psfs.shape[1] if psfs.ndim == 3 else -1
+    if (n_chan * n_polarizations != n or psf_height * width >= 2**31
+            or not 0 <= row_offset <= psf_height - height):
+        raise ValueError(
+            f"hogbom_step: bad cube shape {tuple(residual.shape)} at row "
+            f"{row_offset} of PSFs {tuple(psfs.shape)}")
     if mode == "signed" and n != 1:
         raise ValueError("hogbom_step: signed mode takes one plane")
     n_coefs = n + (n_chan if mode == "normal" else 0)
@@ -344,7 +408,7 @@ def hogbom_step(
     ptrs = [
         _check(residual, "residual", dev, (n, height, width), f32),
         _check(model, "model", dev, (n, height, width), f32),
-        _check(psfs, "psfs", dev, (n_chan, height, width), f32),
+        _check(psfs, "psfs", dev, (n_chan, psf_height, width), f32),
         _check(weight, "weight", dev, (height, width), f32),
         _check(coefs, "coefs", dev, (n_coefs,), f32),
         _check(values, "values", dev, (n,), f32),
@@ -357,8 +421,9 @@ def hogbom_step(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hogbom_step(
-            *ptrs, n_parts, n, n_polarizations, height, width,
-            PIXELS_PER_BLOCK, MODES.index(mode), int(allow_negative), stream,
+            *ptrs, n_parts, n, n_polarizations, height, width, psf_height,
+            row_offset, PIXELS_PER_BLOCK, MODES.index(mode),
+            int(allow_negative), stream,
         )
     _raise_on(err, "hogbom_step")
     hogbom_step.launches += 1
@@ -427,6 +492,78 @@ class LoopResult(NamedTuple):
     diverging: bool
 
 
+def fitted_values(fitter, raw: torch.Tensor, index: torch.Tensor,
+                  gain: float, n_channels: int,
+                  n_polarizations: int) -> torch.Tensor:
+    """The spectral fit of the raw peak values ``raw`` at the flat pixel
+    ``index`` (``[1]``), gain-scaled: the loop body's
+    ``fit_and_evaluate(...) * gain``, without a host read (forced terms are
+    gathered by ``index_select``, not by indexing with a device scalar)."""
+    forced = None
+    if fitter._forced_terms is not None:
+        terms = fitter._forced_terms
+        forced = terms.reshape(terms.shape[0], -1).index_select(
+            1, index.long())[:, 0]
+    vals = fitter.fit_and_evaluate(raw.view(n_channels, n_polarizations),
+                                   forced_terms=forced)
+    return vals.reshape(-1) * gain
+
+
+def start_loop(residual: torch.Tensor, peak0: Tuple[float, int, int, bool],
+               params: LoopParams, start_iteration: int, *, meta,
+               fitter=None) -> Tuple[LoopBuffers, bool]:
+    """The loop state at the initial peak ``peak0`` = (value, x, y, found),
+    on the residual's device, and whether the first iteration runs (the
+    loop condition, evaluated on the host)."""
+    width = residual.shape[-1]
+    value0, x0, y0, found0 = peak0
+    value0 = float(np.float32(value0))
+    active0 = (
+        found0
+        and abs(value0) > params.first_threshold
+        and start_iteration < params.max_iterations
+        and (value0 >= 0.0 or not params.stop_on_negative)
+    )
+    dev = residual.device
+    state = torch.tensor(
+        [y0, x0, int(found0), 0, start_iteration, int(active0),
+         y0 * width + x0, 0],
+        dtype=torch.int32, device=dev,
+    )
+    raw = residual[:, y0, x0].clone()
+    buffers = LoopBuffers(
+        state=state,
+        value=torch.tensor([value0], dtype=torch.float32, device=dev),
+        peak=raw,
+        values=raw * params.gain,
+    )
+    if fitter is not None:
+        buffers.values = fitted_values(
+            fitter, raw, state[INDEX:INDEX + 1], params.gain,
+            meta.n_channels, meta.n_polarizations)
+    return buffers, active0
+
+
+def run_chunks(iterate, buffers: LoopBuffers, params: LoopParams,
+               start_iteration: int, active: bool) -> LoopResult:
+    """Call ``iterate()`` (one loop iteration, enqueued on the device and a
+    no-op once ``state[ACTIVE]`` is 0) ``CHUNK`` times between two host
+    reads of the state, until the loop stops; return its result."""
+    iteration = start_iteration
+    while active:
+        for _ in range(min(CHUNK, params.max_iterations - iteration)):
+            iterate()
+        host = buffers.state.tolist()
+        iteration, active = host[ITERATION], bool(host[ACTIVE])
+    host = buffers.state.tolist()
+    return LoopResult(
+        iteration=host[ITERATION],
+        value=float(buffers.value.item()),
+        found=bool(host[FOUND]),
+        diverging=bool(host[DIVERGING]),
+    )
+
+
 def hogbom_loop(
     residual: torch.Tensor,  # [N, H, W], updated in place
     model: torch.Tensor,  # [N, H, W], updated in place
@@ -452,7 +589,6 @@ def hogbom_loop(
     (the spectral fit, when a fitter is active); the host reads the state
     once per ``CHUNK`` iterations.
     """
-    n, height, width = residual.shape
     dev = residual.device
     mode, chan_np, pol_np = integration_coefficients(meta)
     coefs = torch.as_tensor(kernel_coefficients(mode, chan_np, pol_np),
@@ -460,59 +596,19 @@ def hogbom_loop(
     step = hogbom_step_reference if plain else hogbom_step
     select = hogbom_select_reference if plain else hogbom_select
     C, P = meta.n_channels, meta.n_polarizations
+    buffers, active0 = start_loop(residual, peak0, params, start_iteration,
+                                  meta=meta, fitter=fitter)
 
-    def fitted_values(raw: torch.Tensor) -> torch.Tensor:
-        """The fit of the raw peak values, gain-scaled (the loop body's
-        ``fit_and_evaluate(...) * gain``), without a host read."""
-        forced = None
-        if fitter._forced_terms is not None:
-            terms = fitter._forced_terms
-            forced = terms.reshape(terms.shape[0], -1).index_select(
-                1, buffers.state[INDEX:INDEX + 1].long()
-            )[:, 0]
-        vals = fitter.fit_and_evaluate(raw.view(C, P), forced_terms=forced)
-        return vals.reshape(-1) * params.gain
+    def iterate():
+        partials = step(
+            residual, model, psfs, buffers.values, buffers.state, coefs,
+            weight, mode=mode, n_polarizations=P,
+            allow_negative=allow_negative,
+        )
+        select(partials, residual, buffers, params, rms)
+        if fitter is not None:
+            buffers.values.copy_(fitted_values(
+                fitter, buffers.peak, buffers.state[INDEX:INDEX + 1],
+                params.gain, C, P))
 
-    value0, x0, y0, found0 = peak0
-    value0 = float(np.float32(value0))
-    active0 = (
-        found0
-        and abs(value0) > params.first_threshold
-        and start_iteration < params.max_iterations
-        and (value0 >= 0.0 or not params.stop_on_negative)
-    )
-    state = torch.tensor(
-        [y0, x0, int(found0), 0, start_iteration, int(active0),
-         y0 * width + x0, 0],
-        dtype=torch.int32, device=dev,
-    )
-    raw = residual[:, y0, x0].clone()
-    buffers = LoopBuffers(
-        state=state,
-        value=torch.tensor([value0], dtype=torch.float32, device=dev),
-        peak=raw,
-        values=raw * params.gain,
-    )
-    if fitter is not None:
-        buffers.values = fitted_values(raw)
-
-    iteration, active = start_iteration, active0
-    while active:
-        for _ in range(min(CHUNK, params.max_iterations - iteration)):
-            partials = step(
-                residual, model, psfs, buffers.values, buffers.state, coefs,
-                weight, mode=mode, n_polarizations=P,
-                allow_negative=allow_negative,
-            )
-            select(partials, residual, buffers, params, rms)
-            if fitter is not None:
-                buffers.values.copy_(fitted_values(buffers.peak))
-        host = buffers.state.tolist()
-        iteration, active = host[ITERATION], bool(host[ACTIVE])
-    host = buffers.state.tolist()
-    return LoopResult(
-        iteration=host[ITERATION],
-        value=float(buffers.value.item()),
-        found=bool(host[FOUND]),
-        diverging=bool(host[DIVERGING]),
-    )
+    return run_chunks(iterate, buffers, params, start_iteration, active0)

@@ -48,6 +48,9 @@ class DeconvolutionAlgorithm:
         self.iteration_number: int = 0
         self.spectral_fitter: Optional[SpectralFitter] = None
         self.n_polarizations: int = 1
+        # A ("chan", "tile") mesh (parallel/mesh.py) whose shards the minor
+        # loop runs on, or None for the single-device loop.
+        self.device_mesh = None
 
     # -- configuration ----------------------------------------------------
     def set_spectral_fitter(self, fitter: SpectralFitter, n_polarizations: int):

@@ -1,12 +1,14 @@
 """Generic (Högbom/Clark) CLEAN with joined channels & polarizations.
 
 Port of ``radler_tpu.models.generic_clean``
-(``cpp/algorithms/generic_clean.{h,cc}``) for one device: the initial peak
-search on the linear integration, the major-loop threshold, then either the
-Clark subminor loop of :class:`radler_tpu_torch.models.subminor.SubMinorLoop`
-followed by one FFT residual correction, or the Högbom minor loop of
-:func:`radler_tpu_torch.kernels.hogbom_step.hogbom_loop`.  Both run their
-CUDA kernels on CUDA tensors and the kernels' plain PyTorch versions on CPU
+(``cpp/algorithms/generic_clean.{h,cc}``): the initial peak search on the
+linear integration, the major-loop threshold, then either the Clark subminor
+loop of :class:`radler_tpu_torch.models.subminor.SubMinorLoop` followed by
+one FFT residual correction, or the Högbom minor loop of
+:func:`radler_tpu_torch.kernels.hogbom_step.hogbom_loop`, or, with a device
+mesh, its partitioned form
+:func:`radler_tpu_torch.parallel.mesh.mesh_hogbom_loop`.  All run their CUDA
+kernels on CUDA tensors and the kernels' plain PyTorch versions on CPU
 tensors.
 """
 
@@ -19,6 +21,7 @@ from ..image_set import CubeMeta, get_linear_integrated
 from ..kernels.hogbom_step import LoopParams, hogbom_loop
 from ..ops.convolution import untrim
 from ..ops.peak_finder import border_from_ratio, find_peak, window_mask
+from ..parallel.mesh import mesh_hogbom_loop, mesh_pallas_eligible
 from ..settings import OptimizationAlgorithm, SpectralFittingMode
 from .base import DeconvolutionAlgorithm, DeconvolutionResult
 from .subminor import SubMinorLoop, choose_padded_size
@@ -74,6 +77,7 @@ class GenericClean(DeconvolutionAlgorithm):
     ) -> DeconvolutionResult:
         meta: CubeMeta = dirty_set.meta
         width, height = dirty_set.width, dirty_set.height
+        mesh = self._active_mesh(meta, height)
         iteration_counter_at_start = self.iteration_number
         if self.stop_on_negative_components:
             self.allow_negative_components = True
@@ -118,8 +122,8 @@ class GenericClean(DeconvolutionAlgorithm):
             if self.spectral_fitter is not None and self.spectral_fitter.is_active
             else None
         )
-        if self.use_sub_minor_optimization and self._clark_runs(
-            dirty_set.data.device, fit, height, width
+        if mesh is None and self.use_sub_minor_optimization and (
+            self._clark_runs(dirty_set.data.device, fit, height, width)
         ):
             return self._run_clark(
                 dirty_set,
@@ -131,7 +135,7 @@ class GenericClean(DeconvolutionAlgorithm):
                 result,
             )
         rms = self.rms_factor_image
-        out = hogbom_loop(
+        args = (
             dirty_set.data,
             model_set.data,
             psfs.contiguous(),
@@ -147,10 +151,13 @@ class GenericClean(DeconvolutionAlgorithm):
                 self.stop_on_negative_components,
             ),
             self.iteration_number,
-            meta=meta,
-            allow_negative=self.allow_negative_components,
-            fitter=fit,
         )
+        kwargs = dict(meta=meta, allow_negative=self.allow_negative_components,
+                      fitter=fit)
+        if mesh is not None:
+            out = mesh_hogbom_loop(mesh, *args, **kwargs)
+        else:
+            out = hogbom_loop(*args, **kwargs)
         self.iteration_number = out.iteration
         return self._finish_result(
             result,
@@ -159,6 +166,32 @@ class GenericClean(DeconvolutionAlgorithm):
             iteration_counter_at_start,
             major_iter_threshold,
         )
+
+    def _active_mesh(self, meta: CubeMeta, height: int):
+        """The device mesh the minor loop runs on, or None for one device
+        (no mesh, or a mesh of one shard).  The JAX package's routes that
+        the port has not carried raise (``generic_clean.py:366-391,
+        457-509``)."""
+        mesh = self.device_mesh
+        if mesh is None or mesh.size == 1:
+            return None
+        if self.use_sub_minor_optimization:
+            raise NotImplementedError(
+                "the mesh Clark subminor loop (radler_tpu/parallel/mesh.py:"
+                "488-752) is not ported yet; ROADMAP queue A, item 7 brings "
+                "it. The mesh runs the Högbom loop: set "
+                "settings.generic.use_sub_minor_optimization = False."
+            )
+        if not mesh_pallas_eligible(mesh, meta, height):
+            raise NotImplementedError(
+                f"a {mesh.chan} x {mesh.tile} (chan x tile) mesh needs the "
+                f"{meta.n_images} planes to divide over chan without "
+                f"splitting a group of {meta.n_polarizations} polarizations "
+                f"and the {height} rows to divide over tile; the JAX "
+                "package's XLA-partitioned fallback for other shapes is not "
+                "ported (ROADMAP queue A, item 7)."
+            )
+        return mesh
 
     @staticmethod
     def _clark_runs(device, fit, height: int, width: int) -> bool:

@@ -1,0 +1,316 @@
+"""The ("chan", "tile") mesh and the mesh-partitioned Högbom minor loop.
+
+Port of ``radler_tpu.parallel.mesh`` (``make_mesh``, ``mesh_pallas_eligible``
+and ``mesh_hogbom_loop``).  The ``[N, H, W]`` cube is laid out over
+``chan x tile`` shards: the planes over ``"chan"``, the image rows over
+``"tile"``.  Each minor iteration runs one kernel launch per shard, and the
+reference's thread-pool exchanges (``parallel_deconvolution.cc:592-617``)
+become the collectives below:
+
+* with a channel split (``chan > 1``) every shard runs kernel B4
+  (:mod:`radler_tpu_torch.kernels.subtract_integrate`), and the joined
+  integration is the sum of the shards' parts over ``"chan"``, followed by
+  the weighted argmax of each tile's rows;
+* without one, every shard holds all planes of its rows and runs kernel B1
+  (:mod:`radler_tpu_torch.kernels.hogbom_step`) with its row offset, which
+  integrates and reduces the shard itself;
+* the global peak is a max pair over the shards (:func:`argmax_over_shards`),
+  and its ``[N]`` values a masked read, a sum over ``"tile"`` and a gather
+  over ``"chan"`` (:func:`read_pixel`).
+
+In this version every shard lives on the one device the mesh names: the
+shards are the blocks of a ``[chan, tile, N_loc, H_loc, W]`` tensor, and
+each collective is a tensor op over the shard axes, the counterpart of the
+JAX package's virtual CPU mesh.  Spreading the shards over several cards
+replaces only :func:`place`, :func:`unplace` and the collectives.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..kernels.hogbom_step import (
+    INDEX,
+    LoopParams,
+    LoopResult,
+    advance_state,
+    fitted_values,
+    hogbom_step,
+    hogbom_step_reference,
+    integrate_values,
+    integration_coefficients,
+    kernel_coefficients,
+    run_chunks,
+    start_loop,
+)
+from ..kernels.subtract_integrate import (
+    plane_coefficients,
+    subtract_integrate,
+    subtract_integrate_reference,
+)
+from ..ops.peak_finder import FLT_MIN
+from ..utils.device_consts import device_const
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A ``chan x tile`` mesh of shards, all held by ``device``."""
+
+    chan: int
+    tile: int
+    device: torch.device
+
+    @property
+    def size(self) -> int:
+        return self.chan * self.tile
+
+
+def make_mesh(n_devices: int, n_channels: Optional[int] = None,
+              device="cuda") -> Mesh:
+    """A ``("chan", "tile")`` mesh of ``n_devices`` shards on ``device``.
+
+    Channel-major, as in the JAX package (``mesh.py:25-61``): ``"chan"``
+    takes the largest factor of ``n_devices`` that divides the channel
+    count, so that channels, not rows, are split first; with the count
+    unknown, 4 or 2 when that leaves more than one tile.  ``"tile"`` takes
+    the rest.
+    """
+    n = int(n_devices)
+    if n < 1:
+        raise ValueError(f"make_mesh: n_devices must be at least 1, got {n}")
+    chan = 1
+    if n_channels is not None:
+        chan = max(d for d in range(1, n + 1)
+                   if n % d == 0 and n_channels % d == 0)
+    else:
+        for candidate in (4, 2):
+            if n % candidate == 0 and n // candidate > 1:
+                chan = candidate
+                break
+    return Mesh(chan, n // chan, torch.device(device))
+
+
+def mesh_pallas_eligible(mesh: Mesh, meta, height: int) -> bool:
+    """Whether :func:`mesh_hogbom_loop` can run this cube: the planes divide
+    over ``"chan"`` without splitting a polarization group, and the rows
+    divide over ``"tile"``.  (The JAX package's 8-row and 128-lane gates
+    are TPU tiling constraints that the card does not have.)"""
+    n = meta.n_images
+    if n % mesh.chan != 0 or (n // mesh.chan) % meta.n_polarizations != 0:
+        return False
+    return height % mesh.tile == 0
+
+
+# ---------------------------------------------------------------------------
+# Placement and collectives: what a multi-card mesh replaces
+# ---------------------------------------------------------------------------
+
+
+def _shard_view(cube: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    n, height, width = cube.shape
+    return cube.view(mesh.chan, n // mesh.chan, mesh.tile,
+                     height // mesh.tile, width).transpose(1, 2)
+
+
+def place(cube: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The ``[N, H, W]`` cube as ``[chan, tile, N_loc, H_loc, W]`` shards,
+    each one contiguous block (a view of ``cube`` where its layout already
+    is that: one plane per shard, or one tile)."""
+    return _shard_view(cube, mesh).contiguous()
+
+
+def unplace(shards: torch.Tensor, cube: torch.Tensor, mesh: Mesh) -> None:
+    """Write the shards back into the ``[N, H, W]`` cube they came from."""
+    if shards.data_ptr() != cube.data_ptr():
+        _shard_view(cube, mesh).copy_(shards)
+
+
+def psum_chan(parts: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The sum over ``"chan"`` of the shards' ``[chan, tile, H_loc, W]``
+    integration parts, into ``out`` ``[tile, H_loc, W]``: a left fold in
+    shard order, ``((p0 + p1) + p2) + ...``, so that one plane per shard
+    adds in B1's own order."""
+    torch.add(parts[0], parts[1], out=out)
+    for c in range(2, parts.shape[0]):
+        out.add_(parts[c])
+    return out
+
+
+def argmax_over_shards(lmax: torch.Tensor,
+                       gidx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``pmax`` pair of ``mesh.py:334-336`` over the shards' local
+    maxima and their global flat indices: the global maximum and, among the
+    shards that attain it, the LARGEST index (each shard's own argmax took
+    its smallest).  Returns 0-d tensors."""
+    gmax = lmax.max()
+    return gmax, torch.where(lmax >= gmax, gidx, -1).max()
+
+
+def read_pixel(shards: torch.Tensor, base: torch.Tensor, y: torch.Tensor,
+               x: torch.Tensor, row_starts: torch.Tensor) -> torch.Tensor:
+    """The values at image pixel (y, x) of row-sharded ``shards``
+    ``[..., tile, K, H_loc, W]``: each shard reads its rows' value (0 where
+    it does not hold row y), and the reads are summed over ``"tile"``
+    (``values_at`` and ``image_at``, ``mesh.py:235-250``).  Returns
+    ``[..., K]``, whose flattening is the gather over ``"chan"``.  ``base``
+    is :func:`pixel_base` of ``shards``."""
+    height_local, width = shards.shape[-2:]
+    local_y = y - row_starts
+    own = (local_y >= 0) & (local_y < height_local)
+    at = local_y.clamp(0, height_local - 1) * width + x
+    vals = torch.take(shards, base + at[:, None])
+    return torch.where(own[:, None], vals, 0.0).sum(-2)
+
+
+def pixel_base(shards: torch.Tensor) -> torch.Tensor:
+    """The flat offset of every ``[H_loc, W]`` plane of ``shards``
+    ``[..., tile, K, H_loc, W]``, shaped ``[..., tile, K]``, on its device."""
+    plane = shards.shape[-2] * shards.shape[-1]
+    count = shards.numel() // plane
+    return (torch.arange(count, device=shards.device) * plane).view(
+        shards.shape[:-2])
+
+
+# ---------------------------------------------------------------------------
+# The loop
+# ---------------------------------------------------------------------------
+
+
+def _index_device(device: torch.device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current CUDA device."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def mesh_hogbom_loop(
+    mesh: Mesh,
+    residual: torch.Tensor,  # [N, H, W], updated in place
+    model: torch.Tensor,  # [N, H, W], updated in place
+    psfs: torch.Tensor,  # [C, H, W] centered PSFs at image size
+    weight: Optional[torch.Tensor],  # [H, W] mask x border x rms, or None
+    rms: Optional[torch.Tensor],  # [H, W] rms factor, or None
+    peak0: Tuple[float, int, int, bool],  # (value, x, y, found)
+    params: LoopParams,
+    start_iteration: int,
+    *,
+    meta,
+    allow_negative: bool,
+    fitter=None,
+    plain: bool = False,
+) -> LoopResult:
+    """The Högbom minor loop partitioned over ``mesh``, with the contract
+    of the JAX package's ``mesh_hogbom_loop`` and the arguments of
+    :func:`radler_tpu_torch.kernels.hogbom_step.hogbom_loop`.
+
+    On CUDA tensors the shards run the kernels (``plain`` runs their plain
+    versions, for comparison); on CPU tensors the plain versions.  The loop
+    state stays on the device, read once per ``CHUNK`` iterations.  Its
+    semantics are the JAX mesh loop's, which may differ from the
+    single-device loop's: among tiles with equal maxima the largest flat
+    index wins; with a channel split and squared joins the comparison image
+    is the summed part times weight^2 (no sqrt, no abs) and a peak is found
+    when it exceeds 0; the peak's value is the joined integration of its
+    gathered ``[N]`` values times the rms factor there.
+    """
+    n, height, width = residual.shape
+    if not mesh_pallas_eligible(mesh, meta, height):
+        raise ValueError(
+            f"mesh_hogbom_loop: {n} planes of {meta.n_polarizations} "
+            f"polarizations and {height} rows do not divide over a "
+            f"{mesh.chan} x {mesh.tile} mesh")
+    if residual.device != _index_device(mesh.device):
+        raise ValueError(f"mesh_hogbom_loop: the cube is on "
+                         f"{residual.device}, the mesh on {mesh.device}")
+    chan, tile = mesh.chan, mesh.tile
+    n_loc, h_loc = n // chan, height // tile
+    P = meta.n_polarizations
+    c_loc = n_loc // P
+    dev = residual.device
+    mode, chan_np, pol_np = integration_coefficients(meta)
+    complete = chan == 1  # each shard holds every plane of its rows
+
+    res_sh = place(residual, mesh)
+    mod_sh = place(model, mesh)
+    def rows(img):
+        return None if img is None else img.view(tile, h_loc, width)
+
+    weight_sh = rows(weight)
+    if weight_sh is not None and mode == "squared" and not complete:
+        # argmax of sqrt(s)·w is argmax of s·w² (w >= 0): no sqrt pass.
+        weight_sh = weight_sh * weight_sh
+    rms_sh = rows(rms)
+    row_starts = torch.arange(tile, device=dev) * h_loc
+    first_index = row_starts * width
+    res_base = pixel_base(res_sh)
+    rms_base = None if rms is None else pixel_base(rms_sh[:, None])
+    chan_coefs = device_const(chan_np, dev)
+    pol_coefs = device_const(pol_np, dev)
+    if complete:
+        step = hogbom_step_reference if plain else hogbom_step
+        coefs = device_const(kernel_coefficients(mode, chan_np, pol_np), dev)
+    else:
+        step = subtract_integrate_reference if plain else subtract_integrate
+        coefs = device_const(plane_coefficients(mode, chan_np, P),
+                             dev).view(chan, n_loc)
+        parts = torch.zeros((chan, tile, h_loc, width), device=dev)
+        integ = torch.empty((tile, h_loc, width), device=dev)
+    buffers, active0 = start_loop(residual, peak0, params, start_iteration,
+                                  meta=meta, fitter=fitter)
+    state = buffers.state
+
+    def shard_maxima():
+        """Each tile's local maximum and its global flat index."""
+        if complete:
+            partials = [
+                step(res_sh[0, t], mod_sh[0, t], psfs, buffers.values, state,
+                     coefs, None if weight_sh is None else weight_sh[t],
+                     mode=mode, n_polarizations=P,
+                     allow_negative=allow_negative, row_offset=t * h_loc)
+                for t in range(tile)
+            ]
+            # Blocks hold ascending pixel ranges: the first block with the
+            # maximum holds the tile's smallest index among equal maxima.
+            lmax, best = torch.stack([p[0] for p in partials]).max(dim=1)
+            lidx = torch.stack([p[1] for p in partials]).gather(
+                1, best[:, None])[:, 0]
+            return lmax, lidx.long() + first_index, FLT_MIN
+        for c in range(chan):
+            for t in range(tile):
+                step(res_sh[c, t], mod_sh[c, t],
+                     psfs[c * c_loc:(c + 1) * c_loc],
+                     buffers.values[c * n_loc:(c + 1) * n_loc], state,
+                     coefs[c], pol_coefs, parts[c, t], mode=mode,
+                     n_polarizations=P, row_offset=t * h_loc)
+        psum_chan(parts, integ)
+        cmp = integ if weight_sh is None else integ * weight_sh
+        floor = 0.0
+        if mode != "squared":
+            cmp = cmp.abs() if allow_negative else cmp
+            floor = FLT_MIN
+        lmax, lidx = cmp.view(tile, -1).max(dim=1)  # first of equal maxima
+        return lmax, lidx + first_index, floor
+
+    def iterate():
+        lmax, gidx, floor = shard_maxima()
+        gmax, gsel = argmax_over_shards(lmax, gidx)
+        y, x = gsel // width, gsel % width
+        raw = read_pixel(res_sh, res_base, y, x, row_starts).reshape(-1)
+        value = integrate_values(raw, mode, chan_coefs, pol_coefs, P)
+        if rms_sh is not None:
+            value = value * read_pixel(rms_sh[:, None], rms_base, y, x,
+                                       row_starts)[0]
+        advance_state(buffers, params, (gmax > floor).view(1), value.view(1),
+                      gsel.view(1), width, raw)
+        if fitter is not None:
+            buffers.values.copy_(fitted_values(
+                fitter, buffers.peak, state[INDEX:INDEX + 1], params.gain,
+                meta.n_channels, P))
+
+    result = run_chunks(iterate, buffers, params, start_iteration, active0)
+    unplace(res_sh, residual, mesh)
+    unplace(mod_sh, model, mesh)
+    return result

@@ -47,6 +47,7 @@ from .models.iuwt import IuwtDeconvolution
 from .ops import rms_image as rms_ops
 from .ops.noise import median_and_stddev_from_mad
 from .ops.spectral_fitting import create_spectral_fitter
+from .parallel.mesh import Mesh, make_mesh
 from .parallel.parallel_deconvolution import ParallelDeconvolution
 from .utils import logging as log
 
@@ -236,11 +237,6 @@ class Radler:
                 "not ported yet; ROADMAP queue A, item "
                 f"{_PENDING_ALGORITHMS[settings.algorithm_type]} brings it."
             )
-        if settings.parallel.use_device_mesh:
-            raise NotImplementedError(
-                "a device mesh (settings.parallel.use_device_mesh) is not "
-                "ported yet; ROADMAP queue A, item 7 brings multi-GPU."
-            )
         algorithm: DeconvolutionAlgorithm
         if settings.algorithm_type == AlgorithmType.IUWT:
             algorithm = IuwtDeconvolution()
@@ -261,11 +257,32 @@ class Radler:
         algorithm.set_spectral_fitter(
             create_spectral_fitter(settings, table), n_polarizations
         )
+        if settings.parallel.use_device_mesh:
+            algorithm.device_mesh = self._make_mesh(table)
         self._parallel.set_algorithm(algorithm)
 
         if settings.spectral_fitting.mode == SpectralFittingMode.FORCED_TERMS:
             self._read_forced_spectrum_images()
         self._read_mask(table)
+
+    def _make_mesh(self, table: WorkTable) -> Mesh:
+        """The ("chan", "tile") mesh of ``settings.parallel.n_devices``
+        shards, or of the visible devices of the run's type when that is 0
+        (``cpp/radler.cc``'s thread pool; ``radler.py:263-269`` of the JAX
+        package).  Every shard lives on the run's device."""
+        settings = self.settings
+        n = settings.parallel.n_devices or (
+            torch.cuda.device_count() if self._device.type == "cuda" else 1
+        )
+        mesh = make_mesh(n, n_channels=len(table.deconvolution_groups),
+                         device=self._device)
+        if mesh.size > 1 and settings.algorithm_type == AlgorithmType.IUWT:
+            raise NotImplementedError(
+                "IUWT on a device mesh (settings.parallel.use_device_mesh "
+                f"with {mesh.size} shards) is not ported yet; ROADMAP queue "
+                "A, item 7 brings it."
+            )
+        return mesh
 
     # ------------------------------------------------------------------
     def free_deconvolution_algorithms(self) -> None:

@@ -525,3 +525,210 @@ def test_perform_iuwt_two_channels_on_card_matches_cpu(cuda):
                                cpu_model.sum(axis=(1, 2)), rtol=1e-3)
     flux = card_model.sum(axis=(1, 2))
     assert flux[1] / flux[0] == pytest.approx(1.6, rel=0.1)
+
+
+# ---------------------------------------------------------------------------
+# B4 (the mesh loop's shard-local step) and B1 on row shards
+# ---------------------------------------------------------------------------
+
+from radler_tpu_torch.kernels import subtract_integrate as si  # noqa: E402
+from radler_tpu_torch.parallel import mesh as pm  # noqa: E402
+
+SHARD_ROWS = 64  # HEIGHT = 257 rows: shards start at rows 0, 64 and 193
+
+
+def shard_case(case, device, seed=0):
+    """``make_case`` plus the B4 coefficients of the case."""
+    c = make_case(case, device, seed)
+    mode, P = c["mode"], c["P"]
+    if mode == "linear":
+        chan, pol = linear_integration_coefficients(c["meta"]), np.ones(1)
+    else:
+        _, chan, pol = hs.integration_coefficients(c["meta"])
+    c["plane_coefs"] = torch.as_tensor(si.plane_coefficients(mode, chan, P),
+                                       device=device)
+    c["pol"] = torch.as_tensor(np.asarray(pol, np.float32), device=device)
+    return c
+
+
+def shard_peaks(r0):
+    """Peaks in, above and below the shard at row r0, and at the corners."""
+    return [(r0 + 7, 100), (max(r0 - 20, 0), 5), (min(r0 + SHARD_ROWS + 9,
+            HEIGHT - 1), WIDTH - 3), (0, 0), (0, WIDTH - 1),
+            (HEIGHT - 1, 0), (HEIGHT - 1, WIDTH - 1)]
+
+
+@pytest.mark.parametrize("r0", [0, 64, HEIGHT - SHARD_ROWS])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+def test_subtract_integrate_bit_equal_to_plain(cuda, case, r0):
+    c = shard_case(case, cuda)
+    values = torch.as_tensor(np.random.default_rng(1).uniform(
+        -0.5, 0.8, c["res"].shape[0]).astype(np.float32), device=cuda)
+    coefs = c["plane_coefs"]
+    for y, x in shard_peaks(r0):
+        state = torch.tensor([y, x, 1, 0, 0, 1, y * WIDTH + x, 0],
+                             dtype=torch.int32, device=cuda)
+        outs = []
+        for plain in (False, True):
+            res = c["res"][:, r0:r0 + SHARD_ROWS].clone()
+            model = torch.zeros_like(res)
+            part = torch.full((SHARD_ROWS, WIDTH), 3.0, device=cuda)
+            run = si.subtract_integrate_reference if plain else (
+                si.subtract_integrate)
+            run(res, model, c["psfs"], values, state, coefs, c["pol"], part,
+                mode=c["mode"], n_polarizations=c["P"], row_offset=r0)
+            torch.cuda.synchronize()
+            outs.append((res, model, part))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), (y, x)
+        assert bool(outs[0][1].any()) == (r0 <= y < r0 + SHARD_ROWS)
+
+
+@pytest.mark.parametrize("r0", [64, HEIGHT - SHARD_ROWS])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+def test_step_with_row_offset_bit_equal_to_plain(cuda, case, r0):
+    c = make_case(case, cuda)
+    values = torch.as_tensor(np.random.default_rng(2).uniform(
+        -0.5, 0.8, c["res"].shape[0]).astype(np.float32), device=cuda)
+    weight = c["weight"][r0:r0 + SHARD_ROWS].contiguous()
+    for y, x in shard_peaks(r0):
+        state = torch.tensor([y, x, 1, 0, 0, 1, y * WIDTH + x, 0],
+                             dtype=torch.int32, device=cuda)
+        outs = []
+        for plain in (False, True):
+            res = c["res"][:, r0:r0 + SHARD_ROWS].clone()
+            model = torch.zeros_like(res)
+            step = hs.hogbom_step_reference if plain else hs.hogbom_step
+            parts = step(res, model, c["psfs"], values, state, c["coefs"],
+                         weight, mode=c["mode"], n_polarizations=c["P"],
+                         allow_negative=True, row_offset=r0)
+            torch.cuda.synchronize()
+            outs.append((res, model, *parts))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), (y, x)
+
+
+def test_subtract_integrate_rejects_bad_inputs(cuda):
+    c = shard_case(("normal", 2, 4, False), cuda)
+    res = c["res"][:, :SHARD_ROWS].clone()
+    args = dict(model=torch.zeros_like(res), psfs=c["psfs"],
+                values=torch.ones(8, device=cuda),
+                state=torch.zeros(hs.STATE_SIZE, dtype=torch.int32,
+                                  device=cuda),
+                coefs=c["plane_coefs"], pol_coefs=c["pol"],
+                out=torch.empty(SHARD_ROWS, WIDTH, device=cuda))
+    kw = dict(mode="normal", n_polarizations=4)
+    with pytest.raises(ValueError):  # the model on the wrong device
+        si.subtract_integrate(res, **{**args, "model": args["model"].cpu()},
+                              **kw)
+    with pytest.raises(ValueError):  # a part of the wrong shape
+        si.subtract_integrate(res, **{**args, "out": args["out"][:-1]}, **kw)
+    with pytest.raises(ValueError):  # rows past the PSFs' height
+        si.subtract_integrate(res, row_offset=HEIGHT - SHARD_ROWS + 1,
+                              **args, **kw)
+    with pytest.raises(ValueError):  # a split polarization group
+        si.subtract_integrate(res[:6], **{**args, "model": args["model"][:6]},
+                              **kw)
+    with pytest.raises(TypeError):
+        si.subtract_integrate(res, **{**args, "coefs": c["plane_coefs"]
+                                      .double()}, **kw)
+    with pytest.raises(ValueError):  # B1: rows past the PSFs' height
+        hs.hogbom_step(res, args["model"], c["psfs"], args["values"],
+                       args["state"], c["coefs"], mode="normal",
+                       n_polarizations=4, allow_negative=True,
+                       row_offset=HEIGHT)
+
+
+@pytest.mark.parametrize("mesh_shape, case", [
+    ((1, 4), ("normal", 2, 4, False)),
+    ((2, 2), ("normal", 2, 4, False)),
+    ((2, 4), ("squared", 2, 4, True)),
+    ((4, 2), ("normal", 4, 1, False)),
+], ids=["chan1-B1", "chan2-normal", "chan2-squared", "chan4-normal"])
+def test_mesh_loop_bit_equal_to_plain(cuda, mesh_shape, case):
+    """The mesh loop through the kernels against the same loop through the
+    plain versions, on a 256-row cube with a weight and an rms factor."""
+    c = make_case(case, cuda, seed=4)
+    rows = 256
+    res0 = c["res"][:, :rows].contiguous()
+    psfs = c["psfs"][:, :rows].contiguous()
+    weight = c["weight"][:rows].contiguous()
+    rms = torch.as_tensor(np.random.default_rng(4).uniform(
+        0.5, 1.5, (rows, WIDTH)), dtype=torch.float32, device=cuda)
+    flat = int(torch.argmax(res0[0].abs()))
+    y, x = divmod(flat, WIDTH)
+    mesh = pm.Mesh(*mesh_shape, cuda)
+    outs = []
+    for plain in (False, True):
+        res = res0.clone()
+        model = torch.zeros_like(res)
+        params = hs.LoopParams.make(0.2, 0.05, 5.0, 4.0, 150, False)
+        launches = (si.subtract_integrate.launches, hs.hogbom_step.launches)
+        out = pm.mesh_hogbom_loop(
+            mesh, res, model, psfs, weight * rms, rms,
+            (float(res[0, y, x]), x, y, True), params, 0, meta=c["meta"],
+            allow_negative=True, plain=plain)
+        torch.cuda.synchronize()
+        counted = (si.subtract_integrate.launches - launches[0],
+                   hs.hogbom_step.launches - launches[1])
+        outs.append((out, res, model, counted))
+    (ok, rk, mk, ck), (op, rp, mp, cp) = outs
+    assert ok == op and ok.iteration > 10
+    assert torch.equal(rk, rp) and torch.equal(mk, mp)
+    assert cp == (0, 0)
+    kernel = 1 if mesh.chan == 1 else 0
+    assert ck[kernel] >= ok.iteration * mesh.size and ck[1 - kernel] == 0
+
+
+def test_perform_mesh_point_source_and_counts(cuda):
+    """The reference contract through Radler.perform on a chan 1 x tile 8
+    mesh of CUDA tensors, and a two-channel mesh perform through B4 that
+    matches the single-device perform."""
+    size = 64
+    point = np.array([[0.0, 0.4, 0.0], [0.25, 1.0, 0.5], [0.0, 0.6, 0.0]],
+                     np.float32)
+    psf = np.zeros((size, size), np.float32)
+    psf[31:34, 31:34] = point
+    res = np.zeros((size, size), np.float32)
+    res[46:49, 22:25] = 2.5 * point
+    s = rd.Settings()
+    s.trimmed_image_width = s.trimmed_image_height = size
+    s.minor_iteration_count = 1000
+    s.absolute_threshold = 1e-8
+    s.generic.use_sub_minor_optimization = False
+    s.parallel.use_device_mesh = True
+    s.parallel.n_devices = 8
+    r = rd.Radler(s, torch.as_tensor(psf, device=cuda),
+                  torch.as_tensor(res, device=cuda),
+                  torch.zeros(size, size, device=cuda), 0.0)
+    hs.hogbom_step.launches = hs.hogbom_select.launches = 0
+    assert r.perform(0) is False
+    assert hs.hogbom_select.launches == 0
+    assert hs.hogbom_step.launches >= 8 * r.iteration_number > 0
+    front = r._table.front
+    out_res = front.residual_accessor.array.cpu().numpy()
+    out_mod = front.model_accessor.array.cpu().numpy()
+    assert np.abs(out_res).max() < 2e-6
+    assert out_mod[47, 23] == pytest.approx(2.5, rel=1e-4)
+
+    cube = np.stack([res, 0.8 * res])
+    outs = []
+    for use_mesh in (False, True):
+        s.parallel.use_device_mesh = use_mesh
+        residual = torch.as_tensor(cube, device=cuda)
+        model = torch.zeros_like(residual)
+        si.subtract_integrate.launches = 0
+        r = rd.Radler(s, torch.as_tensor(np.stack([psf] * 2), device=cuda),
+                      residual, model, 0.0,
+                      frequencies=np.array([[1e8, 1.1e8], [1.2e8, 1.3e8]]))
+        r.perform(0)
+        outs.append((
+            r.iteration_number,
+            torch.stack([e.residual_accessor.array for e in r._table]),
+            torch.stack([e.model_accessor.array for e in r._table]),
+            si.subtract_integrate.launches,
+        ))
+    (n1, r1, m1, c1), (n8, r8, m8, c8) = outs
+    assert n1 == n8 and c1 == 0 and c8 >= 8 * n8
+    assert float((r1 - r8).abs().max()) <= 2e-6
+    assert float((m1 - m8).abs().max()) <= 2e-6
