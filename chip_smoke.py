@@ -13,13 +13,16 @@ tensors and prints what it measured:
 
 * Högbom CLEAN: the 4096^2 headline problem (config 1), a joined-channel
   cube, and the point-source contract;
-* the Clark subminor loop, the library's default: the 2048^2 problem of
-  config 2 with the time split of a perform, the point-source contract,
+* the Clark subminor loop, the library's default: its kernel against its
+  plain version at every cluster size, its times per iteration at four
+  candidate counts, the 2048^2 problem of config 2 with the time split of a
+  perform, the point-source contract,
   and one perform with local-RMS weighting;
 * the batched inverse FFT against per-plane inverses and NumPy, once;
-* IUWT: the à-trous kernel against its plain version (5 shapes at 1 to 5
-  scales, 4096^2 at 6 to 9), its times at 4096^2 for 1 to 9 scales beside
-  cuDNN's dilated convolution, config 4 (IUWT 4096^2, 16 structure
+* IUWT: the à-trous kernel against its plain version (7 shapes at 1 to 5
+  scales, 4096^2 at 6 to 9, with two and with three scales in its fused
+  launch), its times at 4096^2 for 1 to 9 scales beside cuDNN's dilated
+  convolution, config 4 (IUWT 4096^2, 16 structure
   iterations) with the time split of a perform, the kernel against its
   plain version at every shape config 4 gave it, and the 128^2
   diffuse-source contract;
@@ -60,6 +63,18 @@ CLARK_SIZE = 2048
 SUBMINOR_SIZE = 512
 SUBMINOR_K = 3000
 SUBMINOR_ITERATIONS = 300
+# Two more candidate sets: fewer candidates than one block has threads, and
+# a count that no cluster size times 1024 divides; and one whose state (4
+# planes) outgrows the shared memory of a whole cluster, so that the plan
+# itself keeps it in global memory.
+SUBMINOR_K_SMALL = 37
+SUBMINOR_K_RAGGED = 5003
+SUBMINOR_K_GLOBAL = 150_000
+# Candidate counts at which the subminor kernel is timed at every cluster
+# size, beside config 2's own set: the last is beyond what a cluster's
+# shared memory holds at one plane.
+SUBMINOR_TIMED_K = (1000, 10_000, 300_000)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
 # Iterations of one timed subminor launch at config 2's shapes.
 SUBMINOR_TIMED_ITERATIONS = 200
 # Kernel and plain version perform the same float32 operations in the same
@@ -77,7 +92,11 @@ ATROUS_SHAPES = [((4096, 4096), "4096^2", range(1, 10)),
                  ((1000, 1300), "1000x1300", range(1, 6)),
                  ((200, 300), "200x300", range(1, 6)),
                  ((128, 128), "128^2", range(1, 6)),
-                 ((3, 200, 300), "batch of 3 x 200x300", range(1, 6))]
+                 ((3, 200, 300), "batch of 3 x 200x300", range(1, 6)),
+                 # Narrower than a tile and its halo; a width that no 16
+                 # bytes divide.
+                 ((20, 300), "20x300", range(1, 6)),
+                 ((130, 1001), "130x1001", range(1, 6))]
 # B3's times at 4096^2: 1 to 9 scales; the kernels line reports the scale
 # count that config 4 gives B3 most often.
 ATROUS_TIMED_SCALES = range(1, 10)
@@ -655,8 +674,9 @@ def phase_contract(clark=False, mesh=False):
 # ---------------------------------------------------------------------------
 
 
-def _subminor_state(C, P, use_rms, allow_negative, seed, bad_psf=False):
-    """A candidate set of about SUBMINOR_K pixels from a SUBMINOR_SIZE^2
+def _subminor_state(C, P, use_rms, allow_negative, seed, bad_psf=False,
+                    k_target=SUBMINOR_K):
+    """A candidate set of about ``k_target`` pixels from a SUBMINOR_SIZE^2
     cube of positive and negative sources on noise, selected by the port's
     SubMinorLoop.  Returns the loop's inputs on the card."""
     from radler_tpu_torch.image_set import (
@@ -694,7 +714,7 @@ def _subminor_state(C, P, use_rms, allow_negative, seed, bad_psf=False):
     coef = torch.as_tensor(linear_integration_coefficients(meta), device=dev)
     integrated = torch.einsum("i,ihw->hw", coef, cube_d).abs()
     loop = SubMinorLoop(size, size, 2 * size, 2 * size)
-    loop.set_threshold(float(integrated.flatten().sort().values[-SUBMINOR_K]),
+    loop.set_threshold(float(integrated.flatten().sort().values[-k_target]),
                        0.0)
     loop.allow_negative_components = allow_negative
     if use_rms:
@@ -705,22 +725,53 @@ def _subminor_state(C, P, use_rms, allow_negative, seed, bad_psf=False):
                 coef=coef, meta=meta)
 
 
-def _subminor_run(state, params, proj, plain):
+def _subminor_run(state, params, proj, plan=None):
+    """One run on a fresh copy of the state: the plain version when ``plan``
+    is None, else the kernel launched by that plan."""
     from radler_tpu_torch.kernels import subminor_loop as sl
 
     loop = state["loop"]
     res = loop._residual_k.clone()
     model = torch.zeros_like(res)
-    run = sl.subminor_loop_reference if plain else sl.subminor_loop
-    out = run(res, model, loop._rms_k, loop._xs, loop._ys, state["psfs"], state["coef"], proj, params,
-              n_polarizations=state["meta"].n_polarizations)
+    args = (res, model, loop._rms_k, loop._xs, loop._ys, state["psfs"],
+            state["coef"], proj, params)
+    n_pols = state["meta"].n_polarizations
+    if plan is None:
+        out = sl.subminor_loop_reference(*args, n_polarizations=n_pols)
+    else:
+        out = sl.subminor_loop(*args, n_polarizations=n_pols, _plan=plan)
     torch.cuda.synchronize()
     return out, res, model
 
 
+def _subminor_plans(n, k):
+    """The launch plans a case is held to: the plan the wrapper takes by
+    itself, every cluster size (the state in shared memory where it fits),
+    the largest cluster with the state in global memory, and, where the raw
+    values can travel with the argmax, a cluster and one block where they
+    do not."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    plans = [sl.cluster_plan(n, k)]
+    plans += [sl.cluster_plan(n, k, cluster_size=r) for r in CLUSTER_SIZES]
+    plans.append(sl.cluster_plan(n, k, cluster_size=sl.MAX_CLUSTER,
+                                 on_chip=False))
+    if n <= sl.SHIP_RAW_MAX_IMAGES:
+        plans.append(sl.cluster_plan(n, k, cluster_size=4, ship_raw=False))
+        plans.append(sl.cluster_plan(n, k, cluster_size=1, ship_raw=False))
+    return plans
+
+
+def _plan_name(plan):
+    return (f"R={plan.cluster_size}"
+            f" x{plan.threads}"
+            f"{'' if plan.on_chip else ' global'}"
+            f"{' raw' if plan.ship_raw else ''}")
+
+
 def _subminor_cases():
     """(name, C, P, use_rms, allow_negative, fit, divergence_limit,
-    stop_on_negative, bad_psf)."""
+    stop_on_negative, bad_psf, k_target)."""
     cases = []
     for C, P in ((1, 1), (4, 1), (2, 2)):
         for use_rms in (False, True):
@@ -729,27 +780,35 @@ def _subminor_cases():
                 for fit in fits:
                     divergence = 4.0 if use_rms != allow_negative else 0.0
                     cases.append((f"{C}ch x {P}pol", C, P, use_rms,
-                                  allow_negative, fit, divergence, False, False))
+                                  allow_negative, fit, divergence, False,
+                                  False, SUBMINOR_K))
     cases.append(("stop on negative", 1, 1, False, True, "NO_FITTING", 0.0,
-                  True, False))
+                  True, False, SUBMINOR_K))
     cases.append(("diverging", 2, 1, False, True, "POLYNOMIAL", 4.0, False,
-                  True))
+                  True, SUBMINOR_K))
+    cases.append(("under one block", 1, 1, True, True, "NO_FITTING", 4.0,
+                  False, False, SUBMINOR_K_SMALL))
+    cases.append(("ragged K", 2, 2, True, True, "POLYNOMIAL", 4.0, False,
+                  False, SUBMINOR_K_RAGGED))
+    cases.append(("beyond shared memory", 4, 1, False, True, "POLYNOMIAL",
+                  0.0, False, False, SUBMINOR_K_GLOBAL))
     return cases
 
 
 def phase_subminor_vs_plain():
     """Kernel B2 against its plain version on the card, over plane counts,
-    rms factor, negatives, spectral fit, divergence and stop-on-negative:
-    equal output bits and state, max |difference| 0."""
+    rms factor, negatives, spectral fit, divergence, stop-on-negative and
+    candidate counts, each case at every plan of _subminor_plans: equal
+    output bits and state, max |difference| 0."""
     from radler_tpu_torch.kernels import subminor_loop as sl
     from radler_tpu_torch.ops.spectral_fitting import SpectralFitter
     from radler_tpu_torch.settings import SpectralFittingMode
 
     worst = 0.0
     for i, (name, C, P, use_rms, allow_negative, fit, divergence, stop_neg,
-            bad_psf) in enumerate(_subminor_cases()):
+            bad_psf, k_target) in enumerate(_subminor_cases()):
         state = _subminor_state(C, P, use_rms, allow_negative, seed=20 + i,
-                                bad_psf=bad_psf)
+                                bad_psf=bad_psf, k_target=k_target)
         proj = None
         if fit == "POLYNOMIAL":
             fitter = SpectralFitter(SpectralFittingMode.POLYNOMIAL, 2,
@@ -760,19 +819,31 @@ def phase_subminor_vs_plain():
         params = sl.SubminorParams.make(
             float(state["loop"].threshold) * 0.3, GAIN, 0,
             SUBMINOR_ITERATIONS, divergence, allow_negative, stop_neg)
-        out_k, res_k, mod_k = _subminor_run(state, params, proj, plain=False)
-        out_p, res_p, mod_p = _subminor_run(state, params, proj, plain=True)
-        got_k, got_p = sl.read_result(out_k), sl.read_result(out_p)
-        d = max(float((res_k - res_p).abs().max()),
-                float((mod_k - mod_p).abs().max()))
-        say(f"  {name:17s} rms={use_rms:d} allow_negative={allow_negative:d} "
-            f"{fit:10s} divergence={divergence:g} K={state['k']}: kernel "
-            f"{got_k}, plain {got_p}, max|diff| {d:.3g}")
-        if not (torch.equal(out_k, out_p) and d == 0.0):
-            raise AssertionError(f"subminor kernel and plain disagree: {name}")
-        if stop_neg and not (got_k[0] < SUBMINOR_ITERATIONS and got_k[1] < 0):
+        out_p, res_p, mod_p = _subminor_run(state, params, proj)
+        got_p = sl.read_result(out_p)
+        plans = _subminor_plans(C * P, state["k"])
+        if k_target == SUBMINOR_K_GLOBAL and plans[0].on_chip:
+            raise AssertionError(f"{name}: the plan kept K = {state['k']} in "
+                                 "shared memory")
+        d = 0.0
+        for plan in plans:
+            out_k, res_k, mod_k = _subminor_run(state, params, proj, plan)
+            d_plan = max(float((res_k - res_p).abs().max()),
+                         float((mod_k - mod_p).abs().max()))
+            if not (torch.equal(out_k, out_p) and d_plan == 0.0):
+                raise AssertionError(
+                    f"subminor kernel and plain disagree: {name}, "
+                    f"{_plan_name(plan)}: kernel {sl.read_result(out_k)}, "
+                    f"plain {got_p}, max|diff| {d_plan:.3g}")
+            d = max(d, d_plan)
+        say(f"  {name:20s} rms={use_rms:d} allow_negative={allow_negative:d} "
+            f"{fit:10s} divergence={divergence:g} K={state['k']}: plain "
+            f"{got_p}; kernel equal at {_plan_name(plans[0])} (its own plan), "
+            f"{', '.join(_plan_name(p) for p in plans[1:])}; max|diff| "
+            f"{d:.3g}")
+        if stop_neg and not (got_p[0] < SUBMINOR_ITERATIONS and got_p[1] < 0):
             raise AssertionError("the stop-on-negative case did not stop")
-        if bad_psf and not got_k[2]:
+        if bad_psf and not got_p[2]:
             raise AssertionError("the diverging case did not diverge")
         worst = max(worst, d)
         del state
@@ -806,11 +877,15 @@ def _clark_loop(res_d, meta, settings):
 
 def phase_subminor_times(psf, residual):
     """B2 at config 2's candidate set.  First the whole run of config 2's
-    perform, kernel against plain, each on its own copy of the selected
-    state: equal output, residual and model.  Then both timed in turns
-    plain, kernel, kernel, plain, one launch of SUBMINOR_TIMED_ITERATIONS
-    iterations each, and the PSF gather that replaces the TPU's interaction
-    matrix, alone.  Returns (max |difference|, kernel ms, plain ms)."""
+    perform, kernel (by the plan the wrapper takes) against plain, each on
+    its own copy of the selected state: equal output, residual and model.
+    Then both timed in turns plain, kernel, kernel, plain, one launch of
+    SUBMINOR_TIMED_ITERATIONS iterations each; the kernel at every cluster
+    size, and with and without the raw values in the first exchange, at
+    config 2's set and at the counts of SUBMINOR_TIMED_K, each list run
+    forward and then backward; and the PSF gather that replaces the TPU's
+    interaction matrix, alone.  Returns (max |difference|, kernel ms, plain
+    ms, bound, cluster size of the plan)."""
     from radler_tpu_torch.image_set import (
         CubeMeta,
         linear_integration_coefficients,
@@ -826,32 +901,38 @@ def phase_subminor_times(psf, residual):
     k = loop.find_peak_positions(res_d, meta)
     coef = torch.as_tensor(linear_integration_coefficients(meta), device=dev)
 
-    def launch(plain, params, res_k, model_k):
-        run = sl.subminor_loop_reference if plain else sl.subminor_loop
-        return run(res_k, model_k, None, loop._xs, loop._ys, psfs, coef, None,
-                   params, n_polarizations=1)
+    def launch(loop, plan, params, res_k, model_k):
+        args = (res_k, model_k, None, loop._xs, loop._ys, psfs, coef, None,
+                params)
+        if plan is None:
+            return sl.subminor_loop_reference(*args, n_polarizations=1)
+        return sl.subminor_loop(*args, n_polarizations=1, _plan=plan)
 
+    own = sl.cluster_plan(1, k)
     perform_params = sl.SubminorParams.make(
         loop.threshold, loop.gain, loop.current_iteration, loop.max_iterations,
         loop.divergence_limit, loop.allow_negative_components,
         loop.stop_on_negative_component)
     finals = []
-    for plain in (False, True):
+    for plan in (own, None):
         res_k = loop._residual_k.clone()
         model_k = torch.zeros_like(res_k)
-        out = launch(plain, perform_params, res_k, model_k)
+        out = launch(loop, plan, perform_params, res_k, model_k)
         torch.cuda.synchronize()
         finals.append((out, res_k, model_k))
     (out_k, res_k, mod_k), (out_p, res_p, mod_p) = finals
     d = max(float((res_k - res_p).abs().max()),
             float((mod_k - mod_p).abs().max()))
-    say(f"  K = {k}, config 2's whole run: kernel {sl.read_result(out_k)}, "
+    say(f"  K = {k}, the plan: {own}")
+    say(f"  config 2's whole run: kernel {sl.read_result(out_k)}, "
         f"plain {sl.read_result(out_p)}, max|diff| {d:.3g}")
     if not (torch.equal(out_k, out_p) and torch.equal(res_k, res_p)
             and torch.equal(mod_k, mod_p)):
         raise AssertionError("subminor kernel and plain disagree at config 2")
     if sl.read_result(out_k)[0] == 0:
         raise AssertionError("config 2's subminor run made no iteration")
+    if own.cluster_size < 2:
+        raise AssertionError("config 2 does not run on a cluster")
 
     params = sl.SubminorParams.make(0.0, GAIN, 0, SUBMINOR_TIMED_ITERATIONS,
                                     0.0, True, False)
@@ -860,12 +941,39 @@ def phase_subminor_times(psf, residual):
     times = {True: [], False: []}
     for plain in (True, False, False, True):
         ms, host_ms = _time_ms(
-            lambda: launch(plain, params, res_k, model_k), 1 if plain else 5)
+            lambda: launch(loop, None if plain else own, params, res_k,
+                           model_k), 1 if plain else 5)
         times[plain].append(ms)
         say(f"  {'plain ' if plain else 'kernel'} subminor_loop: {ms:.4f} ms "
             f"per launch of {SUBMINOR_TIMED_ITERATIONS} iterations, "
             f"{ms * 1e3 / SUBMINOR_TIMED_ITERATIONS:.2f} us per iteration "
             f"(host enqueue {host_ms:.4f} ms)")
+
+    # Every cluster size, and both exchanges, at four candidate counts.
+    integrated = res_d[0].abs().flatten().sort().values
+    for k_target in (*SUBMINOR_TIMED_K[:2], None, *SUBMINOR_TIMED_K[2:]):
+        timed = loop
+        if k_target is not None:
+            timed = _clark_loop(res_d[0], meta,
+                                _settings(CLARK_SIZE, ITERATIONS, clark=True))
+            timed.set_threshold(float(integrated[-k_target]), 0.0)
+            timed.find_peak_positions(res_d, meta)
+        k_timed = timed._residual_k.shape[1]
+        chosen = sl.cluster_plan(1, k_timed)
+        plans = [sl.cluster_plan(1, k_timed, cluster_size=r)
+                 for r in CLUSTER_SIZES]
+        plans.append(chosen._replace(ship_raw=False))
+        res_t = timed._residual_k.clone()
+        model_t = torch.zeros_like(res_t)
+        readings = {i: [] for i in range(len(plans))}
+        for i in (*range(len(plans)), *reversed(range(len(plans)))):
+            ms, _ = _time_ms(
+                lambda: launch(timed, plans[i], params, res_t, model_t), 3)
+            readings[i].append(ms * 1e3 / SUBMINOR_TIMED_ITERATIONS)
+        say(f"  K = {k_timed}: us per iteration "
+            + "; ".join(f"{_plan_name(plans[i])} {a:.2f}, {b:.2f}"
+                        for i, (a, b) in readings.items())
+            + f"; the plan takes {_plan_name(chosen)}")
 
     # The PSF values at every candidate relative to one component: what the
     # kernel gathers per iteration, as plain torch ops.
@@ -892,7 +1000,7 @@ def phase_subminor_times(psf, residual):
     n_bytes = 4 * (4 * k + 2 * k + 1 + psfs.numel())
     n_flops = SUBMINOR_TIMED_ITERATIONS * k * 4
     return d, sum(times[False]) / 2, sum(times[True]) / 2, bound_ms(
-        n_bytes, n_flops)
+        n_bytes, n_flops), own.cluster_size
 
 
 def phase_config2(psf, residual):
@@ -1041,17 +1149,19 @@ def _atrous_case(img, n_lo, label, quiet=False):
     bit-equal; returns the largest |difference|."""
     from radler_tpu_torch.kernels import iuwt_atrous as ia
 
-    w, smooth = ia.atrous_decompose_lo(img, n_lo)
     pw, psmooth = ia.atrous_decompose_lo_reference(img, n_lo)
+    w, smooth = ia.atrous_decompose_lo(img, n_lo)
     torch.cuda.synchronize()
     d = max(float((w - pw).abs().max()),
             float((smooth - psmooth).abs().max()))
-    same = torch.equal(w, pw) and torch.equal(smooth, psmooth)
-    if not quiet or not same:
-        say(f"  {label:22s} n_lo={n_lo}: bit-equal {same}, max|diff| {d:.3g}")
-    if not same:
-        raise AssertionError(f"B3 and its plain version disagree: {label}, "
-                             f"n_lo={n_lo}")
+    if not (torch.equal(w, pw) and torch.equal(smooth, psmooth)):
+        raise AssertionError(
+            f"B3 and its plain version disagree: {label}, n_lo={n_lo}, "
+            f"max|diff| {d:.3g}")
+    if not quiet:
+        plan = ia.launch_plan(n_lo, *img.shape[-2:])
+        say(f"  {label:22s} n_lo={n_lo}: bit-equal in {len(plan)} launches, "
+            f"max|diff| {d:.3g}")
     return d
 
 
@@ -1143,13 +1253,16 @@ def phase_atrous_times():
         k_ms = sum(times["kernel"]) / 2
         p_ms = sum(times["plain"]) / 2
         # The function's least work: one plane read, n_lo + 1 written; per
-        # scale and pixel four 5-tap passes (9 flops each) and a subtraction.
+        # scale and pixel four 5-tap passes (each value's three products
+        # once and four sums) and a subtraction.
         n_bytes = (n_lo + 2) * pixels * 4
-        n_flops = n_lo * 37 * pixels
+        n_flops = n_lo * 29 * pixels
         b_ms, b_by = bound_ms(n_bytes, n_flops)
         out[n_lo] = (k_ms, p_ms, lib_ms, n_bytes, n_flops)
         say(f"  n_lo={n_lo}: kernel {times['kernel'][0]:.4f}, "
-            f"{times['kernel'][1]:.4f} ms ({n_lo} launches); plain "
+            f"{times['kernel'][1]:.4f} ms "
+            f"({len(ia.launch_plan(n_lo, IUWT_SIZE, IUWT_SIZE))} launches); "
+            f"plain "
             f"{times['plain'][0]:.4f}, {times['plain'][1]:.4f} ms; cuDNN "
             f"cascade {lib_ms:.4f} ms (max|diff| to B3 {d_lib:.3g}); bound "
             f"{b_ms * 1e3:.1f} us ({b_by}, {n_bytes / 1e6:.1f} MB); "
@@ -1291,6 +1404,11 @@ def phase_config4():
         raise AssertionError("non-finite residual or model")
     if not (n > 0 and launches > 0 and rms(out_res) < rms(res_d)):
         raise AssertionError("config 4 did not clean through B3")
+    planned = sum(calls * len(ia.launch_plan(n_lo, *shape[-2:]))
+                  for (shape, n_lo), calls in b3_cases.items())
+    if launches != planned:
+        raise AssertionError(f"config 4 launched B3 {launches} times, its "
+                             f"launch plans give {planned}")
     counted = perform(count_syncs=True)
     say(f"  perform: {n} structure iterations; seconds "
         f"{', '.join(f'{r[1]:.4f}' for r in runs)}; best "
@@ -1727,8 +1845,8 @@ def main():
     say("== the 2048^2 problem (seed 7, 300 sources) ==")
     psf2, residual2 = make_problem(CLARK_SIZE, N_SOURCES)
     say("== the subminor kernel at config 2's shapes ==")
-    worst_config2, kernel_ms, plain_ms, b2_bound = phase_subminor_times(
-        psf2, residual2)
+    worst_config2, kernel_ms, plain_ms, b2_bound, b2_cluster = (
+        phase_subminor_times(psf2, residual2))
     worst["subminor_loop"] = max(worst_small, worst_config2)
     times["subminor_loop"] = (kernel_ms, plain_ms)
     say("== config 2 (Clark) through Radler.perform ==")
@@ -1818,7 +1936,9 @@ def main():
         "library_ms": None,
     })
     say(f"config 1: {rate:.1f} minor iterations/s through perform (Högbom)")
-    say(f"config 2: {clark[1]:.1f} minor iterations/s through perform (Clark)")
+    say(f"config 2: {clark[1]:.1f} minor iterations/s through perform "
+        f"(Clark); B2 on a cluster of {b2_cluster} blocks, "
+        f"{kernel_ms * 1e3 / SUBMINOR_TIMED_ITERATIONS:.2f} us per iteration")
     b3_ms, b3_bound = atrous[3][0], bound_ms(*atrous[3][3:])[0]
     say(f"config 4: {iuwt[1]:.3f} structure iterations/s through perform "
         f"(IUWT); B3 at 4096^2, 3 scales: {b3_ms * 1e3:.1f} us against its "

@@ -5,16 +5,19 @@ Port of ``radler_tpu.ops.pallas.iuwt_atrous`` (the TPU kernel
 :func:`atrous_decompose_lo` decomposes an image, or a batch of images, into
 the wavelet planes of scales ``0..n_lo-1`` and the smooth plane that carries
 on to scale ``n_lo``.  On CUDA tensors it launches ``csrc/iuwt_atrous.cu``
-once per scale; on CPU tensors it runs :func:`atrous_decompose_lo_reference`,
-the plain PyTorch version, which performs the same float32 operations in the
-same order, so the two agree bit for bit.  What bounds the kernel, and why
-it runs one launch per scale, is in the note at the top of the CUDA source.
+as :func:`launch_plan` says: the lowest ``FUSED_SCALES`` scales in one
+launch on contiguous tiles with a halo of :func:`cascade_reach`, then one
+launch per scale on tiles of the scale's lattice.  On CPU tensors it runs
+:func:`atrous_decompose_lo_reference`, the plain PyTorch version, which
+performs the same float32 operations in the same order, so the two agree
+bit for bit.  What bounds the kernel, and its design, are in the note at
+the top of the CUDA source.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -91,20 +94,110 @@ def atrous_decompose_lo_reference(
 
 
 # ---------------------------------------------------------------------------
+# Launch plan
+# ---------------------------------------------------------------------------
+
+# Scales of the fused first launch.  Two read one plane and write three,
+# the function's bound; a third lost on the card (0.48 against 0.30 ms for
+# three scales at 4096^2: its halo of 36 leaves one block per SM), PERF.md.
+FUSED_SCALES = 2
+# Core of a contiguous tile, rows by columns (Fused::kRows, kCols).
+FUSED_CORE = (64, 64)
+# The lattice tiles of the CUDA source, as (phases, side): `phases`
+# neighbouring x-phases (at most the dilation) of side x side lattice
+# points, the largest side whose buffer (with the halo of 4 points) leaves
+# room for two blocks per SM.  At dilations of 31 and more, runs of 16
+# phases (64 bytes) with 16 x 16 points, whose halo makes the buffer 2.25
+# times the tile, beat runs of 32 (one 128-byte line) with 9 x 9 points
+# (3.6 times) by 12 to 25% on the card, except on a lattice shorter than
+# SHORT_LATTICE points, where the larger tile is mostly padding (0.57
+# against 0.28 ms at 4096^2 and dilation 511, a lattice of 9); PERF.md.
+LATTICE_TILES = ((7, 28), (15, 17), (16, 16), (32, 9))
+SHORT_LATTICE = 12
+# Shared memory a block may hold on the card.
+SHARED_BYTES_PER_BLOCK = 232_448
+
+
+def cascade_reach(n_lo: int) -> int:
+    """Total tap reach (per side, per axis) of scales ``0..n_lo-1``: the
+    halo a tile needs to emit all their planes.  Plane s needs the chain of
+    one convolution per earlier scale (reach ``2 d_k`` each) and two
+    convolutions at its own dilation (``4 d_s``)."""
+    reach = carried = 0
+    for s in range(n_lo):
+        d = dilation(s)
+        reach = max(reach, carried + 4 * d)
+        carried += 2 * d
+    return reach
+
+
+class Launch(NamedTuple):
+    """One launch of B3: ``n_scales`` scales from ``first_scale`` on.  A
+    fused launch (``lattice`` false) has cores of ``rows x cols`` pixels; a
+    lattice launch tiles of ``rows x cols`` lattice points and ``phases``
+    neighbouring x-phases.  ``shared_bytes`` is the dynamic shared memory
+    the entry point will ask for (three buffers)."""
+
+    first_scale: int
+    n_scales: int
+    lattice: bool
+    rows: int
+    cols: int
+    phases: int
+    shared_bytes: int
+
+
+def _fused_launch(n_scales: int) -> Launch:
+    rows, cols = FUSED_CORE
+    halo = cascade_reach(n_scales)
+    stride = (cols + 2 * halo) | 1
+    return Launch(0, n_scales, False, rows, cols, 1,
+                  3 * (rows + 2 * halo) * stride * 4)
+
+
+def lattice_tile(d: int, points: int) -> Tuple[int, int]:
+    """(phases, side) of the tile for dilation ``d`` (7 or more) on a
+    lattice whose shorter side has ``points`` points."""
+    if d <= 15:
+        return next(tile for tile in LATTICE_TILES if tile[0] == d)
+    if d >= 32 and points < SHORT_LATTICE:
+        return LATTICE_TILES[3]
+    return LATTICE_TILES[2]
+
+
+def _lattice_launch(scale: int, height: int, width: int) -> Launch:
+    d = dilation(scale)
+    phases, side = lattice_tile(d, min(-(-height // d), -(-width // d)))
+    stride = ((side + 8) * phases) | 1
+    return Launch(scale, 1, True, side, side, phases,
+                  3 * (side + 8) * stride * 4)
+
+
+def launch_plan(n_lo: int, height: int, width: int) -> List[Launch]:
+    """The launches that decompose a ``height x width`` image into ``n_lo``
+    scales: ``min(n_lo, FUSED_SCALES)`` scales fused, then one lattice
+    launch per scale."""
+    first = min(n_lo, FUSED_SCALES)
+    plan = [_fused_launch(first)]
+    plan += [_lattice_launch(s, height, width) for s in range(first, n_lo)]
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
 
-def _entry():
-    """The kernel's C entry point, with its signature declared."""
+def _entries():
+    """The kernel's two C entry points, with their signatures declared."""
     from . import _build
 
-    fn = _build.library().atrous_scale
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.library()
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.atrous_fused.argtypes = [ptr] * 3 + [i32] * 3 + [i64, i32, ptr]
+    lib.atrous_scale.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+    lib.atrous_fused.restype = lib.atrous_scale.restype = i32
+    return lib.atrous_fused, lib.atrous_scale
 
 
 def atrous_decompose_lo(
@@ -145,14 +238,26 @@ def atrous_decompose_lo(
         smooth = torch.empty_like(image)
     _check(w, "w", dev, (n_lo, *image.shape), f32)
     _check(smooth, "smooth", dev, image.shape, f32)
-    launch = _entry()
+    fused, per_scale = _entries()
+    plan = launch_plan(n_lo, height, width)
+    # Each launch reads the plane the one before it carried: the last
+    # writes `smooth`, the others two planes in turn.
+    carried = [torch.empty_like(image) for _ in range(min(2, len(plan) - 1))]
     cur = image
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for s in range(n_lo):
-            dst = smooth if s == n_lo - 1 else torch.empty_like(image)
-            err = launch(cur.data_ptr(), w[s].data_ptr(), dst.data_ptr(),
-                         batch, height, width, dilation(s), stream)
+        for i, step in enumerate(plan):
+            dst = smooth if i == len(plan) - 1 else carried[i % 2]
+            first = w[step.first_scale]
+            if step.lattice:
+                err = per_scale(cur.data_ptr(), first.data_ptr(),
+                                dst.data_ptr(), batch, height, width,
+                                dilation(step.first_scale), step.phases,
+                                step.rows, stream)
+            else:
+                err = fused(cur.data_ptr(), first.data_ptr(), dst.data_ptr(),
+                            batch, height, width, w.stride(0), step.n_scales,
+                            stream)
             _raise_on(err, "atrous_decompose_lo")
             atrous_decompose_lo.launches += 1
             cur = dst

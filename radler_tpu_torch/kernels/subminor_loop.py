@@ -5,7 +5,11 @@ Port of ``radler_tpu.ops.pallas.subminor_fused`` (the TPU kernel
 runs the whole ``SubMinorLoop::Run`` while-loop over the ``[N, K]``
 candidate state in one launch of ``csrc/subminor_loop.cu`` on CUDA tensors,
 and its plain PyTorch version :func:`subminor_loop_reference` on CPU
-tensors.  Both update ``residual_k`` and ``model_k`` in place and return a
+tensors.  The launch is one thread-block cluster (it needs a card of
+compute capability 9.0 or later) whose blocks each keep a slice of the
+candidates in shared memory; :func:`cluster_plan` chooses the cluster's
+size and the state's place from ``N`` and ``K`` alone.  Both versions
+update ``residual_k`` and ``model_k`` in place and return a
 small int32 tensor ``(iteration, diverging, bits of the last peak value)``
 on the state's device, which :func:`read_result` brings to the host in one
 read.
@@ -20,6 +24,7 @@ exactly by :func:`fma`), so the two agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -31,6 +36,43 @@ from .hogbom_step import _check, _raise_on
 MAX_IMAGES = 4000
 # Output slots, shared with csrc/subminor_loop.cu.
 ITERATION, DIVERGING, VALUE_BITS = range(3)
+# The most blocks in the kernel's cluster (kMaxCluster; above 8 the size is
+# "non-portable", which the entry point allows explicitly).
+MAX_CLUSTER = 16
+# Threads per block: at most kMaxThreads, and by the plan not under 128.
+MAX_THREADS = 1024
+MIN_THREADS = 128
+# Candidates of a block that the plan gives one thread, whatever the number
+# of planes (a thread walks its candidates' planes in sequence).  At 625
+# candidates a block, us per iteration at 128, 256, 512 and 1024 threads:
+# 3.67, 2.78, 3.05, 3.30 at 1 plane; 6.21, 4.25, 4.19, 4.49 at 4; 8.50,
+# 5.37, 5.37, 5.60 at 8.  At 3750 a block, 1024 threads win at every plane
+# count (4.4, 6.2, 9.0 us against 4.9, 7.9, 11.5 at 512).  From
+# scripts/subminor_k_times.py, NVIDIA H100 80GB HBM3, 700 W.
+CANDIDATES_PER_THREAD = 2.5
+# Planes up to which each block's raw values travel with its argmax, so that
+# one cluster barrier per iteration is enough (kShipMax).  A cluster of 16
+# gains 0.3 to 0.7 us per iteration by it at 1, 4 and 8 planes; on one
+# block the two exchanges lie within 0.1 us of each other, either way by
+# the candidate set.  Same script and card.
+SHIP_RAW_MAX_IMAGES = 8
+# Shared memory a block may hold on the card, and what cluster_plan leaves
+# of it for the kernel's static part (about 3 KB).
+SHARED_BYTES_PER_BLOCK = 232_448
+STATIC_SHARED_RESERVE = 4096
+# Crossover of the cluster size, in candidate values (planes times
+# candidates: the more planes, the longer a thread's walk, and the sooner
+# spreading it pays), from scripts/subminor_k_times.py on an NVIDIA H100
+# 80GB HBM3 at 700 W, each cluster size at its best thread count.  At 1000
+# candidates: 1 plane 2.3 us per iteration on one block, 2.37 on 16; 4
+# planes 3.49 and 3.53; 8 planes 4.94 and 4.54.  At 10,000 candidates, 1, 4
+# and 8 planes: 2.8, 4.2, 5.4 us on 16 blocks, 3.1, 4.4, 5.7 on 8, 6.7,
+# 16.4, 26.3 on one.  So one block up to about 1000 values and 16 above: a
+# cluster of 2 to 8 wins nowhere by more than 0.1 us.  At 80 planes the
+# walk over the planes (0.3 us a plane) is most of an iteration: 24.6 us on
+# 16 blocks at 100 and at 1000 candidates, 22.1 and 43.6 on one; the 2.5 us
+# at 100 candidates are left to the rule.
+ONE_BLOCK_VALUES = 1024
 
 
 class SubminorParams(NamedTuple):
@@ -53,6 +95,61 @@ class SubminorParams(NamedTuple):
         return cls(f32(threshold), f32(gain), int(start_iteration),
                    int(max_iterations), f32(divergence_limit),
                    bool(allow_negative), bool(stop_on_negative))
+
+
+class ClusterPlan(NamedTuple):
+    """How one launch spreads over its cluster."""
+
+    cluster_size: int  # blocks R, a power of two up to MAX_CLUSTER
+    threads: int       # threads per block, a multiple of 32 up to MAX_THREADS
+    slice_len: int     # candidates per block; block r owns [r s, (r + 1) s)
+    on_chip: bool      # the slices' state lives in shared memory
+    ship_raw: bool     # raw values travel with the argmax: one barrier
+    shared_bytes: int  # dynamic shared memory per block
+
+
+def cluster_plan(n_images: int, k: int, *, cluster_size: Optional[int] = None,
+                 on_chip: Optional[bool] = None,
+                 ship_raw: Optional[bool] = None) -> ClusterPlan:
+    """The launch plan for ``n_images`` planes and ``k`` candidates.
+
+    One block up to ``ONE_BLOCK_VALUES`` values, else ``MAX_CLUSTER``;
+    threads by the candidates of a block; raw values in the exchange up to
+    ``SHIP_RAW_MAX_IMAGES`` planes.
+    The slices' state (``4 * n_images + 12`` bytes per candidate: residual,
+    x, y, rms) lives in shared memory where it fits there, else in global
+    memory.  ``cluster_size``, ``on_chip`` and ``ship_raw``
+    override the choice (tests and timings); a forced choice that the
+    kernel cannot take raises.
+    """
+    if n_images < 1 or k < 1:
+        raise ValueError(f"cluster_plan: {n_images} planes, {k} candidates")
+    if cluster_size is None:
+        cluster_size = 1 if n_images * k <= ONE_BLOCK_VALUES else MAX_CLUSTER
+    if not (1 <= cluster_size <= MAX_CLUSTER
+            and cluster_size & (cluster_size - 1) == 0):
+        raise ValueError(f"cluster_plan: cluster size {cluster_size}")
+    slice_len = -(-k // cluster_size)
+    per_plane = 12 * n_images
+    state = slice_len * (4 * n_images + 12)
+    fits = (per_plane + state + STATIC_SHARED_RESERVE
+            <= SHARED_BYTES_PER_BLOCK)
+    # About CANDIDATES_PER_THREAD candidates a thread: fewer warps make the
+    # block's barrier and reduction cheaper, more hide the gathers.
+    warps = math.ceil(slice_len / (32 * CANDIDATES_PER_THREAD))
+    threads = 32 * min(MAX_THREADS // 32, max(MIN_THREADS // 32, warps))
+    if on_chip is None:
+        on_chip = fits
+    elif on_chip and not fits:
+        raise ValueError(
+            f"cluster_plan: {n_images} x {k} values do not fit in the shared "
+            f"memory of {cluster_size} blocks")
+    if ship_raw is None:
+        ship_raw = n_images <= SHIP_RAW_MAX_IMAGES
+    elif ship_raw and n_images > SHIP_RAW_MAX_IMAGES:
+        raise ValueError(f"cluster_plan: {n_images} planes cannot ship raw")
+    return ClusterPlan(cluster_size, threads, slice_len, bool(on_chip),
+                       bool(ship_raw), per_plane + (state if on_chip else 0))
 
 
 def read_result(out: torch.Tensor) -> Tuple[int, float, bool]:
@@ -184,7 +281,7 @@ def _entry():
     fn = _build.library().subminor_loop
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = (
-        [ptr] * 9 + [i32] * 5 + [f32] * 2 + [i32] * 2 + [f32] + [i32] * 2
+        [ptr] * 9 + [i32] * 5 + [f32] * 2 + [i32] * 2 + [f32] + [i32] * 8
         + [ptr]
     )
     fn.restype = i32
@@ -204,6 +301,7 @@ def subminor_loop(
     *,
     n_polarizations: int,
     fit: Optional[Callable] = None,
+    _plan: Optional[ClusterPlan] = None,
 ) -> torch.Tensor:
     """Run the Clark subminor loop over the candidate state in one launch.
 
@@ -214,6 +312,8 @@ def subminor_loop(
     ``n // n_polarizations``), ``coef`` the ``[N]`` linear integration
     coefficients and ``proj`` the optional ``[C, C]`` polynomial-fit
     projection.  Returns the output tensor for :func:`read_result`.
+    The launch follows :func:`cluster_plan` (``_plan`` overrides it, for
+    tests and timings); a cluster that the card cannot schedule raises.
     """
     args = (residual_k, model_k, rms_k, xs, ys, psfs, coef, proj, params)
     if residual_k.device.type == "cpu":
@@ -246,6 +346,7 @@ def subminor_loop(
         _check(proj, "proj", dev, (n_psf, n_psf), f32),
         out.data_ptr(),
     ]
+    plan = cluster_plan(n, k) if _plan is None else _plan
     launch = _entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -253,7 +354,9 @@ def subminor_loop(
             *ptrs, n, n_polarizations, k, height, width, params.threshold,
             params.gain, params.start_iteration, params.max_iterations,
             params.divergence_limit, int(params.allow_negative),
-            int(params.stop_on_negative), stream,
+            int(params.stop_on_negative), plan.cluster_size, plan.threads,
+            plan.slice_len,
+            int(plan.on_chip), int(plan.ship_raw), plan.shared_bytes, stream,
         )
     _raise_on(err, "subminor_loop")
     subminor_loop.launches += 1

@@ -89,6 +89,63 @@ def test_cascade_reach_values():
         assert int((xs - centre).abs().max()) == reach
 
 
+@pytest.mark.parametrize("n_lo", [1, 2, 3, 4, 5, 6])
+def test_port_cascade_reach_equals_jax(n_lo):
+    """The port keeps its own copy of the halo rule of the fused scales."""
+    assert K.cascade_reach(n_lo) == jax_reach(n_lo)
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (1000, 1300), (20, 300)])
+@pytest.mark.parametrize("n_lo", range(1, 15))
+def test_launch_plan_covers_every_scale_once(shape, n_lo):
+    """B3's launches on the card: the fused low scales first, then one
+    launch per scale, each scale in exactly one launch, every launch within
+    the shared memory of a block and a tile no larger than its lattice."""
+    plan = K.launch_plan(n_lo, *shape)
+    covered = [s for step in plan
+               for s in range(step.first_scale, step.first_scale + step.n_scales)]
+    assert covered == list(range(n_lo))
+    assert not plan[0].lattice
+    assert plan[0].n_scales == min(n_lo, K.FUSED_SCALES)
+    halo = K.cascade_reach(plan[0].n_scales)
+    stride = (plan[0].cols + 2 * halo) | 1
+    assert plan[0].shared_bytes == 12 * (plan[0].rows + 2 * halo) * stride
+    for step in plan[1:]:
+        d = K.dilation(step.first_scale)
+        assert step.lattice and step.n_scales == 1
+        points = min(-(-shape[0] // d), -(-shape[1] // d))
+        tile = K.lattice_tile(d, points)
+        assert tile in K.LATTICE_TILES and tile[0] <= d
+        assert (step.phases, step.rows, step.cols) == (*tile, tile[1])
+        stride = ((step.cols + 8) * step.phases) | 1
+        assert step.shared_bytes == 12 * (step.rows + 8) * stride
+        # Two blocks fit an SM's 228 KB, each with 1 KB of its own.
+        assert 2 * (step.shared_bytes + 1024) <= 233_472
+    assert all(0 < step.shared_bytes <= K.SHARED_BYTES_PER_BLOCK
+               for step in plan)
+
+
+def test_lattice_tiles_by_dilation():
+    """Contiguous rows at dilations 7 and 15; runs of 16 phases above,
+    except on a short lattice at a dilation that has 32 phases."""
+    assert K.lattice_tile(7, 500) == (7, 28)
+    assert K.lattice_tile(15, 3) == (15, 17)
+    assert K.lattice_tile(31, 5) == K.lattice_tile(63, 66) == (16, 16)
+    assert K.lattice_tile(255, 17) == (16, 16)
+    assert K.lattice_tile(511, 9) == K.lattice_tile(8191, 1) == (32, 9)
+
+
+@pytest.mark.parametrize("n_lo,fused", [(1, 1), (2, 2), (5, 2)])
+def test_launch_plan_fuses_at_most_two_scales(n_lo, fused):
+    """One scale alone is a fused launch of one; from two scales on the
+    first launch takes two, with the halo of their cascade."""
+    plan = K.launch_plan(n_lo, 512, 700)
+    assert [(p.first_scale, p.n_scales) for p in plan] == (
+        [(0, fused)] + [(s, 1) for s in range(fused, n_lo)])
+    assert (plan[0].rows, plan[0].cols) == K.FUSED_CORE
+    assert K.cascade_reach(fused) == (4, 14)[fused - 1]
+
+
 @pytest.mark.parametrize("scale", [1, 2, 3, 5])
 def test_iuwt_convolve_bit_equal_to_jax(scale):
     img = np.random.default_rng(scale).standard_normal((70, 90))

@@ -277,6 +277,89 @@ def test_subminor_loop_bit_equal_to_plain(cuda, case):
     assert sl.read_result(ok)[0] > 3
 
 
+# Launch plans the kernel is held to beside its own: every cluster size,
+# the state in global memory, the exchange with and without raw values.
+SUBMINOR_PLANS = [
+    dict(cluster_size=1), dict(cluster_size=2), dict(cluster_size=4),
+    dict(cluster_size=8), dict(cluster_size=16),
+    dict(cluster_size=16, on_chip=False), dict(cluster_size=1, on_chip=False),
+    dict(cluster_size=4, ship_raw=False), dict(cluster_size=1, ship_raw=False),
+]
+
+
+@pytest.mark.parametrize(
+    "plan", SUBMINOR_PLANS,
+    ids=lambda p: "-".join(f"{k}{v}" for k, v in p.items()))
+@pytest.mark.parametrize("case", [(1, 1, False, False), (2, 2, True, True)],
+                         ids=["1x1", "2x2-fit-rms"])
+def test_subminor_loop_every_plan_bit_equal_to_plain(cuda, case, plan):
+    """Each cluster size, the global-state route and both exchanges give the
+    plain version's bits, over a candidate count that no cluster size times
+    the block's threads divides."""
+    C, P, fit, use_rms = case
+    loop, psfs, coef, proj = subminor_case(C, P, use_rms, True, cuda, seed=5)
+    k = loop._residual_k.shape[1]
+    params = sl.SubminorParams.make(0.005, 0.1, 0, 250, 4.0, True, False)
+    outs = []
+    for forced in (None, sl.cluster_plan(C * P, k, **plan)):
+        res = loop._residual_k.clone()
+        model = torch.zeros_like(res)
+        args = (res, model, loop._rms_k, loop._xs, loop._ys, psfs, coef,
+                proj if fit else None, params)
+        if forced is None:
+            out = sl.subminor_loop_reference(*args, n_polarizations=P)
+        else:
+            out = sl.subminor_loop(*args, n_polarizations=P, _plan=forced)
+        torch.cuda.synchronize()
+        outs.append((out, res, model))
+    (op, rp, mp), (ok, rk, mk) = outs
+    assert torch.equal(ok, op)
+    assert torch.equal(rk, rp) and torch.equal(mk, mp)
+    assert sl.read_result(ok)[0] > 3
+
+
+def test_subminor_loop_few_candidates_on_a_full_cluster(cuda):
+    """37 candidates on 16 blocks: most blocks own none."""
+    loop, psfs, coef, _ = subminor_case(1, 1, False, True, cuda, seed=6)
+    k = 37
+    params = sl.SubminorParams.make(0.0, 0.1, 0, 100, 0.0, True, False)
+    outs = []
+    for forced in (None, sl.cluster_plan(1, k, cluster_size=16)):
+        res = loop._residual_k[:, :k].clone()  # a slice of one row is a view
+        model = torch.zeros_like(res)
+        args = (res, model, None, loop._xs[:k].contiguous(),
+                loop._ys[:k].contiguous(), psfs, coef, None, params)
+        if forced is None:
+            out = sl.subminor_loop_reference(*args, n_polarizations=1)
+        else:
+            out = sl.subminor_loop(*args, n_polarizations=1, _plan=forced)
+        torch.cuda.synchronize()
+        outs.append((out, res, model))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert torch.equal(outs[0][2], outs[1][2])
+    assert sl.read_result(outs[1][0])[0] == 100
+
+
+def test_subminor_refused_launch_raises(cuda):
+    """A launch the card cannot take (more shared memory than a block may
+    hold) raises from the wrapper; nothing falls back to a smaller
+    cluster."""
+    loop, psfs, coef, _ = subminor_case(1, 1, False, True, cuda)
+    k = loop._residual_k.shape[1]
+    plan = sl.cluster_plan(1, k, cluster_size=2)._replace(
+        shared_bytes=2 * sl.SHARED_BYTES_PER_BLOCK)
+    params = sl.SubminorParams.make(0.01, 0.1, 0, 10, 0.0, True, False)
+    res = loop._residual_k.clone()
+    before = sl.subminor_loop.launches
+    with pytest.raises(RuntimeError):
+        sl.subminor_loop(res, torch.zeros_like(res), None, loop._xs, loop._ys,
+                         psfs, coef, None, params, n_polarizations=1,
+                         _plan=plan)
+    assert sl.subminor_loop.launches == before
+    torch.cuda.synchronize()
+
+
 def test_subminor_loop_diverges_like_plain(cuda):
     loop, psfs, coef, _ = subminor_case(1, 1, False, True, cuda, seed=2)
     params = sl.SubminorParams.make(0.01, 0.1, 0, 200, 4.0, True, False)
@@ -416,6 +499,64 @@ def test_atrous_bit_equal_to_plain(cuda, shape, n_lo):
     assert torch.equal(w, pw) and torch.equal(smooth, psmooth)
 
 
+@pytest.mark.parametrize("shape", [(HEIGHT, WIDTH), (20, 300), (130, 1001),
+                                   (2, 300, 200), (256, 512)])
+def test_atrous_routes_bit_equal_to_plain(cuda, shape):
+    """The fused first launch (tiles inside the image load rows of 16-byte
+    alignment 16 bytes at a time, the others pixel by pixel), followed by
+    the lattice launches (rows contiguous in x at dilations 7 and 15, runs
+    of 16 or 32 phases above): the plain version's bits."""
+    img = np.random.default_rng(len(shape)).standard_normal(shape)
+    img = torch.as_tensor(img.astype(np.float32), device=cuda)
+    for n_lo in (1, 2, 4, 7):
+        w, smooth = ia.atrous_decompose_lo(img, n_lo)
+        pw, psmooth = ia.atrous_decompose_lo_reference(img, n_lo)
+        torch.cuda.synchronize()
+        assert torch.equal(w, pw) and torch.equal(smooth, psmooth)
+
+
+def test_atrous_image_off_16_byte_alignment(cuda):
+    """A contiguous image that starts 4 bytes past a 16-byte boundary: its
+    rows cannot be loaded 16 bytes at a time, and the bits are the same."""
+    base = np.random.default_rng(13).standard_normal(1 + 256 * 512)
+    base = torch.as_tensor(base.astype(np.float32), device=cuda)
+    img = base[1:].view(256, 512)
+    assert img.is_contiguous() and img.data_ptr() % 16 == 4
+    w, smooth = ia.atrous_decompose_lo(img, 2)
+    pw, psmooth = ia.atrous_decompose_lo_reference(img.clone(), 2)
+    torch.cuda.synchronize()
+    assert torch.equal(w, pw) and torch.equal(smooth, psmooth)
+
+
+def test_atrous_lattice_of_several_tiles_bit_equal_to_plain(cuda):
+    """1100 x 900 at 8 scales: at dilation 63 the lattice (18 x 15 points)
+    takes 2 x 1 tiles of 16 x 16 points of each group of 16 phases, and the
+    last group of phases is not full; at dilations 127 and 255 the short
+    lattices (9 x 8, 5 x 4) take the tile of 9 x 9 points and 32 phases,
+    mostly padding."""
+    img = np.random.default_rng(11).standard_normal((1100, 900))
+    img = torch.as_tensor(img.astype(np.float32), device=cuda)
+    plan = ia.launch_plan(8, 1100, 900)
+    assert [(p.phases, p.rows) for p in plan[4:]] == [(16, 16), (32, 9),
+                                                      (32, 9)]
+    w, smooth = ia.atrous_decompose_lo(img, 8)
+    pw, psmooth = ia.atrous_decompose_lo_reference(img, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(w, pw) and torch.equal(smooth, psmooth)
+
+
+def test_atrous_outputs_in_place(cuda):
+    """``w`` and ``smooth`` given by the caller are written in place, the
+    carried planes between launches being the wrapper's own."""
+    img = np.random.default_rng(12).standard_normal((3, 96, 130))
+    img = torch.as_tensor(img.astype(np.float32), device=cuda)
+    stack = torch.full((6, 3, 96, 130), float("nan"), device=cuda)
+    w, smooth = ia.atrous_decompose_lo(img, 5, w=stack[:5], smooth=stack[5])
+    pw, psmooth = ia.atrous_decompose_lo_reference(img, 5)
+    assert w.data_ptr() == stack.data_ptr()
+    assert torch.equal(stack[:5], pw) and torch.equal(stack[5], psmooth)
+
+
 def test_atrous_rejects_bad_inputs(cuda):
     img = torch.zeros(40, 50, device=cuda)
     bad = [
@@ -433,15 +574,16 @@ def test_atrous_rejects_bad_inputs(cuda):
 
 
 def test_decompose_launches_b3(cuda):
-    """Every decompose on the card sends each of its scales through B3, one
-    launch per scale, and equals the CPU decompose bit for bit; past B3's
-    most scales it raises."""
+    """Every decompose on the card sends each of its scales through B3, in
+    the launches of B3's plan (the low scales fused), and equals the CPU
+    decompose bit for bit; past B3's most scales it raises."""
     img = np.random.default_rng(9).standard_normal((96, 130))
     img = img.astype(np.float32)
     for n_scales in (2, 6, 11, ia.MAX_SCALES):
         before = ia.atrous_decompose_lo.launches
         got = iuwt_ops.decompose(torch.as_tensor(img, device=cuda), n_scales)
-        assert ia.atrous_decompose_lo.launches - before == n_scales
+        assert ia.atrous_decompose_lo.launches - before == len(
+            ia.launch_plan(n_scales, 96, 130))
         assert torch.equal(got.cpu(), iuwt_ops.decompose(torch.as_tensor(img),
                                                          n_scales))
     with pytest.raises(ValueError):

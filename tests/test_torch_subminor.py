@@ -478,3 +478,83 @@ def test_rms_factor_image_matches_jax(strength):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-6)
     with pytest.raises(RuntimeError):
         rms.make_rms_factor_image(torch.as_tensor(-image), strength)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's launch plan
+# ---------------------------------------------------------------------------
+
+
+PLAN_CASES = [(1, 1), (1, 37), (1, 1000), (1, 1024), (1, 1025), (1, 5003),
+              (1, 7169), (1, 60218), (1, 230_000), (1, 300_000), (4, 3000),
+              (4, 150_000), (8, 20_000), (9, 20_000), (80, 2000), (4000, 10),
+              (4000, 100_000)]
+
+
+@pytest.mark.parametrize("n_images,k", PLAN_CASES)
+def test_cluster_plan_is_launchable(n_images, k):
+    """A power of two up to 16 blocks, contiguous slices that cover
+    0..K-1 exactly once, and no more shared memory than a block may hold
+    beside the kernel's static part."""
+    plan = sl.cluster_plan(n_images, k)
+    r = plan.cluster_size
+    assert 1 <= r <= sl.MAX_CLUSTER and r & (r - 1) == 0
+    assert sl.MIN_THREADS <= plan.threads <= sl.MAX_THREADS
+    assert plan.threads % 32 == 0
+    assert (plan.threads == sl.MAX_THREADS
+            or plan.threads * sl.CANDIDATES_PER_THREAD >= plan.slice_len)
+    covered = np.zeros(k, int)
+    for rank in range(r):
+        first = rank * plan.slice_len
+        covered[first:min(k, first + plan.slice_len)] += 1
+    assert (covered == 1).all()
+    assert plan.shared_bytes + sl.STATIC_SHARED_RESERVE <= (
+        sl.SHARED_BYTES_PER_BLOCK) <= 232_448
+    state = plan.slice_len * (4 * n_images + 12) if plan.on_chip else 0
+    assert plan.shared_bytes == 12 * n_images + state
+    assert plan.ship_raw == (n_images <= sl.SHIP_RAW_MAX_IMAGES)
+
+
+def test_cluster_plan_crossovers():
+    """One block for few candidates; the state in shared memory as long as
+    16 blocks hold it, in global memory beyond."""
+    assert sl.cluster_plan(1, 1000).cluster_size == 1
+    assert sl.cluster_plan(4, 250).cluster_size == 1
+    assert sl.cluster_plan(4, 300).cluster_size == 16
+    assert sl.cluster_plan(1, 60218) == sl.ClusterPlan(
+        16, 1024, 3764, True, True, 12 + 3764 * 16)
+    assert sl.cluster_plan(1, 1000).threads == 416
+    assert sl.cluster_plan(1, 37).threads == sl.MIN_THREADS
+    # Threads follow a block's candidates, whatever the number of planes.
+    assert [sl.cluster_plan(n, 10_000).threads for n in (1, 4, 8, 80)] == (
+        [256] * 4)
+    assert sl.cluster_plan(4000, 10).threads == sl.MIN_THREADS
+    assert sl.cluster_plan(1, 5000).cluster_size == 16
+    room = sl.SHARED_BYTES_PER_BLOCK - sl.STATIC_SHARED_RESERVE - 12
+    most = 16 * (room // 16)
+    assert sl.cluster_plan(1, most).on_chip
+    beyond = sl.cluster_plan(1, most + 16)
+    assert not beyond.on_chip and beyond.cluster_size == 16
+    assert beyond.shared_bytes == 12
+
+
+@pytest.mark.parametrize("cluster_size", [1, 2, 4, 8, 16])
+def test_cluster_plan_forced(cluster_size):
+    """A forced cluster size keeps the state on the chip where it fits; a
+    forced place that does not fit, a size that is no power of two and raw
+    values for too many planes raise."""
+    plan = sl.cluster_plan(1, 60218, cluster_size=cluster_size)
+    assert plan.cluster_size == cluster_size
+    assert plan.on_chip == (cluster_size >= 8)
+    assert plan.slice_len * cluster_size >= 60218
+    assert not sl.cluster_plan(1, 60218, cluster_size=cluster_size,
+                               on_chip=False).on_chip
+    assert not sl.cluster_plan(2, 100, cluster_size=cluster_size,
+                               ship_raw=False).ship_raw
+    if cluster_size < 8:
+        with pytest.raises(ValueError):
+            sl.cluster_plan(1, 60218, cluster_size=cluster_size, on_chip=True)
+    with pytest.raises(ValueError):
+        sl.cluster_plan(1, 100, cluster_size=3 * cluster_size)
+    with pytest.raises(ValueError):
+        sl.cluster_plan(9, 100, cluster_size=cluster_size, ship_raw=True)
