@@ -31,7 +31,13 @@ tensors and prints what it measured:
   versions, B4's time, the joined-channel cube on a chan 4 x tile 2 mesh
   against the single-device perform, 2 channels x 2 polarizations with
   squared joins on chan 2 x tile 4, and the point-source contract on
-  chan 1 x tile 8.
+  chan 1 x tile 8;
+* multiscale CLEAN: the Högbom step in linear mode with a weight plane at
+  config 3's shape against its plain version and its time, config 3
+  (multiscale 2048^2 x 8 channels, 2-term polynomial fit, 600 iterations)
+  with the time split of a perform, one perform of it on the Clark route,
+  the point-source contract, and a 256^2 x 4-channel perform against the
+  port's CPU run.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -131,6 +137,22 @@ B1_SHARD_CASES = [
     ("squared 2ch x 2pol", "squared", 4, 2, 4096, 4096, 8, 7),
     ("ragged signed", "signed", 1, 1, 1000, 1300, 4, 2),
 ]
+# Config 3: ``bench.py --engine multiscale --size 2048 --iters 600``: the
+# diffuse problem at 8 channels, a polynomial fit of 2 terms, the cubes on
+# the card.
+MS_SIZE = 2048
+MS_CHANNELS = 8
+MS_ITERATIONS = 600
+# The multiscale card against the port's CPU run of the same arrays: a
+# 256^2 x 4-channel field of 20 point sources on faint diffuse emission
+# (three scales take components), stopped at its iteration limit (19 short
+# of its threshold) and run on to its threshold at twice the limit; equal
+# iteration counts and components per scale, residual and model within
+# this of max(1, |res|max).
+MS_CHECK_SIZE = 256
+MS_CHECK_CHANNELS = 4
+MS_CHECK_ITERATIONS = 300
+MS_CARD_VS_CPU = 1e-5
 # The card's published peaks (H100 SXM data sheet, 700 W): device memory
 # and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -217,6 +239,24 @@ def make_diffuse_problem(size, n_channels, seed=IUWT_SEED):
             np.fft.rfft2(sky * (1 + 0.1 * c)) * fp, s=(size, size)
         ).astype(np.float32)
     return psfs, residual
+
+
+def make_ms_check_problem(size, n_channels, seed=SEED):
+    """20 point sources on config 3's diffuse emission at 1/500 of its
+    brightness, under its PSFs, the points' spectra falling 5% a channel;
+    returns (psfs, residual)."""
+    psfs, diffuse = make_diffuse_problem(size, n_channels)
+    rng = np.random.default_rng(seed)
+    sky = np.zeros((size, size))
+    ys = rng.integers(size // 8, 7 * size // 8, 20)
+    xs = rng.integers(size // 8, 7 * size // 8, 20)
+    np.add.at(sky, (ys, xs), rng.uniform(0.2, 1.0, 20))
+    points = np.stack([
+        np.fft.irfft2(np.fft.rfft2(sky * (1 - 0.05 * c))
+                      * np.fft.rfft2(np.fft.ifftshift(psfs[c])), s=sky.shape)
+        for c in range(n_channels)
+    ])
+    return psfs, (0.002 * diffuse + points).astype(np.float32)
 
 
 def rms(t):
@@ -725,23 +765,43 @@ def _subminor_state(C, P, use_rms, allow_negative, seed, bad_psf=False,
                 coef=coef, meta=meta)
 
 
-def _subminor_run(state, params, proj, plan=None):
-    """One run on a fresh copy of the state: the plain version when ``plan``
-    is None, else the kernel launched by that plan."""
+def _subminor_replay(args, kwargs, plan=None):
+    """One run of B2's arguments ``args`` on fresh copies of its residual
+    and model state: the plain version when ``plan`` is None, else the
+    kernel launched by that plan.  Returns (output, residual, model)."""
     from radler_tpu_torch.kernels import subminor_loop as sl
 
-    loop = state["loop"]
-    res = loop._residual_k.clone()
-    model = torch.zeros_like(res)
-    args = (res, model, loop._rms_k, loop._xs, loop._ys, state["psfs"],
-            state["coef"], proj, params)
-    n_pols = state["meta"].n_polarizations
+    res, model = args[0].clone(), args[1].clone()
+    args = (res, model) + tuple(args[2:])
     if plan is None:
-        out = sl.subminor_loop_reference(*args, n_polarizations=n_pols)
+        out = sl.subminor_loop_reference(*args, **kwargs)
     else:
-        out = sl.subminor_loop(*args, n_polarizations=n_pols, _plan=plan)
+        out = sl.subminor_loop(*args, **kwargs, _plan=plan)
     torch.cuda.synchronize()
     return out, res, model
+
+
+def _subminor_replay_all(name, args, kwargs):
+    """The plain version of one B2 call against the kernel at every plan of
+    :func:`_subminor_plans`: equal output bits and state, else raises.
+    Returns (the plain result, the plans, max |difference|)."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    out_p, res_p, mod_p = _subminor_replay(args, kwargs)
+    got_p = sl.read_result(out_p)
+    plans = _subminor_plans(*args[0].shape)
+    d = 0.0
+    for plan in plans:
+        out_k, res_k, mod_k = _subminor_replay(args, kwargs, plan)
+        d_plan = max(float((res_k - res_p).abs().max()),
+                     float((mod_k - mod_p).abs().max()))
+        if not (torch.equal(out_k, out_p) and d_plan == 0.0):
+            raise AssertionError(
+                f"subminor kernel and plain disagree: {name}, "
+                f"{_plan_name(plan)}: kernel {sl.read_result(out_k)}, "
+                f"plain {got_p}, max|diff| {d_plan:.3g}")
+        d = max(d, d_plan)
+    return got_p, plans, d
 
 
 def _subminor_plans(n, k):
@@ -792,6 +852,10 @@ def _subminor_cases():
                   False, SUBMINOR_K_RAGGED))
     cases.append(("beyond shared memory", 4, 1, False, True, "POLYNOMIAL",
                   0.0, False, False, SUBMINOR_K_GLOBAL))
+    # The most planes whose raw values travel with the argmax (config 3's 8
+    # channels on the Clark route).
+    cases.append(("8ch x 1pol", 8, 1, True, True, "POLYNOMIAL", 4.0, False,
+                  False, SUBMINOR_K))
     return cases
 
 
@@ -819,23 +883,15 @@ def phase_subminor_vs_plain():
         params = sl.SubminorParams.make(
             float(state["loop"].threshold) * 0.3, GAIN, 0,
             SUBMINOR_ITERATIONS, divergence, allow_negative, stop_neg)
-        out_p, res_p, mod_p = _subminor_run(state, params, proj)
-        got_p = sl.read_result(out_p)
-        plans = _subminor_plans(C * P, state["k"])
+        loop = state["loop"]
+        args = (loop._residual_k, torch.zeros_like(loop._residual_k),
+                loop._rms_k, loop._xs, loop._ys, state["psfs"], state["coef"],
+                proj, params)
+        got_p, plans, d = _subminor_replay_all(
+            name, args, dict(n_polarizations=P))
         if k_target == SUBMINOR_K_GLOBAL and plans[0].on_chip:
             raise AssertionError(f"{name}: the plan kept K = {state['k']} in "
                                  "shared memory")
-        d = 0.0
-        for plan in plans:
-            out_k, res_k, mod_k = _subminor_run(state, params, proj, plan)
-            d_plan = max(float((res_k - res_p).abs().max()),
-                         float((mod_k - mod_p).abs().max()))
-            if not (torch.equal(out_k, out_p) and d_plan == 0.0):
-                raise AssertionError(
-                    f"subminor kernel and plain disagree: {name}, "
-                    f"{_plan_name(plan)}: kernel {sl.read_result(out_k)}, "
-                    f"plain {got_p}, max|diff| {d_plan:.3g}")
-            d = max(d, d_plan)
         say(f"  {name:20s} rms={use_rms:d} allow_negative={allow_negative:d} "
             f"{fit:10s} divergence={divergence:g} K={state['k']}: plain "
             f"{got_p}; kernel equal at {_plan_name(plans[0])} (its own plan), "
@@ -1806,6 +1862,425 @@ def phase_mesh_squared(psf2, residual2):
     say(f"  seconds: mesh {mesh[1]:.4f}, single device {single[1]:.4f}")
 
 
+# ---------------------------------------------------------------------------
+# Multiscale CLEAN
+# ---------------------------------------------------------------------------
+
+
+def phase_linear_b1():
+    """B1 in linear mode with a weight plane at config 3's shape ([8, 2048,
+    2048], the linear coefficients of 8 channels): the kernel loop against
+    the plain loop over TRACE_ITERATIONS iterations (bit-equal), then the
+    step's time in turns plain, kernel, kernel, plain.  Returns (max
+    |difference|, kernel ms, plain ms, bytes the step must move)."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    inputs = _case_inputs("linear", MS_CHANNELS, 1, False, MS_SIZE, MS_SIZE,
+                          seed=MS_CHANNELS)
+    worst = 0.0
+    for allow_negative in (True, False):
+        pk, rk, mk, bk = _trace(inputs, "linear", True, allow_negative,
+                                plain=False)
+        pp, rp, mp, bp = _trace(inputs, "linear", True, allow_negative,
+                                plain=True)
+        d = max(float((rk - rp).abs().max()), float((mk - mp).abs().max()),
+                float((bk.value - bp.value).abs().max()),
+                float((bk.values - bp.values).abs().max()))
+        same = bool(torch.equal(pk, pp) and torch.equal(bk.state, bp.state))
+        say(f"  linear {MS_CHANNELS}x{MS_SIZE}x{MS_SIZE} weight=1 "
+            f"allow_negative={allow_negative:d}: iterations "
+            f"{int(bk.state[hs.ITERATION])}/{int(bp.state[hs.ITERATION])}, "
+            f"same peaks and state {same}, max|difference| {d:.3g}")
+        if not (same and d == 0.0):
+            raise AssertionError("B1 in linear mode and its plain version "
+                                 "disagree at config 3's shape")
+        worst = max(worst, d)
+
+    res, psfs = inputs["res"].clone(), inputs["psfs"]
+    weight, coefs = inputs["weight"], inputs["coefs"]
+    model = torch.zeros_like(res)
+    flat = int(torch.argmax(res[0].abs()))
+    y0, x0 = divmod(flat, MS_SIZE)
+    gain = 0.1
+    kw = dict(mode="linear", n_polarizations=1, allow_negative=True)
+    times = {True: [], False: []}
+    for plain in (True, False, False, True):
+        step = hs.hogbom_step_reference if plain else hs.hogbom_step
+        state = torch.tensor([y0, x0, 1, 0, 0, 1, flat, 0], dtype=torch.int32,
+                             device=res.device)
+        values = res[:, y0, x0] * gain
+        t_step, h_step = _time_ms(
+            lambda: step(res, model, psfs, values, state, coefs, weight, **kw),
+            20)
+        times[plain].append(t_step)
+        say(f"  {'plain ' if plain else 'kernel'} hogbom_step linear "
+            f"{t_step:.4f} ms (host enqueue {h_step:.4f} ms)")
+    n_bytes = 3 * res.numel() * 4 + weight.numel() * 4
+    del inputs, res, model
+    torch.cuda.empty_cache()
+    return (worst, sum(times[False]) / 2, sum(times[True]) / 2, n_bytes)
+
+
+def _ms_settings(size, iterations):
+    import radler_tpu_torch as rd
+
+    s = rd.Settings()
+    s.trimmed_image_width = s.trimmed_image_height = size
+    s.algorithm_type = rd.AlgorithmType.MULTISCALE
+    s.minor_iteration_count = iterations
+    s.minor_loop_gain = 0.1
+    s.major_loop_gain = 0.85
+    s.spectral_fitting.mode = rd.SpectralFittingMode.POLYNOMIAL
+    s.spectral_fitting.terms = 2
+    return s
+
+
+def _ms_frequencies(n_channels):
+    """``bench.py``'s channel frequencies for config 3."""
+    return np.array([[1.0e8 + c * 1e7, 1.1e8 + c * 1e7]
+                     for c in range(n_channels)])
+
+
+def _ms_perform(psfs, res0, settings, count_syncs=False):
+    """One multiscale perform on a fresh copy of ``res0`` on the card;
+    returns (iterations, seconds, (B1 step, B1 select, B2) launches, host
+    syncs or None, subminor passes, residual cube, model cube)."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.kernels import hogbom_step as hs
+    from radler_tpu_torch.kernels import subminor_loop as sl
+    from radler_tpu_torch.models import multiscale as ms
+
+    res = res0.clone()
+    r = rd.Radler(settings, psfs, res, torch.zeros_like(res), 0.0,
+                  frequencies=_ms_frequencies(res.shape[0]))
+    passes = [0]
+    fast_sub_loop = ms.MultiScaleAlgorithm._run_fast_sub_loop
+
+    def counted(self, *args, **kwargs):
+        passes[0] += 1
+        return fast_sub_loop(self, *args, **kwargs)
+
+    ms.MultiScaleAlgorithm._run_fast_sub_loop = counted
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        start = time.perf_counter()
+        syncs = None
+        if count_syncs:
+            syncs = _count_syncs(lambda: r.perform(0))
+        else:
+            r.perform(0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = (hs.hogbom_step.launches, hs.hogbom_select.launches,
+                    sl.subminor_loop.launches)
+    finally:
+        ms.MultiScaleAlgorithm._run_fast_sub_loop = fast_sub_loop
+    out_res = torch.stack([e.residual_accessor.array for e in r._table])
+    out_mod = torch.stack([e.model_accessor.array for e in r._table])
+    if not (torch.isfinite(out_res).all() and torch.isfinite(out_mod).all()):
+        raise AssertionError("non-finite residual or model")
+    return (r.iteration_number, seconds, launches, syncs, passes[0], out_res,
+            out_mod)
+
+
+def _ms_timed_split(split):
+    """Wrap multiscale's main steps with synchronized timers that add to
+    ``split`` each step's own time, without the wrapped steps it calls; a
+    convolution with a scale kernel is labelled by its caller.  Returns a
+    function that restores them."""
+    from radler_tpu_torch.models import multiscale as ms
+
+    by_caller = {
+        "execute_major_iteration": "scale-convolved residual",
+        "_run_fast_sub_loop": "model add (scale convolution)",
+    }
+    saved = []
+    nested = []  # per open step: the seconds of the wrapped steps it called
+
+    def wrap(owner, name, label):
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+
+        def timed(*args, **kwargs):
+            key = label
+            if key is None:
+                key = by_caller.get(sys._getframe(1).f_code.co_name,
+                                    "PSF convolutions")
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            nested.append(0.0)
+            try:
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            finally:
+                inner = nested.pop()
+            seconds = time.perf_counter() - start
+            if nested:
+                nested[-1] += seconds
+            calls, total = split.get(key, (0, 0.0))
+            split[key] = (calls + 1, total + seconds - inner)
+            return out
+
+        setattr(owner, name, timed)
+
+    alg = ms.MultiScaleAlgorithm
+    wrap(alg, "_find_active_scale_convolved_maxima",
+         "scale maxima (FFT bank, argmaxes, one host read)")
+    wrap(ms, "get_linear_integrated", "linear integration")
+    wrap(alg, "_scale_convolve", None)
+    wrap(ms, "_twice_convolved_stack", "PSF convolutions")
+    wrap(alg, "_kernel_fft", "scale kernels (NumPy, copy, rfft2)")
+    wrap(alg, "_scale_valid_stack", "search windows (NumPy, copy)")
+    wrap(ms, "dense_subminor_loop", "dense loop (B1 linear + select)")
+    wrap(ms, "correct_residual", "correction FFTs")
+
+    def restore():
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+    return restore
+
+
+def phase_config3():
+    """Config 3: multiscale 2048^2 x 8 channels, 2-term polynomial fit,
+    600 minor iterations, gain 0.1, major gain 0.85, through
+    Radler.perform on CUDA tensors (the dense route: B1 in linear mode with
+    the weight plane): a warm-up and the best of 2, subminor passes, B1
+    launches and host syncs per perform, peak memory, channel 0's residual
+    rms, the split of one perform; then a warm-up and one perform on the
+    Clark route (B2 on 8 planes), with B2 against its plain version on
+    every pass's inputs.  Returns (B1 step launches, the rate, the Clark
+    route's rate, B2 launches, B2's max |difference| from plain)."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+    from radler_tpu_torch.models import multiscale as ms
+    from radler_tpu_torch.models import subminor as subminor_module
+
+    start = time.perf_counter()
+    psfs, residual = make_diffuse_problem(MS_SIZE, MS_CHANNELS)
+    say(f"  problem made in {time.perf_counter() - start:.1f} s (NumPy)")
+    psf_d = torch.as_tensor(psfs, device=DEVICE)
+    res_d = torch.as_tensor(residual, device=DEVICE)
+    del psfs, residual
+    settings = _ms_settings(MS_SIZE, MS_ITERATIONS)
+
+    warm = _ms_perform(psf_d, res_d, settings)
+    say(f"  warm-up perform: {warm[0]} iterations in {warm[1]:.4f} s")
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_ms_perform(psf_d, res_d, settings) for _ in range(2)]
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    n, _, launches, _, passes, out_res, out_mod = runs[-1]
+    best = min(r[1] for r in runs)
+    if any(r[0] != n or r[2] != launches or r[4] != passes
+           for r in runs + [warm]):
+        raise AssertionError("config 3's performs differ in iterations, "
+                             "launches or subminor passes")
+    step, select, b2 = launches
+    if not (b2 == 0 and step == select
+            and n <= step < n + hs.CHUNK * passes and passes > 0):
+        raise AssertionError(f"config 3 launched B1 {step}, select {select}, "
+                             f"B2 {b2} times for {n} iterations in {passes} "
+                             "subminor passes")
+    rms0, rms1 = rms(res_d[0]), rms(out_res[0])
+    if not (n > 0 and rms1 < rms0):
+        raise AssertionError("config 3 did not clean")
+    counted = _ms_perform(psf_d, res_d, settings, count_syncs=True)
+    say(f"  perform: {n} iterations in {passes} subminor passes; seconds "
+        f"{', '.join(f'{r[1]:.4f}' for r in runs)}; best "
+        f"{n / best:.1f} minor iterations/s; launches hogbom_step {step}, "
+        f"hogbom_select {select}, subminor_loop {b2} per perform; host "
+        f"syncs {counted[3]} per perform (sync debug mode on, "
+        f"{counted[1]:.4f} s)")
+    say(f"  channel 0 residual rms {rms0:.6g} -> {rms1:.6g}; model sum "
+        f"{float(out_mod.double().sum()):.6g}; max_memory_allocated "
+        f"{peak_mib:.1f} MiB")
+    split = {}
+    restore = _ms_timed_split(split)
+    try:
+        timed = _ms_perform(psf_d, res_d, settings)
+    finally:
+        restore()
+    if timed[0] != n or float((timed[5] - out_res).abs().max()) != 0.0:
+        raise AssertionError("the split perform differs from the others")
+    say(f"  split of one perform ({timed[1]:.4f} s with a synchronize "
+        f"around each step):")
+    for label, (calls, seconds) in split.items():
+        say(f"    {label}: {calls} calls, {seconds * 1e3:.1f} ms")
+    say(f"    the rest: {(timed[1] - sum(v[1] for v in split.values())) * 1e3:.1f}"
+        " ms")
+
+    # The Clark route; its warm-up keeps a copy of every B2 call's inputs.
+    b2_calls = []
+    real_b2 = subminor_module.subminor_loop
+
+    def recording_b2(*args, **kwargs):
+        b2_calls.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                               for a in args), kwargs))
+        return real_b2(*args, **kwargs)
+
+    limit = ms.DENSE_SUBMINOR_MAX_PIXELS
+    ms.DENSE_SUBMINOR_MAX_PIXELS = 0
+    try:
+        subminor_module.subminor_loop = recording_b2
+        try:
+            _ms_perform(psf_d, res_d, settings)
+        finally:
+            subminor_module.subminor_loop = real_b2
+        clark = _ms_perform(psf_d, res_d, settings)
+    finally:
+        ms.DENSE_SUBMINOR_MAX_PIXELS = limit
+    cn, cs, (c_step, c_select, c_b2), _, c_passes, c_res, _ = clark
+    d = float((c_res - out_res).abs().max())
+    say(f"  Clark route: {cn} iterations in {c_passes} subminor passes in "
+        f"{cs:.4f} s, {cn / cs:.1f} minor iterations/s; launches "
+        f"subminor_loop {c_b2}, hogbom_step {c_step}; channel 0 residual "
+        f"rms {rms(c_res[0]):.6g}; max|residual - the dense route's| {d:.3g}")
+    if not (c_step == c_select == 0 and 0 < c_b2 <= c_passes and cn > 0
+            and rms(c_res[0]) < rms0 and len(b2_calls) == c_b2):
+        raise AssertionError("the Clark route did not clean through B2")
+    del res_d, psf_d, out_res, out_mod, c_res, runs, warm, counted, timed
+    worst_b2 = _check_config3_b2(b2_calls)
+    del b2_calls
+    torch.cuda.empty_cache()
+    return step, n / best, cn / cs, c_b2, worst_b2
+
+
+def _check_config3_b2(calls):
+    """Every B2 call of config 3's Clark route, replayed from a copy of its
+    inputs: the plain version against the kernel at its own plan and every
+    plan of :func:`_subminor_plans`, bit-equal.  Returns max |difference|."""
+    start = time.perf_counter()
+    worst, ks, done, own = 0.0, [], [], set()
+    for i, (args, kwargs) in enumerate(calls):
+        (iteration, _, _), plans, d = _subminor_replay_all(
+            f"config 3, Clark pass {i}", args, kwargs)
+        ks.append(args[0].shape[1])
+        done.append(iteration - args[8].start_iteration)
+        own.add(_plan_name(plans[0]))
+        worst = max(worst, d)
+    n = calls[0][0][0].shape[0]
+    say(f"  B2 at config 3's {len(calls)} Clark passes ({n} planes, the "
+        f"{'2-term fit' if calls[0][0][7] is not None else 'no fit'}), "
+        f"K {min(ks)}..{max(ks)}, {sum(done)} iterations in all: kernel "
+        f"equal to plain at each pass's own plan ({', '.join(sorted(own))}), "
+        f"every cluster size, the state in global memory and the exchange "
+        f"without raw values; max|diff| {worst:.3g} "
+        f"({time.perf_counter() - start:.1f} s)")
+    if sum(done) == 0:
+        raise AssertionError("config 3's Clark passes made no iterations")
+    return worst
+
+
+def phase_ms_contract():
+    """The multiscale point-source contract of tests/test_radler.py on the
+    card (the dense route): residual under 2e-6, the model 2.5 at the
+    source within 1e-4 relative and under 2e-6 elsewhere."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    size, (sx, sy) = 64, (-9, 15)
+    point = np.array([[0.0, 0.4, 0.0], [0.25, 1.0, 0.5], [0.0, 0.6, 0.0]],
+                     np.float32)
+    psf = np.zeros((size, size), np.float32)
+    psf[31:34, 31:34] = point
+    res = np.zeros((size, size), np.float32)
+    cy, cx = size // 2 + sy, size // 2 + sx
+    res[cy - 1 : cy + 2, cx - 1 : cx + 2] = 2.5 * point
+    s = rd.Settings()
+    s.algorithm_type = rd.AlgorithmType.MULTISCALE
+    s.trimmed_image_width = s.trimmed_image_height = size
+    s.pixel_scale.x = s.pixel_scale.y = np.deg2rad(1.0 / 60.0)
+    s.absolute_threshold = 1e-7
+    s.minor_iteration_count = 600
+    dev = torch.device(DEVICE)
+    r = rd.Radler(s, torch.as_tensor(psf, device=dev),
+                  torch.as_tensor(res, device=dev),
+                  torch.zeros(size, size, device=dev), 0.0)
+    _reset_counts()
+    if r.perform(0) is not False:
+        raise AssertionError("perform asked for another major iteration")
+    out_res = r._table.front.residual_accessor.array.cpu().numpy()
+    out_mod = r._table.front.model_accessor.array.cpu().numpy()
+    peak = out_mod[cy, cx]
+    others = np.delete(out_mod.ravel(), cy * size + cx)
+    say(f"  shift ({sx},{sy}): {r.iteration_number} iterations, B1 launches "
+        f"{hs.hogbom_step.launches}; max|residual| {np.abs(out_res).max():.3g},"
+        f" model peak {peak:.7f}, max|model elsewhere| "
+        f"{np.abs(others).max():.3g}")
+    if not (np.abs(out_res).max() < 2e-6 and abs(peak - 2.5) <= 2.5e-4
+            and np.abs(others).max() < 2e-6 and hs.hogbom_step.launches > 0):
+        raise AssertionError("the multiscale point-source contract failed")
+
+
+def _ms_check_perform(psfs, residual, iterations, device):
+    """One perform of config 3's settings at ``iterations`` on a copy of
+    ``residual`` on ``device``; returns (iterations, components per scale,
+    residual, model, seconds, (the major iteration's first threshold, the
+    biased peak its last stop test read))."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.models import multiscale as ms
+
+    size, n_channels = residual.shape[-1], residual.shape[0]
+    res, model = residual.copy(), np.zeros_like(residual)
+    peaks = []
+    real_select = ms.select_maximum_scale
+
+    def recording_select(scales):
+        index = real_select(scales)
+        if index is not None:
+            e = scales[index]
+            peaks.append(e.max_unnormalized_image_value * e.bias_factor)
+        return index
+
+    ms.select_maximum_scale = recording_select
+    try:
+        start = time.perf_counter()
+        settings = _ms_settings(size, iterations)
+        r = rd.Radler(settings, psfs, res, model, 0.0,
+                      frequencies=_ms_frequencies(n_channels), device=device)
+        r.perform(0)
+        seconds = time.perf_counter() - start
+    finally:
+        ms.select_maximum_scale = real_select
+    alg = r._parallel.first_algorithm
+    # execute_major_iteration's first threshold, from its initial peak.
+    first = max(abs(peaks[0]) * (1.0 - settings.major_loop_gain),
+                alg.major_iteration_threshold, alg.threshold)
+    return (r.iteration_number,
+            [e.n_components_cleaned for e in alg.scale_infos], res, model,
+            seconds, (first, peaks[-1]))
+
+
+def phase_ms_card_vs_cpu():
+    """:func:`make_ms_check_problem`'s 256^2 x 4-channel field (config 3's
+    settings; three scales take components) on the card against the port's
+    CPU run of the same arrays, twice: stopped at MS_CHECK_ITERATIONS, and
+    run on to its threshold.  Each: equal iteration counts and components
+    per scale, residual and model within MS_CARD_VS_CPU of max(1,
+    |res|max)."""
+    psfs, residual = make_ms_check_problem(MS_CHECK_SIZE, MS_CHECK_CHANNELS)
+    for limit, stop in ((MS_CHECK_ITERATIONS, "the iteration limit"),
+                        (2 * MS_CHECK_ITERATIONS, "its threshold")):
+        cpu, card = [_ms_check_perform(psfs, residual, limit, device)
+                     for device in ("cpu", DEVICE)]
+        (n_c, comp_c, res_c, mod_c, t_c, stop_c) = cpu
+        (n_g, comp_g, res_g, mod_g, t_g, stop_g) = card
+        scale = max(1.0, float(np.abs(res_c).max()))
+        d_res = float(np.abs(res_g - res_c).max()) / scale
+        d_mod = float(np.abs(mod_g - mod_c).max()) / scale
+        say(f"  stopped at {stop} ({limit}): card {n_g} iterations "
+            f"({t_g:.2f} s), CPU {n_c} ({t_c:.2f} s); components per scale "
+            f"{comp_g} / {comp_c}; max|dres| {d_res:.3g}, max|dmodel| "
+            f"{d_mod:.3g} of max(1, |res|max); the last stop test's "
+            f"threshold and peak: card {stop_g[0]:.7g}, {stop_g[1]:.7g}, CPU "
+            f"{stop_c[0]:.7g}, {stop_c[1]:.7g}")
+        if not (n_g == n_c > 0 and comp_g == comp_c and d_res <= MS_CARD_VS_CPU
+                and d_mod <= MS_CARD_VS_CPU and sum(c > 0 for c in comp_c) > 1
+                and (n_c == limit) == (limit == MS_CHECK_ITERATIONS)):
+            raise AssertionError(f"stopped at {stop}: the multiscale perform "
+                                 "on the card and on the CPU disagree")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -1870,6 +2345,17 @@ def main():
                                        phase_atrous_main_shapes(iuwt[2]))
     say("== the IUWT diffuse-source contract ==")
     phase_iuwt_contract()
+    say("== B1 in linear mode at config 3's shape against its plain "
+        "version ==")
+    linear = phase_linear_b1()
+    say("== config 3 (multiscale 2048^2 x 8 channels) through "
+        "Radler.perform ==")
+    config3 = phase_config3()
+    worst["subminor_loop"] = max(worst["subminor_loop"], config3[4])
+    say("== point-source contract, multiscale ==")
+    phase_ms_contract()
+    say("== multiscale on the card against the CPU ==")
+    phase_ms_card_vs_cpu()
     say(f"phases took {time.perf_counter() - start:.1f} s")
 
     kernels = []
@@ -1888,6 +2374,20 @@ def main():
             "bound_by": b_by,
             "library_ms": None,
         })
+    lin_bound_ms, lin_bound_by = bound_ms(linear[3])
+    kernels.append({
+        "name": "hogbom_step (linear, weight plane)",
+        "route": "cuda",
+        "source": "radler_tpu_torch/csrc/hogbom_step.cu",
+        "replaces": "radler_tpu/ops/pallas/hogbom_step.py:37",
+        "launches": config3[0],
+        "max_abs_err": linear[0],
+        "ms": linear[1],
+        "plain_ms": linear[2],
+        "bound_ms": lin_bound_ms,
+        "bound_by": lin_bound_by,
+        "library_ms": None,
+    })
     kernels.append({
         "name": "subminor_loop",
         "route": "cuda",
@@ -1948,6 +2448,11 @@ def main():
         f"4096^2, chan 4 x tile 2 on one card; single device "
         f"{mesh[2]:.1f}); B4 at [1, 2048, 4096]: {b4_ms * 1e3:.1f} us "
         f"against its {b4_bound_ms * 1e3:.1f} us bound")
+    say(f"config 3: {config3[1]:.1f} minor iterations/s through perform "
+        f"(multiscale, dense route); Clark route {config3[2]:.1f} with "
+        f"{config3[3]} B2 launches; B1 linear at [{MS_CHANNELS}, {MS_SIZE}, "
+        f"{MS_SIZE}]: {linear[1] * 1e3:.1f} us against its "
+        f"{lin_bound_ms * 1e3:.1f} us bound")
     print(smi)  # name, power limit: as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -32,6 +32,7 @@ from .work_table import (
 from .component_list import ComponentList
 from .image_set import ImageSet
 from .radler import Radler
+from . import checkpoint
 
 __version__ = "0.1.0"
 

@@ -45,10 +45,14 @@ class CubeMeta(NamedTuple):
     def n_images(self) -> int:
         return self.n_channels * self.n_polarizations
 
+    def psf_index(self, image_index: int) -> int:
+        """Deconvolution-channel (= PSF) index of a cube plane
+        (``cpp/image_set.cc:87-95``)."""
+        return image_index // self.n_polarizations
+
     @property
     def psf_indices(self) -> np.ndarray:
-        """Deconvolution-channel (= PSF) index of each cube plane
-        (``cpp/image_set.cc:87-95``)."""
+        """:meth:`psf_index` of every cube plane."""
         return np.arange(self.n_images) // self.n_polarizations
 
 
@@ -311,6 +315,18 @@ class ImageSet:
                     image_index += 1
         return entry_to_image
 
+    def clone_shape(self, width: int, height: int) -> "ImageSet":
+        """A new zeroed set with the same configuration and device but
+        another image size (``cpp/image_set.h:25-33``)."""
+        return ImageSet(
+            table=self.table,
+            meta=self.meta,
+            data=torch.zeros((self.meta.n_images, height, width),
+                             dtype=torch.float32, device=self.device),
+            entry_to_image=self.entry_to_image,
+            device=self.device,
+        )
+
     # -- shape helpers -----------------------------------------------------
     @property
     def width(self) -> int:
@@ -323,6 +339,15 @@ class ImageSet:
     @property
     def n_images(self) -> int:
         return self.meta.n_images
+
+    def __len__(self) -> int:
+        return self.meta.n_images
+
+    def __getitem__(self, index: int) -> torch.Tensor:
+        return self.data[index]
+
+    def psf_index(self, image_index: int) -> int:
+        return self.meta.psf_index(image_index)
 
     # -- host I/O boundary -------------------------------------------------
     def load_and_average(self, use_residual_images: bool) -> None:

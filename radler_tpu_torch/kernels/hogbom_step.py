@@ -578,6 +578,7 @@ def hogbom_loop(
     allow_negative: bool,
     fitter=None,
     plain: bool = False,
+    integration: Optional[Tuple[str, np.ndarray]] = None,
 ) -> LoopResult:
     """The Högbom minor loop (``generic_clean.cc:163-206``), with the same
     contract as the JAX package's ``hogbom_loop_pallas`` and
@@ -588,9 +589,17 @@ def hogbom_loop(
     the plain versions.  Between launches, only device-side torch ops run
     (the spectral fit, when a fitter is active); the host reads the state
     once per ``CHUNK`` iterations.
+
+    ``integration``, a ``(mode, chan_coefs)`` pair, replaces the joined
+    integration that ``meta`` implies (:func:`integration_coefficients`):
+    multiscale's dense subminor loop runs the linear one whatever the
+    cube's polarizations and joins.
     """
     dev = residual.device
-    mode, chan_np, pol_np = integration_coefficients(meta)
+    if integration is None:
+        mode, chan_np, pol_np = integration_coefficients(meta)
+    else:
+        (mode, chan_np), pol_np = integration, np.ones(1, np.float32)
     coefs = torch.as_tensor(kernel_coefficients(mode, chan_np, pol_np),
                             device=dev)
     step = hogbom_step_reference if plain else hogbom_step

@@ -103,7 +103,7 @@ class GenericClean(DeconvolutionAlgorithm):
             raise NotImplementedError(
                 "component optimization "
                 f"{self.component_optimization_algorithm.name} is not ported "
-                "yet; ROADMAP queue A, item 5 brings it."
+                "yet; ROADMAP queue A, item 7 brings it."
             )
 
         initial_max_value = abs(pk_value)
@@ -178,7 +178,7 @@ class GenericClean(DeconvolutionAlgorithm):
         if self.use_sub_minor_optimization:
             raise NotImplementedError(
                 "the mesh Clark subminor loop (radler_tpu/parallel/mesh.py:"
-                "488-752) is not ported yet; ROADMAP queue A, item 7 brings "
+                "488-752) is not ported yet; ROADMAP queue A, item 8 brings "
                 "it. The mesh runs the Högbom loop: set "
                 "settings.generic.use_sub_minor_optimization = False."
             )
@@ -189,7 +189,7 @@ class GenericClean(DeconvolutionAlgorithm):
                 f"splitting a group of {meta.n_polarizations} polarizations "
                 f"and the {height} rows to divide over tile; the JAX "
                 "package's XLA-partitioned fallback for other shapes is not "
-                "ported (ROADMAP queue A, item 7)."
+                "ported (ROADMAP queue A, item 8)."
             )
         return mesh
 
@@ -211,7 +211,7 @@ class GenericClean(DeconvolutionAlgorithm):
         raise NotImplementedError(
             f"the Clark subminor loop with {fit.mode.name} spectral fitting "
             f"on a {height}x{width} image on the card is not ported; ROADMAP "
-            "queue A, item 2b brings it."
+            "queue A, item 9 brings it."
         )
 
     def _run_clark(

@@ -8,7 +8,8 @@ loop is one call of :func:`radler_tpu_torch.kernels.subminor_loop.subminor_loop`
 one CUDA launch on the card, its plain PyTorch version on the CPU.  The final
 residual correction, the sparse model convolved with the PSF and subtracted
 from the full residual (``subminor_loop.cc:195-218``), is one batched padded
-FFT convolution.
+FFT convolution (:func:`correct_residual`, which multiscale's dense route
+calls with its component image).
 
 K is the exact number of selected pixels: the JAX package rounded it up to
 capacity buckets to bound its jit cache, which nothing here has, and masked
@@ -30,6 +31,26 @@ from ..ops.convolution import padded_convolve
 from ..ops.peak_finder import window_mask
 from ..settings import SpectralFittingMode
 from ..utils.fft_size import calculate_good_fft_size
+
+
+def correct_residual(
+    residual_cube: torch.Tensor,
+    model_full: torch.Tensor,
+    psfs: torch.Tensor,
+    padded_height: int,
+    padded_width: int,
+    n_channels: int,
+) -> torch.Tensor:
+    """``residual - model ⊛ psf`` for every plane of the ``[N, H, W]``
+    cubes, in one batched padded FFT convolution with the ``[C, H, W]``
+    PSFs (plane n uses PSF ``n // (N / C)``; ``subminor_loop.cc:195-218``)."""
+    n, h, w = residual_cube.shape
+    conv = padded_convolve(
+        model_full.reshape(n_channels, n // n_channels, h, w),
+        psfs[:, None],
+        padded_shape=(padded_height, padded_width),
+    )
+    return residual_cube - conv.reshape(n, h, w)
 
 
 class SubMinorLoop:
@@ -202,14 +223,11 @@ class SubMinorLoop:
         one batched padded FFT convolution; returns (new_residual,
         full_model_cube)."""
         full_model = self.full_model_cube()
-        n, h, w = full_model.shape
-        n_chan = self._meta.n_channels
-        conv = padded_convolve(
-            full_model.view(n_chan, n // n_chan, h, w),
-            single_convolved_psfs[:, None],
-            padded_shape=(self.padded_height, self.padded_width),
+        new_residual = correct_residual(
+            residual_cube, full_model, single_convolved_psfs,
+            self.padded_height, self.padded_width, self._meta.n_channels,
         )
-        return residual_cube - conv.reshape(n, h, w), full_model
+        return new_residual, full_model
 
     def _nonzero_positions(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Host (xs, ys, values [N, n]) of the candidates with a non-zero

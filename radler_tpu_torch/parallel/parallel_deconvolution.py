@@ -58,6 +58,10 @@ class ParallelDeconvolution:
             )
         self.settings = settings
         self.algorithms: List[DeconvolutionAlgorithm] = []
+        # Facet-level per-scale auto-masks: the facet slice fills them; a
+        # 1x1 grid keeps its masks in the algorithm, so this stays empty
+        # (the checkpoint writes it all the same).
+        self._scale_masks: List = []
 
     # -- setup ---------------------------------------------------------
     @property
@@ -75,6 +79,12 @@ class ParallelDeconvolution:
         return self.algorithms[0]
 
     def max_scale_count_algorithm(self) -> DeconvolutionAlgorithm:
+        """``parallel_deconvolution.cc:209-225``: the algorithm with the
+        most scales (the first of equals) for multiscale, else the first."""
+        if self.settings.algorithm_type == AlgorithmType.MULTISCALE:
+            return max(
+                self.algorithms, key=lambda a: getattr(a, "scale_count", 0)
+            )
         return self.first_algorithm
 
     def set_rms_factor_image(self, image: Optional[torch.Tensor]) -> None:
@@ -85,6 +95,12 @@ class ParallelDeconvolution:
 
     def set_minor_loop_gain(self, gain: float) -> None:
         self.first_algorithm.minor_loop_gain = gain
+
+    def set_auto_mask_mode(self, track: bool, use: bool) -> None:
+        """Multiscale's per-scale auto-masks: track them (phase 1) or
+        clean inside them (phase 2)."""
+        for alg in self.algorithms:
+            alg.set_auto_mask_mode(track, use)
 
     def set_component_optimization(self, algorithm) -> None:
         self.first_algorithm.component_optimization_algorithm = algorithm
@@ -97,26 +113,25 @@ class ParallelDeconvolution:
 
     # -- component list -------------------------------------------------
     def get_component_list(self, table: WorkTable, device) -> ComponentList:
-        """``parallel_deconvolution.cc:184-207`` for the single-scale
-        algorithms (generic CLEAN, IUWT): every non-zero model pixel is a
-        component.  The model is loaded onto ``device``."""
+        """``parallel_deconvolution.cc:184-207``: multiscale's own
+        per-scale list; for the single-scale algorithms (generic CLEAN,
+        IUWT) every non-zero model pixel, loaded onto ``device``, is a
+        component.  Duplicates merge."""
         if self.settings.algorithm_type == AlgorithmType.MULTISCALE:
-            raise NotImplementedError(
-                "multiscale component lists come with the multiscale slice "
-                "(ROADMAP queue A, item 3)"
+            comp_list = self.first_algorithm.get_component_list()
+        else:
+            w = self.settings.trimmed_image_width
+            h = self.settings.trimmed_image_height
+            model_set = ImageSet.from_table(
+                table,
+                self.settings.squared_joins,
+                self.settings.linked_polarizations,
+                w,
+                h,
+                device,
             )
-        w = self.settings.trimmed_image_width
-        h = self.settings.trimmed_image_height
-        model_set = ImageSet.from_table(
-            table,
-            self.settings.squared_joins,
-            self.settings.linked_polarizations,
-            w,
-            h,
-            device,
-        )
-        model_set.load_and_average(False)
-        comp_list = ComponentList(w, h, image_set=model_set)
+            model_set.load_and_average(False)
+            comp_list = ComponentList(w, h, image_set=model_set)
         comp_list.merge_duplicates()
         return comp_list
 

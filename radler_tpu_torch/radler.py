@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import checkpoint
 from .settings import (
     AlgorithmType,
     LocalRmsMethod,
@@ -44,6 +45,7 @@ from .component_list import ComponentList
 from .models.base import DeconvolutionAlgorithm
 from .models.generic_clean import GenericClean
 from .models.iuwt import IuwtDeconvolution
+from .models.multiscale import MultiScaleAlgorithm
 from .ops import rms_image as rms_ops
 from .ops.noise import median_and_stddev_from_mad
 from .ops.spectral_fitting import create_spectral_fitter
@@ -53,10 +55,9 @@ from .utils import logging as log
 
 # The ROADMAP queue-A item that ports each algorithm not ported yet.
 _PENDING_ALGORITHMS = {
-    AlgorithmType.MULTISCALE: 3,
-    AlgorithmType.ADAPTIVE_SCALE_PIXEL: 5,
-    AlgorithmType.MORE_SANE: 5,
-    AlgorithmType.PYTHON: 5,
+    AlgorithmType.ADAPTIVE_SCALE_PIXEL: 7,
+    AlgorithmType.MORE_SANE: 7,
+    AlgorithmType.PYTHON: 7,
 }
 
 
@@ -240,6 +241,14 @@ class Radler:
         algorithm: DeconvolutionAlgorithm
         if settings.algorithm_type == AlgorithmType.IUWT:
             algorithm = IuwtDeconvolution()
+        elif settings.algorithm_type == AlgorithmType.MULTISCALE:
+            algorithm = MultiScaleAlgorithm(
+                settings.multiscale,
+                self._beam_size,
+                self._pixel_scale_x,
+                self._pixel_scale_y,
+                settings.save_source_list,
+            )
         else:
             algorithm = GenericClean(
                 settings.generic.use_sub_minor_optimization)
@@ -276,11 +285,13 @@ class Radler:
         )
         mesh = make_mesh(n, n_channels=len(table.deconvolution_groups),
                          device=self._device)
-        if mesh.size > 1 and settings.algorithm_type == AlgorithmType.IUWT:
+        if mesh.size > 1 and settings.algorithm_type in (
+                AlgorithmType.IUWT, AlgorithmType.MULTISCALE):
             raise NotImplementedError(
-                "IUWT on a device mesh (settings.parallel.use_device_mesh "
-                f"with {mesh.size} shards) is not ported yet; ROADMAP queue "
-                "A, item 7 brings it."
+                f"{settings.algorithm_type.name} on a device mesh "
+                "(settings.parallel.use_device_mesh with "
+                f"{mesh.size} shards) is not ported yet; ROADMAP queue A, "
+                "item 8 brings it."
             )
         return mesh
 
@@ -391,7 +402,13 @@ class Radler:
 
         psf_images = residual_set.load_and_average_psfs()
 
-        if auto_mask_is_enabled and self._auto_mask_is_finished:
+        if settings.algorithm_type == AlgorithmType.MULTISCALE:
+            # Multiscale tracks a mask per scale in the first auto-mask
+            # phase and cleans inside them in the second.
+            if auto_mask_is_enabled:
+                finished = self._auto_mask_is_finished
+                self._parallel.set_auto_mask_mode(not finished, finished)
+        elif auto_mask_is_enabled and self._auto_mask_is_finished:
             if self._auto_mask is None:
                 host_model = model_set.data.cpu().numpy()
                 self._auto_mask = np.any(
@@ -462,6 +479,18 @@ class Radler:
             self._parallel.first_algorithm.spectral_fitter
         )
         return another_iteration_required
+
+    # ------------------------------------------------------------------
+    def save_state(self, path: str) -> None:
+        """Checkpoint the cross-major-iteration state (auto-mask phase,
+        iteration counters, per-scale masks); see
+        :mod:`radler_tpu_torch.checkpoint`."""
+        checkpoint.save_state(self, path)
+
+    def load_state(self, path: str) -> None:
+        """Resume from a checkpoint written by :meth:`save_state`, here or
+        by the JAX package's ``Radler.save_state``."""
+        checkpoint.load_state(self, path)
 
     def _local_rms_image(self, integrated: torch.Tensor):
         """The local-RMS map of ``settings.local_rms``, or None (the

@@ -29,3 +29,10 @@ def calculate_good_fft_size(minimum_size: int) -> int:
         p2 *= 2
     return best
 
+
+def get_convolution_size(scale: float, image_dim: int, padding: float) -> int:
+    """Padded convolution size for a given kernel scale
+    (``cpp/utils/fft_size_calculations.h:39-50``): pad relative to the sum
+    of 1.5 x scale and the image size, so that sources near the border do
+    not wrap around during the FFT convolution."""
+    return calculate_good_fft_size(int(padding * (1.5 * scale + image_dim)))

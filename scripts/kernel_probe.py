@@ -5,6 +5,7 @@ command line, on one NVIDIA GPU.  Run from the root of a checkout:
 
     python3 scripts/kernel_probe.py b2        # the subminor kernel
     python3 scripts/kernel_probe.py b3        # the à-trous kernel
+    python3 scripts/kernel_probe.py ms        # multiscale: B1 linear, config 3
     python3 scripts/kernel_probe.py b2 b3 check   # against plain only
 
 ``check`` leaves out the timing phases.  It imports nothing of JAX.
@@ -50,6 +51,17 @@ def main(argv):
         cs.phase_atrous_main_shapes(iuwt[2])
         cs.say("== the IUWT diffuse-source contract ==")
         cs.phase_iuwt_contract()
+    if "ms" in argv:
+        cs.say("== B1 in linear mode at config 3's shape against its plain "
+               "version ==")
+        cs.phase_linear_b1()
+        cs.say("== config 3 (multiscale 2048^2 x 8 channels) through "
+               "Radler.perform ==")
+        cs.phase_config3()
+        cs.say("== point-source contract, multiscale ==")
+        cs.phase_ms_contract()
+        cs.say("== multiscale on the card against the CPU ==")
+        cs.phase_ms_card_vs_cpu()
     cs.say("probe done")
     return 0
 

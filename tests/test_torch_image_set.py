@@ -204,3 +204,31 @@ def test_tensor_accessor_keeps_the_device():
     assert isinstance(stored, torch.Tensor)
     np.testing.assert_array_equal(stored.numpy(), 4.0)
     np.testing.assert_array_equal(image.numpy(), 3.0)  # input untouched
+
+
+@pytest.mark.parametrize("pols", [
+    [["STOKES_I"]] * 3,
+    [["XX", "YY"]] * 2,
+    [["STOKES_I", "STOKES_Q", "STOKES_U", "STOKES_V"]],
+], ids=["3ch", "2ch_dual", "iquv"])
+def test_surface_matches_jax(pols):
+    """``len``, indexing, ``psf_index`` (of the set and of its meta) and
+    ``clone_shape`` (``radler_tpu/image_set.py:49,300,326-334``)."""
+    n = sum(len(p) for p in pols)
+    images = np.random.default_rng(n).normal(size=(n, 4, 4)).astype(
+        np.float32)
+    jax_table, port_table = make_tables(pols, images=images)
+    js = JaxImageSet.from_table(jax_table, False, set(), 4, 4)
+    ts = ImageSet.from_table(port_table, False, set(), 4, 4, "cpu")
+    js.load_and_average(True)
+    ts.load_and_average(True)
+    assert len(ts) == len(js) == n
+    for i in range(n):
+        np.testing.assert_array_equal(ts[i].numpy(), np.asarray(js[i]))
+        assert ts.psf_index(i) == ts.meta.psf_index(i) == js.psf_index(i)
+    clone = ts.clone_shape(6, 5)
+    jclone = js.clone_shape(6, 5)
+    assert (clone.width, clone.height) == (jclone.width, jclone.height)
+    assert clone.meta == ts.meta and clone.device == ts.device
+    assert clone.table is ts.table
+    assert not clone.data.any() and len(clone) == n

@@ -874,3 +874,123 @@ def test_perform_mesh_point_source_and_counts(cuda):
     assert n1 == n8 and c1 == 0 and c8 >= 8 * n8
     assert float((r1 - r8).abs().max()) <= 2e-6
     assert float((m1 - m8).abs().max()) <= 2e-6
+
+
+# ---------------------------------------------------------------------------
+# Multiscale: the dense subminor loop (B1 in linear mode) and perform
+# ---------------------------------------------------------------------------
+
+from radler_tpu_torch.models import multiscale as ms  # noqa: E402
+from radler_tpu_torch.models.multiscale_fused import (  # noqa: E402
+    dense_subminor_loop,
+)
+
+
+@pytest.mark.parametrize("options", [
+    {},
+    {"fit": True, "rms": True},
+    {"stop_on_negative": True},
+    {"allow_negative": False, "divergence_limit": 1.5},
+], ids=["plain", "fit_rms", "stop_on_negative", "positive_diverging"])
+def test_dense_subminor_loop_bit_equal_to_plain(cuda, options):
+    """Multiscale's dense subminor loop on the kernels (B1 in linear mode
+    with the weight plane, and the select) against its plain run, from the
+    same start: the same result, component cube and residual, bit for
+    bit."""
+    c = make_case(("linear", 4, 1, False), cuda, seed=5)
+    rng = np.random.default_rng(6)
+    rms = torch.as_tensor(rng.uniform(0.5, 1.5, (HEIGHT, WIDTH)),
+                          dtype=torch.float32, device=cuda)
+    use_rms = bool(options.get("rms"))
+    weight = c["weight"] * rms if use_rms else c["weight"]
+    fitter = (SpectralFitter(rd.SpectralFittingMode.POLYNOMIAL, 2,
+                             c["meta"].frequencies, c["meta"].weights)
+              if options.get("fit") else None)
+    allow_negative = options.get("allow_negative", True)
+    flat = int(torch.argmax(c["res"][0].abs()))
+    y, x = divmod(flat, WIDTH)
+    outs = []
+    for plain in (False, True):
+        hs.hogbom_step.launches = hs.hogbom_select.launches = 0
+        res = c["res"].clone()
+        _, comp, it, value, found, div = dense_subminor_loop(
+            res, c["psfs"], weight, rms if use_rms else None, 0.02, 0.1, 3,
+            400, options.get("divergence_limit", 0.0),
+            (float(res[0, y, x]), x, y, True), meta=c["meta"],
+            allow_negative=allow_negative,
+            stop_on_negative=bool(options.get("stop_on_negative")),
+            fitter=fitter, plain=plain,
+        )
+        launches = (hs.hogbom_step.launches, hs.hogbom_select.launches)
+        outs.append(((it, value, found, div), comp, res, launches))
+    (rk, ck, resk, lk), (rp, cp, resp, lp) = outs
+    assert rk == rp and rk[0] > 4
+    assert torch.equal(ck, cp) and torch.equal(resk, resp)
+    assert lp == (0, 0) and lk[0] == lk[1] >= rk[0] - 3
+
+
+def multiscale_problem(size, n_channels, seed=5):
+    """Extended sources of both brightnesses convolved with per-channel
+    Gaussian PSFs with a sidelobe ring (``chip_smoke.py``'s diffuse problem
+    at a small size)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    r2 = (yy - size // 2) ** 2.0 + (xx - size // 2) ** 2.0
+    psfs = np.stack([
+        np.exp(-r2 / (2 * (2.5 * (1 + 0.04 * c)) ** 2))
+        + 0.06 * np.exp(-((np.sqrt(r2) - 14 * (1 + 0.03 * c)) ** 2) / 6)
+        for c in range(n_channels)
+    ]).astype(np.float32)
+    sky = np.zeros((size, size))
+    for _ in range(12):
+        cy, cx = rng.integers(size // 8, 7 * size // 8, 2)
+        s = rng.uniform(1.5, 12)
+        sky += rng.uniform(0.2, 1.0) * np.exp(
+            -((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))
+    res = np.stack([
+        np.fft.irfft2(np.fft.rfft2(sky * (1 + 0.1 * c))
+                      * np.fft.rfft2(np.fft.ifftshift(psfs[c])), s=sky.shape)
+        for c in range(n_channels)
+    ]).astype(np.float32)
+    return psfs, res
+
+
+@pytest.mark.parametrize("route", ["dense", "clark"])
+def test_perform_multiscale_on_card_matches_cpu(cuda, route, monkeypatch):
+    """Multiscale (2-term fit, 2 channels) through Radler.perform on the
+    card against the port's CPU run of the same arrays: equal iteration
+    counts and components per scale, the cubes within 1e-5 of
+    max(1, |res|max); the dense route launches B1, the Clark route B2."""
+    if route == "clark":
+        monkeypatch.setattr(ms, "DENSE_SUBMINOR_MAX_PIXELS", 0)
+    psfs, res = multiscale_problem(128, 2)
+    s = rd.Settings()
+    s.algorithm_type = rd.AlgorithmType.MULTISCALE
+    s.trimmed_image_width = s.trimmed_image_height = 128
+    s.minor_iteration_count = 150
+    s.minor_loop_gain = 0.1
+    s.major_loop_gain = 0.85
+    s.spectral_fitting.mode = rd.SpectralFittingMode.POLYNOMIAL
+    s.spectral_fitting.terms = 2
+    freqs = np.array([[1.0e8, 1.1e8], [1.1e8, 1.2e8]])
+    runs = []
+    for device in ("cpu", cuda):
+        cube, model = res.copy(), np.zeros_like(res)
+        hs.hogbom_step.launches = sl.subminor_loop.launches = 0
+        r = rd.Radler(s, psfs, cube, model, 0.0, frequencies=freqs,
+                      device=device)
+        r.perform(0)
+        alg = r._parallel.first_algorithm
+        runs.append((r.iteration_number,
+                     [e.n_components_cleaned for e in alg.scale_infos],
+                     cube, model,
+                     (hs.hogbom_step.launches, sl.subminor_loop.launches)))
+    (n_c, comp_c, res_c, mod_c, _), (n_g, comp_g, res_g, mod_g, launches) = runs
+    assert n_g == n_c > 0 and comp_g == comp_c
+    scale = max(1.0, float(np.abs(res_c).max()))
+    assert np.abs(res_g - res_c).max() <= 1e-5 * scale
+    assert np.abs(mod_g - mod_c).max() <= 1e-5 * scale
+    if route == "dense":
+        assert launches[0] >= n_g and launches[1] == 0
+    else:
+        assert launches[0] == 0 and launches[1] > 0

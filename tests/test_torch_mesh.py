@@ -632,8 +632,9 @@ def refusal_settings(**changes):
 @pytest.mark.parametrize("changes, height", [
     ({"generic.use_sub_minor_optimization": True}, 64),
     ({"algorithm_type": rd.AlgorithmType.IUWT}, 64),
+    ({"algorithm_type": rd.AlgorithmType.MULTISCALE}, 64),
     ({}, 60),
-], ids=["clark", "iuwt", "height-not-divisible"])
+], ids=["clark", "iuwt", "multiscale", "height-not-divisible"])
 def test_unported_mesh_routes_raise(changes, height):
     s = refusal_settings(**changes)
     s.trimmed_image_height = height
@@ -641,7 +642,7 @@ def test_unported_mesh_routes_raise(changes, height):
     psf[height // 2, 32] = 1.0
     res = np.zeros_like(psf)
     res[10, 10] = 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 8"):
         rd.Radler(s, psf, res, np.zeros_like(res), 0.0,
                   device="cpu").perform(0)
 
