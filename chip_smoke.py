@@ -35,9 +35,13 @@ tensors and prints what it measured:
 * multiscale CLEAN: the Högbom step in linear mode with a weight plane at
   config 3's shape against its plain version and its time, config 3
   (multiscale 2048^2 x 8 channels, 2-term polynomial fit, 600 iterations)
-  with the time split of a perform, one perform of it on the Clark route,
-  the point-source contract, and a 256^2 x 4-channel perform against the
-  port's CPU run.
+  on its three routes in one run (the fused loop, the default; the host
+  path's dense and Clark routes) with each route's rate, host syncs, peak
+  memory and time split (each step's time and peak memory), the point-source contract and a 256^2 x
+  4-channel perform against the port's CPU run on the fused and the dense
+  route, a 2048^2 x 4-channel perform on a chan 4 x tile 2 mesh (B4 in
+  linear mode) against the single-device fused perform, and B4's time at
+  that mesh's shard.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -46,7 +50,9 @@ script exits with a non-zero code; without a CUDA device it exits at once.
 It imports nothing of JAX or of the ``radler_tpu`` package.
 """
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -127,9 +133,11 @@ B4_CASES = [
     ("squared 1ch x 2pol", "squared", 2, 2, 4096, 4096, 4, 2),
     ("signed", "signed", 1, 1, 4096, 4096, 2, 0),
     ("linear 2 planes", "linear", 2, 1, 4096, 4096, 4, 3),
+    ("linear, multiscale mesh shard", "linear", 1, 1, 2048, 2048, 2, 1),
     ("ragged normal 2ch", "normal", 2, 1, 1000, 1300, 4, 1),
     ("ragged squared 1ch x 2pol", "squared", 2, 2, 1000, 1300, 4, 2),
 ]
+B4_LINEAR_CASE = 5  # B4 as the multiscale mesh runs it
 # B1 on row shards against its plain version (same fields): every plane of
 # the shard's rows, as the mesh runs it when it splits no channels.
 B1_SHARD_CASES = [
@@ -153,6 +161,13 @@ MS_CHECK_SIZE = 256
 MS_CHECK_CHANNELS = 4
 MS_CHECK_ITERATIONS = 300
 MS_CARD_VS_CPU = 1e-5
+# The multiscale mesh: MS_MESH_CHANNELS channels of the check field at
+# config 3's size on chan 4 x tile 2 (B4 in linear mode on one plane of
+# 1024 rows a shard), config 3's settings; against the single-device
+# fused perform: equal iteration counts, the cubes within this (the JAX
+# package's own gate, tests/test_mesh_multiscale.py).
+MS_MESH_CHANNELS = 4
+MS_MESH_VS_SINGLE = 2e-5
 # The card's published peaks (H100 SXM data sheet, 700 W): device memory
 # and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1661,15 +1676,15 @@ def phase_mesh_kernels_vs_plain():
     return worst
 
 
-def phase_b4_times():
-    """B4 at the mesh configuration's shard, [1, 2048, 4096] in normal mode
-    with its peak inside the shard, against its plain version, in turns
-    plain, kernel, kernel, plain.  Returns (kernel ms, plain ms, (bound ms,
-    bound_by), bytes)."""
+def phase_b4_times(case_index=0):
+    """B4 at a shard of B4_CASES, by default the mesh configuration's,
+    [1, 2048, 4096] in normal mode, with its peak inside the shard, against
+    its plain version, in turns plain, kernel, kernel, plain.  Returns
+    (kernel ms, plain ms, (bound ms, bound_by))."""
     from radler_tpu_torch.kernels import subtract_integrate as si
 
-    case = B4_CASES[0]
-    c = _shard_inputs(case, seed=40)
+    case = B4_CASES[case_index]
+    c = _shard_inputs(case, seed=40 + case_index)
     _, mode, n, P, height, width = case[:6]
     r0, h_loc = c["r0"], c["h_loc"]
     state = _state_at(r0 + h_loc // 3, width // 3, width)
@@ -1941,41 +1956,100 @@ def _ms_frequencies(n_channels):
                      for c in range(n_channels)])
 
 
-def _ms_perform(psfs, res0, settings, count_syncs=False):
-    """One multiscale perform on a fresh copy of ``res0`` on the card;
-    returns (iterations, seconds, (B1 step, B1 select, B2) launches, host
-    syncs or None, subminor passes, residual cube, model cube)."""
+@contextlib.contextmanager
+def _ms_route(route):
+    """Run multiscale on ``route``: "fused" (the default: the fused loop),
+    "dense" (the host path, ``RADLER_TPU_NO_FUSED_MS``: the dense subminor
+    loop) or "clark" (the host path with the Clark subminor loop)."""
+    from radler_tpu_torch.models import multiscale as ms
+
+    saved = os.environ.pop("RADLER_TPU_NO_FUSED_MS", None)
+    limit = ms.DENSE_SUBMINOR_MAX_PIXELS
+    if route != "fused":
+        os.environ["RADLER_TPU_NO_FUSED_MS"] = "1"
+    if route == "clark":
+        ms.DENSE_SUBMINOR_MAX_PIXELS = 0
+    try:
+        yield
+    finally:
+        ms.DENSE_SUBMINOR_MAX_PIXELS = limit
+        os.environ.pop("RADLER_TPU_NO_FUSED_MS", None)
+        if saved is not None:
+            os.environ["RADLER_TPU_NO_FUSED_MS"] = saved
+
+
+def _ms_radler(psfs, res0, settings):
+    """A multiscale Radler on a copy of ``res0`` on the card, and a function
+    that puts it back to its start (the residual, an empty model and no
+    iterations done) while it keeps what it built (the fused banks, the
+    kernel spectra): the next perform does the first one's work again."""
     import radler_tpu_torch as rd
+
+    r = rd.Radler(settings, psfs, res0.clone(), torch.zeros_like(res0), 0.0,
+                  frequencies=_ms_frequencies(res0.shape[0]))
+    start = [(e.residual_accessor.array.clone(),
+              e.model_accessor.array.clone()) for e in r._table]
+
+    def rewind():
+        for e, (res, mod) in zip(r._table, start):
+            e.residual_accessor.array = res.clone()
+            e.model_accessor.array = mod.clone()
+        r._parallel.first_algorithm.iteration_number = 0
+
+    return r, rewind
+
+
+def _ms_perform(psfs, res0, settings, count_syncs=False, route="fused",
+                kept=None):
+    """One multiscale perform of ``res0`` on the card on ``route``: on a
+    fresh Radler, or on ``kept`` (a :func:`_ms_radler` pair, rewound
+    first).  Returns (iterations, seconds, (B1 step, B1 select, B2)
+    launches, host syncs or None, subminor passes, residual cube, model
+    cube)."""
     from radler_tpu_torch.kernels import hogbom_step as hs
     from radler_tpu_torch.kernels import subminor_loop as sl
     from radler_tpu_torch.models import multiscale as ms
+    from radler_tpu_torch.models import multiscale_fused as mf
 
-    res = res0.clone()
-    r = rd.Radler(settings, psfs, res, torch.zeros_like(res), 0.0,
-                  frequencies=_ms_frequencies(res.shape[0]))
+    if kept is None:
+        r, rewind = _ms_radler(psfs, res0, settings)
+    else:
+        r, rewind = kept
+    rewind()
     passes = [0]
-    fast_sub_loop = ms.MultiScaleAlgorithm._run_fast_sub_loop
+    saved = [(ms.MultiScaleAlgorithm, "_run_fast_sub_loop"),
+             (mf, "dense_subminor_loop")]
+    saved = [(owner, name, getattr(owner, name)) for owner, name in saved]
 
-    def counted(self, *args, **kwargs):
-        passes[0] += 1
-        return fast_sub_loop(self, *args, **kwargs)
+    def counting(fn):
+        def counted(*args, **kwargs):
+            passes[0] += 1
+            return fn(*args, **kwargs)
+        return counted
 
-    ms.MultiScaleAlgorithm._run_fast_sub_loop = counted
+    for owner, name, fn in saved:
+        setattr(owner, name, counting(fn))
     try:
-        torch.cuda.synchronize()
-        _reset_counts()
-        start = time.perf_counter()
-        syncs = None
-        if count_syncs:
-            syncs = _count_syncs(lambda: r.perform(0))
-        else:
-            r.perform(0)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
-        launches = (hs.hogbom_step.launches, hs.hogbom_select.launches,
-                    sl.subminor_loop.launches)
+        with _ms_route(route):
+            torch.cuda.synchronize()
+            _reset_counts()
+            start = time.perf_counter()
+            syncs = None
+            if count_syncs:
+                syncs = _count_syncs(lambda: r.perform(0))
+            else:
+                r.perform(0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches = (hs.hogbom_step.launches, hs.hogbom_select.launches,
+                        sl.subminor_loop.launches)
     finally:
-        ms.MultiScaleAlgorithm._run_fast_sub_loop = fast_sub_loop
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    fused = r._parallel.first_algorithm._fused_banks is not None
+    if fused != (route == "fused"):
+        raise AssertionError(f"the {route} route ran the "
+                             f"{'fused' if fused else 'host'} path")
     out_res = torch.stack([e.residual_accessor.array for e in r._table])
     out_mod = torch.stack([e.model_accessor.array for e in r._table])
     if not (torch.isfinite(out_res).all() and torch.isfinite(out_mod).all()):
@@ -1984,19 +2058,27 @@ def _ms_perform(psfs, res0, settings, count_syncs=False):
             out_mod)
 
 
-def _ms_timed_split(split):
-    """Wrap multiscale's main steps with synchronized timers that add to
-    ``split`` each step's own time, without the wrapped steps it calls; a
-    convolution with a scale kernel is labelled by its caller.  Returns a
-    function that restores them."""
-    from radler_tpu_torch.models import multiscale as ms
-
-    by_caller = {
-        "execute_major_iteration": "scale-convolved residual",
-        "_run_fast_sub_loop": "model add (scale convolution)",
-    }
+def _timed_steps(split, targets, by_caller=None, memory=None):
+    """Wrap each ``(owner, name, label)`` of ``targets`` with a synchronized
+    timer that adds the step's own time, without the wrapped steps it
+    calls, to ``split[label]``; a label of None is looked up in
+    ``by_caller`` by the caller's function name.  With a dict ``memory``,
+    also keep per label the device memory of its call with the highest
+    peak: ``(peak, allocated at its entry)`` in bytes, the peak including
+    the wrapped steps it calls; the peaks reached outside every wrapped
+    step go under None (the caller adds the perform's tail after it).
+    Returns a function that restores them."""
     saved = []
     nested = []  # per open step: the seconds of the wrapped steps it called
+    peaks = []  # per open step: the highest device memory read inside it
+
+    def read_peak():
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for i, p in enumerate(peaks):
+            peaks[i] = max(p, peak)
+        if not peaks:
+            memory[None] = max(memory.get(None, 0), peak)
 
     def wrap(owner, name, label):
         fn = getattr(owner, name)
@@ -2008,6 +2090,10 @@ def _ms_timed_split(split):
                 key = by_caller.get(sys._getframe(1).f_code.co_name,
                                     "PSF convolutions")
             torch.cuda.synchronize()
+            if memory is not None:
+                read_peak()
+                entry = torch.cuda.memory_allocated()
+                peaks.append(entry)
             start = time.perf_counter()
             nested.append(0.0)
             try:
@@ -2015,6 +2101,11 @@ def _ms_timed_split(split):
                 torch.cuda.synchronize()
             finally:
                 inner = nested.pop()
+                if memory is not None:
+                    read_peak()
+                    peak = peaks.pop()
+                    if peak > memory.get(key, (-1, 0))[0]:
+                        memory[key] = (peak, entry)
             seconds = time.perf_counter() - start
             if nested:
                 nested[-1] += seconds
@@ -2024,16 +2115,8 @@ def _ms_timed_split(split):
 
         setattr(owner, name, timed)
 
-    alg = ms.MultiScaleAlgorithm
-    wrap(alg, "_find_active_scale_convolved_maxima",
-         "scale maxima (FFT bank, argmaxes, one host read)")
-    wrap(ms, "get_linear_integrated", "linear integration")
-    wrap(alg, "_scale_convolve", None)
-    wrap(ms, "_twice_convolved_stack", "PSF convolutions")
-    wrap(alg, "_kernel_fft", "scale kernels (NumPy, copy, rfft2)")
-    wrap(alg, "_scale_valid_stack", "search windows (NumPy, copy)")
-    wrap(ms, "dense_subminor_loop", "dense loop (B1 linear + select)")
-    wrap(ms, "correct_residual", "correction FFTs")
+    for target in targets:
+        wrap(*target)
 
     def restore():
         for owner, name, fn in reversed(saved):
@@ -2042,18 +2125,146 @@ def _ms_timed_split(split):
     return restore
 
 
+def _ms_timed_split(split, memory=None):
+    """Time the host path's main steps into ``split`` (and their device
+    memory into ``memory``, see :func:`_timed_steps`); a convolution with a
+    scale kernel is labelled by its caller."""
+    from radler_tpu_torch.models import multiscale as ms
+
+    alg = ms.MultiScaleAlgorithm
+    return _timed_steps(split, [
+        (alg, "_find_active_scale_convolved_maxima",
+         "scale maxima (FFT bank, argmaxes, one host read)"),
+        (ms, "get_linear_integrated", "linear integration"),
+        (alg, "_scale_convolve", None),
+        (ms, "_twice_convolved_stack", "PSF convolutions"),
+        (alg, "_kernel_fft", "scale kernels (NumPy, copy, rfft2)"),
+        (alg, "_scale_valid_stack", "search windows (NumPy, copy)"),
+        (ms, "dense_subminor_loop", "dense loop (B1 linear + select)"),
+        (alg, "_clark_sub_loop", "Clark loop (candidates, B2, reads)"),
+        (ms, "correct_residual", "correction FFTs"),
+    ], by_caller={
+        "execute_major_iteration": "scale-convolved residual",
+        "_run_fast_sub_loop": "model add (scale convolution)",
+    }, memory=memory)
+
+
+def _ms_fused_split(split, memory=None):
+    """Time the fused route's steps into ``split`` (and their device memory
+    into ``memory``, see :func:`_timed_steps`), the banks' own FFTs
+    apart."""
+    from radler_tpu_torch.models import multiscale as ms
+    from radler_tpu_torch.models import multiscale_fused as mf
+
+    alg = ms.MultiScaleAlgorithm
+    return _timed_steps(split, [
+        (alg, "_prepare_fused_banks",
+         "banks, besides their FFTs (kept: one PSF comparison)"),
+        (ms, "centered_embed_kernel_fft", "banks: embedded spectra"),
+        (ms, "forward_fft2", "banks: PSF forward FFTs"),
+        (ms, "inverse_fft2_real", "banks: peaks and twice-convolved PSFs"),
+        (alg, "_scale_valid_stack", "search windows (NumPy, copy)"),
+        (mf, "spectral_scale_maxima",
+         "maxima (S inverse FFTs, argmaxes, one host read)"),
+        (mf, "scale_convolved_cube", "scale-convolved cube (N inverse FFTs)"),
+        (mf, "dense_subminor_loop", "dense loop (B1 linear + select + fit)"),
+        (mf, "correct_small", "correction, small size (spectral)"),
+        (mf, "correct_large", "correction, large size (image space)"),
+    ], memory=memory)
+
+
+def _ms_best(psf_d, res_d, settings, route, kept=None, count=2):
+    """A warm-up and ``count`` performs on ``route``; checks that they agree
+    and launch what the route launches; returns (best seconds, the last
+    run)."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    warm = _ms_perform(psf_d, res_d, settings, route=route, kept=kept)
+    runs = [_ms_perform(psf_d, res_d, settings, route=route, kept=kept)
+            for _ in range(count)]
+    n, _, launches, _, passes = runs[-1][:5]
+    if any(r[0] != n or r[2] != launches or r[4] != passes
+           or not torch.equal(r[5], runs[-1][5]) for r in runs + [warm]):
+        raise AssertionError(f"config 3's performs on the {route} route "
+                             "differ in iterations, launches, passes or "
+                             "residual")
+    step, select, b2 = launches
+    if route == "clark":
+        ok = step == select == 0 and 0 < b2 <= passes
+    else:
+        ok = (b2 == 0 and step == select and passes > 0
+              and n <= step < n + hs.CHUNK * passes)
+    if not (ok and n > 0):
+        raise AssertionError(f"config 3's {route} route launched B1 {step}, "
+                             f"select {select}, B2 {b2} times for {n} "
+                             f"iterations in {passes} subminor passes")
+    return min(r[1] for r in runs), runs[-1], [r[1] for r in runs]
+
+
+def _say_split(split, seconds, passes, label, memory=None, base=0):
+    """Print a split of :func:`_timed_steps`; with its ``memory``, each
+    step's peak device memory above ``base`` (the memory allocated before
+    the perform), the live memory at that call's entry, and the step that
+    holds the perform's peak."""
+    say(f"  split of one perform on a {label} Radler ({seconds:.4f} s with a "
+        f"synchronize around each step; {passes} subminor passes):")
+    mib = 1 / 2**20
+    for key, (calls, t) in split.items():
+        line = (f"    {key}: {calls} calls, {t * 1e3:.1f} ms, "
+                f"{t * 1e3 / passes:.2f} ms a pass")
+        if memory is not None and key in memory:
+            peak, entry = memory[key]
+            line += (f"; peak {(peak - base) * mib:.1f} MiB above the "
+                     f"perform's start, {(entry - base) * mib:.1f} live at "
+                     f"its entry")
+        say(line)
+    rest = seconds - sum(v[1] for v in split.values())
+    say(f"    the rest: {rest * 1e3:.1f} ms")
+    if memory is not None:
+        outside = memory.get(None, 0)
+        peak, where = max((v[0], k) for k, v in memory.items()
+                          if k is not None)
+        if outside > peak:
+            peak, where = outside, "outside the steps above"
+        say(f"    peak device memory of the perform {(peak - base) * mib:.1f} "
+            f"MiB above its start, in {where} (outside the steps "
+            f"{(outside - base) * mib:.1f})")
+
+
+def _fused_bank_sizes(radler, n_images):
+    """Print the bytes of a Radler's kept fused banks, tensor by tensor,
+    beside one spectral residual and one image cube."""
+    banks = radler._parallel.first_algorithm._fused_banks[4]
+    names = ("kernel spectra (small)", "twice-convolved PSFs",
+             "PSF spectra (small)", "kernel spectra (large)",
+             "PSF spectra (large)")
+    parts = [(n, tuple(t.shape), t.numel() * t.element_size() / 2**20)
+             for n, t in zip(names, banks[:5]) if t is not None]
+    _, ph, pw_half = banks[0].shape
+    height, width = banks[1].shape[2:]
+    say(f"    kept fused banks {sum(p[2] for p in parts):.1f} MiB: "
+        + ", ".join(f"{n} {shape} {b:.1f}" for n, shape, b in parts)
+        + f"; one spectral residual [{n_images}, {ph}, {pw_half}] "
+        f"complex64 {n_images * ph * pw_half * 8 / 2**20:.1f} MiB; one "
+        f"image cube [{n_images}, {height}, {width}] float32 "
+        f"{n_images * height * width * 4 / 2**20:.1f} MiB")
+
+
 def phase_config3():
     """Config 3: multiscale 2048^2 x 8 channels, 2-term polynomial fit,
     600 minor iterations, gain 0.1, major gain 0.85, through
-    Radler.perform on CUDA tensors (the dense route: B1 in linear mode with
-    the weight plane): a warm-up and the best of 2, subminor passes, B1
-    launches and host syncs per perform, peak memory, channel 0's residual
-    rms, the split of one perform; then a warm-up and one perform on the
-    Clark route (B2 on 8 planes), with B2 against its plain version on
-    every pass's inputs.  Returns (B1 step launches, the rate, the Clark
-    route's rate, B2 launches, B2's max |difference| from plain)."""
-    from radler_tpu_torch.kernels import hogbom_step as hs
-    from radler_tpu_torch.models import multiscale as ms
+    Radler.perform on CUDA tensors, on its three routes in one run: the
+    fused loop (the default; B1 in linear mode with the weight plane in its
+    dense subminor loop, components in coefficient space), the host path's
+    dense route (the same B1 loop with the fit between launches) and its
+    Clark route (B2 on 8 planes).  For each: a warm-up and the best of 2 on
+    a fresh Radler each (banks or kernel spectra built) and on one kept
+    Radler (kept, as across major iterations); passes, launches, host
+    syncs, peak memory of each, channel 0's residual rms, the split of one
+    perform per pass on each with each step's peak memory (and the fused
+    route's kept banks, tensor by tensor).  Then B2 against its plain version on every
+    Clark pass's inputs.  Returns a dict of the numbers the summary and the
+    kernels line use."""
     from radler_tpu_torch.models import subminor as subminor_module
 
     start = time.perf_counter()
@@ -2063,53 +2274,9 @@ def phase_config3():
     res_d = torch.as_tensor(residual, device=DEVICE)
     del psfs, residual
     settings = _ms_settings(MS_SIZE, MS_ITERATIONS)
+    rms0 = rms(res_d[0])
 
-    warm = _ms_perform(psf_d, res_d, settings)
-    say(f"  warm-up perform: {warm[0]} iterations in {warm[1]:.4f} s")
-    torch.cuda.reset_peak_memory_stats()
-    runs = [_ms_perform(psf_d, res_d, settings) for _ in range(2)]
-    peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    n, _, launches, _, passes, out_res, out_mod = runs[-1]
-    best = min(r[1] for r in runs)
-    if any(r[0] != n or r[2] != launches or r[4] != passes
-           for r in runs + [warm]):
-        raise AssertionError("config 3's performs differ in iterations, "
-                             "launches or subminor passes")
-    step, select, b2 = launches
-    if not (b2 == 0 and step == select
-            and n <= step < n + hs.CHUNK * passes and passes > 0):
-        raise AssertionError(f"config 3 launched B1 {step}, select {select}, "
-                             f"B2 {b2} times for {n} iterations in {passes} "
-                             "subminor passes")
-    rms0, rms1 = rms(res_d[0]), rms(out_res[0])
-    if not (n > 0 and rms1 < rms0):
-        raise AssertionError("config 3 did not clean")
-    counted = _ms_perform(psf_d, res_d, settings, count_syncs=True)
-    say(f"  perform: {n} iterations in {passes} subminor passes; seconds "
-        f"{', '.join(f'{r[1]:.4f}' for r in runs)}; best "
-        f"{n / best:.1f} minor iterations/s; launches hogbom_step {step}, "
-        f"hogbom_select {select}, subminor_loop {b2} per perform; host "
-        f"syncs {counted[3]} per perform (sync debug mode on, "
-        f"{counted[1]:.4f} s)")
-    say(f"  channel 0 residual rms {rms0:.6g} -> {rms1:.6g}; model sum "
-        f"{float(out_mod.double().sum()):.6g}; max_memory_allocated "
-        f"{peak_mib:.1f} MiB")
-    split = {}
-    restore = _ms_timed_split(split)
-    try:
-        timed = _ms_perform(psf_d, res_d, settings)
-    finally:
-        restore()
-    if timed[0] != n or float((timed[5] - out_res).abs().max()) != 0.0:
-        raise AssertionError("the split perform differs from the others")
-    say(f"  split of one perform ({timed[1]:.4f} s with a synchronize "
-        f"around each step):")
-    for label, (calls, seconds) in split.items():
-        say(f"    {label}: {calls} calls, {seconds * 1e3:.1f} ms")
-    say(f"    the rest: {(timed[1] - sum(v[1] for v in split.values())) * 1e3:.1f}"
-        " ms")
-
-    # The Clark route; its warm-up keeps a copy of every B2 call's inputs.
+    # The Clark route's B2 calls, each input kept for the replay below.
     b2_calls = []
     real_b2 = subminor_module.subminor_loop
 
@@ -2118,31 +2285,85 @@ def phase_config3():
                                for a in args), kwargs))
         return real_b2(*args, **kwargs)
 
-    limit = ms.DENSE_SUBMINOR_MAX_PIXELS
-    ms.DENSE_SUBMINOR_MAX_PIXELS = 0
+    subminor_module.subminor_loop = recording_b2
     try:
-        subminor_module.subminor_loop = recording_b2
-        try:
-            _ms_perform(psf_d, res_d, settings)
-        finally:
-            subminor_module.subminor_loop = real_b2
-        clark = _ms_perform(psf_d, res_d, settings)
+        _ms_perform(psf_d, res_d, settings, route="clark")
     finally:
-        ms.DENSE_SUBMINOR_MAX_PIXELS = limit
-    cn, cs, (c_step, c_select, c_b2), _, c_passes, c_res, _ = clark
-    d = float((c_res - out_res).abs().max())
-    say(f"  Clark route: {cn} iterations in {c_passes} subminor passes in "
-        f"{cs:.4f} s, {cn / cs:.1f} minor iterations/s; launches "
-        f"subminor_loop {c_b2}, hogbom_step {c_step}; channel 0 residual "
-        f"rms {rms(c_res[0]):.6g}; max|residual - the dense route's| {d:.3g}")
-    if not (c_step == c_select == 0 and 0 < c_b2 <= c_passes and cn > 0
-            and rms(c_res[0]) < rms0 and len(b2_calls) == c_b2):
-        raise AssertionError("the Clark route did not clean through B2")
-    del res_d, psf_d, out_res, out_mod, c_res, runs, warm, counted, timed
-    worst_b2 = _check_config3_b2(b2_calls)
+        subminor_module.subminor_loop = real_b2
+
+    out, residuals = {}, {}
+    for route, splitter in (("fused", _ms_fused_split),
+                            ("dense", _ms_timed_split),
+                            ("clark", _ms_timed_split)):
+        peaks = []
+        for kept in (None, _ms_radler(psf_d, res_d, settings)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            runs = _ms_best(psf_d, res_d, settings, route, kept=kept)
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 2**20)
+            if kept is None:
+                fresh, run, fresh_s = runs
+            else:
+                best, kept_run, kept_s = runs
+                kept_radler = kept
+        n, _, (step, select, b2), _, passes, out_res, out_mod = run
+        if not (kept_run[0] == n and torch.equal(kept_run[5], out_res)):
+            raise AssertionError(f"the {route} route's kept Radler differs "
+                                 "from a fresh one")
+        counted = _ms_perform(psf_d, res_d, settings, count_syncs=True,
+                              route=route, kept=kept_radler)
+        rms1 = rms(out_res[0])
+        if not rms1 < rms0:
+            raise AssertionError(f"config 3's {route} route did not clean")
+        say(f"  {route} route: {n} iterations in {passes} subminor passes; "
+            f"fresh Radler seconds {', '.join(f'{t:.4f}' for t in fresh_s)} "
+            f"(best {n / fresh:.1f} minor iterations/s); kept Radler "
+            f"seconds {', '.join(f'{t:.4f}' for t in kept_s)} (best "
+            f"{n / best:.1f} minor iterations/s); launches hogbom_step "
+            f"{step}, hogbom_select {select}, subminor_loop {b2} per "
+            f"perform; host syncs {counted[3]} per perform on the kept "
+            f"Radler (sync debug mode on, {counted[1]:.4f} s)")
+        say(f"    channel 0 residual rms {rms0:.6g} -> {rms1:.6g}; model sum "
+            f"{float(out_mod.double().sum()):.6g}; peak device memory above "
+            f"the inputs: fresh Radler {peaks[0]:.1f} MiB, kept "
+            f"{peaks[1]:.1f} MiB")
+        for radler, label in ((kept_radler, "kept"), (None, "fresh")):
+            split, memory = {}, {}
+            restore = splitter(split, memory)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                timed = _ms_perform(psf_d, res_d, settings, route=route,
+                                    kept=radler)
+            finally:
+                restore()
+            memory[None] = max(memory.get(None, 0),
+                               torch.cuda.max_memory_allocated())
+            if timed[0] != n or not torch.equal(timed[5], out_res):
+                raise AssertionError("the split perform differs from the "
+                                     "others")
+            _say_split(split, timed[1], passes, label, memory, base)
+            if route == "fused" and radler is not None:
+                _fused_bank_sizes(radler[0], out_res.shape[0])
+        out[route] = dict(n=n, step=step, b2=b2, rate=n / best,
+                          fresh=n / fresh, syncs=counted[3],
+                          peak_mib=peaks[0], kept_peak_mib=peaks[1])
+        residuals[route] = out_res
+        del kept_radler, run, kept_run, counted, timed, out_mod
+        torch.cuda.empty_cache()
+    for route in ("fused", "clark"):
+        d = float((residuals[route] - residuals["dense"]).abs().max())
+        say(f"  max|{route} residual - the dense route's| {d:.3g}")
+    if not (out["clark"]["b2"] == len(b2_calls) and out["clark"]["step"] == 0
+            and out["fused"]["b2"] == out["dense"]["b2"] == 0):
+        raise AssertionError("config 3's routes launched the wrong kernels")
+    del res_d, psf_d, residuals
+    out["worst_b2"] = _check_config3_b2(b2_calls)
     del b2_calls
     torch.cuda.empty_cache()
-    return step, n / best, cn / cs, c_b2, worst_b2
+    return out
 
 
 def _check_config3_b2(calls):
@@ -2171,10 +2392,11 @@ def _check_config3_b2(calls):
     return worst
 
 
-def phase_ms_contract():
+def phase_ms_contract(route):
     """The multiscale point-source contract of tests/test_radler.py on the
-    card (the dense route): residual under 2e-6, the model 2.5 at the
-    source within 1e-4 relative and under 2e-6 elsewhere."""
+    card, on ``route`` (see :func:`_ms_route`): residual under 2e-6, the
+    model 2.5 at the source within 1e-4 relative and under 2e-6
+    elsewhere."""
     import radler_tpu_torch as rd
     from radler_tpu_torch.kernels import hogbom_step as hs
 
@@ -2197,13 +2419,18 @@ def phase_ms_contract():
                   torch.as_tensor(res, device=dev),
                   torch.zeros(size, size, device=dev), 0.0)
     _reset_counts()
-    if r.perform(0) is not False:
-        raise AssertionError("perform asked for another major iteration")
+    with _ms_route(route):
+        if r.perform(0) is not False:
+            raise AssertionError("perform asked for another major iteration")
+    if (r._parallel.first_algorithm._fused_banks is not None) != (
+            route == "fused"):
+        raise AssertionError(f"the contract did not run the {route} route")
     out_res = r._table.front.residual_accessor.array.cpu().numpy()
     out_mod = r._table.front.model_accessor.array.cpu().numpy()
     peak = out_mod[cy, cx]
     others = np.delete(out_mod.ravel(), cy * size + cx)
-    say(f"  shift ({sx},{sy}): {r.iteration_number} iterations, B1 launches "
+    say(f"  {route} route, shift ({sx},{sy}): {r.iteration_number} "
+        "iterations, B1 launches "
         f"{hs.hogbom_step.launches}; max|residual| {np.abs(out_res).max():.3g},"
         f" model peak {peak:.7f}, max|model elsewhere| "
         f"{np.abs(others).max():.3g}")
@@ -2212,11 +2439,12 @@ def phase_ms_contract():
         raise AssertionError("the multiscale point-source contract failed")
 
 
-def _ms_check_perform(psfs, residual, iterations, device):
+def _ms_check_perform(psfs, residual, iterations, device, route):
     """One perform of config 3's settings at ``iterations`` on a copy of
-    ``residual`` on ``device``; returns (iterations, components per scale,
-    residual, model, seconds, (the major iteration's first threshold, the
-    biased peak its last stop test read))."""
+    ``residual`` on ``device`` on ``route``; returns (iterations,
+    components per scale, residual, model, seconds, (the major iteration's
+    first threshold, the biased peak its last stop test read) on the host
+    path, the final biased peak on the fused route)."""
     import radler_tpu_torch as rd
     from radler_tpu_torch.models import multiscale as ms
 
@@ -2232,53 +2460,125 @@ def _ms_check_perform(psfs, residual, iterations, device):
             peaks.append(e.max_unnormalized_image_value * e.bias_factor)
         return index
 
+    finals = []
+    real_execute = ms.MultiScaleAlgorithm._execute_fused
+
+    def recording_execute(self, *args, **kwargs):
+        result = real_execute(self, *args, **kwargs)
+        finals.append(result.final_peak_value)
+        return result
+
     ms.select_maximum_scale = recording_select
+    ms.MultiScaleAlgorithm._execute_fused = recording_execute
     try:
-        start = time.perf_counter()
-        settings = _ms_settings(size, iterations)
-        r = rd.Radler(settings, psfs, res, model, 0.0,
-                      frequencies=_ms_frequencies(n_channels), device=device)
-        r.perform(0)
-        seconds = time.perf_counter() - start
+        with _ms_route(route):
+            start = time.perf_counter()
+            settings = _ms_settings(size, iterations)
+            r = rd.Radler(settings, psfs, res, model, 0.0,
+                          frequencies=_ms_frequencies(n_channels),
+                          device=device)
+            r.perform(0)
+            seconds = time.perf_counter() - start
     finally:
         ms.select_maximum_scale = real_select
+        ms.MultiScaleAlgorithm._execute_fused = real_execute
     alg = r._parallel.first_algorithm
-    # execute_major_iteration's first threshold, from its initial peak.
-    first = max(abs(peaks[0]) * (1.0 - settings.major_loop_gain),
-                alg.major_iteration_threshold, alg.threshold)
+    if bool(finals) != (route == "fused"):
+        raise AssertionError(f"the check did not run the {route} route")
+    if finals:
+        stop = (float("nan"), finals[-1])
+    else:
+        # execute_major_iteration's first threshold, from its initial peak.
+        stop = (max(abs(peaks[0]) * (1.0 - settings.major_loop_gain),
+                    alg.major_iteration_threshold, alg.threshold), peaks[-1])
     return (r.iteration_number,
             [e.n_components_cleaned for e in alg.scale_infos], res, model,
-            seconds, (first, peaks[-1]))
+            seconds, stop)
 
 
-def phase_ms_card_vs_cpu():
+def phase_ms_card_vs_cpu(route):
     """:func:`make_ms_check_problem`'s 256^2 x 4-channel field (config 3's
-    settings; three scales take components) on the card against the port's
-    CPU run of the same arrays, twice: stopped at MS_CHECK_ITERATIONS, and
-    run on to its threshold.  Each: equal iteration counts and components
-    per scale, residual and model within MS_CARD_VS_CPU of max(1,
-    |res|max)."""
+    settings; three scales take components) on ``route`` on the card
+    against the port's CPU run of the same arrays, twice: stopped at
+    MS_CHECK_ITERATIONS, and run on to its threshold.  Each: equal
+    iteration counts and components per scale, residual and model within
+    MS_CARD_VS_CPU of max(1, |res|max)."""
     psfs, residual = make_ms_check_problem(MS_CHECK_SIZE, MS_CHECK_CHANNELS)
     for limit, stop in ((MS_CHECK_ITERATIONS, "the iteration limit"),
                         (2 * MS_CHECK_ITERATIONS, "its threshold")):
-        cpu, card = [_ms_check_perform(psfs, residual, limit, device)
+        cpu, card = [_ms_check_perform(psfs, residual, limit, device, route)
                      for device in ("cpu", DEVICE)]
         (n_c, comp_c, res_c, mod_c, t_c, stop_c) = cpu
         (n_g, comp_g, res_g, mod_g, t_g, stop_g) = card
         scale = max(1.0, float(np.abs(res_c).max()))
         d_res = float(np.abs(res_g - res_c).max()) / scale
         d_mod = float(np.abs(mod_g - mod_c).max()) / scale
-        say(f"  stopped at {stop} ({limit}): card {n_g} iterations "
+        say(f"  {route} route, stopped at {stop} ({limit}): card {n_g} "
+            "iterations "
             f"({t_g:.2f} s), CPU {n_c} ({t_c:.2f} s); components per scale "
             f"{comp_g} / {comp_c}; max|dres| {d_res:.3g}, max|dmodel| "
             f"{d_mod:.3g} of max(1, |res|max); the last stop test's "
-            f"threshold and peak: card {stop_g[0]:.7g}, {stop_g[1]:.7g}, CPU "
-            f"{stop_c[0]:.7g}, {stop_c[1]:.7g}")
+            f"threshold and peak (fused: the final biased peak): card "
+            f"{stop_g[0]:.7g}, {stop_g[1]:.7g}, CPU {stop_c[0]:.7g}, "
+            f"{stop_c[1]:.7g}")
         if not (n_g == n_c > 0 and comp_g == comp_c and d_res <= MS_CARD_VS_CPU
                 and d_mod <= MS_CARD_VS_CPU and sum(c > 0 for c in comp_c) > 1
                 and (n_c == limit) == (limit == MS_CHECK_ITERATIONS)):
             raise AssertionError(f"stopped at {stop}: the multiscale perform "
                                  "on the card and on the CPU disagree")
+
+
+def phase_ms_mesh():
+    """The multiscale mesh: :func:`make_ms_check_problem` at MS_SIZE^2 x
+    MS_MESH_CHANNELS with config 3's settings through Radler.perform on a
+    chan 4 x tile 2 mesh on the card (the fused loop, its dense subminor
+    loop on the shards: B4 in linear mode, components in coefficient
+    space), a warm-up and one perform, against the single-device fused
+    perform: equal iteration counts, the cubes within MS_MESH_VS_SINGLE, B4
+    launched on every shard every iteration and B1 not at all.  Returns
+    (B4 launches, mesh rate, single-device rate)."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    psfs, residual = make_ms_check_problem(MS_SIZE, MS_MESH_CHANNELS)
+    psf_d = torch.as_tensor(psfs, device=DEVICE)
+    res_d = torch.as_tensor(residual, device=DEVICE)
+    del psfs, residual
+
+    def radler(use_mesh):
+        s = _ms_settings(MS_SIZE, MS_ITERATIONS)
+        s.parallel.use_device_mesh = use_mesh
+        s.parallel.n_devices = MESH_DEVICES if use_mesh else 0
+        return lambda: rd.Radler(
+            s, psf_d, res_d.clone(), torch.zeros_like(res_d), 0.0,
+            frequencies=_ms_frequencies(MS_MESH_CHANNELS))
+
+    with _ms_route("fused"):
+        single = _run_perform(radler(False))
+        _run_perform(radler(True))  # warm-up
+        mesh = _run_perform(radler(True))
+    n, seconds, (b4, step, select) = mesh[:3]
+    d_res = float((mesh[4] - single[4]).abs().max())
+    d_mod = float((mesh[5] - single[5]).abs().max())
+    say(f"  chan 4 x tile 2: {n} iterations in {seconds:.4f} s, "
+        f"{n / seconds:.1f} minor iterations/s (single device {single[0]} in "
+        f"{single[1]:.4f} s, {single[0] / single[1]:.1f}); launches B4 {b4}, "
+        f"B1 step {step}, select {select}; max|dres| {d_res:.3g}, "
+        f"max|dmodel| {d_mod:.3g} against the single-device perform; peak "
+        f"device memory above the inputs: mesh {mesh[6]:.1f} MiB, single "
+        f"{single[6]:.1f} MiB; channel 0 residual rms {rms(res_d[0]):.6g} -> "
+        f"{rms(mesh[4][0]):.6g}")
+    if not (n > 0 and n * MESH_DEVICES <= b4
+            and step == select == 0 and single[2][1] >= single[0]):
+        raise AssertionError(f"the multiscale mesh launched B4 {b4}, B1 "
+                             f"{step} times for {n} iterations")
+    if n != single[0] or max(d_res, d_mod) > MS_MESH_VS_SINGLE:
+        raise AssertionError("the multiscale mesh and single-device "
+                             "performs differ")
+    single_rate = single[0] / single[1]
+    del res_d, psf_d, mesh, single
+    torch.cuda.empty_cache()
+    return b4, n / seconds, single_rate
 
 
 def main():
@@ -2349,13 +2649,19 @@ def main():
         "version ==")
     linear = phase_linear_b1()
     say("== config 3 (multiscale 2048^2 x 8 channels) through "
-        "Radler.perform ==")
+        "Radler.perform: the fused, dense and Clark routes ==")
     config3 = phase_config3()
-    worst["subminor_loop"] = max(worst["subminor_loop"], config3[4])
-    say("== point-source contract, multiscale ==")
-    phase_ms_contract()
-    say("== multiscale on the card against the CPU ==")
-    phase_ms_card_vs_cpu()
+    worst["subminor_loop"] = max(worst["subminor_loop"], config3["worst_b2"])
+    for route in ("fused", "dense"):
+        say(f"== point-source contract, multiscale, {route} route ==")
+        phase_ms_contract(route)
+    for route in ("fused", "dense"):
+        say(f"== multiscale on the card against the CPU, {route} route ==")
+        phase_ms_card_vs_cpu(route)
+    say("== multiscale on a chan 4 x tile 2 mesh (2048^2 x 4 channels) ==")
+    ms_mesh = phase_ms_mesh()
+    say("== B4 in linear mode at the multiscale mesh's shard ==")
+    b4_linear = phase_b4_times(B4_LINEAR_CASE)
     say(f"phases took {time.perf_counter() - start:.1f} s")
 
     kernels = []
@@ -2380,7 +2686,7 @@ def main():
         "route": "cuda",
         "source": "radler_tpu_torch/csrc/hogbom_step.cu",
         "replaces": "radler_tpu/ops/pallas/hogbom_step.py:37",
-        "launches": config3[0],
+        "launches": config3["fused"]["step"],
         "max_abs_err": linear[0],
         "ms": linear[1],
         "plain_ms": linear[2],
@@ -2435,6 +2741,20 @@ def main():
         "bound_by": b4_bound_by,
         "library_ms": None,
     })
+    b4l_ms, b4l_plain_ms, (b4l_bound_ms, b4l_bound_by) = b4_linear
+    kernels.append({
+        "name": "subtract_integrate (linear, multiscale mesh)",
+        "route": "cuda",
+        "source": "radler_tpu_torch/csrc/subtract_integrate.cu",
+        "replaces": "radler_tpu/ops/pallas/hogbom_step.py:329",
+        "launches": ms_mesh[0],
+        "max_abs_err": worst["subtract_integrate"],
+        "ms": b4l_ms,
+        "plain_ms": b4l_plain_ms,
+        "bound_ms": b4l_bound_ms,
+        "bound_by": b4l_bound_by,
+        "library_ms": None,
+    })
     say(f"config 1: {rate:.1f} minor iterations/s through perform (Högbom)")
     say(f"config 2: {clark[1]:.1f} minor iterations/s through perform "
         f"(Clark); B2 on a cluster of {b2_cluster} blocks, "
@@ -2448,11 +2768,22 @@ def main():
         f"4096^2, chan 4 x tile 2 on one card; single device "
         f"{mesh[2]:.1f}); B4 at [1, 2048, 4096]: {b4_ms * 1e3:.1f} us "
         f"against its {b4_bound_ms * 1e3:.1f} us bound")
-    say(f"config 3: {config3[1]:.1f} minor iterations/s through perform "
-        f"(multiscale, dense route); Clark route {config3[2]:.1f} with "
-        f"{config3[3]} B2 launches; B1 linear at [{MS_CHANNELS}, {MS_SIZE}, "
-        f"{MS_SIZE}]: {linear[1] * 1e3:.1f} us against its "
+    fused, dense = config3["fused"], config3["dense"]
+    say(f"config 3: {fused['rate']:.1f} minor iterations/s through perform "
+        f"on the fused route (kept Radler; fresh {fused['fresh']:.1f}), "
+        f"{fused['syncs']} host syncs, {fused['peak_mib']:.1f} MiB; host "
+        f"path dense route {dense['rate']:.1f} (fresh {dense['fresh']:.1f}), "
+        f"{dense['syncs']} host syncs, {dense['peak_mib']:.1f} MiB; Clark "
+        f"route {config3['clark']['rate']:.1f} (fresh "
+        f"{config3['clark']['fresh']:.1f}) with {config3['clark']['b2']} "
+        f"B2 launches; B1 linear at [{MS_CHANNELS}, "
+        f"{MS_SIZE}, {MS_SIZE}]: {linear[1] * 1e3:.1f} us against its "
         f"{lin_bound_ms * 1e3:.1f} us bound")
+    say(f"multiscale mesh: {ms_mesh[1]:.1f} minor iterations/s (4 x "
+        f"{MS_SIZE}^2, chan 4 x tile 2 on one card; single device "
+        f"{ms_mesh[2]:.1f}); B4 linear at [1, {MS_SIZE // 2}, {MS_SIZE}]: "
+        f"{b4l_ms * 1e3:.1f} us against its {b4l_bound_ms * 1e3:.1f} us "
+        "bound")
     print(smi)  # name, power limit: as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

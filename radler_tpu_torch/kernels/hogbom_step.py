@@ -509,6 +509,46 @@ def fitted_values(fitter, raw: torch.Tensor, index: torch.Tensor,
     return vals.reshape(-1) * gain
 
 
+class CoefficientFit:
+    """The fused multiscale loop's spectral fit in coefficient space
+    (``multiscale_fused.py:625-636`` of the JAX package), for a loop's
+    ``buffers`` and its ``[T*P, H, W]`` coefficient cube ``model``.
+
+    :meth:`refit` fits the raw peak values to ``coef = fit_m @ v`` per
+    polarization, then writes the component values ``(expand @ coef) *
+    gain`` into ``buffers.values``; :meth:`add` adds ``coef * gain`` to
+    ``model`` at the loop state's peak (its flat index ``state[INDEX]``)
+    while the state is active.  The buffers and views are made once, so
+    that an iteration costs six small launches and no host read: the fit
+    between B1's launches is host-bound work, and views made anew each
+    iteration cost more than the launches."""
+
+    def __init__(self, fit_m: torch.Tensor, expand: torch.Tensor,
+                 buffers: LoopBuffers, model: torch.Tensor, gain: float,
+                 n_channels: int, n_polarizations: int):
+        self.fit_m, self.expand, self.gain = fit_m, expand, gain
+        self.raw = buffers.peak.view(n_channels, n_polarizations)
+        self.values = buffers.values
+        dev = model.device
+        self.coef = torch.empty((fit_m.shape[0], n_polarizations), device=dev)
+        self.coef_flat = self.coef.view(-1)
+        self.coef_gain = torch.empty_like(self.coef_flat)
+        self.masked = torch.empty((self.coef_flat.numel(), 1), device=dev)
+        self.model_flat = model.view(model.shape[0], -1)
+        self.index = buffers.state[INDEX:INDEX + 1]
+        self.active = buffers.state[ACTIVE:ACTIVE + 1]
+        self.refit()
+
+    def refit(self) -> None:
+        torch.matmul(self.fit_m, self.raw, out=self.coef)
+        torch.mv(self.expand, self.coef_flat, out=self.values).mul_(self.gain)
+        torch.mul(self.coef_flat, self.gain, out=self.coef_gain)
+
+    def add(self) -> None:
+        torch.mul(self.coef_gain, self.active, out=self.masked.view(-1))
+        self.model_flat.index_add_(1, self.index, self.masked)
+
+
 def start_loop(residual: torch.Tensor, peak0: Tuple[float, int, int, bool],
                params: LoopParams, start_iteration: int, *, meta,
                fitter=None) -> Tuple[LoopBuffers, bool]:
@@ -579,6 +619,7 @@ def hogbom_loop(
     fitter=None,
     plain: bool = False,
     integration: Optional[Tuple[str, np.ndarray]] = None,
+    coefficients: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> LoopResult:
     """The Högbom minor loop (``generic_clean.cc:163-206``), with the same
     contract as the JAX package's ``hogbom_loop_pallas`` and
@@ -594,6 +635,13 @@ def hogbom_loop(
     integration that ``meta`` implies (:func:`integration_coefficients`):
     multiscale's dense subminor loop runs the linear one whatever the
     cube's polarizations and joins.
+
+    ``coefficients``, a ``(fit_m [T, C], expand [N, T*P])`` pair, tracks the
+    components in the spectral fit's coefficient space, as the fused
+    multiscale loop does (:class:`CoefficientFit`): ``model`` is then the
+    ``[T*P, H, W]`` coefficient cube, which gains ``coef * gain`` at each
+    peak, and the kernels' own model update goes to a scratch cube that is
+    never read.  ``fitter`` is not used with it.
     """
     dev = residual.device
     if integration is None:
@@ -607,17 +655,27 @@ def hogbom_loop(
     C, P = meta.n_channels, meta.n_polarizations
     buffers, active0 = start_loop(residual, peak0, params, start_iteration,
                                   meta=meta, fitter=fitter)
+    kernel_model, coef_fit = model, None
+    if coefficients is not None:
+        coef_fit = CoefficientFit(*coefficients, buffers, model, params.gain,
+                                  C, P)
+        kernel_model = torch.empty_like(residual)
 
     def iterate():
+        state = buffers.state
+        if coef_fit is not None:
+            coef_fit.add()
         partials = step(
-            residual, model, psfs, buffers.values, buffers.state, coefs,
+            residual, kernel_model, psfs, buffers.values, state, coefs,
             weight, mode=mode, n_polarizations=P,
             allow_negative=allow_negative,
         )
         select(partials, residual, buffers, params, rms)
-        if fitter is not None:
+        if coef_fit is not None:
+            coef_fit.refit()
+        elif fitter is not None:
             buffers.values.copy_(fitted_values(
-                fitter, buffers.peak, buffers.state[INDEX:INDEX + 1],
+                fitter, buffers.peak, state[INDEX:INDEX + 1],
                 params.gain, C, P))
 
     return run_chunks(iterate, buffers, params, start_iteration, active0)

@@ -1,7 +1,16 @@
-"""Multiscale CLEAN (Offringa & Smirnov 2017), the host-orchestrated path.
+"""Multiscale CLEAN (Offringa & Smirnov 2017).
 
 Port of ``radler_tpu.models.multiscale`` (``cpp/algorithms/
-multiscale_algorithm.{h,cc}``) without its single-program loop:
+multiscale_algorithm.{h,cc}``).  Its two routes are the JAX package's:
+
+* By default (``fast_sub_minor_loop`` set, the working set within
+  :data:`FUSED_MEMORY_BUDGET` bytes, ``RADLER_TPU_NO_FUSED_MS`` unset) a major
+  iteration runs :func:`~radler_tpu_torch.models.multiscale_fused.
+  fused_multiscale_minor_loop`, whose residual stays in the spectral domain
+  (:meth:`MultiScaleAlgorithm._execute_fused`), on a device mesh too.
+* Otherwise the host-orchestrated path below runs.
+
+The host path:
 
 * The per-scale convolved-peak search is one FFT of the integrated image
   against the whole bank of kernel spectra, followed by per-scale masked
@@ -18,14 +27,15 @@ multiscale_algorithm.{h,cc}``) without its single-program loop:
   dense route's auto-mask and component updates accumulate on the device
   and reach the host once per major iteration.
 
-The JAX package's fused loop, facets, the mesh and component optimization
-are not ported yet (ROADMAP queue A, items 2, 6, 8 and 7).
+The JAX package's facets and component optimization are not ported yet
+(ROADMAP queue A, items 6 and 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,14 +43,22 @@ import torch
 
 from ..component_list import ComponentList
 from ..image_set import CubeMeta, get_integrated_psf, get_linear_integrated
-from ..ops.convolution import convolve_same_prefft, prepare_kernel_fft
+from ..ops.convolution import (
+    centered_embed_kernel_fft,
+    convolve_same_prefft,
+    forward_fft2,
+    inverse_fft2_real,
+    prepare_kernel_fft,
+)
 from ..ops.multiscale_kernels import (
     add_shape_component,
     embedded_kernel,
     kernel_peak_value,
+    make_shape_function,
 )
 from ..ops.peak_finder import FLT_MIN, find_peak, window_mask
 from ..ops.psf_subtract import subtract_psf_from_cube
+from ..parallel.mesh import shard_multiscale_inputs
 from ..settings import (
     MultiscaleSettings,
     MultiscaleShape,
@@ -50,13 +68,22 @@ from ..settings import (
 from ..utils import logging as log
 from ..utils.fft_size import get_convolution_size
 from .base import DeconvolutionAlgorithm, DeconvolutionResult
-from .multiscale_fused import dense_subminor_loop
+from .multiscale_fused import (
+    dense_subminor_loop,
+    fused_multiscale_minor_loop,
+    mesh_subminor_eligible,
+)
 from .subminor import SubMinorLoop, correct_residual
 
 # The largest image (pixels) whose subminor loop is the dense masked clean;
 # larger images run the Clark loop on the candidate set.  The JAX package's
 # rule (multiscale.py:1686); tests set it to 0 to reach the Clark route.
 DENSE_SUBMINOR_MAX_PIXELS = 4096 * 4096
+
+# The fused loop runs when its estimated working set (banks, spectral
+# residual, temporaries) stays under this many bytes: the JAX package's
+# budget (multiscale.py:824), so that both packages take the same route.
+FUSED_MEMORY_BUDGET = 9e9
 
 
 @dataclasses.dataclass
@@ -201,6 +228,18 @@ def scale_maxima(
     ])
 
 
+def _same_psfs(kept: torch.Tensor, kept_version: int,
+               psfs: torch.Tensor) -> bool:
+    """Whether ``psfs`` holds what the kept PSF stack held when banks were
+    made from it (one host read unless it is the kept tensor itself)."""
+    if kept._version != kept_version:
+        return False
+    if kept is psfs:
+        return True
+    return (kept.shape == psfs.shape and kept.device == psfs.device
+            and bool(torch.equal(kept, psfs)))
+
+
 class MultiScaleAlgorithm(DeconvolutionAlgorithm):
     """``cpp/algorithms/multiscale_algorithm.{h,cc}``."""
 
@@ -236,6 +275,9 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         # major iteration: cpp/radler.cc:170-238).
         self._mask_acc: Optional[torch.Tensor] = None  # [S, H, W] bool
         self._comp_acc: Dict[int, torch.Tensor] = {}  # scale -> [N, H, W]
+        # The fused loop's banks, kept while their configuration and PSFs
+        # stay the same: (key, psfs, psfs._version, peaks, banks).
+        self._fused_banks: Optional[tuple] = None
 
     # -- plumbing used by ParallelDeconvolution ------------------------
     def set_auto_mask_mode(self, track: bool, use: bool) -> None:
@@ -300,10 +342,15 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         (one host read for all scales)."""
         convolved = [self._scale_convolve(psf, e.scale)
                      for e in self.scale_infos]
+        self._apply_psf_peaks(_scale_convolved_center_values(convolved))
+        return convolved
+
+    def _apply_psf_peaks(self, peaks: Sequence[float]) -> None:
+        """Set each scale's psf_peak, bias factor and gain from the
+        convolved PSFs' center values (``ConvolvePsfs`` side effects)."""
         first_auto_scale_size = self.beam_size_in_pixels * 2.0
-        peaks = _scale_convolved_center_values(convolved)
         for entry, psf_peak in zip(self.scale_infos, peaks):
-            entry.psf_peak = psf_peak
+            entry.psf_peak = float(psf_peak)
             if entry.scale == 0.0 or len(self.scale_infos) < 2:
                 exp_term = 0.0
             else:
@@ -316,7 +363,6 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
                 f"{round(entry.bias_factor * 10.0) / 10.0}, "
                 f"psfpeak={entry.psf_peak}, gain={entry.gain}"
             )
-        return convolved
 
     # -- peak search over all scales -------------------------------------
     def _scale_valid_stack(self, height: int, width: int,
@@ -459,6 +505,9 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
                 f"{self.component_optimization_algorithm.name} in multiscale "
                 "is not ported yet; ROADMAP queue A, item 7 brings it."
             )
+
+        if self._fused_eligible(meta, width, height):
+            return self._execute_fused(dirty_set, model_set, psfs, result)
 
         has_hit_threshold_in_sub_loop = False
         threshold_countdown = max(8, len(self.scale_infos) * 3 // 2)
@@ -622,6 +671,227 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
             and not diverging
         )
         result.final_peak_value = current_biased_peak()
+        return result
+
+    # -- the fused route (multiscale_fused.py) ----------------------------
+    def _fused_eligible(self, meta: CubeMeta, width: int, height: int) -> bool:
+        """Whether a major iteration runs the fused loop: the JAX package's
+        rule (``multiscale.py:791-824``), so that both packages take the
+        same route.  ``RADLER_TPU_NO_FUSED_MS`` selects the host path."""
+        if os.environ.get("RADLER_TPU_NO_FUSED_MS"):
+            return False
+        if not self.ms_settings.fast_sub_minor_loop or not self.scale_infos:
+            return False
+        S = len(self.scale_infos)
+        split, (ph, pw), (phl, pwl) = self._correction_split(width, height)
+        N, C = meta.n_images, meta.n_channels
+        est = (
+            2 * S * C * height * width * 4  # single + twice PSF stacks
+            + (S + C) * ph * pw * 8  # kernel + PSF spectra (small size)
+            + (S - split + C) * phl * pwl * 8  # large size spectra
+            + N * ph * pw * 8  # the spectral residual res_f
+            + 2 * N * ph * pw * 8  # spectral-subtract temporaries
+            + 2 * max(S, N) * ph * pw * 4  # maxima / cube inverse transients
+            + S * height * width  # search windows
+            + 6 * N * height * width * 4  # cube copies
+        )
+        if self.track_per_scale_masks:
+            est += S * height * width
+        if self.track_components:
+            est += 2 * S * N * height * width * 4
+        return est < FUSED_MEMORY_BUDGET
+
+    def _correction_split(self, width: int, height: int):
+        """Split the ascending scales into a small and a large correction
+        size (``multiscale.py:826-868`` of the JAX package).  The reference
+        pads each scale's correction to its own convolution size
+        (``fft_size_calculations.h:39-50``); the fused loop's spectral
+        residual lives at one size, which every outer pass pays, so that
+        size is the largest of the prefix of scales whose padded area stays
+        within 1.30 times the smallest scale's.  The other scales correct
+        at the largest scale's size.
+
+        Returns ``(split, (pa_h, pa_w), (pb_h, pb_w))``: scales
+        ``[0, split)`` take the small size, ``[split, S)`` the large one;
+        ``split == S`` is one size."""
+        pad = self.ms_settings.convolution_padding
+        sizes = [
+            (get_convolution_size(e.scale, height, pad),
+             get_convolution_size(e.scale, width, pad))
+            for e in self.scale_infos
+        ]
+        pb = sizes[-1]
+        base = sizes[0][0] * sizes[0][1]
+        split = len(sizes)
+        for i, (sh, sw) in enumerate(sizes):
+            if sh * sw > 1.30 * base:
+                split = i
+                break
+        if split == 0 or split == len(sizes):
+            return len(sizes), pb, pb
+        return split, sizes[split - 1], pb
+
+    def _compact_kernel_stack(self, width: int, height: int) -> np.ndarray:
+        """``[S, kmax, kmax]`` stack of centered scale kernels (scale 0 is a
+        centered delta, whose origin-rolled spectrum is exactly flat)."""
+        kernels = [
+            np.ones((1, 1), np.float32) if e.scale == 0.0
+            else make_shape_function(e.scale, min(width, height),
+                                     self.ms_settings.shape)
+            for e in self.scale_infos
+        ]
+        kmax = max(k.shape[0] for k in kernels)
+        stack = np.zeros((len(kernels), kmax, kmax), np.float32)
+        for i, k in enumerate(kernels):
+            o = kmax // 2 - k.shape[0] // 2
+            stack[i, o:o + k.shape[0], o:o + k.shape[0]] = k
+        return stack
+
+    def _prepare_fused_banks(self, meta: CubeMeta, width: int, height: int,
+                             psfs: torch.Tensor):
+        """The fused loop's per-scale banks (``multiscale.py:870-1011`` of
+        the JAX package): the scale kernels' and the correction PSFs'
+        spectra at both padded sizes, factored (S + C planes, not the
+        reference's S x C bank of ``ConvolvePsfs``), the ``[S, C, H, W]``
+        twice-convolved PSFs, each scale's PSF peak, bias factor and gain,
+        and the split.
+
+        They are kept on the algorithm while the configuration and the
+        PSFs stay the same, so a ``Radler`` builds them once: a PSF stack
+        hits when it is the kept tensor at the kept version, or an equal
+        tensor (``load_and_average_psfs`` makes a new one every perform)
+        while the kept one was not changed in place."""
+        split, pa, pb = self._correction_split(width, height)
+        key = (width, height, meta, tuple(e.scale for e in self.scale_infos),
+               self.ms_settings.shape, self.ms_settings.scale_bias,
+               self.minor_loop_gain, split, pa, pb, psfs.device)
+        kept = self._fused_banks
+        if kept is not None and kept[0] == key and _same_psfs(
+                kept[1], kept[2], psfs):
+            self._apply_psf_peaks(kept[3])
+            return kept[4]
+        self._fused_banks = None
+        S = len(self.scale_infos)
+        compact = torch.as_tensor(self._compact_kernel_stack(width, height),
+                                  device=psfs.device)
+        # The integrated PSF convolved with every scale: the peaks, bias
+        # factors and gains (ConvolvePsfs), one host read.
+        integrated_psf = get_integrated_psf(psfs, meta)
+        kimg_f = centered_embed_kernel_fft(compact, (height, width))
+        peaks = inverse_fft2_real(
+            forward_fft2(integrated_psf)[None] * kimg_f, (height, width)
+        )[:, height // 2, width // 2].tolist()
+        self._apply_psf_peaks(peaks)
+        # The correction PSFs (the integrated PSF for one channel, as the
+        # host path's) and [S, C, H, W] twice-convolved PSFs,
+        # ifft(fft(psf_c) * kernel_f[s]^2).
+        corr_psfs = psfs if meta.n_channels > 1 else integrated_psf[None]
+        twice = inverse_fft2_real(
+            forward_fft2(corr_psfs)[None, :]
+            * (kimg_f[:, None] * kimg_f[:, None]),
+            (height, width),
+        )
+        del kimg_f
+        kernel_f = centered_embed_kernel_fft(compact, pa)
+        psf_f = centered_embed_kernel_fft(corr_psfs, pa)
+        kernel_f_large = psf_f_large = None
+        if split < S:
+            kernel_f_large = centered_embed_kernel_fft(compact[split:], pb)
+            psf_f_large = centered_embed_kernel_fft(corr_psfs, pb)
+        bias = np.asarray([e.bias_factor for e in self.scale_infos],
+                          np.float32)
+        gain_arr = np.asarray([e.gain for e in self.scale_infos], np.float32)
+        banks = (kernel_f, twice, psf_f, kernel_f_large, psf_f_large, bias,
+                 gain_arr, split, pa, pb)
+        self._fused_banks = (key, psfs, psfs._version, peaks, banks)
+        return banks
+
+    def _execute_fused(self, dirty_set, model_set, psfs: torch.Tensor,
+                       result: DeconvolutionResult) -> DeconvolutionResult:
+        """One major iteration on the fused route (``_execute_fused`` of
+        the JAX package, ``multiscale.py:1071-1332``).  On a device mesh
+        the inputs are checked to lie on its device and, where the cube
+        divides over it, the dense subminor loop runs partitioned (B4 or
+        B1 on row shards)."""
+        meta: CubeMeta = dirty_set.meta
+        width, height = dirty_set.width, dirty_set.height
+        (kernel_f, twice, psf_f, kernel_f_large, psf_f_large, bias, gain_arr,
+         split, padded_small, padded_large) = self._prepare_fused_banks(
+            meta, width, height, psfs)
+        valid_stack = self._scale_valid_stack(height, width, psfs.device)
+        fitter = self.spectral_fitter
+        if fitter is not None and not fitter.is_active:
+            fitter = None
+        if (fitter is not None
+                and fitter.mode == SpectralFittingMode.FORCED_TERMS
+                and fitter._forced_terms is None):
+            # As the JAX package's _forced_terms_or_dummy: no flat spectra
+            # from absent term images.
+            raise RuntimeError("Forced terms have not been set")
+        residual, model = dirty_set.data, model_set.data
+        rms_factor = self.rms_factor_image
+        mesh = self.device_mesh
+        if mesh is not None and mesh.size > 1:
+            shard_multiscale_inputs(mesh, residual, model, kernel_f, twice,
+                                    psf_f, kernel_f_large, psf_f_large,
+                                    valid_stack, rms_factor)
+        if not mesh_subminor_eligible(mesh, meta, height, fitter):
+            mesh = None
+
+        out = fused_multiscale_minor_loop(
+            residual, model, kernel_f, twice, psf_f, kernel_f_large,
+            psf_f_large, valid_stack, rms_factor, bias, gain_arr,
+            self.threshold, self.major_iteration_threshold,
+            self.major_loop_gain, self.ms_settings.sub_minor_loop_gain,
+            self.minor_loop_gain, self.divergence_limit,
+            self.iteration_number, self.max_iterations,
+            max(8, len(self.scale_infos) * 3 // 2),
+            meta=meta,
+            allow_negative=self.allow_negative_components,
+            stop_on_negative=self.stop_on_negative_components,
+            fitter=fitter, split=split, padded_small=padded_small,
+            padded_large=padded_large,
+            track_masks=self.track_per_scale_masks,
+            track_components=self.track_components, mesh=mesh,
+        )
+        dirty_set.data = out.residual
+        model_set.data = out.model
+        self.iteration_number = out.iteration_number
+        flux = out.flux_per_scale.tolist()
+        for i, entry in enumerate(self.scale_infos):
+            entry.n_components_cleaned += out.components_per_scale[i]
+            entry.total_flux_cleaned += flux[i]
+        # The device accumulators reach the host state once per major
+        # iteration, as on the host path.
+        if self.track_per_scale_masks:
+            self._mask_acc = out.mask_acc
+        if self.track_components:
+            self._comp_acc = {i: acc for i, acc in out.comp_acc.items()
+                              if out.components_per_scale[i] > 0}
+        self._flush_device_tracking()
+        result.final_peak_value = out.final_biased_peak
+        if not out.any_peak_found:
+            log.warn("No peak found during multi-scale cleaning! Aborting.")
+            result.another_iteration_required = False
+            return result
+        # Stop-reason reporting (multiscale_algorithm.cc:545-575); a pass
+        # that cleaned nothing ends the loop as the host path's error does
+        # (multiscale_algorithm.cc:417-424).
+        max_iter_reached = self.iteration_number >= self.max_iterations
+        negative_reached = (self.stop_on_negative_components
+                            and out.final_biased_peak < 0.0)
+        result.is_diverging = out.diverging
+        result.another_iteration_required = (
+            not max_iter_reached
+            and not out.is_final_threshold
+            and not negative_reached
+            and not out.diverging
+        )
+        if out.no_components:
+            log.error(
+                "Could not continue multi-scale clean, because the sub-minor "
+                "loop failed to find components."
+            )
         return result
 
     def _flush_device_tracking(self) -> None:

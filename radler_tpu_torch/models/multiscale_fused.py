@@ -1,29 +1,109 @@
-"""The dense subminor loop of multiscale CLEAN.
+"""Multiscale CLEAN's minor loop with a spectral-domain residual.
 
-Port of ``dense_subminor_loop`` of ``radler_tpu.models.multiscale_fused``:
-the Clark subminor loop at a fixed scale run as a *dense masked clean* over
-the scale-convolved residual cube (the candidate-set restriction is an
-optimization, not a semantic requirement: both subtract the twice-convolved
-PSF and stop at the same threshold, ``subminor_loop.h:17-50``).  Each
-iteration is the Högbom kernel pair of
-:mod:`radler_tpu_torch.kernels.hogbom_step` in its *linear* integration mode
-(``SubMinorModel::GetMaxComponent``, ``subminor_loop.cc:13-36``) with the
-search weight plane, through :func:`~radler_tpu_torch.kernels.hogbom_step.
-hogbom_loop`: the host reads the loop state once per ``CHUNK`` iterations.
+Port of ``radler_tpu.models.multiscale_fused``.  The host path
+(:mod:`radler_tpu_torch.models.multiscale`) re-transforms the residual on
+every outer iteration for the scale maxima and the scale-convolved cube, and
+corrects it with inverse transforms.  :func:`fused_multiscale_minor_loop`
+restructures that work as the JAX package's single-program loop does:
 
-The rest of the JAX module (the single-program multiscale loop with its
-spectral-domain residual, and the mesh form of this loop) is not ported
-yet (ROADMAP queue A, items 2 and 8.3).
+* **The residual cube lives in the Fourier domain** (``res_f``, at one
+  padded size).  The scale maxima are S inverse transforms of the
+  integrated spectrum times the kernel spectra (no forward transform), the
+  scale-convolved cube N inverse transforms, and the residual correction a
+  spectral multiply-subtract with no inverse transform.  Inside the image
+  region the residual is the host path's; the padding margin gathers the
+  wrapped tails that the reference re-zeroes, outside every search window.
+* **The correction spectra are factored**: the spectrum of
+  ``kernel_s ⊛ psf_c`` is ``kernel_f[s] * psf_f[c]``, so S + C planes are
+  stored instead of S·C.
+* **Components are tracked in the spectral fit's coefficient space** when
+  the fit is a linear projection (polynomial mode): T·P coefficient planes
+  instead of N channel planes, so the correction does T·P forward
+  transforms (2 for a 2-term fit of 8 channels, where the host path does 8).
+* **Two padded sizes**: the small one serves the scales whose own
+  convolution size is close to the smallest scale's; the rarely selected
+  large scales correct at the large size in image space and re-sync
+  ``res_f``.
+
+The dense subminor loop at a fixed scale is :func:`dense_subminor_loop`, the
+Clark subminor loop run as a *dense masked clean* over the scale-convolved
+cube (the candidate-set restriction is an optimization, not a semantic
+requirement: both subtract the twice-convolved PSF and stop at the same
+threshold, ``subminor_loop.h:17-50``).  Each iteration is the Högbom kernel
+pair of :mod:`radler_tpu_torch.kernels.hogbom_step` (B1) in its *linear*
+integration mode (``SubMinorModel::GetMaxComponent``,
+``subminor_loop.cc:13-36``) with the search weight plane, through
+:func:`~radler_tpu_torch.kernels.hogbom_step.hogbom_loop`; on a device mesh
+it is :func:`~radler_tpu_torch.parallel.mesh.mesh_hogbom_loop` in the same
+mode (B4 on every shard with a channel split, B1 on row shards without).
+
+The JAX loop runs on the device as one program.  Here the host drives the
+outer loop: it reads the scale maxima once per outer pass (one tensor) and
+takes the loop's decisions (the scale, the thresholds, the countdown, the
+activation) in float32 NumPy scalars in the JAX package's order, which round
+as its device does.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..image_set import CubeMeta, linear_integration_coefficients
 from ..kernels.hogbom_step import LoopParams, hogbom_loop
+from ..ops.convolution import forward_fft2_padded, inverse_fft2_real_trimmed
+from ..ops.peak_finder import FLT_MIN
+from ..parallel.mesh import mesh_hogbom_loop
+from ..settings import SpectralFittingMode
+from ..utils.device_consts import device_const
+
+f32 = np.float32
+
+
+class FusedMultiscaleResult(NamedTuple):
+    residual: torch.Tensor  # [N, H, W]
+    model: torch.Tensor  # [N, H, W]
+    iteration_number: int
+    final_biased_peak: float  # signed: value * bias at the best scale
+    final_scale: int
+    any_peak_found: bool  # a peak existed at loop exit
+    diverging: bool
+    no_components: bool  # a subminor pass cleaned nothing
+    is_final_threshold: bool  # stopped at the absolute threshold
+    components_per_scale: list  # [S] ints
+    flux_per_scale: torch.Tensor  # [S] float32, on the device
+    mask_acc: Optional[torch.Tensor]  # [S, H, W] bool (track_masks)
+    comp_acc: Dict[int, torch.Tensor]  # scale -> [N, H, W] (track_components)
+
+
+def _coefficient_basis(fitter, meta: CubeMeta) -> Optional[np.ndarray]:
+    """Expansion matrix E [N, T*P] with ``component_plane = E @ coef_planes``
+    when the fitter is a linear projection (polynomial mode), else None.
+
+    For polynomial fitting ``fitted = design @ (fit_matrix @ values)`` per
+    polarization, so accumulated fitted values live in the column space of
+    ``design`` [C, T]; plane ``n = c*P + p`` maps to coefficient plane
+    ``k = t*P + p`` with weight ``design[c, t]``.
+    """
+    if (
+        fitter is None
+        or not fitter.is_active
+        or fitter.mode != SpectralFittingMode.POLYNOMIAL
+        or fitter._design is None
+    ):
+        return None
+    C, P = meta.n_channels, meta.n_polarizations
+    design = np.asarray(fitter._design, np.float32)  # [C, T]
+    T = design.shape[1]
+    E = np.zeros((C * P, T * P), np.float32)
+    for c in range(C):
+        for p in range(P):
+            for t in range(T):
+                E[c * P + p, t * P + p] = design[c, t]
+    return E
 
 
 def dense_subminor_loop(
@@ -43,6 +123,8 @@ def dense_subminor_loop(
     stop_on_negative: bool,
     fitter=None,
     plain: bool = False,
+    coefficients: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int, float, bool, bool]:
     """One dense Clark subminor pass at a fixed scale.
 
@@ -55,17 +137,313 @@ def dense_subminor_loop(
     ``max_iterations`` or, with ``stop_on_negative``, at a negative peak.
     Returns ``(conv_res, comp, iteration, value, found, diverging)``.
 
+    ``coefficients`` = ``(fit_m, E)`` fits in coefficient space instead and
+    returns the ``[T*P, H, W]`` coefficient cube as ``comp`` (the fused
+    loop's form).  ``mesh`` runs the pass partitioned over a device mesh.
     CUDA tensors run the kernels (``plain`` runs their plain versions
     instead, for comparison); CPU tensors run the plain versions.
     """
-    comp = torch.zeros_like(conv_res)
+    n_comp = (conv_res.shape[0] if coefficients is None
+              else coefficients[1].shape[1])
+    comp = torch.zeros((n_comp,) + tuple(conv_res.shape[1:]),
+                       dtype=conv_res.dtype, device=conv_res.device)
     params = LoopParams.make(gain, threshold, abs(peak0[0]), divergence_limit,
                              max_iterations, stop_on_negative)
-    out = hogbom_loop(
-        conv_res, comp, psfs.contiguous(), weight.contiguous(),
-        rms_factor.contiguous() if rms_factor is not None else None,
-        peak0, params, start_iteration, meta=meta,
-        allow_negative=allow_negative, fitter=fitter, plain=plain,
+    args = (conv_res, comp, psfs.contiguous(), weight.contiguous(),
+            rms_factor.contiguous() if rms_factor is not None else None,
+            peak0, params, start_iteration)
+    kwargs = dict(
+        meta=meta, allow_negative=allow_negative, fitter=fitter, plain=plain,
         integration=("linear", linear_integration_coefficients(meta)),
+        coefficients=coefficients,
     )
+    if mesh is not None:
+        out = mesh_hogbom_loop(mesh, *args, **kwargs)
+    else:
+        out = hogbom_loop(*args, **kwargs)
     return conv_res, comp, out.iteration, out.value, out.found, out.diverging
+
+
+def mesh_subminor_eligible(mesh, meta: CubeMeta, height: int,
+                           fitter) -> bool:
+    """Whether the fused loop's dense subminor runs partitioned over
+    ``mesh`` (``multiscale.py:1213-1229`` of the JAX package, without its
+    128-lane TPU gate): the planes divide over ``"chan"``, the rows over
+    ``"tile"`` into shards of a multiple of 8 rows (the route the JAX
+    package takes), and the fit is absent or a linear projection."""
+    if mesh is None or mesh.size == 1:
+        return False
+    return (
+        meta.n_images % mesh.chan == 0
+        and height % mesh.tile == 0
+        and (height // mesh.tile) % 8 == 0
+        and (fitter is None or _coefficient_basis(fitter, meta) is not None)
+    )
+
+
+def _select_scale(vals: np.ndarray, active: np.ndarray,
+                  bias: np.ndarray) -> int:
+    """The bias-weighted argmax over active scales, the first of equal
+    maxima (float32)."""
+    return int(np.argmax(np.where(active, np.abs(vals * bias), -np.inf)))
+
+
+# The steps of one outer pass.  Each is a module function, so that a
+# profiler can wrap it.
+
+
+def expand_planes(planes: torch.Tensor,
+                  expand: Optional[torch.Tensor]) -> torch.Tensor:
+    """Coefficient planes ``[T*P, ...]`` to cube planes ``[N, ...]``
+    (``expand @ planes``); the planes themselves without a basis."""
+    if expand is None:
+        return planes
+    flat = planes.reshape(planes.shape[0], -1)
+    return (expand.to(planes.dtype) @ flat).reshape(
+        (expand.shape[0],) + tuple(planes.shape[1:]))
+
+
+def spectral_scale_maxima(res_f: torch.Tensor, lin: torch.Tensor,
+                          kernel_f: torch.Tensor, padded: Tuple[int, int],
+                          valid_stack: torch.Tensor,
+                          rms_factor: Optional[torch.Tensor],
+                          allow_negative: bool):
+    """Every scale's masked, weighted peak (``FindActiveScaleConvolved
+    Maxima``, ``multiscale_algorithm.cc:578-634``) from the integrated
+    spectrum: S inverse transforms and no forward one, then one host read.
+    Returns float32 values, x, y and found, each ``[S]`` on the host."""
+    S, (H, W) = kernel_f.shape[0], valid_stack.shape[1:]
+    integ_f = torch.einsum("n,nhw->hw", lin.to(res_f.dtype), res_f)
+    conv = inverse_fft2_real_trimmed(integ_f[None] * kernel_f, padded, (H, W))
+    weighted = conv * rms_factor if rms_factor is not None else conv
+    cmp = weighted.abs() if allow_negative else weighted
+    masked = torch.where(valid_stack, cmp, -math.inf).reshape(S, H * W)
+    idx = torch.argmax(masked, dim=1, keepdim=True)
+    found = torch.gather(masked, 1, idx)[:, 0] > FLT_MIN
+    vals = torch.where(found,
+                       torch.gather(weighted.reshape(S, H * W), 1, idx)[:, 0],
+                       0.0)
+    idx = idx[:, 0]
+    host = torch.stack([vals.double(), (idx % W).double(),
+                        (idx // W).double(), found.double()]).cpu().numpy()
+    return (host[0].astype(f32), host[1].astype(np.int64),
+            host[2].astype(np.int64), host[3] != 0.0)
+
+
+def scale_convolved_cube(res_f: torch.Tensor, kernel_f_s: torch.Tensor,
+                         padded: Tuple[int, int],
+                         shape: Tuple[int, int]) -> torch.Tensor:
+    """The scale-convolved residual cube (``multiscale_algorithm.cc:
+    345-354``): N inverse transforms and no forward one."""
+    return inverse_fft2_real_trimmed(res_f * kernel_f_s[None], padded,
+                                     shape).contiguous()
+
+
+def correct_small(res_f: torch.Tensor, model: torch.Tensor,
+                  comp: torch.Tensor, kernel_f_s: torch.Tensor,
+                  psf_f_planes: torch.Tensor, padded: Tuple[int, int],
+                  expand: Optional[torch.Tensor]) -> None:
+    """A small-size scale's correction, in place: the model gains the
+    scale-convolved components, and the spectral residual loses their
+    convolution with the PSFs, a spectral subtraction (the spectrum of
+    ``kernel_s ⊛ psf_c`` is ``kernel_f[s] * psf_f[c]``)."""
+    comp_f = forward_fft2_padded(comp, padded)  # [Tn, ...]
+    model.add_(expand_planes(inverse_fft2_real_trimmed(
+        comp_f * kernel_f_s[None], padded, model.shape[1:]), expand))
+    res_f.sub_(expand_planes(comp_f, expand) * psf_f_planes
+               * kernel_f_s[None])
+
+
+def correct_large(res_f: torch.Tensor, model: torch.Tensor,
+                  comp: torch.Tensor, kernel_f_s: torch.Tensor,
+                  psf_f_planes: torch.Tensor, padded_small: Tuple[int, int],
+                  padded_large: Tuple[int, int],
+                  expand: Optional[torch.Tensor]) -> None:
+    """A large-size scale's correction, in place: in image space at the
+    large size, then the spectral residual re-synced from the delta."""
+    shape = model.shape[1:]
+    comp_f = forward_fft2_padded(comp, padded_large)  # [Tn, ...]
+    model.add_(expand_planes(inverse_fft2_real_trimmed(
+        comp_f * kernel_f_s[None], padded_large, shape), expand))
+    delta = inverse_fft2_real_trimmed(
+        expand_planes(comp_f, expand) * psf_f_planes * kernel_f_s[None],
+        padded_large, shape)  # [N, H, W]
+    res_f.sub_(forward_fft2_padded(delta, padded_small))
+
+
+def fused_multiscale_minor_loop(
+    residual: torch.Tensor,  # [N, H, W]
+    model: torch.Tensor,  # [N, H, W]
+    kernel_f: torch.Tensor,  # [S, Ph, Pw//2+1] scale-kernel spectra, small
+    twice_psfs: torch.Tensor,  # [S, C, H, W] twice-convolved PSFs
+    psf_f: torch.Tensor,  # [C, Ph, Pw//2+1] PSF spectra, small size
+    kernel_f_large: Optional[torch.Tensor],  # [S - split, ...] or None
+    psf_f_large: Optional[torch.Tensor],  # [C, PhL, PwL//2+1] or None
+    valid_stack: torch.Tensor,  # [S, H, W] bool searchable windows
+    rms_factor: Optional[torch.Tensor],  # [H, W] or None
+    bias: np.ndarray,  # [S] float32
+    gain_arr: np.ndarray,  # [S] float32
+    threshold: float,  # the final (absolute) threshold
+    major_iteration_threshold: float,
+    major_loop_gain: float,
+    sub_loop_gain: float,
+    minor_loop_gain: float,
+    divergence_limit: float,
+    start_iteration: int,
+    max_iterations: int,
+    countdown0: int,
+    *,
+    meta: CubeMeta,
+    allow_negative: bool,
+    stop_on_negative: bool,
+    fitter,
+    split: int,
+    padded_small: Tuple[int, int],
+    padded_large: Tuple[int, int],
+    track_masks: bool = False,
+    track_components: bool = False,
+    mesh=None,
+) -> FusedMultiscaleResult:
+    """One major iteration's minor loop (``multiscale_fused.py:476-931`` of
+    the JAX package, ``multiscale_algorithm.cc:286-543`` of the reference).
+
+    Scales ``[0, split)`` correct at ``padded_small``, the size of
+    ``res_f``; scales ``[split, S)`` at ``padded_large``.  ``mesh`` (from
+    :func:`mesh_subminor_eligible`) partitions the dense subminor loop.
+    """
+    N, H, W = residual.shape
+    S = kernel_f.shape[0]
+    dev = residual.device
+    P = meta.n_polarizations
+    lin = device_const(linear_integration_coefficients(meta), dev)
+    bias = np.asarray(bias, f32)
+    gain_arr = np.asarray(gain_arr, f32)
+    threshold, major_iteration_threshold = f32(threshold), f32(
+        major_iteration_threshold)
+    major_loop_gain, sub_loop_gain = f32(major_loop_gain), f32(sub_loop_gain)
+    minor_loop_gain, divergence_limit = f32(minor_loop_gain), f32(
+        divergence_limit)
+    one = f32(1.0)
+
+    # Coefficient-space component tracking (see the module docstring).
+    E_np = _coefficient_basis(fitter, meta)
+    coefficients = expand = None
+    if E_np is not None:
+        expand = device_const(E_np, dev)  # [N, Tn]
+        coefficients = (device_const(fitter._fit_matrix, dev), expand)
+
+    # Per-plane PSF spectra (plane n takes channel n // P's PSF).
+    psf_idx = torch.arange(N, device=dev) // P
+
+    def per_plane(spectra: torch.Tensor) -> torch.Tensor:
+        return spectra if P == 1 else spectra.index_select(0, psf_idx)
+
+    psf_planes = per_plane(psf_f)
+    psf_planes_large = per_plane(psf_f_large) if split < S else None
+
+    # The residual cube in the Fourier domain at the small padded size.
+    res_f = forward_fft2_padded(residual, padded_small)
+
+    def find_maxima(res_f: torch.Tensor):
+        return spectral_scale_maxima(res_f, lin, kernel_f, padded_small,
+                                     valid_stack, rms_factor, allow_negative)
+
+    # Thresholds (multiscale_algorithm.cc:286-321), in float32.
+    vals, xs, ys, found = find_maxima(res_f)
+    biased0 = np.abs(vals * bias)
+    initial_peak = biased0[int(np.argmax(biased0))]  # all scales active
+    m_gain_threshold = max(initial_peak * (one - major_loop_gain),
+                           major_iteration_threshold)
+    first_threshold = max(m_gain_threshold, threshold)
+    is_final_threshold = bool(threshold > m_gain_threshold)
+    any_found0 = bool(found.any())
+
+    mod = model.clone()
+    it, countdown = int(start_iteration), int(countdown0)
+    active = np.ones(S, bool)
+    ncomp = [0] * S
+    flux = torch.zeros(S, dtype=torch.float32, device=dev)
+    div = nocomp = False
+    mask_acc = (torch.zeros((S, H, W), dtype=torch.bool, device=dev)
+                if track_masks else None)
+    comp_acc: Dict[int, torch.Tensor] = {}
+
+    while True:
+        s = _select_scale(vals, active, bias)
+        if not (
+            it < max_iterations
+            and abs(vals[s] * bias[s]) > first_threshold
+            and (not stop_on_negative or vals[s] >= 0.0)
+            and countdown > 0
+            and not div
+            and not nocomp
+            and any_found0
+        ):
+            break
+        biased_peak = abs(vals[s] * bias[s])
+        sub_gain_threshold = biased_peak * (one - sub_loop_gain)
+        countdown -= int(first_threshold > sub_gain_threshold)
+        thr_sub = max(sub_gain_threshold, first_threshold) / bias[s]
+
+        conv_res = scale_convolved_cube(res_f, kernel_f[s], padded_small,
+                                        (H, W))
+        weight = valid_stack[s].to(torch.float32)
+        if rms_factor is not None:
+            weight = weight * rms_factor
+
+        it_before = it
+        _, comp, it, value, _, sub_div = dense_subminor_loop(
+            conv_res, twice_psfs[s], weight, rms_factor, float(thr_sub),
+            float(gain_arr[s]), it, max_iterations, float(divergence_limit),
+            (float(vals[s]), int(xs[s]), int(ys[s]), bool(found[s])),
+            meta=meta, allow_negative=allow_negative,
+            stop_on_negative=stop_on_negative, fitter=fitter,
+            coefficients=coefficients, mesh=mesh,
+        )
+        nocomp = it == it_before
+        div = bool(sub_div) or bool(
+            divergence_limit != 0.0
+            and abs(f32(value)) > initial_peak * divergence_limit)
+
+        if s < split:
+            correct_small(res_f, mod, comp, kernel_f[s], psf_planes,
+                          padded_small, expand)
+        else:
+            correct_large(res_f, mod, comp, kernel_f_large[s - split],
+                          psf_planes_large, padded_small, padded_large,
+                          expand)
+
+        ncomp[s] += it - it_before
+        flux[s] += expand_planes(comp.sum(dim=(1, 2)), expand).sum()
+        if track_masks:
+            mask_acc[s] |= torch.any(comp != 0.0, dim=0)
+        if track_components:
+            planes = expand_planes(comp, expand)
+            comp_acc[s] = planes if s not in comp_acc else comp_acc[s] + planes
+
+        # Scale (de)activation uses the maxima before the refresh
+        # (multiscale_algorithm.cc:636-656) ...
+        act_thr = abs(vals[s]) * (one - minor_loop_gain) * bias[s]
+        active = (np.arange(S) == s) | (np.abs(vals * bias) > act_thr)
+        # ... then every scale's maxima are refreshed.
+        vals, xs, ys, found = find_maxima(res_f)
+
+    res_out = inverse_fft2_real_trimmed(res_f, padded_small,
+                                        (H, W)).contiguous()
+    s_final = _select_scale(vals, active, bias)
+    return FusedMultiscaleResult(
+        residual=res_out,
+        model=mod,
+        iteration_number=it,
+        final_biased_peak=float(vals[s_final] * bias[s_final]),
+        final_scale=s_final,
+        any_peak_found=any_found0 and bool(found.any()),
+        diverging=div,
+        no_components=nocomp,
+        is_final_threshold=is_final_threshold,
+        components_per_scale=ncomp,
+        flux_per_scale=flux,
+        mask_acc=mask_acc,
+        comp_acc=comp_acc,
+    )
+

@@ -53,6 +53,47 @@ def _centered_kernel_fft(
     return torch.fft.rfft2(rolled, s=tuple(shape))
 
 
+def forward_fft2(x: torch.Tensor) -> torch.Tensor:
+    """The rfft2 half-plane spectrum of a real image stack ``[..., H, W]``."""
+    return torch.fft.rfft2(x)
+
+
+def inverse_fft2_real(spec: torch.Tensor,
+                      shape: Tuple[int, int]) -> torch.Tensor:
+    """The real ``(H, W)`` images of :func:`forward_fft2` spectra, batched
+    over every leading dimension."""
+    return torch.fft.irfft2(spec, s=tuple(shape))
+
+
+def forward_fft2_padded(x: torch.Tensor,
+                        padded_shape: Tuple[int, int]) -> torch.Tensor:
+    """The spectrum of ``untrim(x, Ph, Pw)``, the centered zero-pad."""
+    ph, pw = padded_shape
+    if tuple(x.shape[-2:]) != (ph, pw):
+        x = untrim(x, ph, pw)
+    return torch.fft.rfft2(x)
+
+
+def inverse_fft2_real_trimmed(spec: torch.Tensor,
+                              padded_shape: Tuple[int, int],
+                              out_shape: Tuple[int, int]) -> torch.Tensor:
+    """``trim(inverse_fft2_real(spec, padded_shape), H, W)``: a view of the
+    centered ``out_shape`` region."""
+    out = inverse_fft2_real(spec, padded_shape)
+    if tuple(out_shape) == tuple(padded_shape):
+        return out
+    return trim(out, *out_shape)
+
+
+def centered_embed_kernel_fft(kernel: torch.Tensor,
+                              shape: Tuple[int, int]) -> torch.Tensor:
+    """Centered-embed ``kernel`` into ``shape`` and return its origin-rolled
+    spectrum (batched over leading dims)."""
+    if tuple(kernel.shape[-2:]) != tuple(shape):
+        kernel = untrim(kernel, *shape)
+    return _centered_kernel_fft(kernel, tuple(shape))
+
+
 def convolve_same(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Circular centered convolution at the image's own size.
 

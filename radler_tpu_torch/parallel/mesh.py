@@ -30,9 +30,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels.hogbom_step import (
+    CoefficientFit,
     INDEX,
     LoopParams,
     LoopResult,
@@ -128,6 +130,22 @@ def unplace(shards: torch.Tensor, cube: torch.Tensor, mesh: Mesh) -> None:
         _shard_view(cube, mesh).copy_(shards)
 
 
+def shard_multiscale_inputs(mesh: Mesh,
+                            *tensors: Optional[torch.Tensor]) -> None:
+    """Check that the fused multiscale loop's state (the residual, the
+    model, the banks, the search windows and the rms factor; None is
+    skipped) lies where ``mesh``'s shards live (``mesh.py:781`` of the JAX
+    package lays it out over the mesh's devices).  Every shard of this mesh
+    lives on its one device, so nothing moves and no bank is copied: the
+    cube's planes and rows are split per subminor pass by :func:`place`.
+    A mesh over several cards replaces this function (ROADMAP A8.4)."""
+    device = _index_device(mesh.device)
+    for t in tensors:
+        if t is not None and _index_device(t.device) != device:
+            raise ValueError(f"a fused multiscale input lies on {t.device}, "
+                             f"the mesh on {device}")
+
+
 def psum_chan(parts: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """The sum over ``"chan"`` of the shards' ``[chan, tile, H_loc, W]``
     integration parts, into ``out`` ``[tile, H_loc, W]``: a left fold in
@@ -201,10 +219,19 @@ def mesh_hogbom_loop(
     allow_negative: bool,
     fitter=None,
     plain: bool = False,
+    integration: Optional[Tuple[str, np.ndarray]] = None,
+    coefficients: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> LoopResult:
     """The Högbom minor loop partitioned over ``mesh``, with the contract
     of the JAX package's ``mesh_hogbom_loop`` and the arguments of
     :func:`radler_tpu_torch.kernels.hogbom_step.hogbom_loop`.
+
+    With ``integration`` (linear, as multiscale's dense subminor loop runs
+    it) and ``coefficients`` it is also the mesh form of that loop, the
+    JAX package's ``_make_mesh_dense_subminor``
+    (``multiscale_fused.py:260-454``): the shards with a channel split
+    subtract every plane's own PSF, so the planes need only divide over
+    ``"chan"``.
 
     On CUDA tensors the shards run the kernels (``plain`` runs their plain
     versions, for comparison); on CPU tensors the plain versions.  The loop
@@ -217,7 +244,12 @@ def mesh_hogbom_loop(
     gathered ``[N]`` values times the rms factor there.
     """
     n, height, width = residual.shape
-    if not mesh_pallas_eligible(mesh, meta, height):
+    per_plane = integration is not None and meta.n_polarizations > 1
+    divides = (
+        n % mesh.chan == 0 and height % mesh.tile == 0
+        if per_plane else mesh_pallas_eligible(mesh, meta, height)
+    )
+    if not divides:
         raise ValueError(
             f"mesh_hogbom_loop: {n} planes of {meta.n_polarizations} "
             f"polarizations and {height} rows do not divide over a "
@@ -228,13 +260,27 @@ def mesh_hogbom_loop(
     chan, tile = mesh.chan, mesh.tile
     n_loc, h_loc = n // chan, height // tile
     P = meta.n_polarizations
-    c_loc = n_loc // P
     dev = residual.device
-    mode, chan_np, pol_np = integration_coefficients(meta)
+    if integration is None:
+        mode, chan_np, pol_np = integration_coefficients(meta)
+    else:
+        (mode, chan_np), pol_np = integration, np.ones(1, np.float32)
     complete = chan == 1  # each shard holds every plane of its rows
+    # B4's PSFs: one per plane where a linear integration lets a shard
+    # hold part of a polarization group.
+    shard_psfs, shard_P = psfs, P
+    if per_plane and not complete:
+        shard_psfs = psfs.index_select(
+            0, torch.arange(n, device=dev) // P).contiguous()
+        shard_P = 1
+    c_loc = n_loc // shard_P
 
     res_sh = place(residual, mesh)
-    mod_sh = place(model, mesh)
+    # With coefficients, the kernels' own model update goes to a scratch
+    # cube and ``model`` (the [T*P, H, W] coefficient cube) gains its
+    # values here, at the peak.
+    mod_sh = (place(model, mesh) if coefficients is None
+              else torch.empty_like(res_sh))
     def rows(img):
         return None if img is None else img.view(tile, h_loc, width)
 
@@ -254,13 +300,17 @@ def mesh_hogbom_loop(
         coefs = device_const(kernel_coefficients(mode, chan_np, pol_np), dev)
     else:
         step = subtract_integrate_reference if plain else subtract_integrate
-        coefs = device_const(plane_coefficients(mode, chan_np, P),
+        coefs = device_const(plane_coefficients(mode, chan_np, shard_P),
                              dev).view(chan, n_loc)
         parts = torch.zeros((chan, tile, h_loc, width), device=dev)
         integ = torch.empty((tile, h_loc, width), device=dev)
     buffers, active0 = start_loop(residual, peak0, params, start_iteration,
                                   meta=meta, fitter=fitter)
     state = buffers.state
+    coef_fit = None
+    if coefficients is not None:
+        coef_fit = CoefficientFit(*coefficients, buffers, model, params.gain,
+                                  meta.n_channels, P)
 
     def shard_maxima():
         """Each tile's local maximum and its global flat index."""
@@ -281,10 +331,10 @@ def mesh_hogbom_loop(
         for c in range(chan):
             for t in range(tile):
                 step(res_sh[c, t], mod_sh[c, t],
-                     psfs[c * c_loc:(c + 1) * c_loc],
+                     shard_psfs[c * c_loc:(c + 1) * c_loc],
                      buffers.values[c * n_loc:(c + 1) * n_loc], state,
                      coefs[c], pol_coefs, parts[c, t], mode=mode,
-                     n_polarizations=P, row_offset=t * h_loc)
+                     n_polarizations=shard_P, row_offset=t * h_loc)
         psum_chan(parts, integ)
         cmp = integ if weight_sh is None else integ * weight_sh
         floor = 0.0
@@ -295,6 +345,8 @@ def mesh_hogbom_loop(
         return lmax, lidx + first_index, floor
 
     def iterate():
+        if coef_fit is not None:
+            coef_fit.add()
         lmax, gidx, floor = shard_maxima()
         gmax, gsel = argmax_over_shards(lmax, gidx)
         y, x = gsel // width, gsel % width
@@ -305,12 +357,15 @@ def mesh_hogbom_loop(
                                        row_starts)[0]
         advance_state(buffers, params, (gmax > floor).view(1), value.view(1),
                       gsel.view(1), width, raw)
-        if fitter is not None:
+        if coef_fit is not None:
+            coef_fit.refit()
+        elif fitter is not None:
             buffers.values.copy_(fitted_values(
                 fitter, buffers.peak, state[INDEX:INDEX + 1], params.gain,
                 meta.n_channels, P))
 
     result = run_chunks(iterate, buffers, params, start_iteration, active0)
     unplace(res_sh, residual, mesh)
-    unplace(mod_sh, model, mesh)
+    if coefficients is None:
+        unplace(mod_sh, model, mesh)
     return result

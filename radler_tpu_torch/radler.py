@@ -285,10 +285,9 @@ class Radler:
         )
         mesh = make_mesh(n, n_channels=len(table.deconvolution_groups),
                          device=self._device)
-        if mesh.size > 1 and settings.algorithm_type in (
-                AlgorithmType.IUWT, AlgorithmType.MULTISCALE):
+        if mesh.size > 1 and settings.algorithm_type == AlgorithmType.IUWT:
             raise NotImplementedError(
-                f"{settings.algorithm_type.name} on a device mesh "
+                "IUWT on a device mesh "
                 "(settings.parallel.use_device_mesh with "
                 f"{mesh.size} shards) is not ported yet; ROADMAP queue A, "
                 "item 8 brings it."

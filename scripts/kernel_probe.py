@@ -6,6 +6,8 @@ command line, on one NVIDIA GPU.  Run from the root of a checkout:
     python3 scripts/kernel_probe.py b2        # the subminor kernel
     python3 scripts/kernel_probe.py b3        # the à-trous kernel
     python3 scripts/kernel_probe.py ms        # multiscale: B1 linear, config 3
+                                              # on its 3 routes, the mesh
+    python3 scripts/kernel_probe.py dense     # the dense subminor loop's forms
     python3 scripts/kernel_probe.py b2 b3 check   # against plain only
 
 ``check`` leaves out the timing phases.  It imports nothing of JAX.
@@ -19,6 +21,59 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+
+
+def dense_loop_forms(iterations=640, rounds=3):
+    """Multiscale's dense subminor loop at config 3's shape ([8, 2048,
+    2048], B1 in linear mode with a weight plane) in its three forms: no
+    fit, the host path's fit between launches (``fitter``) and the fused
+    loop's fit in coefficient space (``coefficients``); ``iterations``
+    iterations from the brightest pixel with no threshold, in turns over
+    ``rounds`` rounds; prints the milliseconds per iteration
+    (synchronized host clock)."""
+    import time
+
+    import numpy as np
+
+    from radler_tpu_torch.image_set import CubeMeta
+    from radler_tpu_torch.models.multiscale_fused import (
+        _coefficient_basis,
+        dense_subminor_loop,
+    )
+    from radler_tpu_torch.ops.spectral_fitting import SpectralFitter
+    from radler_tpu_torch.settings import SpectralFittingMode
+
+    C, size = cs.MS_CHANNELS, cs.MS_SIZE
+    inputs = cs._case_inputs("linear", C, 1, False, size, size, seed=C)
+    meta = CubeMeta(C, 1, (1.0,) * C, (True,), 1.0, False,
+                    tuple(1e8 + 1e7 * c for c in range(C)))
+    fitter = SpectralFitter(SpectralFittingMode.POLYNOMIAL, 2,
+                            meta.frequencies, meta.weights)
+    dev = inputs["res"].device
+    pair = (torch.as_tensor(fitter._fit_matrix, dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(_coefficient_basis(fitter, meta), device=dev))
+    flat = int(torch.argmax(inputs["res"][0].abs()))
+    y, x = divmod(flat, size)
+    forms = {"no fit": {}, "fit between launches (host path)":
+             {"fitter": fitter}, "coefficient space (fused loop)":
+             {"coefficients": pair}}
+    times = {name: [] for name in forms}
+    for _ in range(rounds):
+        for name, kw in forms.items():
+            res = inputs["res"].clone()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = dense_subminor_loop(
+                res, inputs["psfs"], inputs["weight"], None, 1e-9, 0.1, 0,
+                iterations, 0.0, (float(res[0, y, x]), x, y, True),
+                meta=meta, allow_negative=True, stop_on_negative=False, **kw)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - start) * 1e3
+                               / out[2])
+    for name, t in times.items():
+        cs.say(f"  {name}: {', '.join(f'{v:.4f}' for v in t)} ms an "
+               f"iteration ({iterations} iterations)")
 
 
 def main(argv):
@@ -51,17 +106,27 @@ def main(argv):
         cs.phase_atrous_main_shapes(iuwt[2])
         cs.say("== the IUWT diffuse-source contract ==")
         cs.phase_iuwt_contract()
+    if "dense" in argv:
+        cs.say("== multiscale's dense subminor loop in its three forms ==")
+        dense_loop_forms()
     if "ms" in argv:
         cs.say("== B1 in linear mode at config 3's shape against its plain "
                "version ==")
         cs.phase_linear_b1()
         cs.say("== config 3 (multiscale 2048^2 x 8 channels) through "
-               "Radler.perform ==")
+               "Radler.perform: the fused, dense and Clark routes ==")
         cs.phase_config3()
-        cs.say("== point-source contract, multiscale ==")
-        cs.phase_ms_contract()
-        cs.say("== multiscale on the card against the CPU ==")
-        cs.phase_ms_card_vs_cpu()
+        for route in ("fused", "dense"):
+            cs.say(f"== point-source contract, multiscale, {route} route ==")
+            cs.phase_ms_contract(route)
+            cs.say(f"== multiscale on the card against the CPU, {route} "
+                   "route ==")
+            cs.phase_ms_card_vs_cpu(route)
+        cs.say("== multiscale on a chan 4 x tile 2 mesh ==")
+        cs.phase_ms_mesh()
+        if timed:
+            cs.say("== B4 in linear mode at the multiscale mesh's shard ==")
+            cs.phase_b4_times(cs.B4_LINEAR_CASE)
     cs.say("probe done")
     return 0
 

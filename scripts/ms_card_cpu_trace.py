@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Multiscale on the card against the port's CPU run, pass by pass.
 
-Runs config 3's settings (``chip_smoke.py``) at 256^2 x 4 channels on two
+Runs config 3's settings (``chip_smoke.py``) on the host path's dense route
+(``RADLER_TPU_NO_FUSED_MS``) at 256^2 x 4 channels on two
 fields, on the CPU and on one NVIDIA GPU, and prints for every subminor
 pass of each run its scale, its first and last iteration, its threshold,
 the peak it started from and the peak it stopped at, then the first pass
@@ -56,7 +57,8 @@ def trace(psfs, residual, device):
         r = rd.Radler(cs._ms_settings(SIZE, ITERATIONS), psfs, res, model,
                       0.0, frequencies=cs._ms_frequencies(CHANNELS),
                       device=device)
-        r.perform(0)
+        with cs._ms_route("dense"):
+            r.perform(0)
     finally:
         ms.dense_subminor_loop, ms.select_maximum_scale = (real_loop,
                                                            real_select)

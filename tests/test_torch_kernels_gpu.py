@@ -882,6 +882,7 @@ def test_perform_mesh_point_source_and_counts(cuda):
 
 from radler_tpu_torch.models import multiscale as ms  # noqa: E402
 from radler_tpu_torch.models.multiscale_fused import (  # noqa: E402
+    _coefficient_basis,
     dense_subminor_loop,
 )
 
@@ -955,12 +956,15 @@ def multiscale_problem(size, n_channels, seed=5):
     return psfs, res
 
 
-@pytest.mark.parametrize("route", ["dense", "clark"])
+@pytest.mark.parametrize("route", ["dense", "clark", "fused"])
 def test_perform_multiscale_on_card_matches_cpu(cuda, route, monkeypatch):
     """Multiscale (2-term fit, 2 channels) through Radler.perform on the
     card against the port's CPU run of the same arrays: equal iteration
     counts and components per scale, the cubes within 1e-5 of
-    max(1, |res|max); the dense route launches B1, the Clark route B2."""
+    max(1, |res|max); the host path's dense route and the fused route
+    launch B1, the host path's Clark route B2."""
+    if route != "fused":
+        monkeypatch.setenv("RADLER_TPU_NO_FUSED_MS", "1")
     if route == "clark":
         monkeypatch.setattr(ms, "DENSE_SUBMINOR_MAX_PIXELS", 0)
     psfs, res = multiscale_problem(128, 2)
@@ -990,7 +994,89 @@ def test_perform_multiscale_on_card_matches_cpu(cuda, route, monkeypatch):
     scale = max(1.0, float(np.abs(res_c).max()))
     assert np.abs(res_g - res_c).max() <= 1e-5 * scale
     assert np.abs(mod_g - mod_c).max() <= 1e-5 * scale
-    if route == "dense":
-        assert launches[0] >= n_g and launches[1] == 0
-    else:
+    if route == "clark":
         assert launches[0] == 0 and launches[1] > 0
+    else:
+        assert launches[0] >= n_g and launches[1] == 0
+
+
+def coefficient_case(C, P, device, seed=7):
+    """A linear-mode cube of C channels x P polarizations, its polynomial
+    fit's (fit matrix, expansion) pair on ``device``, and its start."""
+    c = make_case(("linear", C, P, False), device, seed=seed)
+    meta = c["meta"]
+    fitter = SpectralFitter(rd.SpectralFittingMode.POLYNOMIAL, 2,
+                            meta.frequencies, meta.weights)
+    expand = _coefficient_basis(fitter, meta)
+    pair = (torch.as_tensor(fitter._fit_matrix, dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(expand, device=device))
+    flat = int(torch.argmax(c["res"][0].abs()))
+    return c, pair, divmod(flat, WIDTH)
+
+
+@pytest.mark.parametrize("P", [1, 2])
+def test_loop_coefficient_mode_bit_equal_to_plain(cuda, P):
+    """The fused multiscale loop's dense subminor form of the Högbom loop
+    (B1 in linear mode with the weight plane, components tracked in the
+    polynomial fit's coefficient space) against its plain run: the same
+    result, coefficient cube and residual, bit for bit."""
+    c, pair, (y, x) = coefficient_case(4, P, cuda)
+    lin = ("linear", linear_integration_coefficients(c["meta"]))
+    outs = []
+    for plain in (False, True):
+        res = c["res"].clone()
+        comp = torch.zeros((pair[1].shape[1], HEIGHT, WIDTH), device=cuda)
+        params = hs.LoopParams.make(0.1, 0.05, 5.0, 4.0, 300, False)
+        hs.hogbom_step.launches = 0
+        out = hs.hogbom_loop(
+            res, comp, c["psfs"], c["weight"], None,
+            (float(res[0, y, x]), x, y, True), params, 0, meta=c["meta"],
+            allow_negative=True, plain=plain, integration=lin,
+            coefficients=pair)
+        torch.cuda.synchronize()
+        outs.append((out, res, comp, hs.hogbom_step.launches))
+    (ok, rk, ck, lk), (op, rp, cp, lp) = outs
+    assert ok == op and ok.iteration > 10
+    assert torch.equal(rk, rp) and torch.equal(ck, cp)
+    assert bool(ck.abs().sum() > 0)
+    assert lp == 0 and lk >= ok.iteration
+
+
+@pytest.mark.parametrize("mesh_shape, P", [((1, 4), 1), ((2, 2), 1),
+                                           ((4, 2), 2)],
+                         ids=["chan1-B1", "chan2-B4", "chan4-B4-per-plane"])
+def test_mesh_dense_subminor_bit_equal_to_plain(cuda, mesh_shape, P):
+    """The fused loop's mesh subminor (B4 on the shards of a channel
+    split, one PSF per plane where a shard holds part of a polarization
+    group; B1 on row shards) against its plain run, bit for bit."""
+    c, pair, _ = coefficient_case(4 // P, P, cuda, seed=8)
+    rows = 256
+    res0 = c["res"][:, :rows].contiguous()
+    psfs = c["psfs"][:, :rows].contiguous()
+    weight = c["weight"][:rows].contiguous()
+    flat = int(torch.argmax(res0[0].abs()))
+    y, x = divmod(flat, WIDTH)
+    mesh = pm.Mesh(*mesh_shape, cuda)
+    lin = ("linear", linear_integration_coefficients(c["meta"]))
+    outs = []
+    for plain in (False, True):
+        res = res0.clone()
+        comp = torch.zeros((pair[1].shape[1], rows, WIDTH), device=cuda)
+        params = hs.LoopParams.make(0.1, 0.05, 5.0, 4.0, 150, False)
+        launches = (si.subtract_integrate.launches, hs.hogbom_step.launches)
+        out = pm.mesh_hogbom_loop(
+            mesh, res, comp, psfs, weight, None,
+            (float(res[0, y, x]), x, y, True), params, 0, meta=c["meta"],
+            allow_negative=True, plain=plain, integration=lin,
+            coefficients=pair)
+        torch.cuda.synchronize()
+        counted = (si.subtract_integrate.launches - launches[0],
+                   hs.hogbom_step.launches - launches[1])
+        outs.append((out, res, comp, counted))
+    (ok, rk, ck, nk), (op, rp, cp, np_) = outs
+    assert ok == op and ok.iteration > 10
+    assert torch.equal(rk, rp) and torch.equal(ck, cp)
+    assert np_ == (0, 0)
+    kernel = 1 if mesh.chan == 1 else 0
+    assert nk[kernel] >= ok.iteration * mesh.size and nk[1 - kernel] == 0

@@ -632,9 +632,8 @@ def refusal_settings(**changes):
 @pytest.mark.parametrize("changes, height", [
     ({"generic.use_sub_minor_optimization": True}, 64),
     ({"algorithm_type": rd.AlgorithmType.IUWT}, 64),
-    ({"algorithm_type": rd.AlgorithmType.MULTISCALE}, 64),
     ({}, 60),
-], ids=["clark", "iuwt", "multiscale", "height-not-divisible"])
+], ids=["clark", "iuwt", "height-not-divisible"])
 def test_unported_mesh_routes_raise(changes, height):
     s = refusal_settings(**changes)
     s.trimmed_image_height = height
