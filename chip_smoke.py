@@ -41,7 +41,19 @@ tensors and prints what it measured:
   4-channel perform against the port's CPU run on the fused and the dense
   route, a 2048^2 x 4-channel perform on a chan 4 x tile 2 mesh (B4 in
   linear mode) against the single-device fused perform, and B4's time at
-  that mesh's shard.
+  that mesh's shard;
+* facets: B1's facet mode (one step and one select launch an iteration for
+  every facet) against its plain version, bit for bit (1, 4 and 9 facets,
+  shared and per-facet PSFs, squared and linear, with and without a weight
+  plane, unequal true boxes, an inactive facet; one facet against the
+  single-cube kernels) and its time at config 5's shape, config 5
+  (4096^2 x 2 channels x I, Q, U, V, squared joins, 2-term fit, 2 x 2
+  facets, 400 iterations a facet) on four routes (generic batched, generic
+  serial with the Högbom and the Clark setting, multiscale serial) with
+  each route's rate summed over the facets, facet 0's count, lockstep
+  iterations, I rms, peak memory, host syncs and boxes, and a 256^2
+  faceted field on the card against the port's CPU run (generic batched,
+  multiscale serial), with config 5's split from both integrations.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -168,6 +180,24 @@ MS_CARD_VS_CPU = 1e-5
 # package's own gate, tests/test_mesh_multiscale.py).
 MS_MESH_CHANNELS = 4
 MS_MESH_VS_SINGLE = 2e-5
+# Config 5 (``benchmarks/config5_proxy.py --size 4096 --channels 2 --facets
+# 2 --iters 400``): I, Q, U, V x 2 channels of config 3's diffuse emission,
+# squared joins, a 2-term polynomial fit, gain 0.1, major gain 0.85, 2 x 2
+# facets, 400 iterations per facet.
+F5_SIZE = 4096
+F5_CHANNELS = 2
+F5_GRID = 2
+F5_ITERATIONS = 400
+F5_POL_FLUX = (1.0, 0.3, -0.2, 0.1)  # I, Q, U, V
+# The JAX package's own bound between its batched and serial generic
+# facets (tests/test_batched_facets.py:267-277).
+F5_BATCHED_VS_SERIAL = 5e-5
+# Lockstep iterations of B1's facet mode against its plain version at
+# config 5's shape (the plain version takes about 8 ms an iteration).
+F5_TRACE_ITERATIONS = 48
+# The small faceted field on the card against the CPU.
+F5_CHECK_SIZE = 256
+F5_CHECK_CONTRACT = 2e-6
 # The card's published peaks (H100 SXM data sheet, 700 W): device memory
 # and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -313,6 +343,12 @@ def phase_card():
     for line in _build.BuildInfo.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say(f"  ptxas: {line.strip()}")
+    # The facet splitter's host helpers, built here so that no timed
+    # perform pays their compile.
+    start = time.perf_counter()
+    _build.host_library()
+    say(f"host library built and loaded in "
+        f"{time.perf_counter() - start:.1f} s")
     return smi
 
 
@@ -536,6 +572,8 @@ def _reset_counts():
 
     hs.hogbom_step.launches = 0
     hs.hogbom_select.launches = 0
+    hs.hogbom_step_facets.launches = 0
+    hs.hogbom_select_facets.launches = 0
     sl.subminor_loop.launches = 0
     ia.atrous_decompose_lo.launches = 0
     si.subtract_integrate.launches = 0
@@ -2581,6 +2619,631 @@ def phase_ms_mesh():
     return b4, n / seconds, single_rate
 
 
+# ---------------------------------------------------------------------------
+# Facets (config 5)
+# ---------------------------------------------------------------------------
+
+
+def _facet_inputs(mode, n_facets, shared, height, width, seed):
+    """F facets' cubes at (height, width), the common box, each searchable
+    only in its own top-left true box (the weight zero outside it), with
+    shared or per-facet PSFs and a loop state at each facet's brightest
+    searchable pixel; facet 1 is inactive from the start."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    C, P = (2, 4) if mode == "squared" else (4, 1)
+    cases = [_case_inputs(mode, C, P, mode == "squared", height, width,
+                          seed + f) for f in range(n_facets)]
+    dev = torch.device(DEVICE)
+    weight = torch.stack([c["weight"] for c in cases])
+    for f in range(n_facets):
+        weight[f, height - 5 * f:, :] = 0.0
+        weight[f, :, width - 9 * f:] = 0.0
+    res = torch.stack([c["res"] for c in cases])
+    states, raw = [], []
+    for f in range(n_facets):
+        flat = int(torch.argmax(res[f, 0].abs() * weight[f]))
+        y, x = divmod(flat, width)
+        states.append([y, x, 1, 0, 0, int(f != 1), flat, 0])
+        raw.append(res[f, :, y, x])
+    psfs = cases[0]["psfs"] if shared else torch.stack(
+        [c["psfs"] * (1.0 - 0.05 * f) for f, c in enumerate(cases)])
+    raw = torch.stack(raw)
+    params = hs.FacetLoopParams.make(
+        GAIN, [0.0] * n_facets, [float(raw.abs().max())] * n_facets, 4.0,
+        [TRACE_ITERATIONS] * n_facets, False, dev)
+    return dict(res=res, psfs=psfs, weight=weight, coefs=cases[0]["coefs"],
+                P=P, state=torch.tensor(states, dtype=torch.int32, device=dev),
+                raw=raw, params=params, C=C)
+
+
+def _facet_trace(inputs, mode, use_weight, plain, iterations,
+                 rms_in_select=True):
+    """``iterations`` lockstep iterations of the facet-mode step + select
+    (the weight plane, when used, also the select's RMS plane unless
+    ``rms_in_select`` is False, as in config 5's loop); returns the final
+    tensors and buffers."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    res = inputs["res"].clone()
+    model = torch.zeros_like(res)
+    params = inputs["params"]
+    buffers = hs.LoopBuffers(inputs["state"].clone(),
+                             torch.zeros(res.shape[0], device=res.device),
+                             inputs["raw"].clone(),
+                             inputs["raw"] * params.gain)
+    step = hs.hogbom_step_facets_reference if plain else hs.hogbom_step_facets
+    select = (hs.hogbom_select_facets_reference if plain
+              else hs.hogbom_select_facets)
+    weight = inputs["weight"] if use_weight else None
+    for _ in range(iterations):
+        partials = step(res, model, inputs["psfs"], buffers.values,
+                        buffers.state, inputs["coefs"], weight, mode=mode,
+                        n_polarizations=inputs["P"], allow_negative=True)
+        select(partials, res, buffers, params,
+               weight if rms_in_select else None)
+    torch.cuda.synchronize()
+    return res, model, buffers
+
+
+def _facet_difference(kernel, plain):
+    """The largest difference between two ``_facet_trace`` results, and
+    whether their states are equal."""
+    (rk, mk, bk), (rp, mp, bp) = kernel, plain
+    diff = max(float((rk - rp).abs().max()), float((mk - mp).abs().max()),
+               float((bk.value - bp.value).abs().max()),
+               float((bk.values - bp.values).abs().max()))
+    return diff, bool(torch.equal(bk.state, bp.state))
+
+
+def phase_facet_b1_vs_plain():
+    """B1's facet mode against its plain version, bit for bit: 1, 4 and 9
+    facets (9 at a small box), shared and per-facet PSFs, squared and linear
+    integration, with and without a weight plane, unequal true boxes in the
+    common box, facet 1 inactive from the start; one facet against the
+    single-cube kernels.  Returns the largest difference."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    worst = 0.0
+    cases = [(1, (509, 731)), (4, RAGGED), (9, (130, 203))]
+    for n_facets, (height, width) in cases:
+        for mode in ("squared", "linear"):
+            for shared in (True, False):
+                inputs = _facet_inputs(mode, n_facets, shared, height, width,
+                                       seed=n_facets * 7)
+                for use_weight in (False, True):
+                    rk, mk, bk = _facet_trace(inputs, mode, use_weight,
+                                              False, TRACE_ITERATIONS // 4)
+                    diff, same = _facet_difference(
+                        (rk, mk, bk), _facet_trace(inputs, mode, use_weight,
+                                                   True,
+                                                   TRACE_ITERATIONS // 4))
+                    iterations = bk.state[:, hs.ITERATION].tolist()
+                    label = (f"{n_facets} facets {height}x{width} {mode} "
+                             f"{'shared' if shared else 'per-facet'} PSFs "
+                             f"weight={use_weight:d}")
+                    if n_facets == 1:
+                        one = _single_trace(inputs, mode, use_weight,
+                                            TRACE_ITERATIONS // 4)
+                        diff = max(diff, float((one[0] - rk[0]).abs().max()),
+                                   float((one[1] - mk[0]).abs().max()))
+                        same = same and bool(torch.equal(one[2].state,
+                                                         bk.state[0]))
+                    say(f"  {label}: iterations {iterations}, same states "
+                        f"{same}, max|difference| {diff:.3g}")
+                    if not (same and diff == 0.0 and (
+                            n_facets == 1 or iterations[1] == 0)):
+                        raise AssertionError(f"B1's facet mode and its plain "
+                                             f"version disagree: {label}")
+                    worst = max(worst, diff)
+                del inputs
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _single_trace(inputs, mode, use_weight, iterations):
+    """Facet 0 of ``inputs`` through the single-cube kernels."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    res = inputs["res"][0].clone()
+    model = torch.zeros_like(res)
+    params = inputs["params"].facet(0)
+    buffers = hs.LoopBuffers(inputs["state"][0].clone(),
+                             torch.zeros(1, device=res.device),
+                             inputs["raw"][0].clone(),
+                             inputs["raw"][0] * params.gain)
+    weight = inputs["weight"][0] if use_weight else None
+    psfs = inputs["psfs"] if inputs["psfs"].ndim == 3 else inputs["psfs"][0]
+    for _ in range(iterations):
+        partials = hs.hogbom_step(res, model, psfs, buffers.values,
+                                  buffers.state, inputs["coefs"], weight,
+                                  mode=mode, n_polarizations=inputs["P"],
+                                  allow_negative=True)
+        hs.hogbom_select(partials, res, buffers, params, weight)
+    torch.cuda.synchronize()
+    return res, model, buffers
+
+
+def phase_facet_b1_times(box):
+    """B1's facet mode at config 5's shape (4 facets x 8 planes in the
+    common box, squared mode, the PSFs shared, the weight plane on, no RMS
+    plane), all facets active: first F5_TRACE_ITERATIONS lockstep
+    iterations of the kernels against their plain versions from the same
+    inputs, bit for bit; then their times, in turns plain, kernel, kernel,
+    plain.  Returns {"step": (ms, plain ms), "select": (ms, plain ms),
+    "bytes": each one's, "max_abs_err": the comparison's}."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    height, width = box
+    n_facets = F5_GRID * F5_GRID
+    inputs = _facet_inputs("squared", n_facets, True, height, width, seed=51)
+    inputs["state"][:, hs.ACTIVE] = 1
+    kernel = _facet_trace(inputs, "squared", True, False,
+                          F5_TRACE_ITERATIONS, rms_in_select=False)
+    diff, same = _facet_difference(
+        kernel, _facet_trace(inputs, "squared", True, True,
+                             F5_TRACE_ITERATIONS, rms_in_select=False))
+    iterations = kernel[2].state[:, hs.ITERATION].tolist()
+    say(f"  against the plain version: iterations {iterations}, same states "
+        f"{same}, max|difference| {diff:.3g}")
+    del kernel
+    if not (same and diff == 0.0
+            and iterations == [F5_TRACE_ITERATIONS] * n_facets):
+        raise AssertionError("B1's facet mode and its plain version "
+                             "disagree at config 5's shape")
+    res = inputs["res"]
+    model = torch.zeros_like(res)
+    weight = inputs["weight"]
+    kw = dict(mode="squared", n_polarizations=inputs["P"],
+              allow_negative=True)
+    params = inputs["params"]
+
+    def buffers():
+        return hs.LoopBuffers(inputs["state"].clone(),
+                              torch.zeros(n_facets, device=res.device),
+                              inputs["raw"].clone(),
+                              inputs["raw"] * params.gain)
+
+    b = buffers()
+    partials = hs.hogbom_step_facets(res, model, inputs["psfs"], b.values,
+                                     b.state, inputs["coefs"], weight, **kw)
+    times = {"step": [], "select": []}
+    for plain in (True, False, False, True):
+        step = hs.hogbom_step_facets_reference if plain else (
+            hs.hogbom_step_facets)
+        select = hs.hogbom_select_facets_reference if plain else (
+            hs.hogbom_select_facets)
+        b = buffers()
+        t_step, h_step = _time_ms(
+            lambda: step(res, model, inputs["psfs"], b.values, b.state,
+                         inputs["coefs"], weight, **kw), 10)
+        t_select, h_select = _time_ms(
+            lambda: select(partials, res, b, params, None), 50)
+        times["step"].append(t_step)
+        times["select"].append(t_select)
+        say(f"  {'plain ' if plain else 'kernel'} facet step {t_step:.4f} ms "
+            f"(host enqueue {h_step:.4f} ms), facet select {t_select:.4f} ms "
+            f"(host enqueue {h_select:.4f} ms)")
+    out = {name: ((k1 + k2) / 2, (p1 + p2) / 2)
+           for name, (p1, k1, k2, p2) in times.items()}
+    # The least bytes: the step reads each facet's residual, the shared
+    # PSFs once and each facet's weight plane, and writes the residuals;
+    # the select reads the partials and each facet's values at its peak.
+    out["bytes"] = {
+        "step": (2 * res.numel() + inputs["psfs"].numel() + weight.numel())
+        * 4,
+        "select": sum(p.numel() * p.element_size() for p in partials)
+        + res.shape[0] * res.shape[1] * 4,
+    }
+    out["max_abs_err"] = diff
+    say(f"  [{n_facets}, {res.shape[1]}, {height}, {width}]: step "
+        f"{out['step'][0]:.4f} ms (plain {out['step'][1]:.4f}), bound "
+        f"{bound_ms(out['bytes']['step'])[0]:.4f} ms "
+        f"({out['bytes']['step'] / 1e6:.1f} MB)")
+    del inputs, res, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_facet_one_times(psf, residual):
+    """B1's facet mode with one facet against the single-cube B1 at config
+    1's shape (4096^2, one plane, no weight plane), in turns single,
+    facet, facet, single; returns (facet ms, single ms)."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    dev = torch.device(DEVICE)
+    res = torch.as_tensor(residual, device=dev)[None].clone()
+    model = torch.zeros_like(res)
+    psfs = torch.as_tensor(psf, device=dev)[None]
+    coefs = torch.ones(1, device=dev)
+    flat = int(torch.argmax(res[0].abs()))
+    y0, x0 = divmod(flat, SIZE)
+    state = torch.tensor([y0, x0, 1, 0, 0, 1, flat, 0], dtype=torch.int32,
+                         device=dev)
+    values = res[:, y0, x0] * GAIN
+    kw = dict(mode="signed", n_polarizations=1, allow_negative=True)
+    runs = {
+        "single": lambda: hs.hogbom_step(res, model, psfs, values, state,
+                                         coefs, None, **kw),
+        "facet": lambda: hs.hogbom_step_facets(
+            res[None], model[None], psfs, values[None], state[None], coefs,
+            None, **kw),
+    }
+    times = {"single": [], "facet": []}
+    for name in ("single", "facet", "facet", "single"):
+        t, _ = _time_ms(runs[name], 20)
+        times[name].append(t)
+    facet_ms = sum(times["facet"]) / 2
+    single_ms = sum(times["single"]) / 2
+    say(f"  one facet at [1, 1, {SIZE}, {SIZE}]: facet step "
+        f"{times['facet'][0]:.4f}, {times['facet'][1]:.4f} ms; single-cube "
+        f"step {times['single'][0]:.4f}, {times['single'][1]:.4f} ms")
+    return facet_ms, single_ms
+
+
+def _f5_settings(size, algorithm, iterations=F5_ITERATIONS):
+    """``config5_proxy.py``'s settings for ``algorithm`` ("generic" or
+    "multiscale")."""
+    import radler_tpu_torch as rd
+
+    s = rd.Settings()
+    s.trimmed_image_width = s.trimmed_image_height = size
+    if algorithm == "multiscale":
+        s.algorithm_type = rd.AlgorithmType.MULTISCALE
+    else:
+        s.algorithm_type = rd.AlgorithmType.GENERIC_CLEAN
+        s.absolute_threshold = 5e-3
+    s.minor_iteration_count = iterations
+    s.minor_loop_gain = 0.1
+    s.major_loop_gain = 0.85
+    s.squared_joins = True
+    s.parallel.grid_width = s.parallel.grid_height = F5_GRID
+    s.spectral_fitting.mode = rd.SpectralFittingMode.POLYNOMIAL
+    s.spectral_fitting.terms = 2
+    return s
+
+
+def _f5_radler(settings, psfs, base, device):
+    """``config5_proxy.py``'s work table on ``device``: I, Q, U, V of each
+    channel (the channel's image times F5_POL_FLUX), the PSF on the I
+    entry, tensor accessors."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.work_table import (
+        TensorImageAccessor,
+        WorkTable,
+        WorkTableEntry,
+    )
+
+    pols = (rd.Polarization.STOKES_I, rd.Polarization.STOKES_Q,
+            rd.Polarization.STOKES_U, rd.Polarization.STOKES_V)
+    n_channels = base.shape[0]
+    table = WorkTable([], n_channels, n_channels)
+    base_d = torch.as_tensor(base, device=device)
+    for ch in range(n_channels):
+        for i, pol in enumerate(pols):
+            e = WorkTableEntry()
+            e.polarization = pol
+            e.original_channel_index = ch
+            e.image_weight = 1.0
+            e.band_start_frequency = 1.0e8 + ch * 1e7
+            e.band_end_frequency = 1.1e8 + ch * 1e7
+            if i == 0:
+                e.psf_accessors = [TensorImageAccessor(
+                    torch.as_tensor(psfs[ch], device=device))]
+            e.residual_accessor = TensorImageAccessor(
+                base_d[ch] * F5_POL_FLUX[i])
+            e.model_accessor = TensorImageAccessor(
+                torch.zeros_like(base_d[ch]))
+            table.add_entry(e)
+    return rd.Radler(settings, table, beam_size=0.0)
+
+
+def _f5_launches():
+    from radler_tpu_torch.kernels import hogbom_step as hs
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    return {"facet step": hs.hogbom_step_facets.launches,
+            "facet select": hs.hogbom_select_facets.launches,
+            "B1 step": hs.hogbom_step.launches,
+            "B1 select": hs.hogbom_select.launches,
+            "B2": sl.subminor_loop.launches}
+
+
+@contextlib.contextmanager
+def _facet_route(route):
+    """Run facets on ``route``: "rule" (the route rule's choice), "batched"
+    (the batched route forced: its stacks' budget lifted, as config 5's
+    4.5e9 bytes pass the JAX package's 4e9) or "serial"
+    (``RADLER_TPU_NO_BATCHED_FACETS``)."""
+    from radler_tpu_torch.models import generic_clean as gc
+
+    saved = os.environ.pop("RADLER_TPU_NO_BATCHED_FACETS", None)
+    budget = gc.BATCHED_FACETS_BUDGET
+    if route == "serial":
+        os.environ["RADLER_TPU_NO_BATCHED_FACETS"] = "1"
+    elif route == "batched":
+        gc.BATCHED_FACETS_BUDGET = float("inf")
+    try:
+        yield
+    finally:
+        gc.BATCHED_FACETS_BUDGET = budget
+        os.environ.pop("RADLER_TPU_NO_BATCHED_FACETS", None)
+        if saved is not None:
+            os.environ["RADLER_TPU_NO_BATCHED_FACETS"] = saved
+
+
+def _f5_perform(settings, psfs, base, route, device=None,
+                count_syncs=False, kept=False):
+    """One faceted perform of config 5's table on ``route``, on a fresh
+    Radler, or with ``kept`` on one that has done the same perform once and
+    been put back to its start (the cubes, no iterations), keeping what its
+    algorithms built; the launch counts reset just before it.  Returns a
+    dict: per-facet iterations, seconds, launches, host syncs (or None),
+    peak device memory above the start in MiB, the fused banks kept by the
+    facets' clones in MiB, the boxes, the lockstep iterations, the route
+    taken, the I plane's rms before and after, the residual and model cubes
+    on the host."""
+    device = device or DEVICE
+    on_card = torch.device(device).type == "cuda"
+    with _facet_route(route):
+        r = _f5_radler(settings, psfs, base, device)
+        if kept:
+            start = [(e.residual_accessor.array.clone(),
+                      e.model_accessor.array.clone()) for e in r._table]
+            r.perform(0)
+            for e, (res, mod) in zip(r._table, start):
+                e.residual_accessor.array = res
+                e.model_accessor.array = mod
+            for alg in r._parallel.algorithms:
+                alg.iteration_number = 0
+        i_rms0 = rms(r._table.entries[0].residual_accessor.array)
+        if on_card:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        start = time.perf_counter()
+        syncs = None
+        if count_syncs:
+            syncs = _count_syncs(lambda: r.perform(0))
+        else:
+            r.perform(0)
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = _f5_launches()
+    out_res = torch.stack([e.residual_accessor.array for e in r._table])
+    out_mod = torch.stack([e.model_accessor.array for e in r._table])
+    if not (torch.isfinite(out_res).all() and torch.isfinite(out_mod).all()):
+        raise AssertionError("non-finite residual or model")
+    parallel = r._parallel
+    banks = [getattr(a, "_fused_banks", None) for a in parallel.algorithms]
+    banks_mib = sum(t.numel() * t.element_size() for b in banks if b
+                    for t in b[4] if torch.is_tensor(t)) / 2**20
+    return dict(
+        banks_mib=banks_mib,
+        iterations=[a.iteration_number for a in parallel.algorithms],
+        first=r.iteration_number,
+        seconds=seconds,
+        launches=launches,
+        syncs=syncs,
+        peak_mib=((torch.cuda.max_memory_allocated() - before) / 2**20
+                  if on_card else None),
+        boxes=[(s.x, s.y, s.width, s.height)
+               for s in parallel.last_sub_images],
+        lockstep=parallel.last_lockstep,
+        route=parallel.last_route,
+        i_rms=(i_rms0, rms(out_res[0])),
+        res=out_res.cpu().numpy(),
+        mod=out_mod.cpu().numpy(),
+    )
+
+
+def _f5_split(settings, psfs, base, route, label):
+    """One more perform of config 5 on ``route`` with a synchronize around
+    each of its main steps; prints each step's own time (the steps it
+    calls left out) and share of the perform."""
+    import radler_tpu_torch.radler as radler_module
+    from radler_tpu_torch.image_set import ImageSet
+    from radler_tpu_torch.models import generic_clean as gc
+    from radler_tpu_torch.models.multiscale import MultiScaleAlgorithm
+    from radler_tpu_torch.parallel import parallel_deconvolution as pd
+
+    pdc = pd.ParallelDeconvolution
+    targets = [
+        (ImageSet, "load_and_average", "loading the cubes"),
+        (ImageSet, "load_and_average_psfs", "loading the PSFs"),
+        (radler_module, "median_and_stddev_from_mad", "noise (MAD)"),
+        (pd, "make_sub_images", "the split (Dijkstra, floods; host)"),
+        (pdc, "_execute_batched_run", "facet stacks, rollback, merge"),
+        (gc.GenericClean, "execute_batched_facets",
+         "initial peaks, thresholds (both phases)"),
+        (gc, "facet_hogbom_loop", "the lockstep loop (B1 facet mode, fit)"),
+        (pdc, "_run_sub_image", "facet trims, merges (serial)"),
+        (MultiScaleAlgorithm, "execute_major_iteration",
+         "each facet's multiscale run"),
+        (MultiScaleAlgorithm, "_prepare_fused_banks", "fused banks"),
+        (ImageSet, "assign_and_store_residual", "storing the residual"),
+        (ImageSet, "interpolate_and_store_model", "storing the model"),
+    ]
+    split = {}
+    restore = _timed_steps(split, targets)
+    try:
+        run = _f5_perform(settings, psfs, base, route)
+    finally:
+        restore()
+    seconds = run["seconds"]
+    say(f"  split of a {label} perform ({seconds:.3f} s with a synchronize "
+        "around each step; each step's own time):")
+    for key, (calls, t) in split.items():
+        say(f"    {key}: {calls} calls, {t * 1e3:.1f} ms "
+            f"({100 * t / seconds:.1f}%)")
+    rest = seconds - sum(t for _, t in split.values())
+    say(f"    the rest: {rest * 1e3:.1f} ms ({100 * rest / seconds:.1f}%)")
+
+
+def _f5_check_launches(label, run):
+    """The kernels of the run's route were launched, and no other Högbom
+    kernel."""
+    n = run["launches"]
+    batched = run["route"] == "batched"
+    if batched:
+        ok = (n["facet step"] == n["facet select"] >= run["lockstep"] > 0
+              and n["B1 step"] == n["B1 select"] == 0)
+    elif "Clark" in label:
+        ok = n["B2"] > 0 and n["facet step"] == 0
+    else:
+        ok = n["B1 step"] == n["B1 select"] > 0 and n["facet step"] == 0
+    if not ok:
+        raise AssertionError(f"config 5, {label}: launches {n} on the "
+                             f"{run['route']} route")
+
+
+def phase_config5():
+    """Config 5 (4096^2 x 2 channels x I, Q, U, V, squared joins, 2-term
+    fit, 2 x 2 facets, 400 iterations a facet) through Radler.perform on
+    four routes: generic CLEAN batched (B1's facet mode; forced, since
+    config 5's stacks pass the JAX package's budget, which the port keeps),
+    generic CLEAN serial with the Högbom setting (B1 on each facet) and
+    with the Clark setting, ``config5_proxy.py``'s default and the route
+    rule's choice here, in both packages (B2 on each facet), and
+    multiscale (serial, each facet on the fused loop).  For each, two
+    performs on fresh Radlers: one timed, one counting host syncs.  The
+    batched run agrees with the serial Högbom run within
+    F5_BATCHED_VS_SERIAL (both run the dense Högbom loop; the Clark loop is
+    another algorithm, which on this field stops the fourth facet
+    elsewhere, in the JAX package too); all four split the image alike."""
+    psfs, base = make_diffuse_problem(F5_SIZE, F5_CHANNELS)
+    runs = {}
+    for label, algorithm, clark, route, expect in (
+            ("generic, batched", "generic", True, "batched", "batched"),
+            ("generic Högbom, serial", "generic", False, "serial", "serial"),
+            ("generic Clark, serial", "generic", True, "rule", "serial"),
+            ("multiscale, serial", "multiscale", True, "rule", "serial")):
+        settings = _f5_settings(F5_SIZE, algorithm)
+        settings.generic.use_sub_minor_optimization = clark
+        run = _f5_perform(settings, psfs, base, route)
+        run["syncs"] = _f5_perform(settings, psfs, base, route,
+                                   count_syncs=True)["syncs"]
+        if label in ("generic, batched", "multiscale, serial"):
+            _f5_split(settings, psfs, base, route, label)
+        if algorithm == "multiscale":
+            kept = _f5_perform(settings, psfs, base, route, kept=True)
+            if kept["iterations"] != run["iterations"]:
+                raise AssertionError("config 5, multiscale: the kept "
+                                     "Radler took other iterations")
+            run["kept"] = kept
+            say(f"  {label}, kept Radler: {kept['seconds']:.3f} s, "
+                f"{sum(kept['iterations']) / kept['seconds']:.1f} it/s "
+                f"summed; peak {kept['peak_mib']:.1f} MiB above the start "
+                f"(fresh {run['peak_mib']:.1f}); the four clones' fused "
+                f"banks {kept['banks_mib']:.1f} MiB")
+        if run["route"] != expect:
+            raise AssertionError(f"config 5, {label}: took the "
+                                 f"{run['route']} route")
+        _f5_check_launches(label, run)
+        total = sum(run["iterations"])
+        run["rate"] = total / run["seconds"]
+        peak = ("not measured" if run["peak_mib"] is None
+                else f"{run['peak_mib']:.1f} MiB")
+        say(f"  {label}: {run['seconds']:.3f} s, {total} minor iterations "
+            f"over the facets ({run['iterations']}; facet 0, "
+            f"Radler.iteration_number: {run['first']}), "
+            f"{run['rate']:.1f} it/s summed; lockstep iterations "
+            f"{run['lockstep']}; I rms {run['i_rms'][0]:.5f} -> "
+            f"{run['i_rms'][1]:.5f}; peak {peak} above "
+            f"the start; {run['syncs']} host syncs; launches "
+            f"{run['launches']}; boxes (x, y, w, h) {run['boxes']}")
+        if not run["i_rms"][1] < run["i_rms"][0]:
+            raise AssertionError(f"config 5, {label}: the I rms did not fall")
+        runs[label] = run
+    boxes = {tuple(r["boxes"]) for r in runs.values()}
+    if len(boxes) != 1:
+        raise AssertionError(f"config 5: the routes split alike? {boxes}")
+    b, s = runs["generic, batched"], runs["generic Högbom, serial"]
+    d_res = float(np.abs(b["res"] - s["res"]).max())
+    d_mod = float(np.abs(b["mod"] - s["mod"]).max())
+    say(f"  generic batched against serial: iterations {b['iterations']} / "
+        f"{s['iterations']}, max|dres| {d_res:.3g}, max|dmodel| {d_mod:.3g}")
+    if not (b["iterations"] == s["iterations"]
+            and d_res <= F5_BATCHED_VS_SERIAL
+            and d_mod <= F5_BATCHED_VS_SERIAL):
+        raise AssertionError("config 5: the batched and serial generic "
+                             "runs disagree")
+    for run in runs.values():
+        del run["res"], run["mod"]
+        run.pop("kept", {}).pop("res", None)
+    return runs
+
+
+def phase_facets_card_vs_cpu():
+    """:func:`make_ms_check_problem`'s field at F5_CHECK_SIZE^2 (2 channels
+    x I, Q, U, V; point sources, so that the loops' picks do not turn on
+    near-equal maxima of smooth emission), 2 x 2 facets, config 5's
+    settings, generic CLEAN batched and multiscale serial, on the card and
+    on the CPU: the same boxes, equal per-facet iteration counts, the
+    residual within F5_CHECK_CONTRACT (multiscale: MS_CARD_VS_CPU) of
+    max(1, |res|max).  Multiscale runs with three scales and with all six
+    (to 64 pixels) at seed 8; with all six at the field's own seed it is
+    read, not held: there one of the 64-pixel scale's components has two
+    pixels that nearly tie, which rounding decides (the JAX package's own
+    run moves it when its input grows by one part in 10^7;
+    tests/test_torch_facets_serial.py::
+    test_faceted_multiscale_all_scales_matches_jax)."""
+    for algorithm, max_scales, seed, bound in (
+            ("generic", 0, SEED, F5_CHECK_CONTRACT),
+            ("multiscale", 3, SEED, MS_CARD_VS_CPU),
+            ("multiscale", 0, 8, MS_CARD_VS_CPU),
+            ("multiscale", 0, SEED, None)):
+        psfs, base = make_ms_check_problem(F5_CHECK_SIZE, F5_CHANNELS, seed)
+        settings = _f5_settings(F5_CHECK_SIZE, algorithm, 300)
+        settings.multiscale.max_scales = max_scales
+        card, cpu = [_f5_perform(settings, psfs, base, "rule", device)
+                     for device in (DEVICE, "cpu")]
+        scale = max(1.0, float(np.abs(cpu["res"]).max()))
+        d_res = float(np.abs(card["res"] - cpu["res"]).max()) / scale
+        d_mod = float(np.abs(card["mod"] - cpu["mod"]).max()) / scale
+        label = (f"{algorithm} ({card['route']}"
+                 + (f", {max_scales or 'all'} scales, seed {seed}"
+                    if algorithm == "multiscale" else "") + ")")
+        say(f"  {label}: boxes {card['boxes']} / {cpu['boxes']}; iterations "
+            f"{card['iterations']} / {cpu['iterations']}; max|dres| "
+            f"{d_res:.3g}, max|dmodel| {d_mod:.3g} of max(1, |res|max)"
+            + ("" if bound else " (read, not held)"))
+        if not (card["boxes"] == cpu["boxes"]
+                and sum(card["iterations"]) > 0):
+            raise AssertionError(f"faceted {label}: the card and the CPU "
+                                 "split or ran differently")
+        if bound is not None and not (
+                card["iterations"] == cpu["iterations"]
+                and d_res <= bound and d_mod <= bound):
+            raise AssertionError(f"faceted {label} on the card and on the "
+                                 "CPU disagree")
+    # The split of config 5's own field from the card's integration and
+    # from the CPU's.
+    from radler_tpu_torch.image_set import ImageSet
+    from radler_tpu_torch.parallel.faceting import make_sub_images
+
+    big_psfs, big = make_diffuse_problem(F5_SIZE, F5_CHANNELS)
+    splits = []
+    for device in (DEVICE, "cpu"):
+        r = _f5_radler(_f5_settings(F5_SIZE, "generic"), big_psfs, big, device)
+        image = ImageSet.from_table(
+            r._table, r.settings.squared_joins,
+            r.settings.linked_polarizations, F5_SIZE, F5_SIZE, device)
+        image.load_and_average(True)
+        integrated = image.get_linear_integrated().cpu().numpy()
+        splits.append([(s.x, s.y, s.width, s.height)
+                       for s in make_sub_images(integrated, None,
+                                                r.settings)])
+        del r, image
+    say(f"  config 5's split from the card's integration {splits[0]}, from "
+        f"the CPU's {splits[1]}")
+    if splits[0] != splits[1]:
+        raise AssertionError("config 5's split differs between the card "
+                             "and the CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -2597,6 +3260,8 @@ def main():
     psf, residual = make_problem(SIZE, N_SOURCES)
     say("== Högbom kernel times at the main path's shapes ==")
     times = phase_kernel_times(psf, residual)
+    say("== B1's facet mode with one facet against B1 at config 1's shape ==")
+    facet_one = phase_facet_one_times(psf, residual)
     say("== config 1 through Radler.perform ==")
     counts, rate = phase_main_path(psf, residual)
     say("== joined channels through Radler.perform ==")
@@ -2662,6 +3327,19 @@ def main():
     ms_mesh = phase_ms_mesh()
     say("== B4 in linear mode at the multiscale mesh's shard ==")
     b4_linear = phase_b4_times(B4_LINEAR_CASE)
+    say("== B1's facet mode against its plain version ==")
+    worst_facets = phase_facet_b1_vs_plain()
+    say("== config 5 (4096^2 x 2 channels x I, Q, U, V, 2 x 2 facets) "
+        "through Radler.perform: generic batched, generic serial (Högbom, "
+        "Clark), multiscale serial ==")
+    config5 = phase_config5()
+    batched = config5["generic, batched"]
+    box = (max(b[3] for b in batched["boxes"]),
+           max(b[2] for b in batched["boxes"]))
+    say(f"== B1's facet mode at config 5's shape ({box[0]}x{box[1]}) ==")
+    facet_times = phase_facet_b1_times(box)
+    say("== faceted performs on the card against the CPU ==")
+    phase_facets_card_vs_cpu()
     say(f"phases took {time.perf_counter() - start:.1f} s")
 
     kernels = []
@@ -2755,6 +3433,23 @@ def main():
         "bound_by": b4l_bound_by,
         "library_ms": None,
     })
+    for name, key, count in (("hogbom_step (facets)", "step", "facet step"),
+                             ("hogbom_select (facets)", "select",
+                              "facet select")):
+        f_bound_ms, f_bound_by = bound_ms(facet_times["bytes"][key])
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "radler_tpu_torch/csrc/hogbom_step.cu",
+            "replaces": "radler_tpu/ops/pallas/hogbom_step.py:37",
+            "launches": batched["launches"][count],
+            "max_abs_err": max(worst_facets, facet_times["max_abs_err"]),
+            "ms": facet_times[key][0],
+            "plain_ms": facet_times[key][1],
+            "bound_ms": f_bound_ms,
+            "bound_by": f_bound_by,
+            "library_ms": None,
+        })
     say(f"config 1: {rate:.1f} minor iterations/s through perform (Högbom)")
     say(f"config 2: {clark[1]:.1f} minor iterations/s through perform "
         f"(Clark); B2 on a cluster of {b2_cluster} blocks, "
@@ -2784,6 +3479,17 @@ def main():
         f"{ms_mesh[2]:.1f}); B4 linear at [1, {MS_SIZE // 2}, {MS_SIZE}]: "
         f"{b4l_ms * 1e3:.1f} us against its {b4l_bound_ms * 1e3:.1f} us "
         "bound")
+    say("config 5: " + "; ".join(
+        f"{label} {run['rate']:.1f} minor iterations/s summed over the "
+        f"facets (facet 0: {run['first']} iterations), {run['syncs']} host "
+        f"syncs, {run['peak_mib']:.1f} MiB"
+        for label, run in config5.items())
+        + f"; the batched route's lockstep iterations {batched['lockstep']} "
+        f"for {sum(batched['iterations'])} facet iterations; B1's facet "
+        f"step at [4, 8, {box[0]}, {box[1]}] {facet_times['step'][0]:.4f} ms "
+        f"against its {bound_ms(facet_times['bytes']['step'])[0]:.4f} ms "
+        f"bound; with one facet at config 1's shape {facet_one[0]:.4f} ms "
+        f"against B1's {facet_one[1]:.4f}")
     print(smi)  # name, power limit: as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

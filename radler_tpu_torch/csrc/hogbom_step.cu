@@ -49,6 +49,17 @@
 // one the offset and the PSF height fold away, which keeps its registers
 // (the PSF's own plane stride cost a spill and 1% of config 1's time).
 //
+// Facets: the batched facet route runs F facets' loops in lockstep, each
+// facet's cube, weight plane, state, component values and partials one
+// after another in memory (the PSFs shared or one stack a facet).  The step
+// takes the facet from blockIdx.y and the select runs one block a facet;
+// each facet's blocks read its state and return at once when it is done.
+// Both are further instantiations of the same templates, so the
+// single-cube kernels' code is unchanged, and one facet gives their bits.
+// One facet's step launches the single-cube instantiation itself: the
+// facet offsets cost the signed mode 40 registers against B1's 32, and
+// 14% of its time at config 1.
+//
 // Loop control stays on the device: both kernels return at once when the
 // state's `active` flag is 0, so iterations enqueued after the stop leave
 // every tensor unchanged, and the host reads the state only every few
@@ -77,6 +88,7 @@ enum StateSlot {
   kActive = 5,
   kIndex = 6,
 };
+constexpr int kStateSize = 8;
 
 constexpr int kStepThreads = 256;
 constexpr int kSelectThreads = 1024;
@@ -137,7 +149,9 @@ __device__ __forceinline__ float clamp_min0(float x) {
 // one per plane; normal: the polarization coefficient of the plane; squared:
 // channel x polarization coefficient), then [C] channel coefficients
 // (normal mode only).
-template <int kMode, bool kRowShard>
+// With kFacets, every pointer but psf and coefs advances by blockIdx.y
+// facets (psf by psf_facet_stride floats, 0 for shared PSFs).
+template <int kMode, bool kRowShard, bool kFacets>
 __global__ void __launch_bounds__(kStepThreads)
     hogbom_step_kernel(float* __restrict__ res, float* __restrict__ model,
                        const float* __restrict__ psf,
@@ -150,7 +164,22 @@ __global__ void __launch_bounds__(kStepThreads)
                        float* __restrict__ part_integ, int n_images,
                        int n_pols, int height, int width,
                        int shard_psf_height, int shard_row_offset,
-                       int pixels_per_block, int allow_negative) {
+                       int pixels_per_block, int allow_negative,
+                       int64_t psf_facet_stride) {
+  if (kFacets) {
+    const int64_t f = blockIdx.y;
+    const int64_t facet_plane = static_cast<int64_t>(height) * width;
+    const int64_t cube = n_images * facet_plane;
+    res += f * cube;
+    model += f * cube;
+    psf += f * psf_facet_stride;
+    if (weight) weight += f * facet_plane;
+    values += f * n_images;
+    state += f * kStateSize;
+    part_cmp += f * gridDim.x;
+    part_idx += f * gridDim.x;
+    part_integ += f * gridDim.x;
+  }
   if (state[kActive] == 0) return;
   const int y = state[kY];
   const int x = state[kX];
@@ -231,6 +260,10 @@ __global__ void __launch_bounds__(kStepThreads)
   }
 }
 
+// With kFacets, block f reduces facet f's partials and advances its state;
+// its first threshold, initial |peak| and iteration limit come from
+// facet_limits[2f], facet_limits[2f + 1] and facet_max_iterations[f].
+template <bool kFacets>
 __global__ void __launch_bounds__(kSelectThreads)
     hogbom_select_kernel(const float* __restrict__ part_cmp,
                          const int* __restrict__ part_idx,
@@ -242,8 +275,28 @@ __global__ void __launch_bounds__(kSelectThreads)
                          float* __restrict__ values, float gain,
                          float first_threshold, float initial_abs_peak,
                          float divergence_limit, int max_iterations,
-                         int stop_on_negative) {
+                         int stop_on_negative,
+                         const float* __restrict__ facet_limits,
+                         const int* __restrict__ facet_max_iterations) {
+  if (kFacets) {
+    const int f = blockIdx.x;
+    const int64_t cube = static_cast<int64_t>(n_images) * height * width;
+    part_cmp += f * n_parts;
+    part_idx += f * n_parts;
+    part_integ += f * n_parts;
+    res += f * cube;
+    if (rms) rms += f * static_cast<int64_t>(height) * width;
+    state += f * kStateSize;
+    value += f;
+    peak += f * n_images;
+    values += f * n_images;
+  }
   if (state[kActive] == 0) return;
+  if (kFacets) {
+    first_threshold = facet_limits[2 * blockIdx.x];
+    initial_abs_peak = facet_limits[2 * blockIdx.x + 1];
+    max_iterations = facet_max_iterations[blockIdx.x];
+  }
   Best best = no_peak();
   for (int i = threadIdx.x; i < n_parts; i += kSelectThreads) {
     if (better(part_cmp[i], part_idx[i], best))
@@ -297,14 +350,14 @@ int hogbom_step(float* res, float* model, const float* psf,
 #define RADLER_STEP_ARGS                                                  \
   res, model, psf, weight, coefs, values, state, part_cmp, part_idx,      \
       part_integ, n_images, n_pols, height, width, psf_height,            \
-      row_offset, pixels_per_block, allow_negative
+      row_offset, pixels_per_block, allow_negative, 0
 #define RADLER_STEP_LAUNCH(MODE)                                          \
   if (row_shard)                                                          \
-    hogbom_step_kernel<MODE, true><<<n_parts, kStepThreads, 0, s>>>(      \
-        RADLER_STEP_ARGS);                                                \
+    hogbom_step_kernel<MODE, true, false>                                 \
+        <<<n_parts, kStepThreads, 0, s>>>(RADLER_STEP_ARGS);              \
   else                                                                    \
-    hogbom_step_kernel<MODE, false><<<n_parts, kStepThreads, 0, s>>>(     \
-        RADLER_STEP_ARGS)
+    hogbom_step_kernel<MODE, false, false>                                \
+        <<<n_parts, kStepThreads, 0, s>>>(RADLER_STEP_ARGS)
   switch (mode) {
     case kSigned:
       RADLER_STEP_LAUNCH(kSigned);
@@ -333,11 +386,75 @@ int hogbom_select(const float* part_cmp, const int* part_idx,
                   float gain, float first_threshold, float initial_abs_peak,
                   float divergence_limit, int max_iterations,
                   int stop_on_negative, void* stream) {
-  hogbom_select_kernel<<<1, kSelectThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  hogbom_select_kernel<false><<<1, kSelectThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       part_cmp, part_idx, part_integ, n_parts, res, rms, n_images, height,
       width, state, value, peak, values, gain, first_threshold,
-      initial_abs_peak, divergence_limit, max_iterations, stop_on_negative);
+      initial_abs_peak, divergence_limit, max_iterations, stop_on_negative,
+      nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The facet-batched pair: n_facets cubes [N, H, W] one after another,
+// psf_facet_stride floats between facets' PSF stacks (0: shared), partials
+// [n_facets, n_parts], state [n_facets, 8], value [n_facets], peak and
+// values [n_facets, N], limits [n_facets, 2] (first threshold, initial
+// |peak|), max_iterations [n_facets].
+int hogbom_step_facets(float* res, float* model, const float* psf,
+                       long long psf_facet_stride, const float* weight,
+                       const float* coefs, const float* values,
+                       const int* state, float* part_cmp, int* part_idx,
+                       float* part_integ, int n_parts, int n_facets,
+                       int n_images, int n_pols, int height, int width,
+                       int pixels_per_block, int mode, int allow_negative,
+                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n_parts, n_facets);
+#define RADLER_FACET_ARGS                                                 \
+  res, model, psf, weight, coefs, values, state, part_cmp, part_idx,      \
+      part_integ, n_images, n_pols, height, width, height, 0,             \
+      pixels_per_block, allow_negative
+#define RADLER_FACET_LAUNCH(MODE)                                         \
+  if (n_facets == 1)                                                      \
+    hogbom_step_kernel<MODE, false, false>                                \
+        <<<n_parts, kStepThreads, 0, s>>>(RADLER_FACET_ARGS, 0);          \
+  else                                                                    \
+    hogbom_step_kernel<MODE, false, true><<<grid, kStepThreads, 0, s>>>(  \
+        RADLER_FACET_ARGS, psf_facet_stride)
+  switch (mode) {
+    case kSigned:
+      RADLER_FACET_LAUNCH(kSigned);
+      break;
+    case kLinear:
+      RADLER_FACET_LAUNCH(kLinear);
+      break;
+    case kNormal:
+      RADLER_FACET_LAUNCH(kNormal);
+      break;
+    case kSquared:
+      RADLER_FACET_LAUNCH(kSquared);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RADLER_FACET_LAUNCH
+#undef RADLER_FACET_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+int hogbom_select_facets(const float* part_cmp, const int* part_idx,
+                         const float* part_integ, int n_parts, int n_facets,
+                         const float* res, const float* rms, int n_images,
+                         int height, int width, int* state, float* value,
+                         float* peak, float* values, const float* limits,
+                         const int* max_iterations, float gain,
+                         float divergence_limit, int stop_on_negative,
+                         void* stream) {
+  hogbom_select_kernel<true><<<n_facets, kSelectThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      part_cmp, part_idx, part_integ, n_parts, res, rms, n_images, height,
+      width, state, value, peak, values, gain, 0.0f, 0.0f, divergence_limit,
+      0, stop_on_negative, limits, max_iterations);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -483,6 +483,40 @@ class ImageSet:
                 else:
                     accessor.store(out.cpu().numpy())
 
+    # -- facet helpers (used by the parallel layer) ------------------------
+    def trim(self, x1: int, y1: int, x2: int, y2: int) -> "ImageSet":
+        """Sub-image copy (``cpp/image_set.h:216-223``): a set of its own,
+        so that an algorithm updating it in place leaves this one alone."""
+        out = self.clone_shape(x2 - x1, y2 - y1)
+        out.data = self.data[:, y1:y2, x1:x2].clone()
+        return out
+
+    def trim_masked(
+        self, x1: int, y1: int, x2: int, y2: int, mask: np.ndarray
+    ) -> "ImageSet":
+        """Masked sub-image copy (``cpp/image_set.h:230-240``): zero outside
+        the bool ``mask``, by a product, as the JAX package forms it."""
+        out = self.clone_shape(x2 - x1, y2 - y1)
+        out.data = self.data[:, y1:y2, x1:x2] * torch.as_tensor(
+            np.asarray(mask, np.float32), device=self.device)
+        return out
+
+    def copy_masked(
+        self, source: "ImageSet", to_x: int, to_y: int, mask: np.ndarray
+    ) -> None:
+        """Copy the pixels of ``source`` where ``mask`` is set into this set
+        at an offset, in place (``cpp/image_set.h:242-250``)."""
+        region = self.data[:, to_y : to_y + source.height,
+                           to_x : to_x + source.width]
+        m = torch.as_tensor(np.asarray(mask, bool), device=self.device)
+        region.copy_(torch.where(m, source.data, region))
+
+    def add_sub_image(self, source: "ImageSet", to_x: int, to_y: int) -> None:
+        """Add a smaller set onto this one at an offset, in place
+        (``cpp/image_set.h:252-264``)."""
+        self.data[:, to_y : to_y + source.height,
+                  to_x : to_x + source.width] += source.data
+
     # -- integration wrappers ---------------------------------------------
     def get_linear_integrated(self) -> torch.Tensor:
         return get_linear_integrated(self.data, self.meta)

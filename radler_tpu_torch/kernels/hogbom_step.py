@@ -26,6 +26,13 @@ The loop state is a small int32 tensor on the device (layout below) plus a
 float32 value; both kernels return at once when ``state[ACTIVE]`` is 0, so
 :func:`hogbom_loop` enqueues ``CHUNK`` iterations at a time and reads the
 state back only between chunks.
+
+The batched facet route runs F facets' loops in lockstep through the facet
+mode of the same pair (:func:`hogbom_step_facets`,
+:func:`hogbom_select_facets`, driven by :func:`facet_hogbom_loop`): one
+step launch and one select launch an iteration for all facets, each facet
+with its own state, and the PSFs shared or one stack a facet.  Its plain
+version is the per-facet loop over the single-cube plain versions.
 """
 
 from __future__ import annotations
@@ -117,14 +124,55 @@ class LoopParams(NamedTuple):
                    bool(stop_on_negative))
 
 
+class FacetLoopParams(NamedTuple):
+    """Scalars of F lockstep minor loops: the gain, divergence limit and
+    stop rule they share, and each facet's first threshold, initial
+    |peak| and iteration limit, on the host (rounded to float32) and on the
+    device (``limits`` [F, 2], ``max_iterations_device`` [F])."""
+
+    gain: float
+    divergence_limit: float
+    stop_on_negative: bool
+    first_threshold: Tuple[float, ...]
+    initial_abs_peak: Tuple[float, ...]
+    max_iterations: Tuple[int, ...]
+    limits: torch.Tensor
+    max_iterations_device: torch.Tensor
+
+    @classmethod
+    def make(cls, gain, first_thresholds, initial_abs_peaks, divergence_limit,
+             max_iterations, stop_on_negative, device) -> "FacetLoopParams":
+        f32 = lambda v: float(np.float32(v))  # noqa: E731
+        thresholds = tuple(f32(v) for v in first_thresholds)
+        peaks = tuple(f32(v) for v in initial_abs_peaks)
+        limits = torch.tensor(list(zip(thresholds, peaks)),
+                              dtype=torch.float32).reshape(-1, 2)
+        iterations = tuple(int(v) for v in max_iterations)
+        return cls(f32(gain), f32(divergence_limit), bool(stop_on_negative),
+                   thresholds, peaks, iterations, limits.to(device),
+                   torch.tensor(iterations, dtype=torch.int32, device=device))
+
+    def facet(self, f: int) -> LoopParams:
+        """Facet ``f``'s loop as a single-cube :class:`LoopParams`."""
+        return LoopParams(self.gain, self.first_threshold[f],
+                          self.initial_abs_peak[f], self.divergence_limit,
+                          self.max_iterations[f], self.stop_on_negative)
+
+
 @dataclasses.dataclass
 class LoopBuffers:
-    """Device-resident loop state between launches."""
+    """Device-resident loop state between launches (facet mode: a leading
+    facet axis on each)."""
 
     state: torch.Tensor  # int32 [STATE_SIZE]
     value: torch.Tensor  # float32 [1]: signed rms-weighted peak value
     peak: torch.Tensor  # float32 [N]: residual values at the peak
     values: torch.Tensor  # float32 [N]: this iteration's component values
+
+    def facet(self, f: int) -> "LoopBuffers":
+        """Views of facet ``f``'s buffers in facet-mode buffers."""
+        return LoopBuffers(self.state[f], self.value[f:f + 1], self.peak[f],
+                           self.values[f])
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +359,48 @@ def advance_state(buffers: LoopBuffers, params: LoopParams,
     buffers.values.copy_(torch.where(active, raw * params.gain, buffers.values))
 
 
+def hogbom_step_facets_reference(
+    residual: torch.Tensor,
+    model: torch.Tensor,
+    psfs: torch.Tensor,
+    values: torch.Tensor,
+    state: torch.Tensor,
+    coefs: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+    *,
+    mode: str,
+    n_polarizations: int,
+    allow_negative: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`hogbom_step_facets`: the single-cube plain
+    step on each facet in turn; partials ``[F, n_parts]``."""
+    shared = psfs.ndim == 3
+    parts = [
+        hogbom_step_reference(
+            residual[f], model[f], psfs if shared else psfs[f], values[f],
+            state[f], coefs, None if weight is None else weight[f],
+            mode=mode, n_polarizations=n_polarizations,
+            allow_negative=allow_negative)
+        for f in range(residual.shape[0])
+    ]
+    return tuple(torch.stack(p) for p in zip(*parts))
+
+
+def hogbom_select_facets_reference(
+    partials: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    residual: torch.Tensor,
+    buffers: LoopBuffers,
+    params: FacetLoopParams,
+    rms: Optional[torch.Tensor] = None,
+) -> None:
+    """Plain version of :func:`hogbom_select_facets`: the single-cube plain
+    select on each facet in turn."""
+    for f in range(residual.shape[0]):
+        hogbom_select_reference(
+            tuple(p[f] for p in partials), residual[f], buffers.facet(f),
+            params.facet(f), None if rms is None else rms[f])
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -333,6 +423,13 @@ def _lib():
             + [f32] * 4 + [i32] * 2 + [ptr]
         )
         lib.hogbom_select.restype = i32
+        lib.hogbom_step_facets.argtypes = (
+            [ptr] * 3 + [ctypes.c_longlong] + [ptr] * 7 + [i32] * 9 + [ptr])
+        lib.hogbom_step_facets.restype = i32
+        lib.hogbom_select_facets.argtypes = (
+            [ptr] * 3 + [i32] * 2 + [ptr] * 2 + [i32] * 3 + [ptr] * 6
+            + [f32] * 2 + [i32] + [ptr])
+        lib.hogbom_select_facets.restype = i32
         _bound_lib = lib
     return _bound_lib
 
@@ -478,6 +575,132 @@ def hogbom_select(
 
 
 hogbom_select.launches = 0
+
+
+def hogbom_step_facets(
+    residual: torch.Tensor,
+    model: torch.Tensor,
+    psfs: torch.Tensor,
+    values: torch.Tensor,
+    state: torch.Tensor,
+    coefs: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+    *,
+    mode: str,
+    n_polarizations: int,
+    allow_negative: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`hogbom_step` for F facets in one launch: ``residual`` and
+    ``model`` ``[F, N, H, W]``, ``psfs`` ``[C, H, W]`` shared by every facet
+    or ``[F, C, H, W]``, ``values`` ``[F, N]``, ``state`` ``[F,
+    STATE_SIZE]``, ``weight`` ``[F, H, W]`` or None; returns the partials
+    ``[F, n_parts]``.  A facet whose ``state[f, ACTIVE]`` is 0 is left
+    unchanged."""
+    args = (residual, model, psfs, values, state, coefs, weight)
+    kw = dict(mode=mode, n_polarizations=n_polarizations,
+              allow_negative=allow_negative)
+    if residual.device.type == "cpu":
+        return hogbom_step_facets_reference(*args, **kw)
+    if residual.device.type != "cuda":
+        raise ValueError(
+            f"hogbom_step_facets: unsupported device {residual.device}")
+    n_facets, n, height, width = residual.shape
+    n_chan = n // n_polarizations
+    shared = psfs.ndim == 3
+    if (n_chan * n_polarizations != n or height * width >= 2**31
+            or (mode == "signed" and n != 1)):
+        raise ValueError(
+            f"hogbom_step_facets: bad cube shape {tuple(residual.shape)}")
+    n_coefs = n + (n_chan if mode == "normal" else 0)
+    dev, f32 = residual.device, torch.float32
+    n_parts = -(-height * width // PIXELS_PER_BLOCK)
+    part_cmp = torch.empty((n_facets, n_parts), dtype=f32, device=dev)
+    part_idx = torch.empty((n_facets, n_parts), dtype=torch.int32,
+                           device=dev)
+    part_integ = torch.empty((n_facets, n_parts), dtype=f32, device=dev)
+    psf_shape = (n_chan, height, width) if shared else (
+        n_facets, n_chan, height, width)
+    cube = (n_facets, n, height, width)
+    ptrs = [
+        _check(residual, "residual", dev, cube, f32),
+        _check(model, "model", dev, cube, f32),
+        _check(psfs, "psfs", dev, psf_shape, f32),
+        0 if shared else n_chan * height * width,
+        _check(weight, "weight", dev, (n_facets, height, width), f32),
+        _check(coefs, "coefs", dev, (n_coefs,), f32),
+        _check(values, "values", dev, (n_facets, n), f32),
+        _check(state, "state", dev, (n_facets, STATE_SIZE), torch.int32),
+        part_cmp.data_ptr(),
+        part_idx.data_ptr(),
+        part_integ.data_ptr(),
+    ]
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hogbom_step_facets(
+            *ptrs, n_parts, n_facets, n, n_polarizations, height, width,
+            PIXELS_PER_BLOCK, MODES.index(mode), int(allow_negative), stream,
+        )
+    _raise_on(err, "hogbom_step_facets")
+    hogbom_step_facets.launches += 1
+    return part_cmp, part_idx, part_integ
+
+
+hogbom_step_facets.launches = 0
+
+
+def hogbom_select_facets(
+    partials: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    residual: torch.Tensor,
+    buffers: LoopBuffers,
+    params: FacetLoopParams,
+    rms: Optional[torch.Tensor] = None,
+) -> None:
+    """:func:`hogbom_select` for F facets in one launch, one block a facet:
+    each facet's partials reduce to its own peak (the smallest flat index
+    among equal maxima) and advance its own state; ``buffers`` in facet
+    mode, ``rms`` ``[F, H, W]`` or None."""
+    if residual.device.type == "cpu":
+        return hogbom_select_facets_reference(partials, residual, buffers,
+                                              params, rms)
+    if residual.device.type != "cuda":
+        raise ValueError(
+            f"hogbom_select_facets: unsupported device {residual.device}")
+    part_cmp, part_idx, part_integ = partials
+    n_facets, n, height, width = residual.shape
+    n_parts = part_cmp.shape[1]
+    dev, f32 = residual.device, torch.float32
+    ptrs_in = [
+        _check(part_cmp, "part_cmp", dev, (n_facets, n_parts), f32),
+        _check(part_idx, "part_idx", dev, (n_facets, n_parts), torch.int32),
+        _check(part_integ, "part_integ", dev, (n_facets, n_parts), f32),
+    ]
+    res_ptr = _check(residual, "residual", dev, (n_facets, n, height, width),
+                     f32)
+    rms_ptr = _check(rms, "rms", dev, (n_facets, height, width), f32)
+    ptrs_out = [
+        _check(buffers.state, "state", dev, (n_facets, STATE_SIZE),
+               torch.int32),
+        _check(buffers.value, "value", dev, (n_facets,), f32),
+        _check(buffers.peak, "peak", dev, (n_facets, n), f32),
+        _check(buffers.values, "values", dev, (n_facets, n), f32),
+        _check(params.limits, "limits", dev, (n_facets, 2), f32),
+        _check(params.max_iterations_device, "max_iterations", dev,
+               (n_facets,), torch.int32),
+    ]
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hogbom_select_facets(
+            *ptrs_in, n_parts, n_facets, res_ptr, rms_ptr, n, height, width,
+            *ptrs_out, params.gain, params.divergence_limit,
+            int(params.stop_on_negative), stream,
+        )
+    _raise_on(err, "hogbom_select_facets")
+    hogbom_select_facets.launches += 1
+
+
+hogbom_select_facets.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -679,3 +902,130 @@ def hogbom_loop(
                 params.gain, C, P))
 
     return run_chunks(iterate, buffers, params, start_iteration, active0)
+
+
+class FacetLoopResult(NamedTuple):
+    results: Tuple[LoopResult, ...]  # one a facet
+    lockstep: int  # iterations enqueued for all facets together
+
+
+def facet_fitted_values(fitter, raw: torch.Tensor, index: torch.Tensor,
+                        gain: float, n_channels: int, n_polarizations: int,
+                        forced_terms: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """:func:`fitted_values` for F facets at once: ``raw`` ``[F, N]``, the
+    flat peak indices ``index`` ``[F]``, the facets' term images
+    ``forced_terms`` ``[F, T-1, H, W]`` (FORCED_TERMS mode).  Each
+    polarization of each facet is fitted on its own, so the polynomial fits
+    take every facet's spectra as columns of one product."""
+    n_facets = raw.shape[0]
+    if forced_terms is None:
+        cols = raw.view(n_facets, n_channels, n_polarizations).transpose(0, 1)
+        fitted = fitter.fit_and_evaluate(
+            cols.reshape(n_channels, n_facets * n_polarizations))
+        fitted = fitted.view(n_channels, n_facets, n_polarizations)
+        return fitted.transpose(0, 1).reshape(n_facets, -1) * gain
+    terms = forced_terms.reshape(n_facets, forced_terms.shape[1], -1)
+    at = index.long().view(n_facets, 1, 1).expand(-1, terms.shape[1], 1)
+    gathered = torch.gather(terms, 2, at)[..., 0]  # [F, T-1]
+    return torch.stack([
+        fitter.fit_and_evaluate(
+            raw[f].view(n_channels, n_polarizations),
+            forced_terms=gathered[f]).reshape(-1)
+        for f in range(n_facets)
+    ]) * gain
+
+
+def facet_hogbom_loop(
+    residual: torch.Tensor,  # [F, N, H, W], updated in place
+    model: torch.Tensor,  # [F, N, H, W], updated in place
+    psfs: torch.Tensor,  # [C, H, W] shared, or [F, C, H, W]
+    weight: Optional[torch.Tensor],  # [F, H, W] mask x border x rms, or None
+    rms: Optional[torch.Tensor],  # [F, H, W] rms factor, or None
+    peaks0,  # per facet (value, x, y, found)
+    params: FacetLoopParams,
+    start_iterations,  # per facet
+    *,
+    meta,
+    allow_negative: bool,
+    fitter=None,
+    forced_terms: Optional[torch.Tensor] = None,  # [F, T-1, H, W]
+    plain: bool = False,
+) -> FacetLoopResult:
+    """F facets' Högbom minor loops in lockstep: the loop of
+    :func:`hogbom_loop` on each facet, with one facet-mode step and select
+    launch an iteration for all of them (the JAX package's vmapped
+    ``_facet_hogbom_program``, ``generic_clean.py:154``).  Facets stop on
+    their own; the launches go on, no-ops for stopped facets, until the last
+    one stops.  The host reads every facet's state once per ``CHUNK``
+    iterations.  ``plain`` runs the plain versions on CUDA tensors."""
+    dev = residual.device
+    n_facets = residual.shape[0]
+    mode, chan_np, pol_np = integration_coefficients(meta)
+    coefs = torch.as_tensor(kernel_coefficients(mode, chan_np, pol_np),
+                            device=dev)
+    step = hogbom_step_facets_reference if plain else hogbom_step_facets
+    select = hogbom_select_facets_reference if plain else hogbom_select_facets
+    C, P = meta.n_channels, meta.n_polarizations
+    width = residual.shape[-1]
+
+    host_state, active = [], []
+    for f, ((value0, x0, y0, found0), start) in enumerate(
+            zip(peaks0, start_iterations)):
+        value0 = float(np.float32(value0))
+        loop = params.facet(f)
+        go = (found0 and abs(value0) > loop.first_threshold
+              and start < loop.max_iterations
+              and (value0 >= 0.0 or not loop.stop_on_negative))
+        active.append(go)
+        host_state.append([y0, x0, int(found0), 0, start, int(go),
+                           y0 * width + x0, 0])
+    state = torch.tensor(host_state, dtype=torch.int32, device=dev)
+    raw = torch.stack([residual[f, :, p[2], p[1]]
+                       for f, p in enumerate(peaks0)])
+    buffers = LoopBuffers(
+        state=state,
+        value=torch.tensor([float(np.float32(p[0])) for p in peaks0],
+                           dtype=torch.float32, device=dev),
+        peak=raw,
+        values=raw * params.gain,
+    )
+    index = state[:, INDEX]
+
+    def refit():
+        buffers.values.copy_(facet_fitted_values(
+            fitter, buffers.peak, index, params.gain, C, P, forced_terms))
+
+    if fitter is not None:
+        refit()
+
+    def iterate():
+        partials = step(
+            residual, model, psfs, buffers.values, buffers.state, coefs,
+            weight, mode=mode, n_polarizations=P,
+            allow_negative=allow_negative,
+        )
+        select(partials, residual, buffers, params, rms)
+        if fitter is not None:
+            refit()
+
+    iterations = list(start_iterations)
+    lockstep = 0
+    while any(active):
+        left = max(params.max_iterations[f] - iterations[f]
+                   for f in range(n_facets) if active[f])
+        for _ in range(min(CHUNK, left)):
+            iterate()
+            lockstep += 1
+        host = buffers.state.tolist()
+        iterations = [h[ITERATION] for h in host]
+        active = [bool(h[ACTIVE]) for h in host]
+    host = buffers.state.tolist()
+    values = buffers.value.tolist()
+    return FacetLoopResult(
+        results=tuple(
+            LoopResult(iteration=h[ITERATION], value=v, found=bool(h[FOUND]),
+                       diverging=bool(h[DIVERGING]))
+            for h, v in zip(host, values)),
+        lockstep=lockstep,
+    )

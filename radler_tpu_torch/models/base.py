@@ -8,6 +8,7 @@ iteration counter.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -59,6 +60,12 @@ class DeconvolutionAlgorithm:
 
     def set_spectrally_forced_images(self, term_images: torch.Tensor):
         self.spectral_fitter.set_forced_terms(term_images)
+
+    def clone(self) -> "DeconvolutionAlgorithm":
+        """A copy sharing the configuration (``Clone()``): the facet layer
+        gives each sub-image its own iteration state.  Subclasses that keep
+        caches reset them, since a shallow copy would share them."""
+        return copy.copy(self)
 
     # -- interface ---------------------------------------------------------
     def execute_major_iteration(

@@ -7,24 +7,39 @@ loop of :class:`radler_tpu_torch.models.subminor.SubMinorLoop` followed by
 one FFT residual correction, or the Högbom minor loop of
 :func:`radler_tpu_torch.kernels.hogbom_step.hogbom_loop`, or, with a device
 mesh, its partitioned form
-:func:`radler_tpu_torch.parallel.mesh.mesh_hogbom_loop`.  All run their CUDA
-kernels on CUDA tensors and the kernels' plain PyTorch versions on CPU
-tensors.
+:func:`radler_tpu_torch.parallel.mesh.mesh_hogbom_loop`; for a facet grid,
+every facet's Högbom loop in lockstep
+(:meth:`GenericClean.execute_batched_facets`).  All run their CUDA kernels
+on CUDA tensors and the kernels' plain PyTorch versions on CPU tensors.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import numpy as np
 import torch
 
-from ..image_set import CubeMeta, get_linear_integrated
-from ..kernels.hogbom_step import LoopParams, hogbom_loop
+from ..image_set import CubeMeta, get_linear_integrated, get_square_integrated
+from ..kernels.hogbom_step import (
+    FacetLoopParams,
+    LoopParams,
+    facet_hogbom_loop,
+    hogbom_loop,
+)
 from ..ops.convolution import untrim
 from ..ops.peak_finder import border_from_ratio, find_peak, window_mask
 from ..parallel.mesh import mesh_hogbom_loop, mesh_pallas_eligible
 from ..settings import OptimizationAlgorithm, SpectralFittingMode
 from .base import DeconvolutionAlgorithm, DeconvolutionResult
 from .subminor import SubMinorLoop, choose_padded_size
+
+# The batched facet route's budget for its stacks' estimate, in bytes: the
+# JAX package's (generic_clean.py:614-618) on every device, so that the
+# port takes the JAX package's route whatever memory the device has.
+BATCHED_FACETS_BUDGET = 4e9
+
 
 # The largest image (pixels) whose Clark run falls back to the Högbom kernel
 # on the card when the spectral fit is not a constant projection, as the
@@ -263,6 +278,137 @@ class GenericClean(DeconvolutionAlgorithm):
             iteration_counter_at_start,
             major_iter_threshold,
         )
+
+    # -- batched facet execution ----------------------------------------
+    def batched_facets_eligible(
+        self,
+        meta: CubeMeta,
+        box_w: int,
+        box_h: int,
+        n_facets: int,
+        n_unique_psfs: int = 1,
+    ) -> bool:
+        """Whether all facets run as one lockstep Högbom loop
+        (``generic_clean.py:587-619`` of the JAX package): the dense loop
+        has the Clark loop's semantics, so either setting batches, unless
+        component optimization is set, ``RADLER_TPU_NO_BATCHED_FACETS`` is
+        (the parity tests' switch to the serial route), or the JAX
+        package's estimate of the stacks passes
+        :data:`BATCHED_FACETS_BUDGET`."""
+        if os.environ.get("RADLER_TPU_NO_BATCHED_FACETS"):
+            return False
+        if self.component_optimization_algorithm != OptimizationAlgorithm.CLEAN:
+            return False
+        N, C = meta.n_images, meta.n_channels
+        est = n_facets * (6 * N + C * max(n_unique_psfs, 1)) * (
+            box_h * box_w * 4
+        )
+        return est < BATCHED_FACETS_BUDGET
+
+    def execute_batched_facets(
+        self,
+        facet_residual: torch.Tensor,  # [F, N, Hb, Wb], updated in place
+        facet_model: torch.Tensor,  # [F, N, Hb, Wb], updated in place
+        psfs: torch.Tensor,  # [C, Hb, Wb] shared, or [F, C, Hb, Wb]
+        facet_boxes,  # (width, height) of each facet, placed top left
+        facet_masks: np.ndarray,  # [F, Hb, Wb] bool search masks
+        facet_rms: Optional[torch.Tensor],  # [F, Hb, Wb] or None
+        major_iteration_threshold: float,
+        start_iterations,  # per facet
+        find_peak_only: bool,
+        meta: CubeMeta,
+        facet_forced_terms: Optional[torch.Tensor] = None,  # [F, T-1, Hb, Wb]
+    ):
+        """All facets' Högbom minor loops as one lockstep loop, the port of
+        ``execute_batched_facets`` (``generic_clean.py:620-760``) and its
+        per-facet program ``_facet_hogbom_program`` (``:154``): each facet's
+        initial peak on the squared integration times the RMS within its
+        valid window (the border of its true box and its mask; the padding
+        is never searched), its major-iteration threshold, then the loop
+        (:func:`facet_hogbom_loop`).  Returns ``(results, iterations,
+        lockstep)``: a :class:`DeconvolutionResult` and the iteration count
+        of each facet, and the loop's lockstep iterations."""
+        n_facets, _, box_h, box_w = facet_residual.shape
+        dev = facet_residual.device
+        valid = np.zeros((n_facets, box_h, box_w), dtype=bool)
+        for f, (sw, sh) in enumerate(facet_boxes):
+            hb, vb = border_from_ratio(sw, sh, self.clean_border_ratio)
+            valid[f, :sh, :sw] = window_mask(sh, sw, hb, vb)
+            valid[f] &= facet_masks[f]
+        peaks = []
+        for f in range(n_facets):
+            integrated = get_square_integrated(facet_residual[f], meta)
+            if facet_rms is not None:
+                integrated = integrated * facet_rms[f]
+            pk = find_peak(integrated, self.allow_negative_components, 0, 0,
+                           valid[f])
+            peaks.append(torch.stack(
+                [pk.value, pk.found.float(), pk.x.float(), pk.y.float()]))
+        # One host read for every facet's initial peak.
+        host_peaks = torch.stack(peaks).tolist()
+
+        # The program's float32 thresholds (generic_clean.py:181-186).
+        f32 = np.float32
+        keep = f32(1.0) - f32(self.major_loop_gain)
+        m_thr, first = [], []
+        for value, _, _, _ in host_peaks:
+            m = max(f32(major_iteration_threshold), f32(abs(value)) * keep)
+            m_thr.append(float(m))
+            first.append(float(max(f32(self.threshold), m)))
+
+        iterations = [int(s) for s in start_iterations]
+        lockstep = 0
+        loop = None
+        if not find_peak_only and any(p[1] for p in host_peaks):
+            weight = torch.as_tensor(valid.astype(np.float32), device=dev)
+            if facet_rms is not None:
+                weight = weight * facet_rms
+            fit = (
+                self.spectral_fitter
+                if self.spectral_fitter is not None
+                and self.spectral_fitter.is_active
+                else None
+            )
+            loop = facet_hogbom_loop(
+                facet_residual,
+                facet_model,
+                psfs.contiguous(),
+                weight.contiguous(),
+                facet_rms.contiguous() if facet_rms is not None else None,
+                [(v, int(x), int(y), bool(found))
+                 for v, found, x, y in host_peaks],
+                FacetLoopParams.make(
+                    self.minor_loop_gain, first,
+                    [abs(p[0]) for p in host_peaks], self.divergence_limit,
+                    [self.max_iterations] * n_facets,
+                    self.stop_on_negative_components, dev),
+                iterations,
+                meta=meta,
+                allow_negative=self.allow_negative_components,
+                fitter=fit,
+                forced_terms=facet_forced_terms,
+            )
+            lockstep = loop.lockstep
+        results = []
+        for f, (value, found, _, _) in enumerate(host_peaks):
+            result = DeconvolutionResult()
+            if not found:
+                results.append(result)
+                continue
+            result.starting_peak_value = value
+            result.final_peak_value = value
+            if loop is None:
+                results.append(result)
+                continue
+            out = loop.results[f]
+            iterations[f] = out.iteration
+            saved = self.iteration_number
+            self.iteration_number = out.iteration
+            results.append(self._finish_result(
+                result, out.diverging, out.value if out.found else None,
+                int(start_iterations[f]), m_thr[f]))
+            self.iteration_number = saved
+        return results, iterations, lockstep
 
     def _finish_result(
         self,

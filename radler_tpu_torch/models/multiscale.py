@@ -312,6 +312,22 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         # 46``): a fresh one is allocated on the next run.
         self._component_list = None
 
+    def clone(self) -> "MultiScaleAlgorithm":
+        """A facet's copy (``multiscale.py:342-353`` of the JAX package) with
+        scales, masks, components and every cache of its own: the kernel
+        spectra and the fused banks are made for a facet's box, which is not
+        the image's, and no tensor is shared with the original."""
+        c = super().clone()
+        c.scale_infos = []
+        c.scale_masks = []
+        c._component_list = None
+        c._kernel_cache = {}
+        c._valid_stack_cache = None
+        c._mask_acc = None
+        c._comp_acc = {}
+        c._fused_banks = None
+        return c
+
     # -- kernels -------------------------------------------------------
     def _kernel_fft(self, scale: float, height: int, width: int,
                     device) -> torch.Tensor:

@@ -292,6 +292,14 @@ class Radler:
                 f"{mesh.size} shards) is not ported yet; ROADMAP queue A, "
                 "item 8 brings it."
             )
+        grid = (settings.parallel.grid_width, settings.parallel.grid_height)
+        if mesh.size > 1 and grid != (1, 1):
+            raise NotImplementedError(
+                f"a {grid[0]}x{grid[1]} facet grid on a device mesh "
+                "(settings.parallel.use_device_mesh with "
+                f"{mesh.size} shards) is not ported yet; ROADMAP queue A, "
+                "item 8 brings it."
+            )
         return mesh
 
     # ------------------------------------------------------------------

@@ -8,6 +8,8 @@ command line, on one NVIDIA GPU.  Run from the root of a checkout:
     python3 scripts/kernel_probe.py ms        # multiscale: B1 linear, config 3
                                               # on its 3 routes, the mesh
     python3 scripts/kernel_probe.py dense     # the dense subminor loop's forms
+    python3 scripts/kernel_probe.py facets    # B1's facet mode, config 5 on
+                                              # its 4 routes, card vs CPU
     python3 scripts/kernel_probe.py b2 b3 check   # against plain only
 
 ``check`` leaves out the timing phases.  It imports nothing of JAX.
@@ -127,6 +129,18 @@ def main(argv):
         if timed:
             cs.say("== B4 in linear mode at the multiscale mesh's shard ==")
             cs.phase_b4_times(cs.B4_LINEAR_CASE)
+    if "facets" in argv:
+        cs.say("== B1's facet mode against its plain version ==")
+        cs.phase_facet_b1_vs_plain()
+        cs.say("== config 5 through Radler.perform ==")
+        runs = cs.phase_config5()
+        boxes = runs["generic, batched"]["boxes"]
+        if timed:
+            cs.say("== B1's facet mode at config 5's shape ==")
+            cs.phase_facet_b1_times((max(b[3] for b in boxes),
+                                     max(b[2] for b in boxes)))
+        cs.say("== faceted performs on the card against the CPU ==")
+        cs.phase_facets_card_vs_cpu()
     cs.say("probe done")
     return 0
 

@@ -1080,3 +1080,134 @@ def test_mesh_dense_subminor_bit_equal_to_plain(cuda, mesh_shape, P):
     assert np_ == (0, 0)
     kernel = 1 if mesh.chan == 1 else 0
     assert nk[kernel] >= ok.iteration * mesh.size and nk[1 - kernel] == 0
+
+
+# ---------------------------------------------------------------------------
+# B1's facet mode (the batched facet route)
+# ---------------------------------------------------------------------------
+
+
+def make_facet_case(case, n_facets, shared, device, seed=0):
+    """F facets' cubes at the ragged shape, each searchable only in its own
+    top-left box (the padded common box), with their own loop states; facet
+    1 is inactive from the start."""
+    cases = [make_case(case, device, seed + f) for f in range(n_facets)]
+    c = dict(cases[0])
+    c["res"] = torch.stack([k["res"] for k in cases])
+    c["psfs"] = (cases[0]["psfs"] if shared
+                 else torch.stack([k["psfs"] for k in cases]))
+    weight = torch.stack([k["weight"] for k in cases])
+    for f in range(n_facets):
+        weight[f, HEIGHT - 7 * f:, :] = 0.0
+        weight[f, :, WIDTH - 11 * f:] = 0.0
+    c["weight"] = weight
+    states, raws = [], []
+    for f in range(n_facets):
+        flat = int(torch.argmax(c["res"][f, 0].abs() * weight[f]))
+        y, x = divmod(flat, WIDTH)
+        active = 0 if f == 1 else 1
+        states.append([y, x, 1, 0, 0, active, flat, 0])
+        raws.append(c["res"][f, :, y, x])
+    raw = torch.stack(raws)
+    c["state"] = torch.tensor(states, dtype=torch.int32, device=device)
+    c["raw"] = raw
+    return c
+
+
+@pytest.mark.parametrize("use_weight", [False, True])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-facet"])
+@pytest.mark.parametrize("n_facets", [1, 4])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+def test_facet_step_and_select_bit_equal_to_plain(cuda, case, n_facets,
+                                                  shared, use_weight):
+    """The facet-mode pair against its plain version (the per-facet loop of
+    the single-cube plain versions); one facet reproduces the single-cube
+    kernels bit for bit."""
+    c = make_facet_case(case, n_facets, shared, cuda)
+    params = hs.FacetLoopParams.make(
+        0.1, [0.0] * n_facets, [10.0] * n_facets, 4.0, [100] * n_facets,
+        False, cuda)
+    outs = []
+    for plain in (False, True):
+        res = c["res"].clone()
+        model = torch.zeros_like(res)
+        buffers = hs.LoopBuffers(c["state"].clone(),
+                                 torch.zeros(n_facets, device=cuda),
+                                 c["raw"].clone(), c["raw"] * params.gain)
+        step = hs.hogbom_step_facets_reference if plain else (
+            hs.hogbom_step_facets)
+        select = hs.hogbom_select_facets_reference if plain else (
+            hs.hogbom_select_facets)
+        for _ in range(3):
+            partials = step(res, model, c["psfs"], buffers.values,
+                            buffers.state, c["coefs"],
+                            c["weight"] if use_weight else None,
+                            mode=c["mode"], n_polarizations=c["P"],
+                            allow_negative=True)
+            select(partials, res, buffers, params,
+                   c["weight"] if use_weight else None)
+        torch.cuda.synchronize()
+        outs.append((res, model, partials, buffers))
+    (rk, mk, pk, bk), (rp, mp, pp, bp) = outs
+    assert torch.equal(rk, rp) and torch.equal(mk, mp)
+    # An inactive facet's partials are left unwritten by the kernel.
+    active = [f for f in range(n_facets) if f != 1]
+    for a, b in zip(pk, pp):
+        assert torch.equal(a[active], b[active])
+    for name in ("state", "value", "peak", "values"):
+        assert torch.equal(getattr(bk, name), getattr(bp, name)), name
+    if n_facets > 1:
+        assert torch.equal(rk[1], c["res"][1])  # the inactive facet
+    else:
+        res = c["res"][0].clone()
+        model = torch.zeros_like(res)
+        one = hs.LoopBuffers(c["state"][0].clone(),
+                             torch.zeros(1, device=cuda), c["raw"][0].clone(),
+                             c["raw"][0] * params.gain)
+        for _ in range(3):
+            partials = hs.hogbom_step(
+                res, model, c["psfs"] if shared else c["psfs"][0],
+                one.values, one.state, c["coefs"],
+                c["weight"][0] if use_weight else None, mode=c["mode"],
+                n_polarizations=c["P"], allow_negative=True)
+            hs.hogbom_select(partials, res, one, params.facet(0),
+                             c["weight"][0] if use_weight else None)
+        assert torch.equal(res, rk[0]) and torch.equal(model, mk[0])
+        assert torch.equal(one.state, bk.state[0])
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-facet"])
+def test_facet_loop_bit_equal_to_plain(cuda, shared):
+    """The lockstep loop with the 2-term fit between launches, an rms
+    factor and facets that stop at different iterations: kernel and plain
+    loop end in the same state."""
+    n_facets = 4
+    c = make_facet_case(("squared", 2, 4, True), n_facets, shared, cuda,
+                        seed=5)
+    fitter = SpectralFitter(rd.SpectralFittingMode.POLYNOMIAL, 2,
+                            [1e8, 1.1e8], [1.0, 2.0])
+    rms = torch.as_tensor(
+        np.random.default_rng(4).uniform(0.5, 1.5, (n_facets, HEIGHT, WIDTH)),
+        dtype=torch.float32, device=cuda)
+    host = c["state"].tolist()
+    peaks = [(float(c["res"][f, 0, h[0], h[1]]), h[1], h[0], f != 1)
+             for f, h in enumerate(host)]
+    starts = [0, 0, 0, 7]
+    outs = []
+    for plain in (False, True):
+        res = c["res"].clone()
+        model = torch.zeros_like(res)
+        params = hs.FacetLoopParams.make(
+            0.2, [0.05, 0.05, 0.2, 0.5], [5.0] * n_facets, 4.0,
+            [300, 300, 40, 300], False, cuda)
+        out = hs.facet_hogbom_loop(
+            res, model, c["psfs"], c["weight"] * rms, rms, peaks, params,
+            starts, meta=c["meta"], allow_negative=True, fitter=fitter,
+            plain=plain)
+        outs.append((out, res, model))
+    (ok, rk, mk), (op, rp, mp) = outs
+    assert ok == op
+    done = [r.iteration - s for r, s in zip(ok.results, starts)]
+    assert done[1] == 0 and len(set(done)) > 2
+    assert ok.lockstep >= max(done)
+    assert torch.equal(rk, rp) and torch.equal(mk, mp)

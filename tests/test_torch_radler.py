@@ -189,7 +189,10 @@ def test_unported_settings_raise(settings, setting, value):
     if setting == "algorithm_type":
         settings.algorithm_type = value
     elif setting == "grid":
+        # Facets run; facets on a device mesh raise (ROADMAP queue A, 8).
         settings.parallel.grid_width = value
+        settings.parallel.use_device_mesh = True
+        settings.parallel.n_devices = 8
     else:
         # The mesh runs the Högbom loop; with the Clark loop it raises.
         settings.parallel.use_device_mesh = value
