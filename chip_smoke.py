@@ -45,8 +45,10 @@ tensors and prints what it measured:
 * facets: B1's facet mode (one step and one select launch an iteration for
   every facet) against its plain version, bit for bit (1, 4 and 9 facets,
   shared and per-facet PSFs, squared and linear, with and without a weight
-  plane, unequal true boxes, an inactive facet; one facet against the
-  single-cube kernels) and its time at config 5's shape, config 5
+  plane, over ragged true boxes (nothing outside them read or written) and
+  over the common box, an inactive facet; one facet against the
+  single-cube kernels) and its time at config 5's shape and true boxes
+  against the bound of those boxes, config 5
   (4096^2 x 2 channels x I, Q, U, V, squared joins, 2-term fit, 2 x 2
   facets, 400 iterations a facet) on four routes (generic batched, generic
   serial with the Högbom and the Clark setting, multiscale serial) with
@@ -63,6 +65,7 @@ It imports nothing of JAX or of the ``radler_tpu`` package.
 """
 
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -2624,27 +2627,39 @@ def phase_ms_mesh():
 # ---------------------------------------------------------------------------
 
 
-def _facet_inputs(mode, n_facets, shared, height, width, seed):
+def _ragged_boxes(n_facets, height, width):
+    """True boxes (rows, columns) for F facets in a height x width common
+    box: full width but not full height, the inactive facet 1's, one pixel
+    wide, a few rows, then boxes a little smaller each."""
+    boxes = [(height - 3, width), (height - 5, width - 9), (height - 10, 1),
+             (17, width - 27)]
+    boxes += [(height - 5 * f, width - 9 * f) for f in range(4, n_facets)]
+    return boxes[:n_facets]
+
+
+def _facet_inputs(mode, n_facets, shared, height, width, seed, boxes=None):
     """F facets' cubes at (height, width), the common box, each searchable
-    only in its own top-left true box (the weight zero outside it), with
-    shared or per-facet PSFs and a loop state at each facet's brightest
-    searchable pixel; facet 1 is inactive from the start."""
+    only in its own top-left true box ``boxes[f]`` (rows, columns; the
+    weight zero outside it), with shared or per-facet PSFs and a loop state
+    at each facet's brightest searchable pixel; facet 1 is inactive from
+    the start.  ``inputs["boxes"]`` holds the boxes for the step."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
     C, P = (2, 4) if mode == "squared" else (4, 1)
     cases = [_case_inputs(mode, C, P, mode == "squared", height, width,
                           seed + f) for f in range(n_facets)]
     dev = torch.device(DEVICE)
+    boxes = boxes or _ragged_boxes(n_facets, height, width)
     weight = torch.stack([c["weight"] for c in cases])
-    for f in range(n_facets):
-        weight[f, height - 5 * f:, :] = 0.0
-        weight[f, :, width - 9 * f:] = 0.0
+    for f, (rows, cols) in enumerate(boxes):
+        weight[f, rows:, :] = 0.0
+        weight[f, :, cols:] = 0.0
     res = torch.stack([c["res"] for c in cases])
     states, raw = [], []
-    for f in range(n_facets):
-        flat = int(torch.argmax(res[f, 0].abs() * weight[f]))
-        y, x = divmod(flat, width)
-        states.append([y, x, 1, 0, 0, int(f != 1), flat, 0])
+    for f, (rows, cols) in enumerate(boxes):
+        box = res[f, 0, :rows, :cols].abs() * weight[f, :rows, :cols]
+        y, x = divmod(int(torch.argmax(box)), cols)
+        states.append([y, x, 1, 0, 0, int(f != 1), y * width + x, 0])
         raw.append(res[f, :, y, x])
     psfs = cases[0]["psfs"] if shared else torch.stack(
         [c["psfs"] * (1.0 - 0.05 * f) for f, c in enumerate(cases)])
@@ -2654,15 +2669,17 @@ def _facet_inputs(mode, n_facets, shared, height, width, seed):
         [TRACE_ITERATIONS] * n_facets, False, dev)
     return dict(res=res, psfs=psfs, weight=weight, coefs=cases[0]["coefs"],
                 P=P, state=torch.tensor(states, dtype=torch.int32, device=dev),
-                raw=raw, params=params, C=C)
+                raw=raw, params=params, C=C,
+                boxes=torch.tensor(boxes, dtype=torch.int32))
 
 
 def _facet_trace(inputs, mode, use_weight, plain, iterations,
-                 rms_in_select=True):
+                 rms_in_select=True, boxed=True):
     """``iterations`` lockstep iterations of the facet-mode step + select
     (the weight plane, when used, also the select's RMS plane unless
-    ``rms_in_select`` is False, as in config 5's loop); returns the final
-    tensors and buffers."""
+    ``rms_in_select`` is False, as in config 5's loop), over the true boxes
+    or, unless ``boxed``, the common box; returns the final tensors and
+    buffers."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
     res = inputs["res"].clone()
@@ -2679,7 +2696,8 @@ def _facet_trace(inputs, mode, use_weight, plain, iterations,
     for _ in range(iterations):
         partials = step(res, model, inputs["psfs"], buffers.values,
                         buffers.state, inputs["coefs"], weight, mode=mode,
-                        n_polarizations=inputs["P"], allow_negative=True)
+                        n_polarizations=inputs["P"], allow_negative=True,
+                        boxes=inputs["boxes"] if boxed else None)
         select(partials, res, buffers, params,
                weight if rms_in_select else None)
     torch.cuda.synchronize()
@@ -2699,9 +2717,11 @@ def _facet_difference(kernel, plain):
 def phase_facet_b1_vs_plain():
     """B1's facet mode against its plain version, bit for bit: 1, 4 and 9
     facets (9 at a small box), shared and per-facet PSFs, squared and linear
-    integration, with and without a weight plane, unequal true boxes in the
-    common box, facet 1 inactive from the start; one facet against the
-    single-cube kernels.  Returns the largest difference."""
+    integration, with and without a weight plane, over ragged true boxes
+    (full width, one pixel wide, a few rows; nothing outside them read or
+    written) and over the common box, facet 1 inactive from the start; one
+    facet over the common box against the single-cube kernels.  Returns the
+    largest difference."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
     worst = 0.0
@@ -2711,18 +2731,31 @@ def phase_facet_b1_vs_plain():
             for shared in (True, False):
                 inputs = _facet_inputs(mode, n_facets, shared, height, width,
                                        seed=n_facets * 7)
-                for use_weight in (False, True):
+                padding = torch.ones((n_facets, height, width),
+                                     dtype=torch.bool, device=DEVICE)
+                for f, (rows, cols) in enumerate(inputs["boxes"].tolist()):
+                    padding[f, :rows, :cols] = False
+                for use_weight, boxed in itertools.product((False, True),
+                                                           (True, False)):
                     rk, mk, bk = _facet_trace(inputs, mode, use_weight,
-                                              False, TRACE_ITERATIONS // 4)
+                                              False, TRACE_ITERATIONS // 4,
+                                              boxed=boxed)
                     diff, same = _facet_difference(
                         (rk, mk, bk), _facet_trace(inputs, mode, use_weight,
                                                    True,
-                                                   TRACE_ITERATIONS // 4))
+                                                   TRACE_ITERATIONS // 4,
+                                                   boxed=boxed))
                     iterations = bk.state[:, hs.ITERATION].tolist()
                     label = (f"{n_facets} facets {height}x{width} {mode} "
                              f"{'shared' if shared else 'per-facet'} PSFs "
-                             f"weight={use_weight:d}")
-                    if n_facets == 1:
+                             f"weight={use_weight:d} "
+                             f"{'true boxes' if boxed else 'common box'}")
+                    untouched = True
+                    if boxed:
+                        pad = padding[:, None].expand_as(rk)
+                        untouched = bool(torch.equal(rk[pad],
+                                                     inputs["res"][pad]))
+                    if n_facets == 1 and not boxed:
                         one = _single_trace(inputs, mode, use_weight,
                                             TRACE_ITERATIONS // 4)
                         diff = max(diff, float((one[0] - rk[0]).abs().max()),
@@ -2730,13 +2763,14 @@ def phase_facet_b1_vs_plain():
                         same = same and bool(torch.equal(one[2].state,
                                                          bk.state[0]))
                     say(f"  {label}: iterations {iterations}, same states "
-                        f"{same}, max|difference| {diff:.3g}")
-                    if not (same and diff == 0.0 and (
+                        f"{same}, max|difference| {diff:.3g}, padding "
+                        f"untouched {untouched}")
+                    if not (same and diff == 0.0 and untouched and (
                             n_facets == 1 or iterations[1] == 0)):
                         raise AssertionError(f"B1's facet mode and its plain "
                                              f"version disagree: {label}")
                     worst = max(worst, diff)
-                del inputs
+                del inputs, padding
     torch.cuda.empty_cache()
     return worst
 
@@ -2764,19 +2798,49 @@ def _single_trace(inputs, mode, use_weight, iterations):
     return res, model, buffers
 
 
-def phase_facet_b1_times(box):
-    """B1's facet mode at config 5's shape (4 facets x 8 planes in the
-    common box, squared mode, the PSFs shared, the weight plane on, no RMS
-    plane), all facets active: first F5_TRACE_ITERATIONS lockstep
-    iterations of the kernels against their plain versions from the same
-    inputs, bit for bit; then their times, in turns plain, kernel, kernel,
-    plain.  Returns {"step": (ms, plain ms), "select": (ms, plain ms),
-    "bytes": each one's, "max_abs_err": the comparison's}."""
+def facet_step_bytes(boxes, peaks, height, width, n_planes, n_chan, shared,
+                     use_weight):
+    """The least bytes one facet step moves: each facet's ``n_planes``
+    residual planes read and written over its true box (rows, columns), its
+    weight plane read there, and the PSF pixels the step reads, each once:
+    the PSF shifted to a facet's peak (y, x) reads a window of the box's size
+    clipped to the PSF, so shared PSFs are read over the union of the
+    facets' windows and per-facet PSFs over each facet's own."""
+    pixels = sum(rows * cols for rows, cols in boxes)
+    windows = []
+    for (rows, cols), (y, x) in zip(boxes, peaks):
+        top, left = height // 2 - y, width // 2 - x
+        windows.append((max(top, 0), min(top + rows, height),
+                        max(left, 0), min(left + cols, width)))
+    if shared:
+        reached = torch.zeros((height, width), dtype=torch.bool)
+        for r0, r1, c0, c1 in windows:
+            if r0 < r1 and c0 < c1:
+                reached[r0:r1, c0:c1] = True
+        psf_pixels = int(reached.sum())
+    else:
+        psf_pixels = sum(max(r1 - r0, 0) * max(c1 - c0, 0)
+                         for r0, r1, c0, c1 in windows)
+    return ((2 * n_planes + int(use_weight)) * pixels
+            + n_chan * psf_pixels) * 4
+
+
+def phase_facet_b1_times(boxes):
+    """B1's facet mode at config 5's shape (4 facets x 8 planes, squared
+    mode, the PSFs shared, the weight plane on, no RMS plane) over config
+    5's true ``boxes`` (rows, columns) in their common box, all facets
+    active: first F5_TRACE_ITERATIONS lockstep iterations of the kernels
+    against their plain versions from the same inputs, bit for bit; then
+    their times, in turns plain, kernel, kernel, plain.  Returns {"step":
+    (ms, plain ms), "select": (ms, plain ms), "bytes": each one's,
+    "max_abs_err": the comparison's}."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
-    height, width = box
-    n_facets = F5_GRID * F5_GRID
-    inputs = _facet_inputs("squared", n_facets, True, height, width, seed=51)
+    height = max(b[0] for b in boxes)
+    width = max(b[1] for b in boxes)
+    n_facets = len(boxes)
+    inputs = _facet_inputs("squared", n_facets, True, height, width, seed=51,
+                           boxes=list(boxes))
     inputs["state"][:, hs.ACTIVE] = 1
     kernel = _facet_trace(inputs, "squared", True, False,
                           F5_TRACE_ITERATIONS, rms_in_select=False)
@@ -2795,7 +2859,7 @@ def phase_facet_b1_times(box):
     model = torch.zeros_like(res)
     weight = inputs["weight"]
     kw = dict(mode="squared", n_polarizations=inputs["P"],
-              allow_negative=True)
+              allow_negative=True, boxes=inputs["boxes"])
     params = inputs["params"]
 
     def buffers():
@@ -2826,17 +2890,20 @@ def phase_facet_b1_times(box):
             f"(host enqueue {h_select:.4f} ms)")
     out = {name: ((k1 + k2) / 2, (p1 + p2) / 2)
            for name, (p1, k1, k2, p2) in times.items()}
-    # The least bytes: the step reads each facet's residual, the shared
-    # PSFs once and each facet's weight plane, and writes the residuals;
-    # the select reads the partials and each facet's values at its peak.
+    # The least bytes (facet_step_bytes); the select reads the partials and
+    # each facet's values at its peak.
+    n_planes, n_chan = res.shape[1], inputs["psfs"].shape[0]
+    peaks = [tuple(p) for p in inputs["state"][:, :2].tolist()]
+    pixels = sum(rows * cols for rows, cols in boxes)
     out["bytes"] = {
-        "step": (2 * res.numel() + inputs["psfs"].numel() + weight.numel())
-        * 4,
+        "step": facet_step_bytes(boxes, peaks, height, width, n_planes,
+                                 n_chan, shared=True, use_weight=True),
         "select": sum(p.numel() * p.element_size() for p in partials)
         + res.shape[0] * res.shape[1] * 4,
     }
     out["max_abs_err"] = diff
-    say(f"  [{n_facets}, {res.shape[1]}, {height}, {width}]: step "
+    say(f"  [{n_facets}, {n_planes}, {height}, {width}], true boxes "
+        f"{[tuple(b) for b in boxes]} ({pixels} pixels): step "
         f"{out['step'][0]:.4f} ms (plain {out['step'][1]:.4f}), bound "
         f"{bound_ms(out['bytes']['step'])[0]:.4f} ms "
         f"({out['bytes']['step'] / 1e6:.1f} MB)")
@@ -3334,10 +3401,11 @@ def main():
         "Clark), multiscale serial ==")
     config5 = phase_config5()
     batched = config5["generic, batched"]
-    box = (max(b[3] for b in batched["boxes"]),
-           max(b[2] for b in batched["boxes"]))
-    say(f"== B1's facet mode at config 5's shape ({box[0]}x{box[1]}) ==")
-    facet_times = phase_facet_b1_times(box)
+    f5_boxes = [(b[3], b[2]) for b in batched["boxes"]]
+    box = (max(b[0] for b in f5_boxes), max(b[1] for b in f5_boxes))
+    say(f"== B1's facet mode at config 5's shape ({box[0]}x{box[1]}) and "
+        "true boxes ==")
+    facet_times = phase_facet_b1_times(f5_boxes)
     say("== faceted performs on the card against the CPU ==")
     phase_facets_card_vs_cpu()
     say(f"phases took {time.perf_counter() - start:.1f} s")

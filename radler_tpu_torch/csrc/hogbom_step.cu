@@ -51,14 +51,25 @@
 //
 // Facets: the batched facet route runs F facets' loops in lockstep, each
 // facet's cube, weight plane, state, component values and partials one
-// after another in memory (the PSFs shared or one stack a facet).  The step
-// takes the facet from blockIdx.y and the select runs one block a facet;
-// each facet's blocks read its state and return at once when it is done.
-// Both are further instantiations of the same templates, so the
-// single-cube kernels' code is unchanged, and one facet gives their bits.
-// One facet's step launches the single-cube instantiation itself: the
-// facet offsets cost the signed mode 40 registers against B1's 32, and
-// 14% of its time at config 1.
+// after another in memory (the PSFs shared or one stack a facet), each
+// facet's true box at the top left of the common box.  Its step is a kernel
+// of its own, hogbom_facet_step_kernel: the grid covers only the true boxes
+// (a block is a run of pixels_per_block pixels of one facet's box in
+// row-major order, so padding pixels are neither read nor written).  Its
+// threads stage their own next pixels' residual, PSF and weight values in
+// shared memory with cp.async, three tasks (a pixel and up to 8 of its
+// planes) ahead of the one they compute, which keeps more bytes in flight
+// than registers could hold, and a channel's PSF value is copied once for
+// its P planes.  Addresses and partial indices stay flat indices in the common
+// box, which row-major order in a box keeps monotone, so the select, the
+// state and the partials' tie-break are unchanged; a facet's partials past
+// its own box's blocks hold no peak.  The select runs one block a facet; a
+// stopped facet's blocks read its state and return.  One facet whose box
+// is the whole common box launches the single-cube step itself.  What
+// bounds the facet step is device-memory bytes too, those of the true
+// boxes: each facet's N residual planes read and written, its weight plane
+// read, and the PSF pixels that the windows shifted to the facets' peaks
+// reach, each read once.
 //
 // Loop control stays on the device: both kernels return at once when the
 // state's `active` flag is 0, so iterations enqueued after the stop leave
@@ -149,9 +160,7 @@ __device__ __forceinline__ float clamp_min0(float x) {
 // one per plane; normal: the polarization coefficient of the plane; squared:
 // channel x polarization coefficient), then [C] channel coefficients
 // (normal mode only).
-// With kFacets, every pointer but psf and coefs advances by blockIdx.y
-// facets (psf by psf_facet_stride floats, 0 for shared PSFs).
-template <int kMode, bool kRowShard, bool kFacets>
+template <int kMode, bool kRowShard>
 __global__ void __launch_bounds__(kStepThreads)
     hogbom_step_kernel(float* __restrict__ res, float* __restrict__ model,
                        const float* __restrict__ psf,
@@ -164,22 +173,7 @@ __global__ void __launch_bounds__(kStepThreads)
                        float* __restrict__ part_integ, int n_images,
                        int n_pols, int height, int width,
                        int shard_psf_height, int shard_row_offset,
-                       int pixels_per_block, int allow_negative,
-                       int64_t psf_facet_stride) {
-  if (kFacets) {
-    const int64_t f = blockIdx.y;
-    const int64_t facet_plane = static_cast<int64_t>(height) * width;
-    const int64_t cube = n_images * facet_plane;
-    res += f * cube;
-    model += f * cube;
-    psf += f * psf_facet_stride;
-    if (weight) weight += f * facet_plane;
-    values += f * n_images;
-    state += f * kStateSize;
-    part_cmp += f * gridDim.x;
-    part_idx += f * gridDim.x;
-    part_integ += f * gridDim.x;
-  }
+                       int pixels_per_block, int allow_negative) {
   if (state[kActive] == 0) return;
   const int y = state[kY];
   const int x = state[kX];
@@ -258,6 +252,331 @@ __global__ void __launch_bounds__(kStepThreads)
     part_idx[blockIdx.x] = best.idx;
     part_integ[blockIdx.x] = best.integ;
   }
+}
+
+// The facets of one facet-step launch: where each facet's blocks start in
+// the grid (a prefix sum of their counts) and each facet's true box (rows,
+// columns).  Passed by value, so a launch takes at most kMaxFacets facets;
+// the entry point launches larger grids of facets in turns.
+constexpr int kMaxFacets = 256;
+struct FacetBoxes {
+  int block_start[kMaxFacets + 1];
+  int rows[kMaxFacets];
+  int cols[kMaxFacets];
+};
+
+// The facet that owns grid block `block`: the last f with
+// block_start[f] <= block.
+__device__ __forceinline__ int facet_of(const FacetBoxes& boxes, int n_facets,
+                                        int block) {
+  int lo = 0;
+  int hi = n_facets - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (boxes.block_start[mid] <= block) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+// The facet step's planes go in chunks of kChunk; a thread's copies run
+// kFacetStages - 1 tasks ahead of the task it computes.
+constexpr int kChunk = 8;
+constexpr int kFacetStages = 4;
+constexpr int kSlots = 2 * kChunk + 1;  // residuals, PSF values, weight
+constexpr int kFacetSmem =
+    kFacetStages * kSlots * kStepThreads * static_cast<int>(sizeof(float));
+
+// An asynchronous 4-byte copy from global to shared memory: `bytes` is 4,
+// or 0 to write a zero without reading.
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(to),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Bits k of *first, *last: plane chunk * kChunk + k (below n_images) starts,
+// ends its channel.
+__device__ __forceinline__ void chunk_pols(int chunk, int n_images,
+                                           int n_pols, unsigned* first,
+                                           unsigned* last) {
+  *first = *last = 0;
+  const int n0 = chunk * kChunk;
+  int pol = n0 % n_pols;
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k) {
+    if (n0 + k < n_images) {
+      if (pol == 0) *first |= 1u << k;
+      if (pol == n_pols - 1) *last |= 1u << k;
+    }
+    pol = pol == n_pols - 1 ? 0 : pol + 1;
+  }
+}
+
+// B1's step for F facets over their true boxes.  Block b is run
+// b - block_start[f] of facet f: pixels_per_block consecutive pixels of the
+// box in row-major order, read at their common-box flat index
+// row * width + col; thread t takes the run's pixels t, t + kStepThreads,
+// ..., moving its row and column by a fixed step (no division per pixel).
+// A pixel's planes go in chunks of kChunk, and each (pixel, chunk) is a
+// task.  A thread copies a task's residual values, the PSF value of each
+// channel that starts in the chunk and (in the first chunk) the weight
+// into its own slots of shared memory with cp.async, kFacetStages - 1
+// tasks ahead of the task it computes, so that many copies are in flight
+// without holding registers; it reads back only its own slots, so no
+// barrier is needed.  It then subtracts, stores the residual and
+// integrates with the single-cube step's arithmetic, operation for
+// operation and in its order.  Every pointer but coefs advances by the
+// block's facet (psf by psf_facet_stride floats, 0 for shared PSFs);
+// partials are [F, n_parts], and the last run of each facet marks the
+// facet's partials past its own runs as no peak.
+template <int kMode>
+__global__ void __launch_bounds__(kStepThreads)
+    hogbom_facet_step_kernel(float* __restrict__ res,
+                             float* __restrict__ model,
+                             const float* __restrict__ psf,
+                             const float* __restrict__ weight,
+                             const float* __restrict__ coefs,
+                             const float* __restrict__ values,
+                             const int* __restrict__ state,
+                             float* __restrict__ part_cmp,
+                             int* __restrict__ part_idx,
+                             float* __restrict__ part_integ, int n_parts,
+                             int n_facets, int n_images, int n_pols,
+                             int height, int width, int pixels_per_block,
+                             int allow_negative, int64_t psf_facet_stride,
+                             const __grid_constant__ FacetBoxes boxes) {
+  extern __shared__ float staged[];  // [kFacetStages][kSlots][kStepThreads]
+  const int f = facet_of(boxes, n_facets, blockIdx.x);
+  const int run = blockIdx.x - boxes.block_start[f];
+  const int64_t plane = static_cast<int64_t>(height) * width;
+  res += f * n_images * plane;
+  model += f * n_images * plane;
+  psf += f * psf_facet_stride;
+  if (weight) weight += f * plane;
+  values += f * n_images;
+  state += f * kStateSize;
+  part_cmp += static_cast<int64_t>(f) * n_parts;
+  part_idx += static_cast<int64_t>(f) * n_parts;
+  part_integ += static_cast<int64_t>(f) * n_parts;
+  if (state[kActive] == 0) return;
+  const int y = state[kY];
+  const int x = state[kX];
+
+  if (run == 0) {
+    for (int n = threadIdx.x; n < n_images; n += blockDim.x) {
+      float* m = model + n * plane + static_cast<int64_t>(y) * width + x;
+      *m = __fadd_rn(*m, values[n]);
+    }
+  }
+  const int n_runs = boxes.block_start[f + 1] - boxes.block_start[f];
+  if (run == n_runs - 1) {
+    for (int i = n_runs + threadIdx.x; i < n_parts; i += kStepThreads) {
+      part_cmp[i] = -INFINITY;
+      part_idx[i] = INT_MAX;
+      part_integ[i] = 0.0f;
+    }
+  }
+
+  // The computing side's chunk: each plane's coefficient, component value
+  // and channel coefficient (normal mode), and which planes start and end
+  // their channel; loaded once when the planes fit one chunk.
+  const int n_chunks = (n_images + kChunk - 1) / kChunk;
+  const bool one_chunk = n_chunks == 1;
+  float plane_coef[kChunk];
+  float plane_value[kChunk];
+  float chan_coef[kChunk];
+  unsigned first_pol = 0;
+  unsigned last_pol = 0;
+  const float* chan_coefs = coefs + n_images;
+  const auto load_chunk = [&](int chunk) {
+    chunk_pols(chunk, n_images, n_pols, &first_pol, &last_pol);
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const int n = min(chunk * kChunk + k, n_images - 1);
+      plane_coef[k] = coefs[n];
+      plane_value[k] = values[n];
+      chan_coef[k] = kMode == kNormal ? chan_coefs[n / n_pols] : 0.0f;
+    }
+  };
+  load_chunk(0);
+
+  const int oy = height / 2 - y;
+  const int ox = width / 2 - x;
+  const int cols = boxes.cols[f];
+  const int begin = run * pixels_per_block;
+  const int end = min(begin + pixels_per_block, boxes.rows[f] * cols);
+  const int step_rows = kStepThreads / cols;
+  const int step_cols = kStepThreads - step_rows * cols;
+  const int n_tasks =
+      (end - begin + kStepThreads - 1) / kStepThreads * n_chunks;
+  float* const mine = staged + threadIdx.x;
+
+  // The copying side: its task's pixel (in_q, in_row, in_col), chunk and
+  // stage.
+  int in_q = begin + threadIdx.x;
+  int in_row = in_q / cols;
+  int in_col = in_q - in_row * cols;
+  int in_chunk = 0;
+  int in_stage = 0;
+  const auto copy_task = [&]() {
+    float* slot = mine + in_stage * kSlots * kStepThreads;
+    const bool valid = in_q < end;
+    const int p = in_row * width + in_col;
+    const int sy = in_row + oy;
+    const int sx = in_col + ox;
+    const bool inside =
+        valid && static_cast<unsigned>(sy) < static_cast<unsigned>(height) &&
+        static_cast<unsigned>(sx) < static_cast<unsigned>(width);
+    const int src = sy * width + sx;
+    unsigned first = first_pol;
+    unsigned last = 0;
+    if (!one_chunk) chunk_pols(in_chunk, n_images, n_pols, &first, &last);
+    const int n0 = in_chunk * kChunk;
+    int chan = n0 / n_pols;  // the channel of plane n0, then of plane n0 + k
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (n0 + k < n_images) {
+        copy_async(slot + k * kStepThreads,
+                   valid ? res + (n0 + k) * plane + p : res, valid ? 4 : 0);
+      }
+      if (first & (1u << k)) {
+        if (k > 0) ++chan;
+        copy_async(slot + (kChunk + k) * kStepThreads,
+                   inside ? psf + chan * plane + src : psf, inside ? 4 : 0);
+      }
+    }
+    if (weight && in_chunk == 0) {
+      copy_async(slot + 2 * kChunk * kStepThreads, valid ? weight + p : weight,
+                 valid ? 4 : 0);
+    }
+    if (++in_chunk == n_chunks) {
+      in_chunk = 0;
+      in_q += kStepThreads;
+      in_col += step_cols;
+      in_row += step_rows;
+      if (in_col >= cols) {
+        in_col -= cols;
+        ++in_row;
+      }
+    }
+    if (++in_stage == kFacetStages) in_stage = 0;
+  };
+
+  // The computing side: its task's pixel (q, row, col), chunk and stage.
+  int q = begin + threadIdx.x;
+  int row = q / cols;
+  int col = q - row * cols;
+  int chunk = 0;
+  int stage = 0;
+  float integ = 0.0f;
+  float sq = 0.0f;
+  float shifted = 0.0f;
+  float w = 1.0f;
+  Best best = no_peak();
+  for (int task = 0; task < kFacetStages - 1; ++task) {
+    if (task < n_tasks) copy_task();
+    copy_commit();
+  }
+  for (int task = 0; task < n_tasks; ++task) {
+    if (task + kFacetStages - 1 < n_tasks) copy_task();
+    copy_commit();
+    copy_wait<kFacetStages - 1>();
+    const float* slot = mine + stage * kSlots * kStepThreads;
+    const bool valid = q < end;
+    const int p = row * width + col;
+    if (!one_chunk) load_chunk(chunk);
+    const int n0 = chunk * kChunk;
+    if (chunk == 0 && weight) w = slot[2 * kChunk * kStepThreads];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const int n = n0 + k;
+      if (n >= n_images) break;
+      if (first_pol & (1u << k)) shifted = slot[(kChunk + k) * kStepThreads];
+      const float v = __fsub_rn(slot[k * kStepThreads],
+                                __fmul_rn(plane_value[k], shifted));
+      if (valid) res[n * plane + p] = v;
+      if (kMode == kSigned) {
+        integ = __fmul_rn(v, plane_coef[0]);
+      } else if (kMode == kLinear) {
+        const float term = __fmul_rn(v, plane_coef[k]);
+        integ = n == 0 ? term : __fadd_rn(integ, term);
+      } else if (kMode == kSquared) {
+        const float term = __fmul_rn(__fmul_rn(v, v), plane_coef[k]);
+        sq = n == 0 ? term : __fadd_rn(sq, term);
+      } else {  // normal
+        float per_chan;
+        bool chan_done;
+        if (n_pols == 1) {
+          per_chan = v;
+          chan_done = true;
+        } else {
+          const float term = __fmul_rn(__fmul_rn(v, v), plane_coef[k]);
+          sq = (first_pol & (1u << k)) ? term : __fadd_rn(sq, term);
+          chan_done = (last_pol & (1u << k)) != 0;
+          per_chan = chan_done ? __fsqrt_rn(clamp_min0(sq)) : 0.0f;
+        }
+        if (chan_done) {
+          const float term = __fmul_rn(per_chan, chan_coef[k]);
+          integ = n == n_pols - 1 ? term : __fadd_rn(integ, term);
+        }
+      }
+    }
+    if (++stage == kFacetStages) stage = 0;
+    if (++chunk < n_chunks) continue;
+    chunk = 0;
+    if (valid) {
+      if (kMode == kSquared) integ = __fsqrt_rn(clamp_min0(sq));
+      const float weighted = weight ? __fmul_rn(integ, w) : integ;
+      const float cmp = allow_negative ? fabsf(weighted) : weighted;
+      // p grows within a thread, so a strict > keeps the first of equal
+      // maxima.
+      if (cmp > best.cmp) best = Best{cmp, p, integ};
+    }
+    q += kStepThreads;
+    col += step_cols;
+    row += step_rows;
+    if (col >= cols) {
+      col -= cols;
+      ++row;
+    }
+  }
+  copy_wait<0>();
+  best = block_reduce<kStepThreads>(best);
+  if (threadIdx.x == 0) {
+    part_cmp[run] = best.cmp;
+    part_idx[run] = best.idx;
+    part_integ[run] = best.integ;
+  }
+}
+
+// Launches the facet step with its shared memory, more than the 48 KB a
+// block gets by default, and the carveout that fits three blocks a
+// multiprocessor.
+template <int kMode, typename... Args>
+cudaError_t launch_facet_step(int n_blocks, cudaStream_t s, Args... args) {
+  const auto kernel = hogbom_facet_step_kernel<kMode>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFacetSmem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return err;
+  kernel<<<n_blocks, kStepThreads, kFacetSmem, s>>>(args...);
+  return cudaGetLastError();
 }
 
 // With kFacets, block f reduces facet f's partials and advances its state;
@@ -350,13 +669,13 @@ int hogbom_step(float* res, float* model, const float* psf,
 #define RADLER_STEP_ARGS                                                  \
   res, model, psf, weight, coefs, values, state, part_cmp, part_idx,      \
       part_integ, n_images, n_pols, height, width, psf_height,            \
-      row_offset, pixels_per_block, allow_negative, 0
+      row_offset, pixels_per_block, allow_negative
 #define RADLER_STEP_LAUNCH(MODE)                                          \
   if (row_shard)                                                          \
-    hogbom_step_kernel<MODE, true, false>                                 \
+    hogbom_step_kernel<MODE, true>                                        \
         <<<n_parts, kStepThreads, 0, s>>>(RADLER_STEP_ARGS);              \
   else                                                                    \
-    hogbom_step_kernel<MODE, false, false>                                \
+    hogbom_step_kernel<MODE, false>                                       \
         <<<n_parts, kStepThreads, 0, s>>>(RADLER_STEP_ARGS)
   switch (mode) {
     case kSigned:
@@ -396,50 +715,72 @@ int hogbom_select(const float* part_cmp, const int* part_idx,
 }
 
 // The facet-batched pair: n_facets cubes [N, H, W] one after another,
-// psf_facet_stride floats between facets' PSF stacks (0: shared), partials
-// [n_facets, n_parts], state [n_facets, 8], value [n_facets], peak and
-// values [n_facets, N], limits [n_facets, 2] (first threshold, initial
-// |peak|), max_iterations [n_facets].
+// psf_facet_stride floats between facets' PSF stacks (0: shared), boxes
+// [n_facets, 2] on the host (each facet's true box, rows and columns, at
+// the top left), partials [n_facets, n_parts], state [n_facets, 8], value
+// [n_facets], peak and values [n_facets, N], limits [n_facets, 2] (first
+// threshold, initial |peak|), max_iterations [n_facets].  The step launches
+// once for every kMaxFacets facets.
 int hogbom_step_facets(float* res, float* model, const float* psf,
                        long long psf_facet_stride, const float* weight,
                        const float* coefs, const float* values,
                        const int* state, float* part_cmp, int* part_idx,
-                       float* part_integ, int n_parts, int n_facets,
-                       int n_images, int n_pols, int height, int width,
-                       int pixels_per_block, int mode, int allow_negative,
-                       void* stream) {
+                       float* part_integ, const int* boxes, int n_parts,
+                       int n_facets, int n_images, int n_pols, int height,
+                       int width, int pixels_per_block, int mode,
+                       int allow_negative, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_parts, n_facets);
-#define RADLER_FACET_ARGS                                                 \
-  res, model, psf, weight, coefs, values, state, part_cmp, part_idx,      \
-      part_integ, n_images, n_pols, height, width, height, 0,             \
-      pixels_per_block, allow_negative
-#define RADLER_FACET_LAUNCH(MODE)                                         \
-  if (n_facets == 1)                                                      \
-    hogbom_step_kernel<MODE, false, false>                                \
-        <<<n_parts, kStepThreads, 0, s>>>(RADLER_FACET_ARGS, 0);          \
-  else                                                                    \
-    hogbom_step_kernel<MODE, false, true><<<grid, kStepThreads, 0, s>>>(  \
-        RADLER_FACET_ARGS, psf_facet_stride)
-  switch (mode) {
-    case kSigned:
-      RADLER_FACET_LAUNCH(kSigned);
-      break;
-    case kLinear:
-      RADLER_FACET_LAUNCH(kLinear);
-      break;
-    case kNormal:
-      RADLER_FACET_LAUNCH(kNormal);
-      break;
-    case kSquared:
-      RADLER_FACET_LAUNCH(kSquared);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (n_facets == 1 && boxes[0] == height && boxes[1] == width) {
+    return hogbom_step(res, model, psf, weight, coefs, values, state,
+                       part_cmp, part_idx, part_integ, n_parts, n_images,
+                       n_pols, height, width, height, 0, pixels_per_block,
+                       mode, allow_negative, stream);
   }
-#undef RADLER_FACET_LAUNCH
+  const int64_t plane = static_cast<int64_t>(height) * width;
+  for (int f0 = 0; f0 < n_facets; f0 += kMaxFacets) {
+    const int count = n_facets - f0 < kMaxFacets ? n_facets - f0 : kMaxFacets;
+    FacetBoxes table;
+    table.block_start[0] = 0;
+    for (int i = 0; i < count; ++i) {
+      const int rows = boxes[2 * (f0 + i)];
+      const int cols = boxes[2 * (f0 + i) + 1];
+      table.rows[i] = rows;
+      table.cols[i] = cols;
+      table.block_start[i + 1] =
+          table.block_start[i] +
+          (rows * cols + pixels_per_block - 1) / pixels_per_block;
+    }
+    const int n_blocks = table.block_start[count];
+    const int64_t at = static_cast<int64_t>(f0);
+#define RADLER_FACET_ARGS                                                 \
+  res + at * n_images * plane, model + at * n_images * plane,             \
+      psf + at * psf_facet_stride, weight ? weight + at * plane : nullptr, \
+      coefs, values + at * n_images, state + at * kStateSize,             \
+      part_cmp + at * n_parts, part_idx + at * n_parts,                   \
+      part_integ + at * n_parts, n_parts, count, n_images, n_pols,        \
+      height, width, pixels_per_block, allow_negative, psf_facet_stride,  \
+      table
+    cudaError_t err;
+    switch (mode) {
+      case kSigned:
+        err = launch_facet_step<kSigned>(n_blocks, s, RADLER_FACET_ARGS);
+        break;
+      case kLinear:
+        err = launch_facet_step<kLinear>(n_blocks, s, RADLER_FACET_ARGS);
+        break;
+      case kNormal:
+        err = launch_facet_step<kNormal>(n_blocks, s, RADLER_FACET_ARGS);
+        break;
+      case kSquared:
+        err = launch_facet_step<kSquared>(n_blocks, s, RADLER_FACET_ARGS);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
 #undef RADLER_FACET_ARGS
-  return static_cast<int>(cudaGetLastError());
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 int hogbom_select_facets(const float* part_cmp, const int* part_idx,

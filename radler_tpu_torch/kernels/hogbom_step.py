@@ -31,8 +31,10 @@ The batched facet route runs F facets' loops in lockstep through the facet
 mode of the same pair (:func:`hogbom_step_facets`,
 :func:`hogbom_select_facets`, driven by :func:`facet_hogbom_loop`): one
 step launch and one select launch an iteration for all facets, each facet
-with its own state, and the PSFs shared or one stack a facet.  Its plain
-version is the per-facet loop over the single-cube plain versions.
+with its own state, and the PSFs shared or one stack a facet.  The step
+runs over each facet's true box (top left in the common box) and never
+touches the padding around it.  Its plain version is the single-cube plain
+step on each facet's box in turn.
 """
 
 from __future__ import annotations
@@ -46,16 +48,20 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.peak_finder import FLT_MIN
-from ..ops.psf_subtract import subtract_psf_from_cube
+from ..ops.psf_subtract import shift_psf
 
 MODES = ("signed", "linear", "normal", "squared")
 # Flat pixels one step block reduces to one partial (256 threads x 16).
 PIXELS_PER_BLOCK = 4096
+# Facets one facet-step launch takes (csrc/hogbom_step.cu kMaxFacets).
+FACETS_PER_LAUNCH = 256
 # Iterations enqueued between two host reads of the loop state.
 CHUNK = 64
 # Loop-state slots (int32), shared with csrc/hogbom_step.cu.
 Y, X, FOUND, DIVERGING, ITERATION, ACTIVE, INDEX = range(7)
 STATE_SIZE = 8
+# The index of a partial that holds no peak.
+INT_MAX = 2**31 - 1
 
 
 def integration_coefficients(meta) -> Tuple[str, np.ndarray, np.ndarray]:
@@ -274,27 +280,46 @@ def hogbom_step_reference(
     n_polarizations: int,
     allow_negative: bool,
     row_offset: int = 0,
+    box: Optional[Tuple[int, int]] = None,
+    n_parts: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`hogbom_step`; reads nothing back to the host."""
+    """Plain version of :func:`hogbom_step`; reads nothing back to the host.
+
+    ``box`` (rows, columns), the facet step's true box at the top left of
+    the cube (None: the whole cube), limits the step to it: nothing outside
+    it is read or written but the model at the peak.  The partials are runs
+    of :data:`PIXELS_PER_BLOCK` box pixels in row-major order, with the
+    cube's flat indices; ``n_parts`` pads them with no peak (-inf,
+    INT_MAX, 0) past the box's runs."""
     n, height, width = residual.shape
+    rows, cols = box if box is not None else (height, width)
     dev = residual.device
     active = state[ACTIVE] != 0
     y, x = state[Y].long(), state[X].long()
     add_at_peak(model, values, y - row_offset, x, active)
     psf_indices = torch.arange(n, device=dev) // n_polarizations
-    new = subtract_psf_from_cube(residual, psfs, psf_indices, x, y, values,
-                                 row_offset)
-    residual.copy_(torch.where(active, new, residual))
+    shifted = shift_psf(psfs, x, y, row_offset, rows)[..., :cols]
+    box_res = residual[:, :rows, :cols]
+    new = box_res - values[:, None, None] * shifted[psf_indices]
+    box_res.copy_(torch.where(active, new, box_res))
 
-    integ = _integrate(residual, coefs, mode, n_polarizations).reshape(-1)
-    weighted = integ * weight.reshape(-1) if weight is not None else integ
+    integ = _integrate(box_res, coefs, mode, n_polarizations).reshape(-1)
+    weighted = (integ * weight[:rows, :cols].reshape(-1)
+                if weight is not None else integ)
     cmp = weighted.abs() if allow_negative else weighted
-    n_parts = -(-cmp.numel() // PIXELS_PER_BLOCK)
-    pad = n_parts * PIXELS_PER_BLOCK - cmp.numel()
-    blocks = F.pad(cmp, (0, pad), value=-np.inf).view(n_parts, -1)
+    pixels = rows * cols
+    runs = -(-pixels // PIXELS_PER_BLOCK)
+    n_parts = runs if n_parts is None else n_parts
+    blocks = F.pad(cmp, (0, n_parts * PIXELS_PER_BLOCK - pixels),
+                   value=-np.inf).view(n_parts, -1)
     part_cmp, arg = blocks.max(dim=1)  # first maximum of each block
-    part_idx = arg + torch.arange(n_parts, device=dev) * PIXELS_PER_BLOCK
-    part_integ = integ[part_idx.clamp(max=integ.numel() - 1)]
+    q = arg + torch.arange(n_parts, device=dev) * PIXELS_PER_BLOCK
+    part_integ = integ[q.clamp(max=pixels - 1)]
+    part_idx = (q // cols) * width + q % cols
+    tail = torch.arange(n_parts, device=dev) >= runs
+    part_cmp = part_cmp.masked_fill(tail, -np.inf)
+    part_idx = part_idx.masked_fill(tail, INT_MAX)
+    part_integ = part_integ.masked_fill(tail, 0.0)
     return part_cmp, part_idx.to(torch.int32), part_integ
 
 
@@ -359,6 +384,27 @@ def advance_state(buffers: LoopBuffers, params: LoopParams,
     buffers.values.copy_(torch.where(active, raw * params.gain, buffers.values))
 
 
+def facet_parts(boxes: Optional[torch.Tensor], height: int, width: int,
+                n_facets: int) -> Tuple[Tuple[Tuple[int, int], ...], int]:
+    """Each facet's true box ``(rows, columns)`` on the host (the whole
+    ``height`` x ``width`` common box when ``boxes`` is None) and the
+    partials a facet, ``n_parts``: the most runs of
+    :data:`PIXELS_PER_BLOCK` box pixels any facet has."""
+    if boxes is None:
+        sizes = ((height, width),) * n_facets
+    else:
+        if boxes.device.type != "cpu" or boxes.dtype != torch.int32:
+            raise ValueError("boxes must be an int32 tensor on the CPU: the "
+                             "step's grid is sized from them")
+        sizes = tuple((int(h), int(w)) for h, w in boxes.tolist())
+        if len(sizes) != n_facets or not all(
+                1 <= h <= height and 1 <= w <= width for h, w in sizes):
+            raise ValueError(f"boxes {sizes} do not fit {n_facets} facets in "
+                             f"a {height}x{width} common box")
+    n_parts = max(-(-h * w // PIXELS_PER_BLOCK) for h, w in sizes)
+    return sizes, n_parts
+
+
 def hogbom_step_facets_reference(
     residual: torch.Tensor,
     model: torch.Tensor,
@@ -371,17 +417,20 @@ def hogbom_step_facets_reference(
     mode: str,
     n_polarizations: int,
     allow_negative: bool,
+    boxes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of :func:`hogbom_step_facets`: the single-cube plain
-    step on each facet in turn; partials ``[F, n_parts]``."""
+    step on each facet's true box in turn; partials ``[F, n_parts]``."""
+    n_facets, _, height, width = residual.shape
+    sizes, n_parts = facet_parts(boxes, height, width, n_facets)
     shared = psfs.ndim == 3
     parts = [
         hogbom_step_reference(
             residual[f], model[f], psfs if shared else psfs[f], values[f],
             state[f], coefs, None if weight is None else weight[f],
             mode=mode, n_polarizations=n_polarizations,
-            allow_negative=allow_negative)
-        for f in range(residual.shape[0])
+            allow_negative=allow_negative, box=sizes[f], n_parts=n_parts)
+        for f in range(n_facets)
     ]
     return tuple(torch.stack(p) for p in zip(*parts))
 
@@ -424,7 +473,7 @@ def _lib():
         )
         lib.hogbom_select.restype = i32
         lib.hogbom_step_facets.argtypes = (
-            [ptr] * 3 + [ctypes.c_longlong] + [ptr] * 7 + [i32] * 9 + [ptr])
+            [ptr] * 3 + [ctypes.c_longlong] + [ptr] * 8 + [i32] * 9 + [ptr])
         lib.hogbom_step_facets.restype = i32
         lib.hogbom_select_facets.argtypes = (
             [ptr] * 3 + [i32] * 2 + [ptr] * 2 + [i32] * 3 + [ptr] * 6
@@ -589,16 +638,20 @@ def hogbom_step_facets(
     mode: str,
     n_polarizations: int,
     allow_negative: bool,
+    boxes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`hogbom_step` for F facets in one launch: ``residual`` and
     ``model`` ``[F, N, H, W]``, ``psfs`` ``[C, H, W]`` shared by every facet
     or ``[F, C, H, W]``, ``values`` ``[F, N]``, ``state`` ``[F,
-    STATE_SIZE]``, ``weight`` ``[F, H, W]`` or None; returns the partials
-    ``[F, n_parts]``.  A facet whose ``state[f, ACTIVE]`` is 0 is left
-    unchanged."""
+    STATE_SIZE]``, ``weight`` ``[F, H, W]`` or None; ``boxes``, an int32
+    ``[F, 2]`` tensor on the CPU, each facet's true box (rows, columns) at
+    the top left of the common box ``H`` x ``W`` (None: the whole box).
+    Only the true boxes are read and written.  Returns the partials ``[F,
+    n_parts]`` (:func:`facet_parts`), a facet's unused tail as no peak.  A
+    facet whose ``state[f, ACTIVE]`` is 0 is left unchanged."""
     args = (residual, model, psfs, values, state, coefs, weight)
     kw = dict(mode=mode, n_polarizations=n_polarizations,
-              allow_negative=allow_negative)
+              allow_negative=allow_negative, boxes=boxes)
     if residual.device.type == "cpu":
         return hogbom_step_facets_reference(*args, **kw)
     if residual.device.type != "cuda":
@@ -611,9 +664,10 @@ def hogbom_step_facets(
             or (mode == "signed" and n != 1)):
         raise ValueError(
             f"hogbom_step_facets: bad cube shape {tuple(residual.shape)}")
+    sizes, n_parts = facet_parts(boxes, height, width, n_facets)
+    box_table = torch.tensor(sizes, dtype=torch.int32)
     n_coefs = n + (n_chan if mode == "normal" else 0)
     dev, f32 = residual.device, torch.float32
-    n_parts = -(-height * width // PIXELS_PER_BLOCK)
     part_cmp = torch.empty((n_facets, n_parts), dtype=f32, device=dev)
     part_idx = torch.empty((n_facets, n_parts), dtype=torch.int32,
                            device=dev)
@@ -633,6 +687,7 @@ def hogbom_step_facets(
         part_cmp.data_ptr(),
         part_idx.data_ptr(),
         part_integ.data_ptr(),
+        box_table.data_ptr(),
     ]
     lib = _lib()
     with torch.cuda.device(dev):
@@ -642,7 +697,7 @@ def hogbom_step_facets(
             PIXELS_PER_BLOCK, MODES.index(mode), int(allow_negative), stream,
         )
     _raise_on(err, "hogbom_step_facets")
-    hogbom_step_facets.launches += 1
+    hogbom_step_facets.launches += -(-n_facets // FACETS_PER_LAUNCH)
     return part_cmp, part_idx, part_integ
 
 
@@ -951,6 +1006,7 @@ def facet_hogbom_loop(
     fitter=None,
     forced_terms: Optional[torch.Tensor] = None,  # [F, T-1, H, W]
     plain: bool = False,
+    boxes: Optional[torch.Tensor] = None,  # int32 [F, 2] (rows, cols), CPU
 ) -> FacetLoopResult:
     """F facets' Högbom minor loops in lockstep: the loop of
     :func:`hogbom_loop` on each facet, with one facet-mode step and select
@@ -958,7 +1014,10 @@ def facet_hogbom_loop(
     ``_facet_hogbom_program``, ``generic_clean.py:154``).  Facets stop on
     their own; the launches go on, no-ops for stopped facets, until the last
     one stops.  The host reads every facet's state once per ``CHUNK``
-    iterations.  ``plain`` runs the plain versions on CUDA tensors."""
+    iterations.  ``boxes`` holds each facet's true box at the top left of
+    the common box (None: the whole box); the step never touches the
+    padding around it, whose weight must be 0.  ``plain`` runs the plain
+    versions on CUDA tensors."""
     dev = residual.device
     n_facets = residual.shape[0]
     mode, chan_np, pol_np = integration_coefficients(meta)
@@ -1003,7 +1062,7 @@ def facet_hogbom_loop(
         partials = step(
             residual, model, psfs, buffers.values, buffers.state, coefs,
             weight, mode=mode, n_polarizations=P,
-            allow_negative=allow_negative,
+            allow_negative=allow_negative, boxes=boxes,
         )
         select(partials, residual, buffers, params, rms)
         if fitter is not None:

@@ -325,7 +325,8 @@ class GenericClean(DeconvolutionAlgorithm):
         initial peak on the squared integration times the RMS within its
         valid window (the border of its true box and its mask; the padding
         is never searched), its major-iteration threshold, then the loop
-        (:func:`facet_hogbom_loop`).  Returns ``(results, iterations,
+        (:func:`facet_hogbom_loop`) over the true boxes: the padding is
+        neither read nor written.  Returns ``(results, iterations,
         lockstep)``: a :class:`DeconvolutionResult` and the iteration count
         of each facet, and the loop's lockstep iterations."""
         n_facets, _, box_h, box_w = facet_residual.shape
@@ -387,6 +388,8 @@ class GenericClean(DeconvolutionAlgorithm):
                 allow_negative=self.allow_negative_components,
                 fitter=fit,
                 forced_terms=facet_forced_terms,
+                boxes=torch.tensor([(sh, sw) for sw, sh in facet_boxes],
+                                   dtype=torch.int32),
             )
             lockstep = loop.lockstep
         results = []

@@ -11,6 +11,10 @@ command line, on one NVIDIA GPU.  Run from the root of a checkout:
     python3 scripts/kernel_probe.py facets    # B1's facet mode, config 5 on
                                               # its 4 routes, card vs CPU
     python3 scripts/kernel_probe.py b2 b3 check   # against plain only
+    python3 scripts/kernel_probe.py registers PARENT_ROOT .
+                        # registers of B1's step instantiations in each
+                        # checkout, and whether the single-cube step's SASS
+                        # is the first checkout's
 
 ``check`` leaves out the timing phases.  It imports nothing of JAX.
 """
@@ -78,6 +82,78 @@ def dense_loop_forms(iterations=640, rounds=3):
                f"iteration ({iterations} iterations)")
 
 
+def _step_kernels(root):
+    """The kernel library of the checkout at ``root``, built there (or
+    reused) by its own ``_build``: {(kind, template arguments): (registers,
+    SASS instructions)} for each instantiation of B1's single-cube step
+    (mode, row shard) and facet step, from ``cuobjdump``, which reads a
+    reused library as well as a fresh one."""
+    import re
+    import shutil
+    import subprocess
+
+    code = ("import sys; sys.path.insert(0, '.'); "
+            "from radler_tpu_torch.kernels import _build; _build.library(); "
+            "print(_build.BuildInfo.path)")
+    path = subprocess.run([sys.executable, "-c", code], cwd=root, text=True,
+                          capture_output=True, check=True).stdout.split()[-1]
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+    def dump(*flags):
+        return subprocess.run([cuobjdump, *flags, path], text=True,
+                              capture_output=True, check=True).stdout
+
+    def key(mangled):
+        entry = re.search(r"(hogbom_(?:facet_)?step_kernel)I((?:L[ib]\d+E)+)E",
+                          mangled)
+        if not entry:
+            return None
+        args = tuple(int(a) for a in re.findall(r"L[ib](\d+)E", entry[2]))
+        return entry[1], args
+
+    kernels = {}
+    for mangled, regs in re.findall(r"Function (\S+):\s*REG:(\d+)",
+                                    dump("--dump-resource-usage")):
+        k = key(mangled)
+        if k:
+            kernels[k] = [int(regs), None]
+    for mangled, body in re.findall(
+            r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)",
+            dump("-sass"), flags=re.S):
+        k = key(mangled)
+        if k in kernels:
+            kernels[k][1] = re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*;)", body)
+    return path, kernels
+
+
+def step_registers(roots=(".",)):
+    """ptxas's registers for each instantiation of B1's single-cube step
+    (mode, row shard) and its facet step, for each checkout in ``roots``;
+    with two or more roots, whether each single-cube instantiation's SASS is
+    the same as in the first (the instructions, without their addresses)."""
+    modes = ("signed", "linear", "normal", "squared")
+    first = None
+    for root in roots:
+        path, kernels = _step_kernels(root)
+        cs.say(f"  {Path(root).resolve()}: {path}")
+        for (kind, args), (regs, sass) in sorted(kernels.items()):
+            names = [modes[args[0]], *map(str, args[1:])]
+            label = f"{kind}<{', '.join(names)}>"
+            same = ""
+            # The single-cube step: (mode, row shard) and, in checkouts
+            # before the facet step had its own kernel, a facet flag of 0.
+            single = kind == "hogbom_step_kernel" and not any(args[2:])
+            if single and first is not None:
+                theirs = first.get(args[:2])
+                same = (f", SASS the same as the first root's "
+                        f"({len(sass)} instructions): {sass == theirs}")
+            cs.say(f"    {label}: {regs} registers{same}")
+        if first is None:
+            first = {args[:2]: sass for (kind, args), (_, sass)
+                     in kernels.items()
+                     if kind == "hogbom_step_kernel" and not any(args[2:])}
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("kernel_probe.py needs a CUDA device", file=sys.stderr)
@@ -85,6 +161,9 @@ def main(argv):
     cs.say("== the card ==")
     cs.phase_card()
     timed = "check" not in argv
+    if "registers" in argv:
+        cs.say("== B1's step instantiations: registers (cuobjdump) ==")
+        step_registers([a for a in argv if Path(a).is_dir()] or ["."])
     if "b2" in argv:
         cs.say("== the subminor kernel against its plain version ==")
         cs.phase_subminor_vs_plain()
@@ -130,15 +209,16 @@ def main(argv):
             cs.say("== B4 in linear mode at the multiscale mesh's shard ==")
             cs.phase_b4_times(cs.B4_LINEAR_CASE)
     if "facets" in argv:
+        cs.say("== B1's step instantiations: registers (cuobjdump) ==")
+        step_registers()
         cs.say("== B1's facet mode against its plain version ==")
         cs.phase_facet_b1_vs_plain()
         cs.say("== config 5 through Radler.perform ==")
         runs = cs.phase_config5()
         boxes = runs["generic, batched"]["boxes"]
         if timed:
-            cs.say("== B1's facet mode at config 5's shape ==")
-            cs.phase_facet_b1_times((max(b[3] for b in boxes),
-                                     max(b[2] for b in boxes)))
+            cs.say("== B1's facet mode at config 5's shape and true boxes ==")
+            cs.phase_facet_b1_times([(b[3], b[2]) for b in boxes])
         cs.say("== faceted performs on the card against the CPU ==")
         cs.phase_facets_card_vs_cpu()
     cs.say("probe done")

@@ -497,11 +497,13 @@ def test_divergence_rolls_back_the_broken_facet(serial, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-facet"])
-def test_facet_loop_bit_equal_to_per_facet_loops(shared):
+def facet_loop_against_per_facet_loops(shared, boxed):
     """The plain facet-mode loop against each facet's single-cube plain loop
     (``hogbom_loop``): the same bits, iteration counts and peaks; facets
-    with different thresholds and starts, one with no peak."""
+    with different thresholds and starts, one with no peak.  ``boxed``
+    gives the lockstep loop each facet's true box (the weight 0 outside
+    it): inside the boxes the bits are the single loops', and the padding,
+    which the single loops update, is left as it was."""
     from radler_tpu_torch.image_set import CubeMeta
     from radler_tpu_torch.ops.spectral_fitting import SpectralFitter
 
@@ -521,6 +523,11 @@ def test_facet_loop_bit_equal_to_per_facet_loops(shared):
                      for f in range(n_facets)])
     weight = rng.uniform(0.5, 1.0, (n_facets, h, w)).astype(np.float32)
     weight[:, :, w - 9:] = 0.0
+    boxes = [(h, w - 9), (h - 6, w - 20), (h - 3, 1)]
+    if boxed:
+        for f, (rows, cols) in enumerate(boxes):
+            weight[f, rows:, :] = 0.0
+            weight[f, :, cols:] = 0.0
     fitter = SpectralFitter(rd.SpectralFittingMode.POLYNOMIAL, 2,
                             [1e8, 1.2e8], [1.0, 0.7])
     thresholds, starts, limits = [0.05, 0.3, 0.05], [0, 5, 0], [200, 60, 200]
@@ -536,7 +543,8 @@ def test_facet_loop_bit_equal_to_per_facet_loops(shared):
         batched_res, batched_model, psfs_in, t(weight), None, peaks,
         hs.FacetLoopParams.make(0.1, thresholds, [3.0] * n_facets, 4.0,
                                 limits, False, "cpu"),
-        starts, meta=meta, allow_negative=True, fitter=fitter)
+        starts, meta=meta, allow_negative=True, fitter=fitter,
+        boxes=torch.tensor(boxes, dtype=torch.int32) if boxed else None)
     for f in range(n_facets):
         r, m = t(res[f].copy()), torch.zeros(res[f].shape)
         one = hs.hogbom_loop(
@@ -545,11 +553,33 @@ def test_facet_loop_bit_equal_to_per_facet_loops(shared):
                                          limits[f], False),
             starts[f], meta=meta, allow_negative=True, fitter=fitter)
         assert out.results[f] == one
-        assert torch.equal(batched_res[f], r)
+        if boxed:
+            rows, cols = boxes[f]
+            assert torch.equal(batched_res[f, :, :rows, :cols],
+                               r[:, :rows, :cols])
+            pad = torch.ones((h, w), dtype=torch.bool)
+            pad[:rows, :cols] = False
+            assert torch.equal(batched_res[f][:, pad], t(res[f])[:, pad])
+        else:
+            assert torch.equal(batched_res[f], r)
         assert torch.equal(batched_model[f], m)
     done = [r.iteration - s for r, s in zip(out.results, starts)]
     assert done[-1] == 0 and done[0] > 10
     assert out.lockstep >= max(done)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-facet"])
+def test_facet_loop_bit_equal_to_per_facet_loops(shared):
+    """The lockstep loop over the common box (``facet_loop_against_per_facet
+    _loops``)."""
+    facet_loop_against_per_facet_loops(shared, boxed=False)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-facet"])
+def test_facet_loop_bit_equal_to_per_facet_loops_in_true_boxes(shared):
+    """The lockstep loop over each facet's true box, the batched route's
+    (``facet_loop_against_per_facet_loops``)."""
+    facet_loop_against_per_facet_loops(shared, boxed=True)
 
 
 def test_batching_budget_follows_the_device():

@@ -401,10 +401,158 @@ def print_readings():
               f"{np.abs(b[2] - j[2]).max() / scale:.3g}", flush=True)
 
 
+def _margins(coeffs, mask, blob, window, min_scale, sigma_level, tolerance):
+    """The structure selection's decisions and their margins, from one
+    ``structure_stats_select`` call's outputs: the per-scale thresholds
+    (recomputed in float32 as both packages form them, and checked against
+    the mask), the member nearest the threshold and the non-member nearest
+    it (in units of the threshold), and for each scale the margin of its
+    significance test ``vals > rms * sigma_level``."""
+    f32 = np.float32
+    n_scales = mask.shape[0]
+    stats = blob[:5 * n_scales].reshape(5, n_scales)
+    rmses, vals = stats[0].astype(f32), stats[1].astype(f32)
+    signed_max = f32(blob[-1])
+    factor = f32(f32(sigma_level) * f32(4.0)) / f32(5.0)
+    thr = np.maximum(rmses * factor, f32(tolerance) * abs(signed_max))
+    thr = np.where(signed_max < 0.0, -thr, thr).astype(f32)
+    c = coeffs[:n_scales]
+    t = thr[:, None, None]
+    exceeds = np.where(t >= 0.0, c > t, (c < t) | (c > -t))
+    live = window[None] & (np.arange(n_scales)[:, None, None] >= min_scale)
+    # Distance past the threshold, in units of it (> 0: a member).
+    past = ((np.abs(c) if signed_max < 0.0 else c) - np.abs(t)) / np.abs(t)
+
+    def nearest(which):
+        """(distance in units of the threshold, scale, y, x, value) of the
+        pixel of ``which`` nearest the threshold."""
+        at = np.argwhere(live & which)
+        if not at.size:
+            return None
+        k = np.argmin(np.abs(past[tuple(at.T)]))
+        sc, y, x = (int(v) for v in at[k])
+        return float(past[sc, y, x]), sc, y, x, float(c[sc, y, x])
+
+    return dict(
+        mask_matches=bool(np.array_equal(exceeds & live, mask)),
+        thresholds=thr,
+        nearest_member=nearest(exceeds),
+        nearest_other=nearest(~exceeds),
+        significance=(vals - rmses * f32(sigma_level)) / (
+            rmses * f32(sigma_level)),
+    )
+
+
+def print_iuwt_decisions(grid=2, iterations=12, facet=1):
+    """Every comparison of facet ``facet``'s structure iterations on
+    ``test_faceted_iuwt.py``'s field (a ``grid`` x ``grid`` grid,
+    ``iterations`` structure iterations), in the JAX package and in the
+    port, and in the JAX package on its input times float32(1 + 1e-7):
+    the significant scale and each scale's significance margin, the
+    structure thresholds and the members nearest them on either side, the
+    member count and box, the CG's SNR after each of its iterations (its
+    stop test: SNR > 100 after the third, or a falling SNR after the sixth
+    above 3) and the RMS guard.  Run it in two processes to see which
+    decision the JAX package resolves both ways."""
+    import radler_tpu.ops.iuwt as jax_ops
+
+    import radler_tpu_torch.ops.iuwt as port_ops
+
+    mp = pytest.MonkeyPatch()
+    psf, residual = iuwt_field(128)
+    s = settings("IUWT", 128, grid, iterations=iterations,
+                 major_loop_gain=0.6, absolute_threshold=0.0)
+    for name, pkg, ops, field in (
+            ("JAX", jrd, jax_ops, residual),
+            ("JAX, input times float32(1 + 1e-7)", jrd, jax_ops,
+             residual * NUDGE),
+            ("port", rd, port_ops, residual)):
+        calls = []
+        select0 = ops.structure_stats_select
+        cg0 = ops.conjugate_gradient_guarded
+
+        def select(image, window, select_window, psf_rms, scale0, sigma,
+                   absolute, tol, min_scale, n_scales, allow_negative,
+                   select0=select0, calls=calls):
+            out = select0(image, window, select_window, psf_rms, scale0,
+                          sigma, absolute, tol, min_scale, n_scales,
+                          allow_negative)
+            host = [np.asarray(o.cpu() if torch.is_tensor(o) else o)
+                    for o in out[:3]]
+            calls.append(("select", tuple(image.shape), host,
+                          np.asarray(window.cpu() if torch.is_tensor(window)
+                                     else window),
+                          np.asarray(select_window.cpu()
+                                     if torch.is_tensor(select_window)
+                                     else select_window),
+                          int(min_scale), float(sigma), float(tol)))
+            return out
+
+        def cg(scales, mask, masked_dirty, dirty, psf_k, gain, n_scales,
+               max_iterations=20, cg0=cg0, calls=calls, ops=ops):
+            out = cg0(scales, mask, masked_dirty, dirty, psf_k, gain,
+                      n_scales, max_iterations)
+            snrs = []
+            for k in range(1, max_iterations + 1):
+                _, status = ops.conjugate_gradient(
+                    scales, mask, masked_dirty, psf_k, n_scales, k)
+                snrs.append(float(np.asarray(status)[1]))
+                if k > 1 and snrs[-1] == snrs[-2]:
+                    snrs.pop()
+                    break
+            calls.append(("cg", tuple(dirty.shape),
+                          np.asarray(out[1]).tolist(), snrs))
+            return out
+
+        mp.setattr(ops, "structure_stats_select", select)
+        mp.setattr(ops, "conjugate_gradient_guarded", cg)
+        out = run(pkg, s, psf, field, mp, False)
+        mp.undo()
+        print(f"== {name}: counts {out[1]} ==", flush=True)
+        shapes = []
+        for call in calls:
+            if call[0] == "select" and call[1] not in shapes:
+                shapes.append(call[1])
+        n_select = 0
+        for call in calls:
+            if call[0] == "select":
+                at = shapes.index(call[1])
+                if at != facet:
+                    continue
+                n_select += 1
+                coeffs, mask, blob = call[2]
+                m = _margins(coeffs, mask, blob, call[4], call[5], call[6],
+                             call[7])
+                n = mask.shape[0]
+                print(f"  structure iteration {n_select} {call[1]}: scale "
+                      f"{int(blob[-2])} signed max {blob[-1]:.9g}; count "
+                      f"{int(blob[5 * n])} box {blob[5 * n + 1:5 * n + 5]}"
+                      f"; thresholds {m['thresholds']}; mask as "
+                      f"recomputed {m['mask_matches']}; nearest member "
+                      f"and non-member (distance past the threshold in "
+                      f"units of it, scale, y, x, value) "
+                      f"{m['nearest_member']}, {m['nearest_other']}; "
+                      f"significance margins {np.round(m['significance'], 4)}",
+                      flush=True)
+            elif at == facet:
+                success, snr, before, after = call[2]
+                print(f"    CG {call[1]}: {len(call[3])} iterations, SNR "
+                      f"{[f'{v:.6g}' for v in call[3]]}, success "
+                      f"{bool(success)}; RMS {before:.9g} -> {after:.9g}",
+                      flush=True)
+
+
 if __name__ == "__main__":
     # From the repo's root, on the CPU (a few minutes):
     #   PYTHONPATH=. python tests/test_torch_facets_serial.py
+    # and, for the faceted IUWT case's decisions alone:
+    #   PYTHONPATH=. python tests/test_torch_facets_serial.py decisions
+    import sys
+
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    print_readings()
+    if sys.argv[1:] == ["decisions"]:
+        print_iuwt_decisions()
+    else:
+        print_readings()

@@ -1087,26 +1087,54 @@ def test_mesh_dense_subminor_bit_equal_to_plain(cuda, mesh_shape, P):
 # ---------------------------------------------------------------------------
 
 
-def make_facet_case(case, n_facets, shared, device, seed=0):
+# Ragged true boxes (rows, columns) in the common box: full width (383, not
+# a multiple of 4), the inactive facet's, one pixel wide, and narrower than
+# a block's threads.
+TRUE_BOXES = [(200, 383), (250, 372), (131, 1), (257, 203)]
+# The facet step takes the planes in chunks of 8, the last one partial:
+# CASES, 2, 3 and 6 planes, and 12 in two chunks (with 3 polarizations, a
+# channel across the chunks' border).
+FACET_CASES = CASES + [
+    ("squared", 1, 2, True),
+    ("normal", 3, 1, False),
+    ("linear", 6, 1, False),
+    ("normal", 4, 3, False),
+    ("squared", 3, 4, True),
+]
+# What the padding around a true box holds: a value the search would pick
+# if the kernel read it.
+PADDING = 12345.0
+
+
+def make_facet_case(case, n_facets, shared, device, seed=0, boxed=False):
     """F facets' cubes at the ragged shape, each searchable only in its own
     top-left box (the padded common box), with their own loop states; facet
-    1 is inactive from the start."""
+    1 is inactive from the start.  ``boxed`` takes the boxes from
+    ``TRUE_BOXES`` (``c["boxes"]``) and fills the padding with
+    ``PADDING``."""
     cases = [make_case(case, device, seed + f) for f in range(n_facets)]
     c = dict(cases[0])
     c["res"] = torch.stack([k["res"] for k in cases])
     c["psfs"] = (cases[0]["psfs"] if shared
                  else torch.stack([k["psfs"] for k in cases]))
     weight = torch.stack([k["weight"] for k in cases])
-    for f in range(n_facets):
-        weight[f, HEIGHT - 7 * f:, :] = 0.0
-        weight[f, :, WIDTH - 11 * f:] = 0.0
+    boxes = [TRUE_BOXES[f % len(TRUE_BOXES)] if boxed
+             else (HEIGHT - 7 * f, WIDTH - 11 * f) for f in range(n_facets)]
+    for f, (rows, cols) in enumerate(boxes):
+        weight[f, rows:, :] = 0.0
+        weight[f, :, cols:] = 0.0
+        if boxed:
+            c["res"][f, :, rows:, :] = PADDING
+            c["res"][f, :, :, cols:] = PADDING
     c["weight"] = weight
+    c["boxes"] = (torch.tensor(boxes, dtype=torch.int32) if boxed
+                  else None)
     states, raws = [], []
-    for f in range(n_facets):
-        flat = int(torch.argmax(c["res"][f, 0].abs() * weight[f]))
-        y, x = divmod(flat, WIDTH)
+    for f, (rows, cols) in enumerate(boxes):
+        box = c["res"][f, 0, :rows, :cols].abs() * weight[f, :rows, :cols]
+        y, x = divmod(int(torch.argmax(box)), cols)
         active = 0 if f == 1 else 1
-        states.append([y, x, 1, 0, 0, active, flat, 0])
+        states.append([y, x, 1, 0, 0, active, y * WIDTH + x, 0])
         raws.append(c["res"][f, :, y, x])
     raw = torch.stack(raws)
     c["state"] = torch.tensor(states, dtype=torch.int32, device=device)
@@ -1114,16 +1142,28 @@ def make_facet_case(case, n_facets, shared, device, seed=0):
     return c
 
 
+def assert_padding_untouched(res, c):
+    """Every pixel outside each facet's true box still holds PADDING."""
+    for f, (rows, cols) in enumerate(c["boxes"].tolist()):
+        pad = torch.ones_like(res[f, 0], dtype=torch.bool)
+        pad[:rows, :cols] = False
+        assert bool((res[f][:, pad] == PADDING).all()), f
+
+
+@pytest.mark.parametrize("boxed", [False, True], ids=["common", "true-boxes"])
 @pytest.mark.parametrize("use_weight", [False, True])
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-facet"])
 @pytest.mark.parametrize("n_facets", [1, 4])
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+@pytest.mark.parametrize("case", FACET_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
 def test_facet_step_and_select_bit_equal_to_plain(cuda, case, n_facets,
-                                                  shared, use_weight):
+                                                  shared, use_weight, boxed):
     """The facet-mode pair against its plain version (the per-facet loop of
-    the single-cube plain versions); one facet reproduces the single-cube
-    kernels bit for bit."""
-    c = make_facet_case(case, n_facets, shared, cuda)
+    the single-cube plain versions); one facet over the whole box
+    reproduces the single-cube kernels bit for bit.  With true boxes the
+    step reads and writes nothing outside them, and a facet's partials past
+    its own runs hold no peak."""
+    c = make_facet_case(case, n_facets, shared, cuda, boxed=boxed)
     params = hs.FacetLoopParams.make(
         0.1, [0.0] * n_facets, [10.0] * n_facets, 4.0, [100] * n_facets,
         False, cuda)
@@ -1143,7 +1183,7 @@ def test_facet_step_and_select_bit_equal_to_plain(cuda, case, n_facets,
                             buffers.state, c["coefs"],
                             c["weight"] if use_weight else None,
                             mode=c["mode"], n_polarizations=c["P"],
-                            allow_negative=True)
+                            allow_negative=True, boxes=c["boxes"])
             select(partials, res, buffers, params,
                    c["weight"] if use_weight else None)
         torch.cuda.synchronize()
@@ -1156,9 +1196,16 @@ def test_facet_step_and_select_bit_equal_to_plain(cuda, case, n_facets,
         assert torch.equal(a[active], b[active])
     for name in ("state", "value", "peak", "values"):
         assert torch.equal(getattr(bk, name), getattr(bp, name)), name
+    if boxed:
+        assert_padding_untouched(rk, c)
+        runs = [-(-r * w // hs.PIXELS_PER_BLOCK)
+                for r, w in c["boxes"].tolist()]
+        for f in active:
+            assert bool((pk[0][f, runs[f]:] == -float("inf")).all())
+            assert bool((pk[1][f, runs[f]:] == 2**31 - 1).all())
     if n_facets > 1:
         assert torch.equal(rk[1], c["res"][1])  # the inactive facet
-    else:
+    elif not boxed:
         res = c["res"][0].clone()
         model = torch.zeros_like(res)
         one = hs.LoopBuffers(c["state"][0].clone(),
@@ -1176,14 +1223,15 @@ def test_facet_step_and_select_bit_equal_to_plain(cuda, case, n_facets,
         assert torch.equal(one.state, bk.state[0])
 
 
+@pytest.mark.parametrize("boxed", [False, True], ids=["common", "true-boxes"])
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-facet"])
-def test_facet_loop_bit_equal_to_plain(cuda, shared):
+def test_facet_loop_bit_equal_to_plain(cuda, shared, boxed):
     """The lockstep loop with the 2-term fit between launches, an rms
     factor and facets that stop at different iterations: kernel and plain
-    loop end in the same state."""
+    loop end in the same state, with and without true boxes."""
     n_facets = 4
     c = make_facet_case(("squared", 2, 4, True), n_facets, shared, cuda,
-                        seed=5)
+                        seed=5, boxed=boxed)
     fitter = SpectralFitter(rd.SpectralFittingMode.POLYNOMIAL, 2,
                             [1e8, 1.1e8], [1.0, 2.0])
     rms = torch.as_tensor(
@@ -1203,7 +1251,7 @@ def test_facet_loop_bit_equal_to_plain(cuda, shared):
         out = hs.facet_hogbom_loop(
             res, model, c["psfs"], c["weight"] * rms, rms, peaks, params,
             starts, meta=c["meta"], allow_negative=True, fitter=fitter,
-            plain=plain)
+            plain=plain, boxes=c["boxes"])
         outs.append((out, res, model))
     (ok, rk, mk), (op, rp, mp) = outs
     assert ok == op
@@ -1211,3 +1259,44 @@ def test_facet_loop_bit_equal_to_plain(cuda, shared):
     assert done[1] == 0 and len(set(done)) > 2
     assert ok.lockstep >= max(done)
     assert torch.equal(rk, rp) and torch.equal(mk, mp)
+    if boxed:
+        assert_padding_untouched(rk, c)
+
+
+def test_facet_step_over_more_facets_than_a_launch_takes(cuda):
+    """More facets than one facet-step launch takes (FACETS_PER_LAUNCH):
+    the step launches in turns, each on its own facets' cubes, states and
+    partials, bit-equal to the plain version over ragged true boxes."""
+    n_facets, height, width = hs.FACETS_PER_LAUNCH + 3, 24, 40
+    rng = np.random.default_rng(6)
+    res = torch.as_tensor(rng.normal(scale=0.01, size=(
+        n_facets, 1, height, width)).astype(np.float32), device=cuda)
+    boxes = [(1 + f % height, 1 + (7 * f) % width) for f in range(n_facets)]
+    weight = torch.zeros((n_facets, height, width), device=cuda)
+    states = []
+    for f, (rows, cols) in enumerate(boxes):
+        weight[f, :rows, :cols] = 1.0
+        y, x = divmod(int(torch.argmax(res[f, 0, :rows, :cols].abs())), cols)
+        states.append([y, x, 1, 0, 0, 1, y * width + x, 0])
+    yy, xx = np.mgrid[0:height, 0:width]
+    psf = torch.as_tensor(np.exp(-((yy - height // 2) ** 2 + (
+        xx - width // 2) ** 2) / 4.0).astype(np.float32), device=cuda)[None]
+    state = torch.tensor(states, dtype=torch.int32, device=cuda)
+    values = res[torch.arange(n_facets), 0, state[:, 0].long(),
+                 state[:, 1].long()][:, None] * 0.1
+    coefs = torch.ones(1, device=cuda)
+    outs = []
+    for step in (hs.hogbom_step_facets, hs.hogbom_step_facets_reference):
+        r, m = res.clone(), torch.zeros_like(res)
+        launches = hs.hogbom_step_facets.launches
+        partials = step(r, m, psf, values, state, coefs, weight,
+                        mode="signed", n_polarizations=1, allow_negative=True,
+                        boxes=torch.tensor(boxes, dtype=torch.int32))
+        torch.cuda.synchronize()
+        outs.append((r, m, partials, hs.hogbom_step_facets.launches
+                     - launches))
+    (rk, mk, pk, nk), (rp, mp, pp, np_) = outs
+    assert torch.equal(rk, rp) and torch.equal(mk, mp)
+    for a, b in zip(pk, pp):
+        assert torch.equal(a, b)
+    assert (nk, np_) == (2, 0)
