@@ -48,14 +48,22 @@ tensors and prints what it measured:
   plane, over ragged true boxes (nothing outside them read or written) and
   over the common box, an inactive facet; one facet against the
   single-cube kernels) and its time at config 5's shape and true boxes
-  against the bound of those boxes, config 5
+  against the bound of those boxes, squared with shared PSFs and linear
+  with a PSF stack a facet, config 5
   (4096^2 x 2 channels x I, Q, U, V, squared joins, 2-term fit, 2 x 2
-  facets, 400 iterations a facet) on four routes (generic batched, generic
-  serial with the Högbom and the Clark setting, multiscale serial) with
-  each route's rate summed over the facets, facet 0's count, lockstep
-  iterations, I rms, peak memory, host syncs and boxes, and a 256^2
-  faceted field on the card against the port's CPU run (generic batched,
-  multiscale serial), with config 5's split from both integrations.
+  facets, 400 iterations a facet) on five routes (generic batched, generic
+  serial with the Högbom and the Clark setting, multiscale serial and
+  batched) with each route's rate summed over the facets, facet 0's
+  count, lockstep iterations and passes, I rms, peak memory, host syncs
+  and boxes, and a 256^2 faceted field on the card against the port's CPU
+  run (generic batched, multiscale serial and batched), with config 5's
+  split from both integrations;
+* ASP: the point-source contract, a 2048^2 x 4-channel perform (rate,
+  host syncs, peak memory, the split of a perform) and a 256^2 x
+  2-channel field against the port's CPU run;
+* component optimization (generic CLEAN's linear solve and gradient
+  descent, multiscale's gradient descent) after auto-masking, on the card
+  against the port's CPU run.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -201,6 +209,17 @@ F5_TRACE_ITERATIONS = 48
 # The small faceted field on the card against the CPU.
 F5_CHECK_SIZE = 256
 F5_CHECK_CONTRACT = 2e-6
+# ASP (AlgorithmType.ADAPTIVE_SCALE_PIXEL): config 3's settings at
+# ASP_SIZE^2 x ASP_CHANNELS for ASP_ITERATIONS minor iterations
+# (make_point_grid_problem's field), and its card-against-CPU field.
+ASP_SIZE = 2048
+ASP_CHANNELS = 4
+ASP_ITERATIONS = 200
+ASP_CHECK_SIZE = 256
+# Component optimization on the card against the CPU; the bound of the
+# linear solve's model (phase_component_optimization_card_vs_cpu).
+CO_SIZE = 256
+CO_LINEAR_CARD_VS_CPU = 1e-3
 # The card's published peaks (H100 SXM data sheet, 700 W): device memory
 # and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -2637,15 +2656,17 @@ def _ragged_boxes(n_facets, height, width):
     return boxes[:n_facets]
 
 
-def _facet_inputs(mode, n_facets, shared, height, width, seed, boxes=None):
+def _facet_inputs(mode, n_facets, shared, height, width, seed, boxes=None,
+                  planes=None):
     """F facets' cubes at (height, width), the common box, each searchable
     only in its own top-left true box ``boxes[f]`` (rows, columns; the
     weight zero outside it), with shared or per-facet PSFs and a loop state
     at each facet's brightest searchable pixel; facet 1 is inactive from
-    the start.  ``inputs["boxes"]`` holds the boxes for the step."""
+    the start.  ``inputs["boxes"]`` holds the boxes for the step.
+    ``planes`` (channels, polarizations) overrides the mode's default."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
-    C, P = (2, 4) if mode == "squared" else (4, 1)
+    C, P = planes or ((2, 4) if mode == "squared" else (4, 1))
     cases = [_case_inputs(mode, C, P, mode == "squared", height, width,
                           seed + f) for f in range(n_facets)]
     dev = torch.device(DEVICE)
@@ -2825,11 +2846,13 @@ def facet_step_bytes(boxes, peaks, height, width, n_planes, n_chan, shared,
             + n_chan * psf_pixels) * 4
 
 
-def phase_facet_b1_times(boxes):
-    """B1's facet mode at config 5's shape (4 facets x 8 planes, squared
-    mode, the PSFs shared, the weight plane on, no RMS plane) over config
-    5's true ``boxes`` (rows, columns) in their common box, all facets
-    active: first F5_TRACE_ITERATIONS lockstep iterations of the kernels
+def phase_facet_b1_times(boxes, mode="squared", shared=True):
+    """B1's facet mode at config 5's shape (4 facets x 8 planes, the weight
+    plane on, no RMS plane) over config 5's true ``boxes`` (rows, columns)
+    in their common box, all facets active: squared mode with the PSFs
+    shared (generic CLEAN's batched route), or linear mode with a PSF stack
+    a facet (multiscale's batched route: each facet's own twice-convolved
+    PSFs).  First F5_TRACE_ITERATIONS lockstep iterations of the kernels
     against their plain versions from the same inputs, bit for bit; then
     their times, in turns plain, kernel, kernel, plain.  Returns {"step":
     (ms, plain ms), "select": (ms, plain ms), "bytes": each one's,
@@ -2839,13 +2862,13 @@ def phase_facet_b1_times(boxes):
     height = max(b[0] for b in boxes)
     width = max(b[1] for b in boxes)
     n_facets = len(boxes)
-    inputs = _facet_inputs("squared", n_facets, True, height, width, seed=51,
-                           boxes=list(boxes))
+    inputs = _facet_inputs(mode, n_facets, shared, height, width, seed=51,
+                           boxes=list(boxes), planes=(2, 4))
     inputs["state"][:, hs.ACTIVE] = 1
-    kernel = _facet_trace(inputs, "squared", True, False,
+    kernel = _facet_trace(inputs, mode, True, False,
                           F5_TRACE_ITERATIONS, rms_in_select=False)
     diff, same = _facet_difference(
-        kernel, _facet_trace(inputs, "squared", True, True,
+        kernel, _facet_trace(inputs, mode, True, True,
                              F5_TRACE_ITERATIONS, rms_in_select=False))
     iterations = kernel[2].state[:, hs.ITERATION].tolist()
     say(f"  against the plain version: iterations {iterations}, same states "
@@ -2853,12 +2876,12 @@ def phase_facet_b1_times(boxes):
     del kernel
     if not (same and diff == 0.0
             and iterations == [F5_TRACE_ITERATIONS] * n_facets):
-        raise AssertionError("B1's facet mode and its plain version "
-                             "disagree at config 5's shape")
+        raise AssertionError(f"B1's facet mode ({mode}) and its plain "
+                             "version disagree at config 5's shape")
     res = inputs["res"]
     model = torch.zeros_like(res)
     weight = inputs["weight"]
-    kw = dict(mode="squared", n_polarizations=inputs["P"],
+    kw = dict(mode=mode, n_polarizations=inputs["P"],
               allow_negative=True, boxes=inputs["boxes"])
     params = inputs["params"]
 
@@ -2892,17 +2915,18 @@ def phase_facet_b1_times(boxes):
            for name, (p1, k1, k2, p2) in times.items()}
     # The least bytes (facet_step_bytes); the select reads the partials and
     # each facet's values at its peak.
-    n_planes, n_chan = res.shape[1], inputs["psfs"].shape[0]
+    n_planes, n_chan = res.shape[1], inputs["psfs"].shape[-3]
     peaks = [tuple(p) for p in inputs["state"][:, :2].tolist()]
     pixels = sum(rows * cols for rows, cols in boxes)
     out["bytes"] = {
         "step": facet_step_bytes(boxes, peaks, height, width, n_planes,
-                                 n_chan, shared=True, use_weight=True),
+                                 n_chan, shared=shared, use_weight=True),
         "select": sum(p.numel() * p.element_size() for p in partials)
         + res.shape[0] * res.shape[1] * 4,
     }
     out["max_abs_err"] = diff
-    say(f"  [{n_facets}, {n_planes}, {height}, {width}], true boxes "
+    say(f"  [{n_facets}, {n_planes}, {height}, {width}], {mode}, "
+        f"{'shared' if shared else 'per-facet'} PSFs, true boxes "
         f"{[tuple(b) for b in boxes]} ({pixels} pixels): step "
         f"{out['step'][0]:.4f} ms (plain {out['step'][1]:.4f}), bound "
         f"{bound_ms(out['bytes']['step'])[0]:.4f} ms "
@@ -3019,21 +3043,22 @@ def _f5_launches():
 @contextlib.contextmanager
 def _facet_route(route):
     """Run facets on ``route``: "rule" (the route rule's choice), "batched"
-    (the batched route forced: its stacks' budget lifted, as config 5's
-    4.5e9 bytes pass the JAX package's 4e9) or "serial"
-    (``RADLER_TPU_NO_BATCHED_FACETS``)."""
+    (the batched route forced: the budgets lifted, as config 5's stacks
+    pass the JAX package's 4e9 bytes for generic CLEAN and 9e9 for
+    multiscale) or "serial" (``RADLER_TPU_NO_BATCHED_FACETS``)."""
     from radler_tpu_torch.models import generic_clean as gc
+    from radler_tpu_torch.models import multiscale as ms
 
     saved = os.environ.pop("RADLER_TPU_NO_BATCHED_FACETS", None)
-    budget = gc.BATCHED_FACETS_BUDGET
+    budgets = gc.BATCHED_FACETS_BUDGET, ms.BATCHED_FACETS_BUDGET
     if route == "serial":
         os.environ["RADLER_TPU_NO_BATCHED_FACETS"] = "1"
     elif route == "batched":
-        gc.BATCHED_FACETS_BUDGET = float("inf")
+        gc.BATCHED_FACETS_BUDGET = ms.BATCHED_FACETS_BUDGET = float("inf")
     try:
         yield
     finally:
-        gc.BATCHED_FACETS_BUDGET = budget
+        gc.BATCHED_FACETS_BUDGET, ms.BATCHED_FACETS_BUDGET = budgets
         os.environ.pop("RADLER_TPU_NO_BATCHED_FACETS", None)
         if saved is not None:
             os.environ["RADLER_TPU_NO_BATCHED_FACETS"] = saved
@@ -3049,9 +3074,19 @@ def _f5_perform(settings, psfs, base, route, device=None,
     peak device memory above the start in MiB, the fused banks kept by the
     facets' clones in MiB, the boxes, the lockstep iterations, the route
     taken, the I plane's rms before and after, the residual and model cubes
-    on the host."""
+    on the host, and the outer passes of the batched multiscale loop that
+    ran a dense subminor loop (its calls of the lockstep loop)."""
+    from radler_tpu_torch.models import multiscale_fused as mf
+
     device = device or DEVICE
     on_card = torch.device(device).type == "cuda"
+    passes = []
+    lockstep_loop = mf.facet_hogbom_loop
+
+    def counted(*args, **kwargs):
+        passes.append(1)
+        return lockstep_loop(*args, **kwargs)
+
     with _facet_route(route):
         r = _f5_radler(settings, psfs, base, device)
         if kept:
@@ -3069,15 +3104,19 @@ def _f5_perform(settings, psfs, base, route, device=None,
             before = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        start = time.perf_counter()
-        syncs = None
-        if count_syncs:
-            syncs = _count_syncs(lambda: r.perform(0))
-        else:
-            r.perform(0)
-        if on_card:
-            torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
+        mf.facet_hogbom_loop = counted
+        try:
+            start = time.perf_counter()
+            syncs = None
+            if count_syncs:
+                syncs = _count_syncs(lambda: r.perform(0))
+            else:
+                r.perform(0)
+            if on_card:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+        finally:
+            mf.facet_hogbom_loop = lockstep_loop
         launches = _f5_launches()
     out_res = torch.stack([e.residual_accessor.array for e in r._table])
     out_mod = torch.stack([e.model_accessor.array for e in r._table])
@@ -3099,6 +3138,7 @@ def _f5_perform(settings, psfs, base, route, device=None,
         boxes=[(s.x, s.y, s.width, s.height)
                for s in parallel.last_sub_images],
         lockstep=parallel.last_lockstep,
+        passes=len(passes),
         route=parallel.last_route,
         i_rms=(i_rms0, rms(out_res[0])),
         res=out_res.cpu().numpy(),
@@ -3113,6 +3153,8 @@ def _f5_split(settings, psfs, base, route, label):
     import radler_tpu_torch.radler as radler_module
     from radler_tpu_torch.image_set import ImageSet
     from radler_tpu_torch.models import generic_clean as gc
+    from radler_tpu_torch.models import multiscale as ms_module
+    from radler_tpu_torch.models import multiscale_fused as mf
     from radler_tpu_torch.models.multiscale import MultiScaleAlgorithm
     from radler_tpu_torch.parallel import parallel_deconvolution as pd
 
@@ -3129,6 +3171,16 @@ def _f5_split(settings, psfs, base, route, label):
         (pdc, "_run_sub_image", "facet trims, merges (serial)"),
         (MultiScaleAlgorithm, "execute_major_iteration",
          "each facet's multiscale run"),
+        (MultiScaleAlgorithm, "execute_batched_facets",
+         "batched multiscale: windows, results (both phases)"),
+        (ms_module, "facet_fused_multiscale_minor_loop",
+         "batched multiscale: the loop's host decisions, gathers"),
+        (mf, "spectral_scale_maxima", "scale maxima, all facets"),
+        (mf, "scale_convolved_cube", "scale-convolved cubes"),
+        (mf, "facet_hogbom_loop",
+         "the lockstep dense loops (B1 facet mode, linear; the fit)"),
+        (mf, "correct_small", "corrections, small size"),
+        (mf, "correct_large", "corrections, large size"),
         (MultiScaleAlgorithm, "_prepare_fused_banks", "fused banks"),
         (ImageSet, "assign_and_store_residual", "storing the residual"),
         (ImageSet, "interpolate_and_store_model", "storing the model"),
@@ -3156,7 +3208,7 @@ def _f5_check_launches(label, run):
     batched = run["route"] == "batched"
     if batched:
         ok = (n["facet step"] == n["facet select"] >= run["lockstep"] > 0
-              and n["B1 step"] == n["B1 select"] == 0)
+              and n["B1 step"] == n["B1 select"] == n["B2"] == 0)
     elif "Clark" in label:
         ok = n["B2"] > 0 and n["facet step"] == 0
     else:
@@ -3169,30 +3221,39 @@ def _f5_check_launches(label, run):
 def phase_config5():
     """Config 5 (4096^2 x 2 channels x I, Q, U, V, squared joins, 2-term
     fit, 2 x 2 facets, 400 iterations a facet) through Radler.perform on
-    four routes: generic CLEAN batched (B1's facet mode; forced, since
+    five routes: generic CLEAN batched (B1's facet mode; forced, since
     config 5's stacks pass the JAX package's budget, which the port keeps),
     generic CLEAN serial with the Högbom setting (B1 on each facet) and
     with the Clark setting, ``config5_proxy.py``'s default and the route
-    rule's choice here, in both packages (B2 on each facet), and
-    multiscale (serial, each facet on the fused loop).  For each, two
-    performs on fresh Radlers: one timed, one counting host syncs.  The
-    batched run agrees with the serial Högbom run within
+    rule's choice here, in both packages (B2 on each facet), multiscale
+    serial (each facet on the fused loop; the rule's choice, config 5
+    passing the JAX package's 9e9 bytes) and multiscale batched (every
+    facet's fused loop at once, its dense loops in B1's facet mode in
+    linear mode; forced).  For each, two performs on fresh Radlers: one
+    timed, one counting host syncs; multiscale also on a kept Radler.  The
+    batched generic run agrees with the serial Högbom run within
     F5_BATCHED_VS_SERIAL (both run the dense Högbom loop; the Clark loop is
     another algorithm, which on this field stops the fourth facet
-    elsewhere, in the JAX package too); all four split the image alike."""
+    elsewhere, in the JAX package too); the batched multiscale run's
+    difference from the serial one is printed, not held (the JAX package
+    holds its two routes within 3e-5 only on its own field, and on the
+    smoke's 256^2 check field they part by 0.35); all five split the image
+    alike."""
     psfs, base = make_diffuse_problem(F5_SIZE, F5_CHANNELS)
     runs = {}
     for label, algorithm, clark, route, expect in (
             ("generic, batched", "generic", True, "batched", "batched"),
             ("generic Högbom, serial", "generic", False, "serial", "serial"),
             ("generic Clark, serial", "generic", True, "rule", "serial"),
-            ("multiscale, serial", "multiscale", True, "rule", "serial")):
+            ("multiscale, serial", "multiscale", True, "rule", "serial"),
+            ("multiscale, batched", "multiscale", True, "batched",
+             "batched")):
         settings = _f5_settings(F5_SIZE, algorithm)
         settings.generic.use_sub_minor_optimization = clark
         run = _f5_perform(settings, psfs, base, route)
         run["syncs"] = _f5_perform(settings, psfs, base, route,
                                    count_syncs=True)["syncs"]
-        if label in ("generic, batched", "multiscale, serial"):
+        if label != "generic Högbom, serial" and "Clark" not in label:
             _f5_split(settings, psfs, base, route, label)
         if algorithm == "multiscale":
             kept = _f5_perform(settings, psfs, base, route, kept=True)
@@ -3217,7 +3278,9 @@ def phase_config5():
             f"over the facets ({run['iterations']}; facet 0, "
             f"Radler.iteration_number: {run['first']}), "
             f"{run['rate']:.1f} it/s summed; lockstep iterations "
-            f"{run['lockstep']}; I rms {run['i_rms'][0]:.5f} -> "
+            f"{run['lockstep']}"
+            + (f" in {run['passes']} passes" if run["passes"] else "")
+            + f"; I rms {run['i_rms'][0]:.5f} -> "
             f"{run['i_rms'][1]:.5f}; peak {peak} above "
             f"the start; {run['syncs']} host syncs; launches "
             f"{run['launches']}; boxes (x, y, w, h) {run['boxes']}")
@@ -3237,6 +3300,13 @@ def phase_config5():
             and d_mod <= F5_BATCHED_VS_SERIAL):
         raise AssertionError("config 5: the batched and serial generic "
                              "runs disagree")
+    b, s = runs["multiscale, batched"], runs["multiscale, serial"]
+    scale = max(1.0, float(np.abs(s["res"]).max()))
+    say(f"  multiscale batched against serial (read, not held): iterations "
+        f"{b['iterations']} / {s['iterations']}, max|dres| "
+        f"{float(np.abs(b['res'] - s['res']).max()) / scale:.3g}, "
+        f"max|dmodel| {float(np.abs(b['mod'] - s['mod']).max()) / scale:.3g}"
+        " of max(1, |res|max)")
     for run in runs.values():
         del run["res"], run["mod"]
         run.pop("kept", {}).pop("res", None)
@@ -3247,26 +3317,32 @@ def phase_facets_card_vs_cpu():
     """:func:`make_ms_check_problem`'s field at F5_CHECK_SIZE^2 (2 channels
     x I, Q, U, V; point sources, so that the loops' picks do not turn on
     near-equal maxima of smooth emission), 2 x 2 facets, config 5's
-    settings, generic CLEAN batched and multiscale serial, on the card and
-    on the CPU: the same boxes, equal per-facet iteration counts, the
-    residual within F5_CHECK_CONTRACT (multiscale: MS_CARD_VS_CPU) of
-    max(1, |res|max).  Multiscale runs with three scales and with all six
-    (to 64 pixels) at seed 8; with all six at the field's own seed it is
+    settings, generic CLEAN batched and multiscale on the serial and on the
+    batched route, on the card and on the CPU: the same boxes, equal
+    per-facet iteration counts, the residual within F5_CHECK_CONTRACT
+    (multiscale: MS_CARD_VS_CPU) of max(1, |res|max).  Multiscale runs
+    with three scales and with all six (to 64 pixels) at seed 8 on both
+    routes; with all six at the field's own seed on the serial route it is
     read, not held: there one of the 64-pixel scale's components has two
     pixels that nearly tie, which rounding decides (the JAX package's own
     run moves it when its input grows by one part in 10^7;
     tests/test_torch_facets_serial.py::
     test_faceted_multiscale_all_scales_matches_jax)."""
-    for algorithm, max_scales, seed, bound in (
-            ("generic", 0, SEED, F5_CHECK_CONTRACT),
-            ("multiscale", 3, SEED, MS_CARD_VS_CPU),
-            ("multiscale", 0, 8, MS_CARD_VS_CPU),
-            ("multiscale", 0, SEED, None)):
+    for algorithm, max_scales, seed, bound, route in (
+            ("generic", 0, SEED, F5_CHECK_CONTRACT, "rule"),
+            ("multiscale", 3, SEED, MS_CARD_VS_CPU, "serial"),
+            ("multiscale", 0, 8, MS_CARD_VS_CPU, "serial"),
+            ("multiscale", 0, SEED, None, "serial"),
+            ("multiscale", 3, SEED, MS_CARD_VS_CPU, "rule"),
+            ("multiscale", 0, 8, MS_CARD_VS_CPU, "rule")):
         psfs, base = make_ms_check_problem(F5_CHECK_SIZE, F5_CHANNELS, seed)
         settings = _f5_settings(F5_CHECK_SIZE, algorithm, 300)
         settings.multiscale.max_scales = max_scales
-        card, cpu = [_f5_perform(settings, psfs, base, "rule", device)
+        card, cpu = [_f5_perform(settings, psfs, base, route, device)
                      for device in (DEVICE, "cpu")]
+        if card["route"] != ("serial" if route == "serial" else "batched"):
+            raise AssertionError(f"faceted {algorithm} took the "
+                                 f"{card['route']} route")
         scale = max(1.0, float(np.abs(cpu["res"]).max()))
         d_res = float(np.abs(card["res"] - cpu["res"]).max()) / scale
         d_mod = float(np.abs(card["mod"] - cpu["mod"]).max()) / scale
@@ -3309,6 +3385,260 @@ def phase_facets_card_vs_cpu():
     if splits[0] != splits[1]:
         raise AssertionError("config 5's split differs between the card "
                              "and the CPU")
+
+
+def make_point_grid_problem(size, n_channels, k, seed=SEED):
+    """A k x k grid of point sources (each a few pixels off its grid point,
+    fluxes 0.2 to 1, spectra falling 5% a channel) under config 3's PSFs:
+    ASP's field, on which the JAX package's ASP converges (every fitted
+    Gaussian deconvolves to less than the beam and goes the point-source
+    way); on config 3's diffuse emission its Gaussian components diverge
+    (tests/test_torch_asp.py::test_asp_diffuse_field_matches_jax)."""
+    psfs, _ = make_diffuse_problem(size, n_channels)
+    rng = np.random.default_rng(seed)
+    sky = np.zeros((size, size))
+    step = size // (k + 1)
+    for i in range(k):
+        for j in range(k):
+            y = step * (i + 1) + rng.integers(-3, 4)
+            x = step * (j + 1) + rng.integers(-3, 4)
+            sky[y, x] = rng.uniform(0.2, 1.0)
+    return psfs, np.stack([
+        np.fft.irfft2(np.fft.rfft2(sky * (1 - 0.05 * c))
+                      * np.fft.rfft2(np.fft.ifftshift(psfs[c])), s=sky.shape)
+        for c in range(n_channels)
+    ]).astype(np.float32)
+
+
+def _asp_settings(size, iterations):
+    """Config 3's settings (2-term fit, gain 0.1, major gain 0.85, the
+    default scales) for ASP."""
+    import radler_tpu_torch as rd
+
+    s = _ms_settings(size, iterations)
+    s.algorithm_type = rd.AlgorithmType.ADAPTIVE_SCALE_PIXEL
+    return s
+
+
+def phase_asp_contract():
+    """The reference's point-source contract for ASP on the card
+    (tests/test_algorithms.py::test_asp_point_source; the TPU's reading
+    in BASELINE.md:110): residual at most 2e-6, model peak 2.5 within 1e-4
+    relative."""
+    import radler_tpu_torch as rd
+
+    size = 64
+    point = np.array([[0.0, 0.4, 0.0], [0.25, 1.0, 0.5], [0.0, 0.6, 0.0]],
+                     np.float32)
+    psf = np.zeros((size, size), np.float32)
+    psf[31:34, 31:34] = point
+    res = np.zeros((size, size), np.float32)
+    res[21:24, 26:29] = 2.5 * point
+    s = rd.Settings()
+    s.algorithm_type = rd.AlgorithmType.ADAPTIVE_SCALE_PIXEL
+    s.trimmed_image_width = s.trimmed_image_height = size
+    s.pixel_scale.x = s.pixel_scale.y = np.deg2rad(1.0 / 60.0)
+    s.minor_iteration_count = 600
+    s.absolute_threshold = 1e-6
+    dev = torch.device(DEVICE)
+    r = rd.Radler(s, torch.as_tensor(psf, device=dev),
+                  torch.as_tensor(res, device=dev),
+                  torch.zeros(size, size, device=dev), 0.0)
+    r.perform(0)
+    out_res = r._table.front.residual_accessor.array.cpu().numpy()
+    out_mod = r._table.front.model_accessor.array.cpu().numpy()
+    peak = float(out_mod[22, 27])
+    say(f"  {r.iteration_number} iterations; max|residual| "
+        f"{np.abs(out_res).max():.3g}, model peak {peak:.7f}")
+    if not (np.abs(out_res).max() <= 2e-6 and abs(peak - 2.5) <= 2.5e-4):
+        raise AssertionError("the ASP point-source contract failed")
+
+
+def _asp_perform(psfs, res0, settings, count_syncs=False):
+    """One ASP perform of ``res0`` (a tensor on the card) on a fresh Radler;
+    returns (iterations, seconds, host syncs or None, peak MiB above the
+    start, the residual cube)."""
+    import radler_tpu_torch as rd
+
+    r = rd.Radler(settings, psfs, res0.clone(), torch.zeros_like(res0), 0.0,
+                  frequencies=_ms_frequencies(res0.shape[0]))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    syncs = _count_syncs(lambda: r.perform(0)) if count_syncs else None
+    if not count_syncs:
+        r.perform(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**20
+    res = torch.stack([e.residual_accessor.array for e in r._table])
+    if not torch.isfinite(res).all():
+        raise AssertionError("ASP: non-finite residual")
+    return r.iteration_number, seconds, syncs, peak, res
+
+
+def phase_asp_perform():
+    """ASP through Radler.perform at ASP_SIZE^2 x ASP_CHANNELS (an 8 x 8
+    grid of point sources, config 3's settings, ASP_ITERATIONS minor
+    iterations): the best of two performs, a third counting host syncs,
+    and a fourth with a synchronize around each of its steps (each step's
+    own time).  Returns {"rate": iterations/s, "syncs", "peak_mib"}."""
+    import radler_tpu_torch.models.asp as asp
+    from radler_tpu_torch.models.multiscale import MultiScaleAlgorithm
+
+    psfs, base = make_point_grid_problem(ASP_SIZE, ASP_CHANNELS, 8)
+    psfs = torch.as_tensor(psfs, device=DEVICE)
+    res0 = torch.as_tensor(base, device=DEVICE)
+    settings = _asp_settings(ASP_SIZE, ASP_ITERATIONS)
+    runs = [_asp_perform(psfs, res0, settings) for _ in range(2)]
+    n, seconds = runs[0][0], min(r[1] for r in runs)
+    syncs = _asp_perform(psfs, res0, settings, count_syncs=True)[2]
+    i_rms = (rms(res0[0]), rms(runs[0][4][0]))
+    say(f"  [{ASP_CHANNELS}, {ASP_SIZE}, {ASP_SIZE}]: {n} iterations, best "
+        f"of 2 {seconds:.3f} s ({', '.join(f'{r[1]:.3f}' for r in runs)}), "
+        f"{n / seconds:.1f} minor iterations/s; {syncs} host syncs; peak "
+        f"{runs[0][3]:.1f} MiB above the start; I rms {i_rms[0]:.5f} -> "
+        f"{i_rms[1]:.5f}")
+    if not (n == ASP_ITERATIONS and i_rms[1] < i_rms[0]):
+        raise AssertionError("the ASP perform did not clean as expected")
+    targets = [
+        (MultiScaleAlgorithm, "_find_active_scale_convolved_maxima",
+         "the scale-maxima bank (FFTs, one read)"),
+        (MultiScaleAlgorithm, "_find_peak_direct",
+         "the scale-convolved peak (FFT, one read)"),
+        (MultiScaleAlgorithm, "_convolve_psfs", "the scales' PSF peaks"),
+        (asp, "fit_2d_gaussian_centred", "the PSF's Gaussian fit (host)"),
+        (asp, "fit_2d_gaussian_full", "Gaussian fits (host, SciPy)"),
+        (asp, "deconvolve_gaussian", "beam deconvolution (host)"),
+        (asp, "draw_gaussian", "drawing Gaussians (host, NumPy)"),
+        (asp, "convolve_same", "the Gaussian path's convolutions"),
+        (asp, "padded_convolve", "the Gaussian component through the PSFs"),
+        (asp, "subtract_psf_from_cube", "point-source subtractions"),
+        (asp.AspAlgorithm, "_deconvolve_gaussian",
+         "the Gaussian path, the rest (its window copy)"),
+        (asp.AspAlgorithm, "_deconvolve_point_source",
+         "the point-source path, the rest"),
+        (asp, "get_linear_integrated", "linear integrations"),
+    ]
+    split = {}
+    restore = _timed_steps(split, targets)
+    try:
+        timed = _asp_perform(psfs, res0, settings)[1]
+    finally:
+        restore()
+    say(f"  split of a perform ({timed:.3f} s with a synchronize around "
+        "each step; each step's own time):")
+    for key, (calls, t) in split.items():
+        say(f"    {key}: {calls} calls, {t * 1e3:.1f} ms "
+            f"({100 * t / timed:.1f}%)")
+    rest = timed - sum(t for _, t in split.values())
+    say(f"    the rest: {rest * 1e3:.1f} ms ({100 * rest / timed:.1f}%)")
+    return {"rate": n / seconds, "syncs": syncs, "peak_mib": runs[0][3]}
+
+
+def phase_asp_card_vs_cpu():
+    """ASP on a 4 x 4 grid of point sources at ASP_CHECK_SIZE^2 x 2
+    channels (config 3's settings, 200 iterations) on the card against the
+    port's CPU run of the same arrays: equal iteration counts, the
+    residual and model within MS_CARD_VS_CPU of max(1, |res|max)."""
+    import radler_tpu_torch as rd
+
+    psfs, base = make_point_grid_problem(ASP_CHECK_SIZE, 2, 4)
+    out = []
+    for device in (DEVICE, "cpu"):
+        res, model = base.copy(), np.zeros_like(base)
+        r = rd.Radler(_asp_settings(ASP_CHECK_SIZE, 200), psfs, res, model,
+                      0.0, frequencies=_ms_frequencies(2), device=device)
+        start = time.perf_counter()
+        r.perform(0)
+        out.append((r.iteration_number, res, model,
+                    time.perf_counter() - start))
+    (n_g, res_g, mod_g, t_g), (n_c, res_c, mod_c, t_c) = out
+    scale = max(1.0, float(np.abs(res_c).max()))
+    d_res = float(np.abs(res_g - res_c).max()) / scale
+    d_mod = float(np.abs(mod_g - mod_c).max()) / scale
+    say(f"  card {n_g} iterations ({t_g:.2f} s), CPU {n_c} ({t_c:.2f} s); "
+        f"max|dres| {d_res:.3g}, max|dmodel| {d_mod:.3g} of max(1, "
+        "|res|max)")
+    if not (n_g == n_c > 0 and d_res <= MS_CARD_VS_CPU
+            and d_mod <= MS_CARD_VS_CPU):
+        raise AssertionError("ASP on the card and on the CPU disagree")
+
+
+def phase_component_optimization_card_vs_cpu():
+    """Component optimization on the card against the CPU at CO_SIZE^2:
+    twelve point sources in noise under config 3's PSF, auto-masking at 4
+    sigma and the source list, majors until done (the perform after
+    auto-masking finishes optimizes instead of cleaning): generic CLEAN
+    with LINEAR_EQUATION_SOLVER and with GRADIENT_DESCENT, multiscale with
+    GRADIENT_DESCENT.  Each: the optimization ran on both, equal results
+    and iteration counts, the residual within MS_CARD_VS_CPU of max(1,
+    |res|max), the model too after gradient descent, and within
+    CO_LINEAR_CARD_VS_CPU after the linear solve: its K x K system's
+    condition number (4.0e3 on this field, 40 components) carries the
+    float32 FFT rounding of the dirty image at the components (about 1e-7
+    relative, cuFFT against pocketfft) into the amplitudes."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.models import generic_clean as gc
+    from radler_tpu_torch.models import multiscale as ms
+
+    psfs, _ = make_diffuse_problem(CO_SIZE, 1)
+    rng = np.random.default_rng(SEED)
+    sky = np.zeros((CO_SIZE, CO_SIZE))
+    ys, xs = rng.integers(CO_SIZE // 8, 7 * CO_SIZE // 8, (2, 12))
+    np.add.at(sky, (ys, xs), rng.uniform(0.5, 2.0, 12))
+    base = (np.fft.irfft2(np.fft.rfft2(sky) * np.fft.rfft2(
+        np.fft.ifftshift(psfs[0])), s=sky.shape)
+        + rng.normal(scale=0.01, size=sky.shape)).astype(np.float32)
+    for algorithm, optimization, owner, name, bound in (
+            ("GENERIC_CLEAN", "LINEAR_EQUATION_SOLVER", gc,
+             "run_component_optimization", CO_LINEAR_CARD_VS_CPU),
+            ("GENERIC_CLEAN", "GRADIENT_DESCENT", gc,
+             "run_component_optimization", MS_CARD_VS_CPU),
+            ("MULTISCALE", "GRADIENT_DESCENT", ms.MultiScaleAlgorithm,
+             "_run_full_component_fitter", MS_CARD_VS_CPU)):
+        s = rd.Settings()
+        s.trimmed_image_width = s.trimmed_image_height = CO_SIZE
+        s.algorithm_type = getattr(rd.AlgorithmType, algorithm)
+        s.generic.use_sub_minor_optimization = False
+        s.minor_iteration_count = 3000
+        s.auto_mask_sigma = 4.0
+        s.save_source_list = True
+        s.component_optimization_algorithm = getattr(
+            rd.OptimizationAlgorithm, optimization)
+        out = []
+        for device in (DEVICE, "cpu"):
+            calls = []
+            original = getattr(owner, name)
+
+            def counted(*args, original=original, calls=calls, **kwargs):
+                calls.append(1)
+                return original(*args, **kwargs)
+
+            res, model = base.copy(), np.zeros_like(base)
+            r = rd.Radler(s, psfs[0], res, model, 0.0, device=device)
+            setattr(owner, name, counted)
+            try:
+                again = []
+                while len(again) < 6 and (not again or again[-1]):
+                    again.append(r.perform(len(again)))
+            finally:
+                setattr(owner, name, original)
+            out.append((again, r.iteration_number, res, model, len(calls)))
+        (a_g, n_g, res_g, mod_g, k_g), (a_c, n_c, res_c, mod_c, k_c) = out
+        scale = max(1.0, float(np.abs(res_c).max()))
+        d_res = float(np.abs(res_g - res_c).max()) / scale
+        d_mod = float(np.abs(mod_g - mod_c).max()) / scale
+        say(f"  {algorithm} {optimization}: performs {a_g} / {a_c}, "
+            f"iterations {n_g} / {n_c}, optimizations {k_g} / {k_c}; "
+            f"max|dres| {d_res:.3g}, max|dmodel| {d_mod:.3g} of max(1, "
+            "|res|max)")
+        if not (a_g == a_c and n_g == n_c > 0 and k_g == k_c == 1
+                and d_res <= MS_CARD_VS_CPU and d_mod <= bound):
+            raise AssertionError(f"component optimization ({algorithm}, "
+                                 f"{optimization}) on the card and on the "
+                                 "CPU disagree")
 
 
 def main():
@@ -3398,7 +3728,7 @@ def main():
     worst_facets = phase_facet_b1_vs_plain()
     say("== config 5 (4096^2 x 2 channels x I, Q, U, V, 2 x 2 facets) "
         "through Radler.perform: generic batched, generic serial (Högbom, "
-        "Clark), multiscale serial ==")
+        "Clark), multiscale serial and batched ==")
     config5 = phase_config5()
     batched = config5["generic, batched"]
     f5_boxes = [(b[3], b[2]) for b in batched["boxes"]]
@@ -3406,8 +3736,20 @@ def main():
     say(f"== B1's facet mode at config 5's shape ({box[0]}x{box[1]}) and "
         "true boxes ==")
     facet_times = phase_facet_b1_times(f5_boxes)
+    say(f"== B1's facet mode in linear mode with a PSF stack a facet at "
+        f"config 5's shape ({box[0]}x{box[1]}) and true boxes ==")
+    facet_linear = phase_facet_b1_times(f5_boxes, "linear", shared=False)
     say("== faceted performs on the card against the CPU ==")
     phase_facets_card_vs_cpu()
+    say("== point-source contract, ASP ==")
+    phase_asp_contract()
+    say(f"== ASP ({ASP_SIZE}^2 x {ASP_CHANNELS} channels) through "
+        "Radler.perform ==")
+    asp_run = phase_asp_perform()
+    say("== ASP on the card against the CPU ==")
+    phase_asp_card_vs_cpu()
+    say("== component optimization on the card against the CPU ==")
+    phase_component_optimization_card_vs_cpu()
     say(f"phases took {time.perf_counter() - start:.1f} s")
 
     kernels = []
@@ -3518,6 +3860,21 @@ def main():
             "bound_by": f_bound_by,
             "library_ms": None,
         })
+    ms_batched = config5["multiscale, batched"]
+    fl_bound_ms, fl_bound_by = bound_ms(facet_linear["bytes"]["step"])
+    kernels.append({
+        "name": "hogbom_step (facets, linear)",
+        "route": "cuda",
+        "source": "radler_tpu_torch/csrc/hogbom_step.cu",
+        "replaces": "radler_tpu/ops/pallas/hogbom_step.py:37",
+        "launches": ms_batched["launches"]["facet step"],
+        "max_abs_err": max(worst_facets, facet_linear["max_abs_err"]),
+        "ms": facet_linear["step"][0],
+        "plain_ms": facet_linear["step"][1],
+        "bound_ms": fl_bound_ms,
+        "bound_by": fl_bound_by,
+        "library_ms": None,
+    })
     say(f"config 1: {rate:.1f} minor iterations/s through perform (Högbom)")
     say(f"config 2: {clark[1]:.1f} minor iterations/s through perform "
         f"(Clark); B2 on a cluster of {b2_cluster} blocks, "
@@ -3557,7 +3914,13 @@ def main():
         f"step at [4, 8, {box[0]}, {box[1]}] {facet_times['step'][0]:.4f} ms "
         f"against its {bound_ms(facet_times['bytes']['step'])[0]:.4f} ms "
         f"bound; with one facet at config 1's shape {facet_one[0]:.4f} ms "
-        f"against B1's {facet_one[1]:.4f}")
+        f"against B1's {facet_one[1]:.4f}; multiscale batched "
+        f"{ms_batched['passes']} lockstep passes, B1's facet step in linear "
+        f"mode with a PSF stack a facet {facet_linear['step'][0]:.4f} ms "
+        f"against its {fl_bound_ms:.4f} ms bound")
+    say(f"ASP: {asp_run['rate']:.1f} minor iterations/s through perform "
+        f"({ASP_CHANNELS} x {ASP_SIZE}^2, point grid), {asp_run['syncs']} "
+        f"host syncs, {asp_run['peak_mib']:.1f} MiB")
     print(smi)  # name, power limit: as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -134,7 +134,13 @@ class FacetLoopParams(NamedTuple):
     """Scalars of F lockstep minor loops: the gain, divergence limit and
     stop rule they share, and each facet's first threshold, initial
     |peak| and iteration limit, on the host (rounded to float32) and on the
-    device (``limits`` [F, 2], ``max_iterations_device`` [F])."""
+    device (``limits`` [F, 2], ``max_iterations_device`` [F]).
+
+    With a gain a facet (multiscale's facets clean at their own scales),
+    ``gains`` holds them (``[F, 1]`` on the device, ``facet_gains`` on the
+    host) and ``gain``, the kernels' shared one, is 1: the loop scales the
+    component values by the facet's gain after each select, which rounds
+    as the select's own product does."""
 
     gain: float
     divergence_limit: float
@@ -144,19 +150,34 @@ class FacetLoopParams(NamedTuple):
     max_iterations: Tuple[int, ...]
     limits: torch.Tensor
     max_iterations_device: torch.Tensor
+    facet_gains: Optional[Tuple[float, ...]] = None
+    gains: Optional[torch.Tensor] = None
 
     @classmethod
     def make(cls, gain, first_thresholds, initial_abs_peaks, divergence_limit,
              max_iterations, stop_on_negative, device) -> "FacetLoopParams":
+        """``gain`` is one number for every facet or a sequence of them,
+        one a facet."""
         f32 = lambda v: float(np.float32(v))  # noqa: E731
         thresholds = tuple(f32(v) for v in first_thresholds)
         peaks = tuple(f32(v) for v in initial_abs_peaks)
         limits = torch.tensor(list(zip(thresholds, peaks)),
                               dtype=torch.float32).reshape(-1, 2)
         iterations = tuple(int(v) for v in max_iterations)
+        facet_gains = gains = None
+        if not np.isscalar(gain):
+            facet_gains = tuple(f32(g) for g in gain)
+            gains = torch.tensor(facet_gains, dtype=torch.float32).view(
+                -1, 1).to(device)
+            gain = 1.0
         return cls(f32(gain), f32(divergence_limit), bool(stop_on_negative),
                    thresholds, peaks, iterations, limits.to(device),
-                   torch.tensor(iterations, dtype=torch.int32, device=device))
+                   torch.tensor(iterations, dtype=torch.int32, device=device),
+                   facet_gains, gains)
+
+    def facet_gain(self, f: int) -> float:
+        """Facet ``f``'s gain."""
+        return self.gain if self.facet_gains is None else self.facet_gains[f]
 
     def facet(self, f: int) -> LoopParams:
         """Facet ``f``'s loop as a single-cube :class:`LoopParams`."""
@@ -965,12 +986,13 @@ class FacetLoopResult(NamedTuple):
 
 
 def facet_fitted_values(fitter, raw: torch.Tensor, index: torch.Tensor,
-                        gain: float, n_channels: int, n_polarizations: int,
+                        gain, n_channels: int, n_polarizations: int,
                         forced_terms: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """:func:`fitted_values` for F facets at once: ``raw`` ``[F, N]``, the
     flat peak indices ``index`` ``[F]``, the facets' term images
-    ``forced_terms`` ``[F, T-1, H, W]`` (FORCED_TERMS mode).  Each
+    ``forced_terms`` ``[F, T-1, H, W]`` (FORCED_TERMS mode); ``gain`` is
+    one number or ``[F, 1]``, one a facet.  Each
     polarization of each facet is fitted on its own, so the polynomial fits
     take every facet's spectra as columns of one product."""
     n_facets = raw.shape[0]
@@ -993,7 +1015,7 @@ def facet_fitted_values(fitter, raw: torch.Tensor, index: torch.Tensor,
 
 def facet_hogbom_loop(
     residual: torch.Tensor,  # [F, N, H, W], updated in place
-    model: torch.Tensor,  # [F, N, H, W], updated in place
+    model: torch.Tensor,  # [F, N, H, W] (or [F, T*P, H, W]), in place
     psfs: torch.Tensor,  # [C, H, W] shared, or [F, C, H, W]
     weight: Optional[torch.Tensor],  # [F, H, W] mask x border x rms, or None
     rms: Optional[torch.Tensor],  # [F, H, W] rms factor, or None
@@ -1007,20 +1029,33 @@ def facet_hogbom_loop(
     forced_terms: Optional[torch.Tensor] = None,  # [F, T-1, H, W]
     plain: bool = False,
     boxes: Optional[torch.Tensor] = None,  # int32 [F, 2] (rows, cols), CPU
+    integration: Optional[Tuple[str, np.ndarray]] = None,
+    coefficients: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> FacetLoopResult:
     """F facets' Högbom minor loops in lockstep: the loop of
     :func:`hogbom_loop` on each facet, with one facet-mode step and select
     launch an iteration for all of them (the JAX package's vmapped
-    ``_facet_hogbom_program``, ``generic_clean.py:154``).  Facets stop on
-    their own; the launches go on, no-ops for stopped facets, until the last
-    one stops.  The host reads every facet's state once per ``CHUNK``
-    iterations.  ``boxes`` holds each facet's true box at the top left of
-    the common box (None: the whole box); the step never touches the
-    padding around it, whose weight must be 0.  ``plain`` runs the plain
-    versions on CUDA tensors."""
+    ``_facet_hogbom_program``, ``generic_clean.py:154``, and its vmapped
+    fused multiscale loop's dense subminor, ``multiscale.py:1335-1641``).
+    Facets stop on their own; the launches go on, no-ops for stopped
+    facets, until the last one stops.  The host reads every facet's state
+    once per ``CHUNK`` iterations.  ``boxes`` holds each facet's true box
+    at the top left of the common box (None: the whole box); the step never
+    touches the padding around it, whose weight must be 0.  ``plain`` runs
+    the plain versions on CUDA tensors.
+
+    ``integration`` and ``coefficients`` are :func:`hogbom_loop`'s: the
+    integration that replaces the joined one, and the fit in coefficient
+    space (``model`` then holds each facet's ``[T*P, H, W]`` coefficient
+    cube; each facet's fit is :class:`CoefficientFit` on its own views, so
+    that a facet's bits are its single loop's).  ``params`` may give each
+    facet its own gain."""
     dev = residual.device
     n_facets = residual.shape[0]
-    mode, chan_np, pol_np = integration_coefficients(meta)
+    if integration is None:
+        mode, chan_np, pol_np = integration_coefficients(meta)
+    else:
+        (mode, chan_np), pol_np = integration, np.ones(1, np.float32)
     coefs = torch.as_tensor(kernel_coefficients(mode, chan_np, pol_np),
                             device=dev)
     step = hogbom_step_facets_reference if plain else hogbom_step_facets
@@ -1042,31 +1077,46 @@ def facet_hogbom_loop(
     state = torch.tensor(host_state, dtype=torch.int32, device=dev)
     raw = torch.stack([residual[f, :, p[2], p[1]]
                        for f, p in enumerate(peaks0)])
+    gain = params.gain if params.gains is None else params.gains
     buffers = LoopBuffers(
         state=state,
         value=torch.tensor([float(np.float32(p[0])) for p in peaks0],
                            dtype=torch.float32, device=dev),
         peak=raw,
-        values=raw * params.gain,
+        values=raw * gain,
     )
     index = state[:, INDEX]
+    kernel_model, coef_fits = model, []
+    if coefficients is not None:
+        coef_fits = [
+            CoefficientFit(*coefficients, buffers.facet(f), model[f],
+                           params.facet_gain(f), C, P)
+            for f in range(n_facets)]
+        kernel_model = torch.empty_like(residual)
 
     def refit():
-        buffers.values.copy_(facet_fitted_values(
-            fitter, buffers.peak, index, params.gain, C, P, forced_terms))
+        if coef_fits:
+            for fit in coef_fits:
+                fit.refit()
+        elif fitter is not None:
+            buffers.values.copy_(facet_fitted_values(
+                fitter, buffers.peak, index, gain, C, P, forced_terms))
+        elif params.gains is not None:
+            torch.mul(buffers.peak, params.gains, out=buffers.values)
 
-    if fitter is not None:
+    if fitter is not None and not coef_fits:
         refit()
 
     def iterate():
+        for fit in coef_fits:
+            fit.add()
         partials = step(
-            residual, model, psfs, buffers.values, buffers.state, coefs,
-            weight, mode=mode, n_polarizations=P,
+            residual, kernel_model, psfs, buffers.values, buffers.state,
+            coefs, weight, mode=mode, n_polarizations=P,
             allow_negative=allow_negative, boxes=boxes,
         )
         select(partials, residual, buffers, params, rms)
-        if fitter is not None:
-            refit()
+        refit()
 
     iterations = list(start_iterations)
     lockstep = 0

@@ -67,6 +67,28 @@ class DeconvolutionAlgorithm:
         caches reset them, since a shallow copy would share them."""
         return copy.copy(self)
 
+    # -- helpers ----------------------------------------------------------
+    def apply_spectral_constraints_to_components(self,
+                                                 component_list) -> None:
+        """Fit every component's spectrum (``deconvolution_algorithm.cc:
+        48-63``), each polarization on its own, on the host (on the term
+        images' device with forced terms)."""
+        fitter = self.spectral_fitter
+        if fitter is None or not fitter.is_active:
+            return
+        dev = (fitter._forced_terms.device
+               if fitter._forced_terms is not None else "cpu")
+        n_channels = len(fitter.frequencies)
+        for scale_index in range(component_list.n_scales):
+            for ci in range(component_list.component_count(scale_index)):
+                x, y, values = component_list.get_component(scale_index, ci)
+                vals = torch.as_tensor(np.asarray(values, np.float32),
+                                       device=dev)
+                fitted = fitter.fit_and_evaluate(
+                    vals.reshape(n_channels, self.n_polarizations), x, y)
+                component_list.set_values(
+                    scale_index, ci, fitted.reshape(-1).cpu().numpy())
+
     # -- interface ---------------------------------------------------------
     def execute_major_iteration(
         self, dirty_set, model_set, psfs

@@ -9,8 +9,11 @@ one FFT residual correction, or the Högbom minor loop of
 mesh, its partitioned form
 :func:`radler_tpu_torch.parallel.mesh.mesh_hogbom_loop`; for a facet grid,
 every facet's Högbom loop in lockstep
-(:meth:`GenericClean.execute_batched_facets`).  All run their CUDA kernels
-on CUDA tensors and the kernels' plain PyTorch versions on CPU tensors.
+(:meth:`GenericClean.execute_batched_facets`); after auto-masking, with
+component optimization set, the amplitudes' optimization
+(:mod:`radler_tpu_torch.ops.component_optimization`) instead.  All run
+their CUDA kernels on CUDA tensors and the kernels' plain PyTorch versions
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ..kernels.hogbom_step import (
     facet_hogbom_loop,
     hogbom_loop,
 )
+from ..ops.component_optimization import run_component_optimization
 from ..ops.convolution import untrim
 from ..ops.peak_finder import border_from_ratio, find_peak, window_mask
 from ..parallel.mesh import mesh_hogbom_loop, mesh_pallas_eligible
@@ -115,11 +119,10 @@ class GenericClean(DeconvolutionAlgorithm):
             return result
 
         if self.component_optimization_algorithm != OptimizationAlgorithm.CLEAN:
-            raise NotImplementedError(
-                "component optimization "
-                f"{self.component_optimization_algorithm.name} is not ported "
-                "yet; ROADMAP queue A, item 7 brings it."
-            )
+            run_component_optimization(dirty_set, model_set, psfs,
+                                       self.component_optimization_algorithm)
+            self._fit_model_spectra(model_set)
+            return result
 
         initial_max_value = abs(pk_value)
         first_threshold = self.threshold
@@ -412,6 +415,18 @@ class GenericClean(DeconvolutionAlgorithm):
                 int(start_iterations[f]), m_thr[f]))
             self.iteration_number = saved
         return results, iterations, lockstep
+
+    def _fit_model_spectra(self, model_set) -> None:
+        """``GenericClean::FitSpectra`` (``generic_clean.cc:278-297``): every
+        model pixel's spectrum fitted, batched over the image."""
+        if self.spectral_fitter is None or not self.spectral_fitter.is_active:
+            return
+        meta = model_set.meta
+        C, P = meta.n_channels, meta.n_polarizations
+        H, W = model_set.height, model_set.width
+        fitted = self.spectral_fitter.fit_and_evaluate(
+            model_set.data.reshape(C, P * H * W))
+        model_set.data = fitted.reshape(C * P, H, W)
 
     def _finish_result(
         self,

@@ -27,8 +27,11 @@ The host path:
   dense route's auto-mask and component updates accumulate on the device
   and reach the host once per major iteration.
 
-The JAX package's facets and component optimization are not ported yet
-(ROADMAP queue A, items 6 and 7).
+On a facet grid every facet's fused loop runs at once by default
+(:meth:`MultiScaleAlgorithm.execute_batched_facets`, the JAX package's
+batched facets).  With component optimization set (after auto-masking),
+a major iteration refines the tracked components instead
+(:meth:`MultiScaleAlgorithm._run_full_component_fitter`).
 """
 
 from __future__ import annotations
@@ -43,11 +46,13 @@ import torch
 
 from ..component_list import ComponentList
 from ..image_set import CubeMeta, get_integrated_psf, get_linear_integrated
+from ..ops.component_optimization import gradient_descent_with_variable_psf
 from ..ops.convolution import (
     centered_embed_kernel_fft,
     convolve_same_prefft,
     forward_fft2,
     inverse_fft2_real,
+    padded_convolve,
     prepare_kernel_fft,
 )
 from ..ops.multiscale_kernels import (
@@ -70,6 +75,7 @@ from ..utils.fft_size import get_convolution_size
 from .base import DeconvolutionAlgorithm, DeconvolutionResult
 from .multiscale_fused import (
     dense_subminor_loop,
+    facet_fused_multiscale_minor_loop,
     fused_multiscale_minor_loop,
     mesh_subminor_eligible,
 )
@@ -84,6 +90,12 @@ DENSE_SUBMINOR_MAX_PIXELS = 4096 * 4096
 # residual, temporaries) stays under this many bytes: the JAX package's
 # budget (multiscale.py:824), so that both packages take the same route.
 FUSED_MEMORY_BUDGET = 9e9
+
+# The batched facet route runs while its per-facet estimate stays under this
+# many bytes: the JAX package's (multiscale.py:1386) on every device, so
+# that the port takes the JAX package's route whatever memory the device
+# has.
+BATCHED_FACETS_BUDGET = 9e9
 
 
 @dataclasses.dataclass
@@ -276,8 +288,11 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         self._mask_acc: Optional[torch.Tensor] = None  # [S, H, W] bool
         self._comp_acc: Dict[int, torch.Tensor] = {}  # scale -> [N, H, W]
         # The fused loop's banks, kept while their configuration and PSFs
-        # stay the same: (key, psfs, psfs._version, peaks, banks).
+        # stay the same: (key, psfs, psfs._version, peaks, banks); the
+        # batched facets' direction-dependent PSFs keep one a PSF slot, slot
+        # 0 here and the others in _slot_banks.
         self._fused_banks: Optional[tuple] = None
+        self._slot_banks: Dict[int, tuple] = {}
 
     # -- plumbing used by ParallelDeconvolution ------------------------
     def set_auto_mask_mode(self, track: bool, use: bool) -> None:
@@ -326,6 +341,7 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         c._mask_acc = None
         c._comp_acc = {}
         c._fused_banks = None
+        c._slot_banks = {}
         return c
 
     # -- kernels -------------------------------------------------------
@@ -516,11 +532,8 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
 
         result = DeconvolutionResult()
         if self.component_optimization_algorithm != OptimizationAlgorithm.CLEAN:
-            raise NotImplementedError(
-                "component optimization "
-                f"{self.component_optimization_algorithm.name} in multiscale "
-                "is not ported yet; ROADMAP queue A, item 7 brings it."
-            )
+            self._run_full_component_fitter(dirty_set, model_set, psfs)
+            return result
 
         if self._fused_eligible(meta, width, height):
             return self._execute_fused(dirty_set, model_set, psfs, result)
@@ -764,7 +777,7 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         return stack
 
     def _prepare_fused_banks(self, meta: CubeMeta, width: int, height: int,
-                             psfs: torch.Tensor):
+                             psfs: torch.Tensor, slot: int = 0):
         """The fused loop's per-scale banks (``multiscale.py:870-1011`` of
         the JAX package): the scale kernels' and the correction PSFs'
         spectra at both padded sizes, factored (S + C planes, not the
@@ -776,17 +789,18 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         PSFs stay the same, so a ``Radler`` builds them once: a PSF stack
         hits when it is the kept tensor at the kept version, or an equal
         tensor (``load_and_average_psfs`` makes a new one every perform)
-        while the kept one was not changed in place."""
+        while the kept one was not changed in place.  The batched facets'
+        direction-dependent PSFs keep one bank a ``slot``."""
         split, pa, pb = self._correction_split(width, height)
         key = (width, height, meta, tuple(e.scale for e in self.scale_infos),
                self.ms_settings.shape, self.ms_settings.scale_bias,
                self.minor_loop_gain, split, pa, pb, psfs.device)
-        kept = self._fused_banks
+        kept = self._fused_banks if slot == 0 else self._slot_banks.get(slot)
         if kept is not None and kept[0] == key and _same_psfs(
                 kept[1], kept[2], psfs):
             self._apply_psf_peaks(kept[3])
             return kept[4]
-        self._fused_banks = None
+        self._keep_banks(slot, None)
         S = len(self.scale_infos)
         compact = torch.as_tensor(self._compact_kernel_stack(width, height),
                                   device=psfs.device)
@@ -819,8 +833,16 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         gain_arr = np.asarray([e.gain for e in self.scale_infos], np.float32)
         banks = (kernel_f, twice, psf_f, kernel_f_large, psf_f_large, bias,
                  gain_arr, split, pa, pb)
-        self._fused_banks = (key, psfs, psfs._version, peaks, banks)
+        self._keep_banks(slot, (key, psfs, psfs._version, peaks, banks))
         return banks
+
+    def _keep_banks(self, slot: int, kept: Optional[tuple]) -> None:
+        if slot == 0:
+            self._fused_banks = kept
+        elif kept is None:
+            self._slot_banks.pop(slot, None)
+        else:
+            self._slot_banks[slot] = kept
 
     def _execute_fused(self, dirty_set, model_set, psfs: torch.Tensor,
                        result: DeconvolutionResult) -> DeconvolutionResult:
@@ -910,6 +932,192 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
             )
         return result
 
+    # -- batched facets (multiscale.py:1335-1641 of the JAX package) -----
+    def batched_facets_eligible(
+        self,
+        meta: CubeMeta,
+        box_w: int,
+        box_h: int,
+        n_facets: int,
+        n_unique_psfs: int = 1,
+    ) -> bool:
+        """Whether every facet's fused loop runs at once on the common box
+        (:meth:`execute_batched_facets`): the JAX package's rule and its
+        per-facet estimate, against :data:`BATCHED_FACETS_BUDGET` on every
+        device, so that the CPU, the card and the JAX package pick the same
+        route."""
+        initialize_scales(
+            self.scale_infos,
+            self.beam_size_in_pixels,
+            min(box_w, box_h),
+            self.ms_settings.shape,
+            self.ms_settings.max_scales,
+            self.ms_settings.scale_list,
+        )
+        if not self._fused_eligible(meta, box_w, box_h):
+            return False
+        N, C = meta.n_images, meta.n_channels
+        S = max(len(self.scale_infos), 1)
+        _, (ph, pw), (phl, pwl) = self._correction_split(box_w, box_h)
+        per_facet = (
+            2 * N * ph * pw * 8  # the spectral residual, twice
+            + 2 * N * ph * pw * 8  # spectral-subtract temporaries
+            + 2 * N * box_h * box_w * 4  # components
+            + max(S, N) * ph * pw * 4  # maxima / cube inverse transients
+            + 6 * N * box_h * box_w * 4  # residual, model, PSF copies
+        )
+        if self.track_per_scale_masks or self.use_per_scale_masks:
+            per_facet += 2 * S * box_h * box_w
+        if self.track_components:
+            per_facet += 2 * S * N * box_h * box_w * 4
+        extra = n_facets * per_facet
+        if n_unique_psfs > 1:
+            extra += n_facets * S * C * box_h * box_w * 4
+            extra += n_facets * C * (ph * pw + phl * pwl) * 8
+        return extra < BATCHED_FACETS_BUDGET
+
+    def execute_batched_facets(
+        self,
+        facet_residual: torch.Tensor,  # [F, N, Hb, Wb], updated in place
+        facet_model: torch.Tensor,  # [F, N, Hb, Wb], updated in place
+        psfs: torch.Tensor,  # [C, Hb, Wb] shared, or [U, C, Hb, Wb]
+        facet_boxes,  # (width, height) of each facet, placed top left
+        facet_masks: np.ndarray,  # [F, Hb, Wb] bool search masks
+        facet_rms: Optional[torch.Tensor],  # [F, Hb, Wb] or None
+        major_iteration_threshold: float,
+        start_iterations,  # per facet
+        find_peak_only: bool,
+        meta: CubeMeta,
+        facet_forced_terms: Optional[torch.Tensor] = None,  # [F, T-1, ...]
+        facet_psf_slot=None,  # [F] index into U (direction-dependent PSFs)
+        facet_scale_masks: Optional[np.ndarray] = None,  # [F, S', Hb, Wb]
+    ):
+        """Every facet's fused loop at once
+        (:func:`~radler_tpu_torch.models.multiscale_fused.
+        facet_fused_multiscale_minor_loop`), the port of the JAX package's
+        vmapped ``execute_batched_facets``: the banks are shared, or, with
+        direction-dependent PSFs (``psfs`` 4-D), built a unique PSF (each
+        kept in its slot) and picked by ``facet_psf_slot``; each scale's
+        search window lies over the facet's true box (the border of
+        ``multiscale_algorithm.cc:597-603``) and its mask, ANDed with the
+        loaded per-scale masks when they are used.  The peak-only pass
+        (``find_peak_only``) runs no iteration and leaves the stacks as
+        they were.  Returns ``(results, iterations, lockstep, mask_acc,
+        comp_acc)``: a :class:`DeconvolutionResult` and the iteration count
+        of each facet, the lockstep iterations of the dense loops, and the
+        per-facet accumulators (``[F, S, Hb, Wb]`` bool, and scale -> ``[F,
+        N, Hb, Wb]``) of the per-scale masks and components."""
+        fitter = self.spectral_fitter
+        if fitter is not None and not fitter.is_active:
+            fitter = None
+        if (fitter is not None
+                and fitter.mode == SpectralFittingMode.FORCED_TERMS
+                and facet_forced_terms is None):
+            raise RuntimeError("Forced terms have not been set")
+        n_facets, _, box_h, box_w = facet_residual.shape
+        initialize_scales(
+            self.scale_infos,
+            self.beam_size_in_pixels,
+            min(box_w, box_h),
+            self.ms_settings.shape,
+            self.ms_settings.max_scales,
+            self.ms_settings.scale_list,
+        )
+        S = len(self.scale_infos)
+        if psfs.dim() == 4:
+            per_slot = [self._prepare_fused_banks(meta, box_w, box_h,
+                                                  psfs[u], slot=u)
+                        for u in range(psfs.shape[0])]
+            slots = [int(u) for u in facet_psf_slot]
+        else:
+            per_slot = [self._prepare_fused_banks(meta, box_w, box_h, psfs)]
+            slots = [0] * n_facets
+        (kernel_f, _, _, kernel_f_large, _, _, _, split, padded_small,
+         padded_large) = per_slot[-1]
+
+        def stacked(i):
+            if per_slot[0][i] is None:
+                return None
+            if len(per_slot) == 1:
+                return per_slot[0][i][None]
+            return torch.stack([b[i] for b in per_slot])
+
+        bias = np.stack([per_slot[u][5] for u in slots])  # [F, S]
+        gain_arr = np.stack([per_slot[u][6] for u in slots])
+
+        # Each scale's search window over the facet's true box (a
+        # rectangle, ``window_mask``'s), ANDed with the facet's mask, made
+        # on the device; the padding is never searched.
+        dev = facet_residual.device
+        stacks = torch.zeros((n_facets, S, box_h, box_w), dtype=torch.bool,
+                             device=dev)
+        for f, (sw, sh) in enumerate(facet_boxes):
+            for i, entry in enumerate(self.scale_infos):
+                xb = int(round(sw * self.clean_border_ratio))
+                yb = int(round(sh * self.clean_border_ratio))
+                if entry.scale != 0.0:
+                    border_scale = int(math.ceil(entry.scale * 0.5))
+                    xb = max(xb, border_scale)
+                    yb = max(yb, border_scale)
+                stacks[f, i, yb:max(sh - yb, yb), xb:max(sw - xb, xb)] = True
+        stacks &= torch.as_tensor(facet_masks, device=dev)[:, None]
+        if self.use_per_scale_masks and facet_scale_masks is not None:
+            stacks &= torch.as_tensor(
+                np.ascontiguousarray(facet_scale_masks[:, :S]), device=dev)
+
+        starts = [int(v) for v in start_iterations]
+        out = facet_fused_multiscale_minor_loop(
+            facet_residual, facet_model, kernel_f, stacked(1), stacked(2),
+            kernel_f_large, stacked(4), slots, stacks,
+            facet_rms, bias, gain_arr, self.threshold,
+            major_iteration_threshold, self.major_loop_gain,
+            self.ms_settings.sub_minor_loop_gain, self.minor_loop_gain,
+            self.divergence_limit, starts,
+            starts if find_peak_only else [self.max_iterations] * n_facets,
+            max(8, S * 3 // 2),
+            meta=meta,
+            allow_negative=self.allow_negative_components,
+            stop_on_negative=self.stop_on_negative_components,
+            fitter=fitter, split=split, padded_small=padded_small,
+            padded_large=padded_large,
+            boxes=[(sh, sw) for sw, sh in facet_boxes],
+            forced_terms=facet_forced_terms,
+            track_masks=self.track_per_scale_masks,
+            track_components=self.track_components,
+        )
+        if not find_peak_only:
+            facet_residual.copy_(out.residual)
+            facet_model.copy_(out.model)
+        results = []
+        for f in range(n_facets):
+            result = DeconvolutionResult()
+            peak = out.final_biased_peak[f]
+            result.final_peak_value = peak
+            if not find_peak_only:
+                for i, entry in enumerate(self.scale_infos):
+                    entry.n_components_cleaned += int(
+                        out.components_per_scale[f, i])
+            if out.any_peak_found[f]:
+                max_iter_reached = (out.iteration_number[f]
+                                    >= self.max_iterations)
+                negative_reached = (self.stop_on_negative_components
+                                    and peak < 0.0)
+                result.is_diverging = out.diverging[f]
+                result.another_iteration_required = (
+                    not max_iter_reached
+                    and not out.is_final_threshold[f]
+                    and not negative_reached
+                    and not out.diverging[f]
+                )
+            if out.no_components[f] and not find_peak_only:
+                log.error(
+                    "Could not continue multi-scale clean in facet %d: the "
+                    "sub-minor loop failed to find components." % f
+                )
+            results.append(result)
+        return (results, out.iteration_number, out.lockstep, out.mask_acc,
+                out.comp_acc)
+
     def _flush_device_tracking(self) -> None:
         """Bring the device-accumulated auto-mask and component updates to
         the host state, once per major iteration (``SubMinorLoop``'s update
@@ -929,6 +1137,75 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
                     comp_h[:, ys[j], xs[j]],
                 )
         self._comp_acc = {}
+
+    # -- component optimization (multiscale_algorithm.cc:750-931) --------
+    def _run_full_component_fitter(self, dirty_set, model_set,
+                                   psfs: torch.Tensor) -> None:
+        """``RunFullComponentFitter``: every plane's components refined over
+        all scales at once, then their spectra fitted."""
+        if self._component_list is None:
+            raise RuntimeError(
+                "Component optimization in multiscale requires a tracked "
+                "component list (save_source_list)"
+            )
+        for image_index in range(dirty_set.n_images):
+            self._fit_components_single_image(dirty_set, model_set, psfs,
+                                              image_index)
+        self.apply_spectral_constraints_to_components(self._component_list)
+
+    def _fit_components_single_image(self, dirty_set, model_set,
+                                     psfs: torch.Tensor,
+                                     image_index: int) -> None:
+        """Joint gradient descent on one plane's components of every scale
+        (``multiscale_algorithm.cc:837-918``): each scale's components are
+        convolved with its scale-convolved PSF, and all are solved together
+        (:func:`~radler_tpu_torch.ops.component_optimization.
+        gradient_descent_with_variable_psf`); the component list gains the
+        deltas, the model their scale-convolved images and the residual
+        loses those convolved with the PSF."""
+        meta = dirty_set.meta
+        width, height = dirty_set.width, dirty_set.height
+        dev = dirty_set.data.device
+        psf = psfs[meta.psf_index(image_index)]
+        residual = dirty_set.data[image_index]
+        model = model_set.data[image_index]
+        supports, conv_psfs, active_scales = [], [], []
+        for scale_index, entry in enumerate(self.scale_infos):
+            positions = self._component_list.get_positions(scale_index)
+            if not positions:
+                continue
+            xs, ys = (torch.as_tensor(v, device=dev) for v in zip(*positions))
+            support = torch.zeros((height, width), dtype=torch.float32,
+                                  device=dev)
+            support[ys, xs] = 1.0
+            supports.append(support)
+            conv_psfs.append(self._scale_convolve(psf, entry.scale))
+            active_scales.append(scale_index)
+        if not supports:
+            return
+        max_scale = self.scale_infos[-1].scale
+        padded = (
+            get_convolution_size(max_scale, height,
+                                 self.ms_settings.convolution_padding),
+            get_convolution_size(max_scale, width,
+                                 self.ms_settings.convolution_padding),
+        )
+        deltas = gradient_descent_with_variable_psf(
+            supports, residual, conv_psfs, padded_shape=padded)
+        for delta, scale_index in zip(deltas, active_scales):
+            entry = self.scale_infos[scale_index]
+            positions = self._component_list.get_positions(scale_index)
+            delta_host = delta.cpu().numpy()
+            for i, (px, py) in enumerate(positions):
+                _, _, vals = self._component_list.get_component(scale_index,
+                                                                i)
+                vals[image_index] += float(delta_host[py, px])
+            delta_conv = self._scale_convolve(delta, entry.scale)
+            model = model + delta_conv
+            residual = residual - padded_convolve(delta_conv, psf,
+                                                  padded_shape=padded)
+        model_set.data[image_index] = model
+        dirty_set.data[image_index] = residual
 
     # -- fast (subminor) path -------------------------------------------
     def _run_fast_sub_loop(

@@ -53,7 +53,12 @@ import numpy as np
 import torch
 
 from ..image_set import CubeMeta, linear_integration_coefficients
-from ..kernels.hogbom_step import LoopParams, hogbom_loop
+from ..kernels.hogbom_step import (
+    FacetLoopParams,
+    LoopParams,
+    facet_hogbom_loop,
+    hogbom_loop,
+)
 from ..ops.convolution import forward_fft2_padded, inverse_fft2_real_trimmed
 from ..ops.peak_finder import FLT_MIN
 from ..parallel.mesh import mesh_hogbom_loop
@@ -192,15 +197,18 @@ def _select_scale(vals: np.ndarray, active: np.ndarray,
 # profiler can wrap it.
 
 
-def expand_planes(planes: torch.Tensor,
-                  expand: Optional[torch.Tensor]) -> torch.Tensor:
-    """Coefficient planes ``[T*P, ...]`` to cube planes ``[N, ...]``
-    (``expand @ planes``); the planes themselves without a basis."""
+def expand_planes(planes: torch.Tensor, expand: Optional[torch.Tensor],
+                  batch_dims: int = 0) -> torch.Tensor:
+    """Coefficient planes ``[..., T*P, ...]`` to cube planes ``[..., N,
+    ...]`` (``expand @ planes`` along the axis after the first
+    ``batch_dims`` ones, the facet axis of the batched facets); the planes
+    themselves without a basis."""
     if expand is None:
         return planes
-    flat = planes.reshape(planes.shape[0], -1)
-    return (expand.to(planes.dtype) @ flat).reshape(
-        (expand.shape[0],) + tuple(planes.shape[1:]))
+    lead = tuple(planes.shape[:batch_dims])
+    flat = planes.reshape(lead + (planes.shape[batch_dims], -1))
+    return torch.matmul(expand.to(planes.dtype), flat).reshape(
+        lead + (expand.shape[0],) + tuple(planes.shape[batch_dims + 1:]))
 
 
 def spectral_scale_maxima(res_f: torch.Tensor, lin: torch.Tensor,
@@ -211,19 +219,28 @@ def spectral_scale_maxima(res_f: torch.Tensor, lin: torch.Tensor,
     """Every scale's masked, weighted peak (``FindActiveScaleConvolved
     Maxima``, ``multiscale_algorithm.cc:578-634``) from the integrated
     spectrum: S inverse transforms and no forward one, then one host read.
-    Returns float32 values, x, y and found, each ``[S]`` on the host."""
-    S, (H, W) = kernel_f.shape[0], valid_stack.shape[1:]
-    integ_f = torch.einsum("n,nhw->hw", lin.to(res_f.dtype), res_f)
-    conv = inverse_fft2_real_trimmed(integ_f[None] * kernel_f, padded, (H, W))
-    weighted = conv * rms_factor if rms_factor is not None else conv
+    Returns float32 values, x, y and found, each ``[S]`` on the host.
+
+    Batched over facets, ``res_f`` is ``[F, N, ...]``, ``valid_stack``
+    ``[F, S, H, W]``, ``rms_factor`` ``[F, H, W]``, and each output ``[F,
+    S]``, still one host read."""
+    S, (H, W) = kernel_f.shape[0], valid_stack.shape[-2:]
+    batched = res_f.dim() == 4
+    integ_f = torch.einsum("n,fnhw->fhw" if batched else "n,nhw->hw",
+                           lin.to(res_f.dtype), res_f)
+    conv = inverse_fft2_real_trimmed(integ_f.unsqueeze(-3) * kernel_f,
+                                     padded, (H, W))
+    weighted = (conv * rms_factor.unsqueeze(-3) if rms_factor is not None
+                else conv)
     cmp = weighted.abs() if allow_negative else weighted
-    masked = torch.where(valid_stack, cmp, -math.inf).reshape(S, H * W)
-    idx = torch.argmax(masked, dim=1, keepdim=True)
-    found = torch.gather(masked, 1, idx)[:, 0] > FLT_MIN
-    vals = torch.where(found,
-                       torch.gather(weighted.reshape(S, H * W), 1, idx)[:, 0],
-                       0.0)
-    idx = idx[:, 0]
+    lead = tuple(conv.shape[:-2])
+    masked = torch.where(valid_stack, cmp, -math.inf).reshape(lead + (H * W,))
+    idx = torch.argmax(masked, dim=-1, keepdim=True)
+    found = torch.gather(masked, -1, idx)[..., 0] > FLT_MIN
+    vals = torch.where(
+        found, torch.gather(weighted.reshape(lead + (H * W,)), -1,
+                            idx)[..., 0], 0.0)
+    idx = idx[..., 0]
     host = torch.stack([vals.double(), (idx % W).double(),
                         (idx // W).double(), found.double()]).cpu().numpy()
     return (host[0].astype(f32), host[1].astype(np.int64),
@@ -234,9 +251,11 @@ def scale_convolved_cube(res_f: torch.Tensor, kernel_f_s: torch.Tensor,
                          padded: Tuple[int, int],
                          shape: Tuple[int, int]) -> torch.Tensor:
     """The scale-convolved residual cube (``multiscale_algorithm.cc:
-    345-354``): N inverse transforms and no forward one."""
-    return inverse_fft2_real_trimmed(res_f * kernel_f_s[None], padded,
-                                     shape).contiguous()
+    345-354``): N inverse transforms and no forward one.  ``kernel_f_s`` is
+    the scale's spectrum, or ``[F, ...]`` one a facet for ``[F, N, ...]``
+    (each facet at its own scale)."""
+    return inverse_fft2_real_trimmed(res_f * kernel_f_s.unsqueeze(-3),
+                                     padded, shape).contiguous()
 
 
 def correct_small(res_f: torch.Tensor, model: torch.Tensor,
@@ -246,12 +265,15 @@ def correct_small(res_f: torch.Tensor, model: torch.Tensor,
     """A small-size scale's correction, in place: the model gains the
     scale-convolved components, and the spectral residual loses their
     convolution with the PSFs, a spectral subtraction (the spectrum of
-    ``kernel_s ⊛ psf_c`` is ``kernel_f[s] * psf_f[c]``)."""
-    comp_f = forward_fft2_padded(comp, padded)  # [Tn, ...]
+    ``kernel_s ⊛ psf_c`` is ``kernel_f[s] * psf_f[c]``).  Batched over
+    facets, every argument gains a leading facet axis (``kernel_f_s`` and
+    ``psf_f_planes`` may stay shared)."""
+    batch = model.dim() - 3
+    k = kernel_f_s.unsqueeze(-3)
+    comp_f = forward_fft2_padded(comp, padded)  # [..., Tn, ...]
     model.add_(expand_planes(inverse_fft2_real_trimmed(
-        comp_f * kernel_f_s[None], padded, model.shape[1:]), expand))
-    res_f.sub_(expand_planes(comp_f, expand) * psf_f_planes
-               * kernel_f_s[None])
+        comp_f * k, padded, model.shape[-2:]), expand, batch))
+    res_f.sub_(expand_planes(comp_f, expand, batch) * psf_f_planes * k)
 
 
 def correct_large(res_f: torch.Tensor, model: torch.Tensor,
@@ -260,14 +282,17 @@ def correct_large(res_f: torch.Tensor, model: torch.Tensor,
                   padded_large: Tuple[int, int],
                   expand: Optional[torch.Tensor]) -> None:
     """A large-size scale's correction, in place: in image space at the
-    large size, then the spectral residual re-synced from the delta."""
-    shape = model.shape[1:]
-    comp_f = forward_fft2_padded(comp, padded_large)  # [Tn, ...]
+    large size, then the spectral residual re-synced from the delta
+    (batched as :func:`correct_small`)."""
+    batch = model.dim() - 3
+    shape = model.shape[-2:]
+    k = kernel_f_s.unsqueeze(-3)
+    comp_f = forward_fft2_padded(comp, padded_large)  # [..., Tn, ...]
     model.add_(expand_planes(inverse_fft2_real_trimmed(
-        comp_f * kernel_f_s[None], padded_large, shape), expand))
+        comp_f * k, padded_large, shape), expand, batch))
     delta = inverse_fft2_real_trimmed(
-        expand_planes(comp_f, expand) * psf_f_planes * kernel_f_s[None],
-        padded_large, shape)  # [N, H, W]
+        expand_planes(comp_f, expand, batch) * psf_f_planes * k,
+        padded_large, shape)  # [..., N, H, W]
     res_f.sub_(forward_fft2_padded(delta, padded_small))
 
 
@@ -447,3 +472,294 @@ def fused_multiscale_minor_loop(
         comp_acc=comp_acc,
     )
 
+
+
+class FacetFusedResult(NamedTuple):
+    """:class:`FusedMultiscaleResult` of F facets: each list holds one entry
+    a facet."""
+
+    residual: torch.Tensor  # [F, N, H, W]
+    model: torch.Tensor  # [F, N, H, W]
+    iteration_number: list
+    final_biased_peak: list
+    any_peak_found: list
+    diverging: list
+    no_components: list
+    is_final_threshold: list
+    components_per_scale: np.ndarray  # [F, S] ints
+    mask_acc: Optional[torch.Tensor]  # [F, S, H, W] bool (track_masks)
+    comp_acc: Dict[int, torch.Tensor]  # scale -> [F, N, H, W]
+    lockstep: int  # the dense loops' lockstep iterations, summed
+
+
+def _take(t: torch.Tensor, rows) -> torch.Tensor:
+    """``t[rows]`` along the first axis: ``t`` itself when ``rows`` is
+    every row in order, else a stacked copy (indexing by a host list
+    without a host-to-device copy of the indices)."""
+    if list(rows) == list(range(t.shape[0])):
+        return t
+    return torch.stack([t[i] for i in rows])
+
+
+def _put(t: torch.Tensor, rows, part: torch.Tensor) -> None:
+    """Write :func:`_take`'s ``part`` back into ``t``'s ``rows``."""
+    if part is not t:
+        for j, i in enumerate(rows):
+            t[i].copy_(part[j])
+
+
+def _pick(bank: torch.Tensor, keys) -> torch.Tensor:
+    """``bank[key]`` shared when every key is the same, else stacked one a
+    key."""
+    if len(set(keys)) == 1:
+        return bank[keys[0]]
+    return torch.stack([bank[k] for k in keys])
+
+
+def facet_fused_multiscale_minor_loop(
+    residual: torch.Tensor,  # [F, N, H, W]
+    model: torch.Tensor,  # [F, N, H, W]
+    kernel_f: torch.Tensor,  # [S, Ph, Pw//2+1] scale-kernel spectra, small
+    twice_psfs: torch.Tensor,  # [U, S, C, H, W] twice-convolved PSFs
+    psf_f: torch.Tensor,  # [U, C, Ph, Pw//2+1] PSF spectra, small size
+    kernel_f_large: Optional[torch.Tensor],  # [S - split, ...] or None
+    psf_f_large: Optional[torch.Tensor],  # [U, C, PhL, PwL//2+1] or None
+    slots,  # [F]: each facet's PSF bank in U
+    valid_stack: torch.Tensor,  # [F, S, H, W] bool searchable windows
+    rms_factor: Optional[torch.Tensor],  # [F, H, W] or None
+    bias: np.ndarray,  # [F, S] float32
+    gain_arr: np.ndarray,  # [F, S] float32
+    threshold: float,
+    major_iteration_threshold: float,
+    major_loop_gain: float,
+    sub_loop_gain: float,
+    minor_loop_gain: float,
+    divergence_limit: float,
+    start_iterations,  # [F]
+    max_iterations,  # [F]
+    countdown0: int,
+    *,
+    meta: CubeMeta,
+    allow_negative: bool,
+    stop_on_negative: bool,
+    fitter,
+    split: int,
+    padded_small: Tuple[int, int],
+    padded_large: Tuple[int, int],
+    boxes,  # [F] (rows, columns): each facet's true box, top left
+    forced_terms: Optional[torch.Tensor] = None,  # [F, T-1, H, W]
+    track_masks: bool = False,
+    track_components: bool = False,
+) -> FacetFusedResult:
+    """:func:`fused_multiscale_minor_loop` on F facets of a common box at
+    once, the JAX package's loop vmapped over facets (``multiscale.py:
+    1388-1641``): every outer pass reads all facets' scale maxima in one
+    host read, takes each facet's decisions in float32 on ``[F]`` and ``[F,
+    S]`` arrays in the JAX order, and runs the dense subminor loops of the
+    facets still going as one :func:`~radler_tpu_torch.kernels.hogbom_step.
+    facet_hogbom_loop` (B1's facet mode in linear mode, each facet at its
+    own scale, over its true box).  A facet that has stopped is left out
+    of the passes, so its state stays as it was.
+
+    The banks are shared (``U`` = 1) or, with direction-dependent PSFs,
+    one a unique PSF, each facet's picked by ``slots``.  The spectral
+    residual covers the common box; its padding, outside every search
+    window, gathers the wrapped tails as the single cube's margin does."""
+    F, N, H, W = residual.shape
+    S = kernel_f.shape[0]
+    dev = residual.device
+    P = meta.n_polarizations
+    lin_np = linear_integration_coefficients(meta)
+    lin = device_const(lin_np, dev)
+    bias = np.asarray(bias, f32).reshape(F, S)
+    gain_arr = np.asarray(gain_arr, f32).reshape(F, S)
+    threshold, major_iteration_threshold = f32(threshold), f32(
+        major_iteration_threshold)
+    major_loop_gain, sub_loop_gain = f32(major_loop_gain), f32(sub_loop_gain)
+    minor_loop_gain, divergence_limit = f32(minor_loop_gain), f32(
+        divergence_limit)
+    one = f32(1.0)
+    slots = [int(u) for u in slots]
+    every = list(range(F))
+
+    E_np = _coefficient_basis(fitter, meta)
+    coefficients = expand = None
+    loop_fitter = fitter
+    if E_np is not None:
+        expand = device_const(E_np, dev)
+        coefficients = (device_const(fitter._fit_matrix, dev), expand)
+        loop_fitter = None
+    n_comp = N if expand is None else expand.shape[1]
+
+    psf_idx = torch.arange(N, device=dev) // P
+
+    def per_plane(spectra: torch.Tensor) -> torch.Tensor:
+        return spectra if P == 1 else spectra.index_select(-3, psf_idx)
+
+    psf_planes = per_plane(psf_f)  # [U, N, ...]
+    psf_planes_large = per_plane(psf_f_large) if split < S else None
+
+    res_f = forward_fft2_padded(residual, padded_small)  # [F, N, ...]
+    mod = model.clone()
+    vals = np.zeros((F, S), f32)
+    xs = np.zeros((F, S), np.int64)
+    ys = np.zeros((F, S), np.int64)
+    found = np.zeros((F, S), bool)
+
+    def find_maxima(facets) -> None:
+        out = spectral_scale_maxima(
+            _take(res_f, facets), lin, kernel_f, padded_small,
+            _take(valid_stack, facets),
+            None if rms_factor is None else _take(rms_factor, facets),
+            allow_negative)
+        for i, f in enumerate(facets):
+            vals[f], xs[f], ys[f], found[f] = (o[i] for o in out)
+
+    # Thresholds (multiscale_algorithm.cc:286-321), in float32.
+    find_maxima(every)
+    biased0 = np.abs(vals * bias)
+    initial_peak = biased0[np.arange(F), np.argmax(biased0, axis=1)]
+    m_gain_threshold = np.maximum(initial_peak * (one - major_loop_gain),
+                                  major_iteration_threshold)
+    first_threshold = np.maximum(m_gain_threshold, threshold)
+    is_final_threshold = [bool(threshold > m) for m in m_gain_threshold]
+    any_found0 = found.any(axis=1)
+
+    it = [int(v) for v in start_iterations]
+    max_iterations = [int(v) for v in max_iterations]
+    countdown = [int(countdown0)] * F
+    active = np.ones((F, S), bool)
+    ncomp = np.zeros((F, S), np.int64)
+    div, nocomp = [False] * F, [False] * F
+    mask_acc = (torch.zeros((F, S, H, W), dtype=torch.bool, device=dev)
+                if track_masks else None)
+    comp_acc: Dict[int, torch.Tensor] = {}
+    integration = ("linear", lin_np)
+    lockstep = 0
+
+    while True:
+        sel = [_select_scale(vals[f], active[f], bias[f]) for f in every]
+        run = [
+            f for f in every
+            if it[f] < max_iterations[f]
+            and abs(vals[f, sel[f]] * bias[f, sel[f]]) > first_threshold[f]
+            and (not stop_on_negative or vals[f, sel[f]] >= 0.0)
+            and countdown[f] > 0
+            and not div[f]
+            and not nocomp[f]
+            and any_found0[f]
+        ]
+        if not run:
+            break
+        scales = [sel[f] for f in run]
+        thr_sub = []
+        for f, s in zip(run, scales):
+            biased_peak = abs(vals[f, s] * bias[f, s])
+            sub_gain_threshold = biased_peak * (one - sub_loop_gain)
+            countdown[f] -= int(first_threshold[f] > sub_gain_threshold)
+            thr_sub.append(max(sub_gain_threshold, first_threshold[f])
+                           / bias[f, s])
+
+        conv_res = scale_convolved_cube(_take(res_f, run),
+                                        _pick(kernel_f, scales),
+                                        padded_small, (H, W))
+        psfs = _pick(twice_psfs, [(slots[f], s) for f, s in zip(run, scales)])
+        weight = torch.stack([valid_stack[f, s] for f, s in zip(run, scales)]
+                             ).to(torch.float32)
+        rms_run = None
+        if rms_factor is not None:
+            rms_run = _take(rms_factor, run)
+            weight = weight * rms_run
+        comp = torch.zeros((len(run), n_comp, H, W), dtype=conv_res.dtype,
+                           device=dev)
+        it_before = [it[f] for f in run]
+        loop = facet_hogbom_loop(
+            conv_res, comp,
+            psfs if psfs.dim() == 3 else psfs.contiguous(),
+            weight.contiguous(), rms_run,
+            [(float(vals[f, s]), int(xs[f, s]), int(ys[f, s]),
+              bool(found[f, s])) for f, s in zip(run, scales)],
+            FacetLoopParams.make(
+                [gain_arr[f, s] for f, s in zip(run, scales)], thr_sub,
+                [abs(vals[f, s]) for f, s in zip(run, scales)],
+                divergence_limit, [max_iterations[f] for f in run],
+                stop_on_negative, dev),
+            it_before,
+            meta=meta, allow_negative=allow_negative, fitter=loop_fitter,
+            forced_terms=(None if forced_terms is None
+                          else _take(forced_terms, run)),
+            boxes=torch.tensor([boxes[f] for f in run], dtype=torch.int32),
+            integration=integration, coefficients=coefficients,
+        )
+        lockstep += loop.lockstep
+        for i, (f, s) in enumerate(zip(run, scales)):
+            out = loop.results[i]
+            it[f] = out.iteration
+            nocomp[f] = it[f] == it_before[i]
+            div[f] = bool(out.diverging) or bool(
+                divergence_limit != 0.0
+                and abs(f32(out.value)) > initial_peak[f] * divergence_limit)
+            ncomp[f, s] += it[f] - it_before[i]
+
+        # The corrections, the small-size scales' facets together and the
+        # large-size ones' together.
+        for group in ([i for i, s in enumerate(scales) if s < split],
+                      [i for i, s in enumerate(scales) if s >= split]):
+            if not group:
+                continue
+            facets = [run[i] for i in group]
+            res_g, mod_g = _take(res_f, facets), _take(mod, facets)
+            comp_g = _take(comp, group)
+            bank_slots = [slots[f] for f in facets]
+            if scales[group[0]] < split:
+                correct_small(res_g, mod_g, comp_g,
+                              _pick(kernel_f, [scales[i] for i in group]),
+                              _pick(psf_planes, bank_slots), padded_small,
+                              expand)
+            else:
+                correct_large(res_g, mod_g, comp_g,
+                              _pick(kernel_f_large,
+                                    [scales[i] - split for i in group]),
+                              _pick(psf_planes_large, bank_slots),
+                              padded_small, padded_large, expand)
+            _put(res_f, facets, res_g)
+            _put(mod, facets, mod_g)
+
+        if track_masks:
+            for i, (f, s) in enumerate(zip(run, scales)):
+                mask_acc[f, s] |= torch.any(comp[i] != 0.0, dim=0)
+        if track_components:
+            planes = expand_planes(comp, expand, 1)
+            for i, (f, s) in enumerate(zip(run, scales)):
+                if s not in comp_acc:
+                    comp_acc[s] = torch.zeros((F, N, H, W), device=dev)
+                comp_acc[s][f] += planes[i]
+
+        # Scale (de)activation uses the maxima before the refresh
+        # (multiscale_algorithm.cc:636-656) ...
+        for f, s in zip(run, scales):
+            act_thr = abs(vals[f, s]) * (one - minor_loop_gain) * bias[f, s]
+            active[f] = (np.arange(S) == s) | (np.abs(vals[f] * bias[f])
+                                               > act_thr)
+        # ... then the running facets' maxima are refreshed.
+        find_maxima(run)
+
+    res_out = inverse_fft2_real_trimmed(res_f, padded_small,
+                                        (H, W)).contiguous()
+    s_final = [_select_scale(vals[f], active[f], bias[f]) for f in every]
+    return FacetFusedResult(
+        residual=res_out,
+        model=mod,
+        iteration_number=it,
+        final_biased_peak=[float(vals[f, s] * bias[f, s])
+                           for f, s in zip(every, s_final)],
+        any_peak_found=[bool(any_found0[f] and found[f].any())
+                        for f in every],
+        diverging=div,
+        no_components=nocomp,
+        is_final_threshold=is_final_threshold,
+        components_per_scale=ncomp,
+        mask_acc=mask_acc,
+        comp_acc=comp_acc,
+        lockstep=lockstep,
+    )

@@ -12,12 +12,14 @@ rule (:meth:`ParallelDeconvolution._can_batch_facets`):
 * batched: generic CLEAN runs every facet's Högbom loop in lockstep on
   stacks padded to a common box (:meth:`GenericClean.execute_batched_facets
   <radler_tpu_torch.models.generic_clean.GenericClean.
-  execute_batched_facets>`, B1's facet mode);
+  execute_batched_facets>`, B1's facet mode), and multiscale every facet's
+  fused loop at once (:meth:`MultiScaleAlgorithm.execute_batched_facets
+  <radler_tpu_torch.models.multiscale.MultiScaleAlgorithm.
+  execute_batched_facets>`, its dense subminor loops in B1's facet mode);
 * serial: each facet's clone of the algorithm runs its own path on the
-  facet's box, one facet after another (IUWT, multiscale, and generic CLEAN
-  with ``RADLER_TPU_NO_BATCHED_FACETS`` set or past the stacks' budget).
-  The JAX package batches multiscale facets too; the port does not yet
-  (ROADMAP queue A, item 6b).
+  facet's box, one facet after another (IUWT, ASP, and generic CLEAN or
+  multiscale with ``RADLER_TPU_NO_BATCHED_FACETS`` set or past their
+  budgets).
 """
 
 from __future__ import annotations
@@ -340,12 +342,12 @@ class ParallelDeconvolution:
     def _can_batch_facets(
         self, sub_images: List[SubImage], psf_image_indices, data_image
     ) -> bool:
-        """Whether all facets run as one lockstep loop
+        """Whether all facets run at once
         (``parallel_deconvolution.py:299-326`` of the JAX package): the
-        algorithm must offer it (generic CLEAN does; the port's multiscale
-        does not yet, ROADMAP queue A, item 6b) and accept the facets'
-        stacks.  ``RADLER_TPU_NO_BATCHED_FACETS`` forces the serial route,
-        which has the same semantics, one facet after another."""
+        algorithm must offer it (generic CLEAN and multiscale do) and
+        accept the facets' stacks.  ``RADLER_TPU_NO_BATCHED_FACETS`` forces
+        the serial route, which has the same semantics, one facet after
+        another."""
         if os.environ.get("RADLER_TPU_NO_BATCHED_FACETS"):
             return False
         if self.settings.algorithm_type not in (
@@ -376,13 +378,20 @@ class ParallelDeconvolution:
         major_loop_gain: float,
     ) -> ParallelDeconvolutionResult:
         """Both facet phases (``parallel_deconvolution.cc:582-617``) on
-        every facet at once (``parallel_deconvolution.py:328-601`` of the
-        JAX package, its generic CLEAN branch): the facets are placed top
-        left in a common box, the peak-only pass and the clean pass run them
-        in lockstep, and the rollback and the boundary-masked merge work on
-        the stacked outputs.  Direction-dependent PSFs become one stack a
-        facet, each facet's nearest."""
+        every facet at once (``parallel_deconvolution.py:328-520`` of the
+        JAX package): the facets are placed top left in a common box, the
+        peak-only pass and the clean pass run them in lockstep, and the
+        rollback and the boundary-masked merge work on the stacked outputs.
+        Direction-dependent PSFs become one stack a facet, each facet's
+        nearest (generic CLEAN), or one stack a unique PSF and each facet's
+        slot in it (multiscale, whose banks are made a unique PSF).
+        Multiscale's per-scale masks and components ride the loop's
+        accumulators and are merged here, once a perform (the serial
+        route's ``_load_scale_masks_into``, ``_store_scale_masks_from`` and
+        component gathering, ``parallel_deconvolution.cc:359-390,425-479``).
+        """
         alg = self.algorithms[0]
+        multiscale = self.settings.algorithm_type == AlgorithmType.MULTISCALE
         dev = data_image.device
         n_facets = len(sub_images)
         n = data_image.n_images
@@ -425,12 +434,34 @@ class ParallelDeconvolution:
         forced_stack = facet_slices(self._spectrally_forced_images)
 
         unique_indices = sorted(set(psf_image_indices))
+        resized = {u: fit_to_box(psf_images[u], box_h, box_w)
+                   for u in unique_indices}
+        extra = {}
         if len(unique_indices) == 1:
-            psfs = fit_to_box(psf_images[unique_indices[0]], box_h, box_w)
+            psfs = resized[unique_indices[0]]
+        elif multiscale:
+            psfs = torch.stack([resized[u] for u in unique_indices])
+            extra["facet_psf_slot"] = [unique_indices.index(i)
+                                       for i in psf_image_indices]
         else:
-            resized = {u: fit_to_box(psf_images[u], box_h, box_w)
-                       for u in unique_indices}
             psfs = torch.stack([resized[i] for i in psf_image_indices])
+
+        # Each facet's box of the per-scale masks: the loop's starting state
+        # while tracking, its search restriction while using them.
+        track_masks = multiscale and self._track_per_scale_masks
+        n_scales = getattr(alg, "scale_count", 0)
+        facet_scale_masks = None
+        if multiscale and self._scale_masks and (
+                track_masks or self._use_per_scale_masks):
+            facet_scale_masks = np.zeros(
+                (n_facets, max(n_scales, len(self._scale_masks)), box_h,
+                 box_w), dtype=bool)
+            for f, sub in enumerate(sub_images):
+                for i, full in enumerate(self._scale_masks):
+                    facet_scale_masks[f, i, :sub.height, :sub.width] = full[
+                        sub.y:sub.y + sub.height,
+                        sub.x:sub.x + sub.width] & sub.mask
+            extra["facet_scale_masks"] = facet_scale_masks
 
         starts = [self.algorithms[s.index].iteration_number
                   for s in sub_images]
@@ -440,10 +471,10 @@ class ParallelDeconvolution:
             return alg.execute_batched_facets(
                 res_stack, mdl_stack, psfs, boxes, masks, rms_stack,
                 threshold, starts, peak_only, data_image.meta,
-                facet_forced_terms=forced_stack)
+                facet_forced_terms=forced_stack, **extra)
 
         # Phase 1: peak-only pass (max-reduce over facets).
-        peak_results, _, _ = run(0.0, True)
+        peak_results = run(0.0, True)[0]
         start_peak_value = 0.0
         for sub, r in zip(sub_images, peak_results):
             sub.peak = r.final_peak_value
@@ -452,10 +483,23 @@ class ParallelDeconvolution:
         m_iter_threshold = start_peak_value * (1.0 - major_loop_gain)
 
         # Phase 2: clean every facet to the shared threshold.
-        results, iterations, self.last_lockstep = run(m_iter_threshold, False)
+        out = run(m_iter_threshold, False)
+        results, iterations, self.last_lockstep = out[:3]
+        mask_acc, comp_acc = out[3:] if multiscale else (None, {})
 
         result_model = model_image.clone_shape(data_image.width,
                                                data_image.height)
+        save_components = multiscale and self.settings.save_source_list
+        if track_masks and not self._scale_masks:
+            self._scale_masks = [
+                np.zeros((data_image.height, data_image.width), dtype=bool)
+                for _ in range(n_scales)]
+        if save_components and self._component_list is None:
+            self._component_list = ComponentList(
+                data_image.width, data_image.height, n_scales, n)
+        mask_acc = mask_acc.cpu().numpy() if track_masks else None
+        comp_acc = ({i: acc.cpu().numpy() for i, acc in comp_acc.items()}
+                    if save_components else {})
         for f, sub in enumerate(sub_images):
             r = results[f]
             sub.peak = r.final_peak_value
@@ -469,6 +513,16 @@ class ParallelDeconvolution:
                 region.copy_(torch.where(boundaries[f],
                                          res_stack[f, :, :sh, :sw], region))
                 facet_model = mdl_stack[f, :, :sh, :sw]
+                if track_masks:
+                    self._merge_scale_masks(sub, mask_acc[f],
+                                            facet_scale_masks, f)
+                for scale, acc in sorted(comp_acc.items()):
+                    comp = acc[f, :, :sh, :sw]
+                    ys, xs = np.nonzero(np.any(comp != 0.0, axis=0))
+                    for y, x in zip(ys, xs):
+                        self._component_list.add(
+                            int(x) + sub.x, int(y) + sub.y, scale,
+                            comp[:, y, x])
             else:
                 # Rollback: keep the pre-iteration model for this facet
                 # (parallel_deconvolution.cc:398-419).
@@ -478,6 +532,21 @@ class ParallelDeconvolution:
             result_model.data[box] += facet_model
         model_image.data = result_model.data
         return self._finish(sub_images, start_peak_value)
+
+    def _merge_scale_masks(self, sub: SubImage, mask_acc: np.ndarray,
+                           facet_scale_masks: Optional[np.ndarray],
+                           f: int) -> None:
+        """A converging facet's per-scale masks from the batched loop
+        (``mask_acc`` [S, Hb, Wb], with the masks it started from), merged
+        into the full-size masks inside its boundary, as the serial route's
+        :meth:`_store_scale_masks_from` does."""
+        sh, sw = sub.height, sub.width
+        for i in range(min(len(self._scale_masks), mask_acc.shape[0])):
+            local = mask_acc[i, :sh, :sw]
+            if facet_scale_masks is not None:
+                local = local | facet_scale_masks[f, i, :sh, :sw]
+            full = self._scale_masks[i][sub.y:sub.y + sh, sub.x:sub.x + sw]
+            full[...] = np.where(sub.boundary_mask, local, full)
 
     # -- serial facet execution --------------------------------------------
     def _run_sub_image(

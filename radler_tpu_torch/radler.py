@@ -42,6 +42,7 @@ from .work_table import (
 )
 from .image_set import ImageSet, get_linear_integrated
 from .component_list import ComponentList
+from .models.asp import AspAlgorithm
 from .models.base import DeconvolutionAlgorithm
 from .models.generic_clean import GenericClean
 from .models.iuwt import IuwtDeconvolution
@@ -55,7 +56,6 @@ from .utils import logging as log
 
 # The ROADMAP queue-A item that ports each algorithm not ported yet.
 _PENDING_ALGORITHMS = {
-    AlgorithmType.ADAPTIVE_SCALE_PIXEL: 7,
     AlgorithmType.MORE_SANE: 7,
     AlgorithmType.PYTHON: 7,
 }
@@ -239,7 +239,14 @@ class Radler:
                 f"{_PENDING_ALGORITHMS[settings.algorithm_type]} brings it."
             )
         algorithm: DeconvolutionAlgorithm
-        if settings.algorithm_type == AlgorithmType.IUWT:
+        if settings.algorithm_type == AlgorithmType.ADAPTIVE_SCALE_PIXEL:
+            algorithm = AspAlgorithm(
+                settings.multiscale,
+                self._beam_size,
+                self._pixel_scale_x,
+                self._pixel_scale_y,
+            )
+        elif settings.algorithm_type == AlgorithmType.IUWT:
             algorithm = IuwtDeconvolution()
         elif settings.algorithm_type == AlgorithmType.MULTISCALE:
             algorithm = MultiScaleAlgorithm(

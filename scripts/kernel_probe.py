@@ -9,7 +9,8 @@ command line, on one NVIDIA GPU.  Run from the root of a checkout:
                                               # on its 3 routes, the mesh
     python3 scripts/kernel_probe.py dense     # the dense subminor loop's forms
     python3 scripts/kernel_probe.py facets    # B1's facet mode, config 5 on
-                                              # its 4 routes, card vs CPU
+                                              # its 5 routes, card vs CPU
+    python3 scripts/kernel_probe.py asp       # ASP, component optimization
     python3 scripts/kernel_probe.py b2 b3 check   # against plain only
     python3 scripts/kernel_probe.py registers PARENT_ROOT .
                         # registers of B1's step instantiations in each
@@ -219,8 +220,21 @@ def main(argv):
         if timed:
             cs.say("== B1's facet mode at config 5's shape and true boxes ==")
             cs.phase_facet_b1_times([(b[3], b[2]) for b in boxes])
+            cs.say("== the same in linear mode with a PSF stack a facet ==")
+            cs.phase_facet_b1_times([(b[3], b[2]) for b in boxes], "linear",
+                                    shared=False)
         cs.say("== faceted performs on the card against the CPU ==")
         cs.phase_facets_card_vs_cpu()
+    if "asp" in argv:
+        cs.say("== point-source contract, ASP ==")
+        cs.phase_asp_contract()
+        if timed:
+            cs.say("== ASP through Radler.perform ==")
+            cs.phase_asp_perform()
+        cs.say("== ASP on the card against the CPU ==")
+        cs.phase_asp_card_vs_cpu()
+        cs.say("== component optimization on the card against the CPU ==")
+        cs.phase_component_optimization_card_vs_cpu()
     cs.say("probe done")
     return 0
 

@@ -2,7 +2,8 @@
 
 A facet grid splits the image along Dijkstra paths and runs each facet's
 minor loop, batched (generic CLEAN: every facet's Högbom loop in lockstep,
-B1's facet mode) or serially (IUWT, multiscale, and generic CLEAN with
+B1's facet mode; multiscale: every facet's fused loop at once) or serially
+(IUWT, and generic CLEAN and multiscale with
 ``RADLER_TPU_NO_BATCHED_FACETS``).  The same NumPy-seeded inputs go through
 ``radler_tpu`` (JAX on the CPU, its own route by its own rule, or the
 serial route where the switch is set on both sides) and
@@ -15,9 +16,9 @@ Tolerances, with their reasons:
 * ``perform``: equal results and per-facet iteration counts, the residual
   within 2e-6 absolute, the model peak within 1e-4 relative and the model
   within 1e-4 absolute (the ROADMAP's parity contract); multiscale within
-  2e-6 of ``max(1, |res|max)`` as PRs 6 and 7 held it, and within the JAX
-  package's own 3e-5 of its batched route, which the port does not take
-  for multiscale (ROADMAP queue A, item 6b);
+  2e-6 of ``max(1, |res|max)`` as PRs 6 and 7 held it, and, on the serial
+  route, within the JAX package's own 3e-5 of its batched route (the
+  batched multiscale route is ``test_torch_batched_ms_facets.py``'s);
 * ``ImageSet``'s facet helpers: exact (slices, products by 0 and 1,
   selections);
 * the facet-mode plain B1 against the per-facet single-cube plain B1: bit

@@ -1,9 +1,10 @@
 """Faceted deconvolution on the serial route, in the port against the JAX
 package, on the CPU: multiscale (each facet on the fused loop or the host
-path) and IUWT, whose facets run one after another in both packages' rules
-(the JAX package batches multiscale; the port does so after ROADMAP queue
-A, item 6b), the per-scale masks and the component list across facets,
-faceted checkpoints and the clones' caches.  Helpers, fields and the
+path, with ``RADLER_TPU_NO_BATCHED_FACETS`` set on both sides: by default
+both packages batch multiscale, ``test_torch_batched_ms_facets.py``) and
+IUWT, whose facets run one after another in both packages' rules, the
+per-scale masks and the component list across facets, faceted checkpoints
+and the clones' caches.  Helpers, fields and the
 tolerances, with their reasons, are ``test_torch_facets.py``'s.
 """
 
@@ -51,7 +52,8 @@ def iuwt_field(size, seed=11):
 def test_multiscale_facets_match_jax(route, monkeypatch):
     """Serial multiscale, each facet on the fused loop or the host path,
     on a 2x2 grid (and 3x3), against the JAX serial route, and within the
-    JAX package's own 3e-5 of its batched route."""
+    JAX package's own 3e-5 of its batched route (the default route of
+    both packages)."""
     psf = gaussian_psf(128)
     residual = point_field(128, psf, blob=1.5)
     s = settings("MULTISCALE", 128, grid=3 if route.endswith("3x3") else 2,
@@ -61,7 +63,7 @@ def test_multiscale_facets_match_jax(route, monkeypatch):
     j = run(jrd, s, psf, residual, monkeypatch, True)
     if route == "host":
         monkeypatch.setenv("RADLER_TPU_NO_FUSED_MS", "1")
-    t = run(rd, s, psf, residual, monkeypatch, False)
+    t = run(rd, s, psf, residual, monkeypatch, True)
     assert t[4]._parallel.last_route == "serial"
     scale = max(1.0, float(np.abs(j[2]).max()))
     assert_parity(j, t, atol=2e-6 * scale)
@@ -339,7 +341,8 @@ def test_faceted_checkpoint_round_trip_and_jax_checkpoint(tmp_path,
 
 def test_clones_share_no_cache(monkeypatch):
     """Each facet's multiscale clone keeps its own scales, masks and fused
-    banks, made for its own box."""
+    banks, made for its own box, on the serial route."""
+    monkeypatch.setenv(NO_BATCH, "1")
     psf = gaussian_psf(96)
     residual = point_field(96, psf, blob=1.5)
     s = settings_from_reference(settings("MULTISCALE", 96, iterations=100))

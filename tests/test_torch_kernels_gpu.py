@@ -1300,3 +1300,127 @@ def test_facet_step_over_more_facets_than_a_launch_takes(cuda):
     for a, b in zip(pk, pp):
         assert torch.equal(a, b)
     assert (nk, np_) == (2, 0)
+
+
+@pytest.mark.parametrize("fit", ["coefficients", "none"])
+def test_facet_loop_linear_bit_equal_to_plain(cuda, fit):
+    """The batched multiscale route's lockstep loop: B1's facet mode in
+    linear mode with a PSF stack a facet, a weight plane, a gain a facet,
+    true boxes and (``coefficients``) the components in the polynomial
+    fit's coefficient space; kernel and plain loop end in the same state,
+    the padding untouched."""
+    n_facets = 4
+    c = make_facet_case(("linear", 2, 4, False), n_facets, False, cuda,
+                        seed=9, boxed=True)
+    meta = c["meta"]
+    fitter = SpectralFitter(rd.SpectralFittingMode.POLYNOMIAL, 2,
+                            meta.frequencies, meta.weights)
+    pair = (torch.as_tensor(fitter._fit_matrix, dtype=torch.float32,
+                            device=cuda),
+            torch.as_tensor(_coefficient_basis(fitter, meta), device=cuda))
+    lin = ("linear", linear_integration_coefficients(meta))
+    host = c["state"].tolist()
+    peaks = [(float(c["res"][f, 0, h[0], h[1]]), h[1], h[0], f != 1)
+             for f, h in enumerate(host)]
+    starts = [0, 0, 3, 0]
+    n_comp = pair[1].shape[1] if fit == "coefficients" else meta.n_images
+    outs = []
+    for plain in (False, True):
+        res = c["res"].clone()
+        comp = torch.zeros((n_facets, n_comp, HEIGHT, WIDTH), device=cuda)
+        params = hs.FacetLoopParams.make(
+            [0.1, 0.2, 0.05, 0.15], [0.05, 0.05, 0.2, 0.1], [5.0] * n_facets,
+            4.0, [300, 300, 40, 300], False, cuda)
+        launches = hs.hogbom_step_facets.launches
+        out = hs.facet_hogbom_loop(
+            res, comp, c["psfs"], c["weight"], None, peaks, params, starts,
+            meta=meta, allow_negative=True, plain=plain, boxes=c["boxes"],
+            integration=lin,
+            coefficients=pair if fit == "coefficients" else None)
+        torch.cuda.synchronize()
+        outs.append((out, res, comp,
+                     hs.hogbom_step_facets.launches - launches))
+    (ok, rk, ck, lk), (op, rp, cp, lp) = outs
+    assert ok == op
+    done = [r.iteration - s for r, s in zip(ok.results, starts)]
+    assert done[1] == 0 and max(done) > 10
+    assert torch.equal(rk, rp) and torch.equal(ck, cp)
+    assert lp == 0 and lk == ok.lockstep
+    assert_padding_untouched(rk, c)
+
+
+def test_batched_multiscale_facets_on_card_match_cpu(cuda, monkeypatch):
+    """Multiscale on a 2x2 facet grid takes the batched route (every facet's
+    fused loop at once, its dense loops in B1's facet mode) on the card as
+    on the CPU: the same boxes and per-facet iteration counts, the cubes
+    within 1e-5 of max(1, |res|max) (cuFFT against pocketfft)."""
+    monkeypatch.delenv("RADLER_TPU_NO_BATCHED_FACETS", raising=False)
+    psfs, res = multiscale_problem(128, 2)
+    s = rd.Settings()
+    s.algorithm_type = rd.AlgorithmType.MULTISCALE
+    s.trimmed_image_width = s.trimmed_image_height = 128
+    s.minor_iteration_count = 150
+    s.minor_loop_gain, s.major_loop_gain = 0.1, 0.85
+    s.parallel.grid_width = s.parallel.grid_height = 2
+    s.spectral_fitting.mode = rd.SpectralFittingMode.POLYNOMIAL
+    s.spectral_fitting.terms = 2
+    freqs = np.array([[1.0e8, 1.1e8], [1.1e8, 1.2e8]])
+    runs = []
+    for device in ("cpu", cuda):
+        cube, model = res.copy(), np.zeros_like(res)
+        hs.hogbom_step_facets.launches = 0
+        r = rd.Radler(s, psfs, cube, model, 0.0, frequencies=freqs,
+                      device=device)
+        r.perform(0)
+        p = r._parallel
+        runs.append(([a.iteration_number for a in p.algorithms],
+                     [(b.x, b.y, b.width, b.height) for b in
+                      p.last_sub_images], p.last_route, cube, model,
+                     hs.hogbom_step_facets.launches))
+    (n_c, b_c, route_c, res_c, mod_c, _), (n_g, b_g, route_g, res_g, mod_g,
+                                           launches) = runs
+    assert route_c == route_g == "batched"
+    assert b_g == b_c and n_g == n_c and sum(n_c) > 0
+    scale = max(1.0, float(np.abs(res_c).max()))
+    assert np.abs(res_g - res_c).max() <= 1e-5 * scale
+    assert np.abs(mod_g - mod_c).max() <= 1e-5 * scale
+    assert launches > 0
+
+
+def test_asp_on_card_matches_cpu(cuda):
+    """ASP (2-term fit, 2 channels) on a grid of point sources through
+    Radler.perform on the card against the port's CPU run: equal iteration
+    counts, the cubes within 1e-5 of max(1, |res|max)."""
+    size, k = 128, 3
+    psfs, _ = multiscale_problem(size, 2)
+    rng = np.random.default_rng(7)
+    sky = np.zeros((size, size))
+    step = size // (k + 1)
+    for i in range(k):
+        for j in range(k):
+            sky[step * (i + 1) + rng.integers(-3, 4),
+                step * (j + 1) + rng.integers(-3, 4)] = rng.uniform(0.2, 1.0)
+    res = np.stack([
+        np.fft.irfft2(np.fft.rfft2(sky * (1 - 0.05 * c)) * np.fft.rfft2(
+            np.fft.ifftshift(psfs[c])), s=sky.shape) for c in range(2)
+    ]).astype(np.float32)
+    s = rd.Settings()
+    s.algorithm_type = rd.AlgorithmType.ADAPTIVE_SCALE_PIXEL
+    s.trimmed_image_width = s.trimmed_image_height = size
+    s.minor_iteration_count = 100
+    s.minor_loop_gain, s.major_loop_gain = 0.1, 0.85
+    s.spectral_fitting.mode = rd.SpectralFittingMode.POLYNOMIAL
+    s.spectral_fitting.terms = 2
+    freqs = np.array([[1.0e8, 1.1e8], [1.1e8, 1.2e8]])
+    runs = []
+    for device in ("cpu", cuda):
+        cube, model = res.copy(), np.zeros_like(res)
+        r = rd.Radler(s, psfs, cube, model, 0.0, frequencies=freqs,
+                      device=device)
+        r.perform(0)
+        runs.append((r.iteration_number, cube, model))
+    (n_c, res_c, mod_c), (n_g, res_g, mod_g) = runs
+    assert n_g == n_c > 0
+    scale = max(1.0, float(np.abs(res_c).max()))
+    assert np.abs(res_g - res_c).max() <= 1e-5 * scale
+    assert np.abs(mod_g - mod_c).max() <= 1e-5 * scale

@@ -180,7 +180,7 @@ def test_point_source_tensor_accessors(settings):
 @pytest.mark.parametrize(
     "setting, value",
     [
-        ("algorithm_type", rd.AlgorithmType.ADAPTIVE_SCALE_PIXEL),
+        ("algorithm_type", rd.AlgorithmType.MORE_SANE),
         ("grid", 2),
         ("mesh", True),
     ],
