@@ -32,6 +32,19 @@ tensors and prints what it measured:
   against the single-device perform, 2 channels x 2 polarizations with
   squared joins on chan 2 x tile 4, and the point-source contract on
   chan 1 x tile 8;
+* the mesh's Clark subminor loop (the Clark default on a mesh: B2 with a
+  tile axis, one cluster a tile in one launch): the joined-channel cube on
+  chan 4 x tile 2 and config 2 on chan 1 x tile 8, each with its rate, its
+  per-tile candidate counts, launches, the split of a perform, the banded
+  emulation (today's B2 on each tile's rows in turn, equal results) and
+  the single-device perform beside it, every tile of the launch replayed
+  against the plain version, and the tile axis timed at config 2's
+  segments against today's B2 launched on each tile in turn and the plain
+  version;
+* MORE_SANE (two major iterations of a stand-in program written to a
+  temporary directory, never the real one) and a PYTHON plug-in
+  Högbom-cleaning in NumPy, at config 2's field: wall time and the share of
+  it spent copying between the card and the host;
 * multiscale CLEAN: the Högbom step in linear mode with a weight plane at
   config 3's shape against its plain version and its time, config 3
   (multiscale 2048^2 x 8 channels, 2-term polynomial fit, 600 iterations)
@@ -63,7 +76,8 @@ tensors and prints what it measured:
   2-channel field against the port's CPU run;
 * component optimization (generic CLEAN's linear solve and gradient
   descent, multiscale's gradient descent) after auto-masking, on the card
-  against the port's CPU run.
+  against the port's CPU run, and the linear solve from the card's inputs
+  on the CPU, with its own FFTs and with the card's right-hand side.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -597,6 +611,7 @@ def _reset_counts():
     hs.hogbom_step_facets.launches = 0
     hs.hogbom_select_facets.launches = 0
     sl.subminor_loop.launches = 0
+    sl.subminor_loop_tiles.launches = 0
     ia.atrous_decompose_lo.launches = 0
     si.subtract_integrate.launches = 0
 
@@ -3566,6 +3581,45 @@ def phase_asp_card_vs_cpu():
         raise AssertionError("ASP on the card and on the CPU disagree")
 
 
+def _linear_solve_gaps(card_inputs):
+    """The linear solve of component optimization from the card's inputs
+    (model, residual, PSF), three ways: on the card; on the CPU from the
+    same inputs (its own FFT makes the dirty image); on the CPU from the
+    card's own dirty spectrum at the components.  Prints both CPU gaps to
+    the card's amplitudes, the system's condition number and the FFTs'
+    spread of the right-hand side, and holds the second gap to float64
+    rounding times the condition number."""
+    from radler_tpu_torch.ops import component_optimization as co
+
+    model, residual, psf = card_inputs
+    ys, xs, a, dirty = co.linear_system(model, residual, psf)
+    b_card = dirty[ys, xs]
+    amp_card = co.solve_amplitudes(a, b_card).cpu()
+    ys_c, xs_c, a_c, dirty_c = co.linear_system(model.cpu(), residual.cpu(),
+                                                psf.cpu())
+    if not (torch.equal(ys_c, ys.cpu()) and torch.equal(a_c, a.cpu())):
+        raise AssertionError("the card's and the CPU's linear systems differ "
+                             "in their positions or PSF gather")
+    b_cpu = dirty_c[ys_c, xs_c]
+    amp_own = co.solve_amplitudes(a_c, b_cpu)
+    amp_same_b = co.solve_amplitudes(a_c, b_card.cpu())
+    cond = float(torch.linalg.cond(a_c.double()))
+    top = float(amp_card.abs().max())
+    spread = float((b_card.cpu() - b_cpu).abs().max()) / float(
+        b_cpu.abs().max())
+    gap_own = float((amp_card - amp_own).abs().max()) / top
+    gap_same = float((amp_card - amp_same_b).abs().max()) / top
+    say(f"  linear solve, {len(ys)} components: condition number "
+        f"{cond:.4g}; the right-hand side's spread card against CPU FFTs "
+        f"{spread:.3g} (of max|b|); amplitude gaps to the card's, relative "
+        f"to max|amplitude|: the CPU on its own dirty image {gap_own:.3g}, "
+        f"the CPU on the card's dirty spectrum {gap_same:.3g}; condition "
+        f"number x spread {cond * spread:.3g}")
+    if gap_same > cond * 1e-13:
+        raise AssertionError("the linear solve differs between the card and "
+                             "the CPU on the same right-hand side")
+
+
 def phase_component_optimization_card_vs_cpu():
     """Component optimization on the card against the CPU at CO_SIZE^2:
     twelve point sources in noise under config 3's PSF, auto-masking at 4
@@ -3582,6 +3636,7 @@ def phase_component_optimization_card_vs_cpu():
     import radler_tpu_torch as rd
     from radler_tpu_torch.models import generic_clean as gc
     from radler_tpu_torch.models import multiscale as ms
+    from radler_tpu_torch.ops import component_optimization as co
 
     psfs, _ = make_diffuse_problem(CO_SIZE, 1)
     rng = np.random.default_rng(SEED)
@@ -3608,6 +3663,13 @@ def phase_component_optimization_card_vs_cpu():
         s.component_optimization_algorithm = getattr(
             rd.OptimizationAlgorithm, optimization)
         out = []
+        solves = []
+        real_solve = co.linear_component_solve
+
+        def recording_solve(*args, **kwargs):
+            solves.append(tuple(a.clone() for a in args))
+            return real_solve(*args, **kwargs)
+
         for device in (DEVICE, "cpu"):
             calls = []
             original = getattr(owner, name)
@@ -3619,13 +3681,17 @@ def phase_component_optimization_card_vs_cpu():
             res, model = base.copy(), np.zeros_like(base)
             r = rd.Radler(s, psfs[0], res, model, 0.0, device=device)
             setattr(owner, name, counted)
+            co.linear_component_solve = recording_solve
             try:
                 again = []
                 while len(again) < 6 and (not again or again[-1]):
                     again.append(r.perform(len(again)))
             finally:
                 setattr(owner, name, original)
+                co.linear_component_solve = real_solve
             out.append((again, r.iteration_number, res, model, len(calls)))
+        if optimization == "LINEAR_EQUATION_SOLVER":
+            _linear_solve_gaps(solves[0])
         (a_g, n_g, res_g, mod_g, k_g), (a_c, n_c, res_c, mod_c, k_c) = out
         scale = max(1.0, float(np.abs(res_c).max()))
         d_res = float(np.abs(res_g - res_c).max()) / scale
@@ -3639,6 +3705,458 @@ def phase_component_optimization_card_vs_cpu():
             raise AssertionError(f"component optimization ({algorithm}, "
                                  f"{optimization}) on the card and on the "
                                  "CPU disagree")
+
+
+# ---------------------------------------------------------------------------
+# The mesh's Clark subminor loop (B2 with a tile axis), MORE_SANE, PYTHON
+# ---------------------------------------------------------------------------
+
+
+def _mesh_clark_radler(psfs, res, kwargs, size, iterations, use_mesh):
+    """A maker of Radlers with the Clark default on a mesh of MESH_DEVICES
+    shards (or on one device), each on fresh copies of the cube."""
+    import radler_tpu_torch as rd
+
+    settings = _mesh_settings(size, iterations, use_mesh)
+    settings.generic.use_sub_minor_optimization = True
+    return lambda: rd.Radler(settings, psfs, res.clone(),
+                             torch.zeros_like(res), 0.0, **kwargs)
+
+
+@contextlib.contextmanager
+def _recording_mesh_clark(calls, tile_calls):
+    """Record each call of the mesh's Clark subminor loop (its arguments)
+    and of B2's tile axis (copies of its inputs, for the replay)."""
+    from radler_tpu_torch.models import generic_clean as gc
+    from radler_tpu_torch.parallel import mesh as pm
+
+    real_clean, real_tiles = gc.mesh_subminor_clean, pm.subminor_loop_tiles
+
+    def recording_clean(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real_clean(*args, **kwargs)
+
+    def recording_tiles(*args, **kwargs):
+        tile_calls.append((tuple(a.clone() if isinstance(a, torch.Tensor)
+                                 else a for a in args), kwargs))
+        return real_tiles(*args, **kwargs)
+
+    gc.mesh_subminor_clean, pm.subminor_loop_tiles = (recording_clean,
+                                                      recording_tiles)
+    try:
+        yield
+    finally:
+        gc.mesh_subminor_clean, pm.subminor_loop_tiles = real_clean, real_tiles
+
+
+def _tile_replay(args, kwargs, kernel):
+    """One run of B2's tile-axis arguments on fresh copies of its state:
+    the kernel, or the plain version.  Returns (output, residual, model)."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    res, model = args[0].clone(), args[1].clone()
+    args = (res, model) + tuple(args[2:])
+    if kernel:
+        out = sl.subminor_loop_tiles(*args, **kwargs)
+    else:
+        out = sl.subminor_loop_tiles_reference(*args[:9], args[10], **kwargs)
+    torch.cuda.synchronize()
+    return out, res, model
+
+
+def _check_tile_replay(label, tile_calls):
+    """Every tile of every recorded tile-axis launch, replayed from copies
+    of its inputs: kernel against plain version, bit-equal in the results,
+    the state and the model.  Returns max |difference|."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    start = time.perf_counter()
+    worst = 0.0
+    for args, kwargs in tile_calls:
+        out_k, res_k, mod_k = _tile_replay(args, kwargs, kernel=True)
+        out_p, res_p, mod_p = _tile_replay(args, kwargs, kernel=False)
+        d = max(float((res_k - res_p).abs().max()),
+                float((mod_k - mod_p).abs().max()))
+        worst = max(worst, d)
+        tiles = sl.read_tile_results(out_p)
+        say(f"  {label}: replay of {len(tiles)} tiles, kernel against plain: "
+            f"iterations {[t[0] - args[8].start_iteration for t in tiles]}, "
+            f"max|diff| {d:.3g} ({time.perf_counter() - start:.1f} s)")
+        if not (torch.equal(out_k, out_p) and d == 0.0):
+            raise AssertionError(
+                f"{label}: B2's tile axis and its plain version disagree: "
+                f"kernel {sl.read_tile_results(out_k)}, plain {tiles}")
+    return worst
+
+
+def _mesh_clark_split(call, out_res):
+    """The mesh's Clark subminor of one perform in its steps, each
+    synchronized (selection, B2's tile launch and its read, the scatter and
+    the FFT correction), from the recorded call's arguments; the result
+    must be the perform's.  Then the banded per-tile emulation: each
+    tile's rows selected on their own, today's B2 (no tile axis) on each in
+    turn, one correction; equal iterations and residual.  Returns (the
+    split, per-tile counts, the recorded candidates' state)."""
+    from radler_tpu_torch.image_set import linear_integration_coefficients
+    from radler_tpu_torch.kernels import subminor_loop as sl
+    from radler_tpu_torch.models.subminor import (
+        choose_padded_size,
+        correct_residual,
+    )
+    from radler_tpu_torch.parallel import mesh as pm
+
+    (mesh, residual, psfs, rms_factor, window, considered, params), kwargs = (
+        call)
+    meta, proj = kwargs["meta"], kwargs.get("proj")
+    n, height, width = residual.shape
+    ph, pw = choose_padded_size(width, height, 1.1)
+    coef = torch.as_tensor(linear_integration_coefficients(meta),
+                           device=residual.device)
+    split = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        split[name] = time.perf_counter() - t0
+        return value
+
+    cand = step("selection", lambda: pm.select_tile_candidates(
+        mesh, residual, rms_factor, window, considered, meta=meta,
+        allow_negative=params.allow_negative))
+    model_k = torch.zeros_like(cand.residual_k)
+    res_k = cand.residual_k.clone()
+    results = step("B2 tile launch and read", lambda: sl.read_tile_results(
+        sl.subminor_loop_tiles(res_k, model_k, cand.rms_k, cand.xs, cand.ys,
+                               psfs, coef, proj, params, cand.offsets,
+                               cand.counts,
+                               n_polarizations=meta.n_polarizations)))
+    iteration, _, _ = pm.reduce_tile_results(results, params.start_iteration)
+
+    def correct():
+        delta = torch.zeros((n, height * width), device=residual.device)
+        delta.index_copy_(1, cand.flat, model_k)
+        return correct_residual(residual, delta.view(n, height, width), psfs,
+                                ph, pw, meta.n_channels)
+
+    new_res = step("scatter and FFT correction", correct)
+    d = float((new_res - out_res).abs().max())
+    if d > TOLERANCE:
+        raise AssertionError(f"the split run differs from perform's: "
+                             f"max|dres| {d:.3g}")
+
+    # The banded emulation: one band's rows at a time, today's B2.
+    h_loc = height // mesh.tile
+    one = pm.Mesh(1, 1, mesh.device)
+    delta = torch.zeros((n, height * width), device=residual.device)
+    band_results = []
+    for t in range(mesh.tile):
+        band = torch.zeros_like(window)
+        band[t * h_loc:(t + 1) * h_loc] = True
+        own = pm.select_tile_candidates(
+            one, residual, rms_factor, window & band, considered, meta=meta,
+            allow_negative=params.allow_negative)
+        if own.counts[0] != cand.counts[t]:
+            raise AssertionError(f"band {t} selects {own.counts[0]} "
+                                 f"candidates, the tile {cand.counts[t]}")
+        if own.counts[0] == 0:
+            band_results.append((params.start_iteration, 0.0, False))
+            continue
+        band_model = torch.zeros_like(own.residual_k)
+        band_results.append(sl.read_result(sl.subminor_loop(
+            own.residual_k, band_model, own.rms_k, own.xs, own.ys, psfs,
+            coef, proj, params, n_polarizations=meta.n_polarizations)))
+        delta.index_copy_(1, own.flat, band_model)
+    emulated = correct_residual(residual, delta.view(n, height, width), psfs,
+                                ph, pw, meta.n_channels)
+    d_band = float((emulated - out_res).abs().max())
+    it_band = pm.reduce_tile_results(band_results, params.start_iteration)[0]
+    say(f"  banded emulation (today's B2 on each tile's rows in turn): "
+        f"{it_band} iterations against the mesh's {iteration}, tile results "
+        f"{'equal' if band_results == results else 'DIFFERENT'}, max|dres| "
+        f"{d_band:.3g}")
+    if band_results != results or it_band != iteration or d_band > TOLERANCE:
+        raise AssertionError("the mesh run and its banded emulation differ")
+    return split, cand.counts
+
+
+def phase_mesh_clark(label, psfs, res, kwargs, size, iterations,
+                     tile_times=False):
+    """A cube through Radler.perform with the Clark default on a mesh of
+    MESH_DEVICES shards on the card (the mesh's Clark subminor loop: B2's
+    tile axis, one launch a perform): a recorded warm-up, the best of 3
+    (minor iterations per second), per-tile candidate counts, launches,
+    the split of a perform and the banded emulation, the single-device
+    Clark perform of the same cube beside it (best of 2), and every tile of
+    the recorded launch replayed against the plain version.  With
+    ``tile_times``, B2's tile axis timed at the recorded segments against
+    today's B2 launched on each tile in turn and the plain version.
+    Returns a dict of what the summary and the kernels line use."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    calls, tile_calls = [], []
+    with _recording_mesh_clark(calls, tile_calls):
+        first = _run_perform(_mesh_clark_radler(psfs, res, kwargs, size,
+                                                iterations, True))
+    runs = [_run_perform(_mesh_clark_radler(psfs, res, kwargs, size,
+                                            iterations, True))
+            for _ in range(3)]
+    launches = sl.subminor_loop_tiles.launches
+    b2_single = sl.subminor_loop.launches
+    singles = [_run_perform(_mesh_clark_radler(psfs, res, kwargs, size,
+                                               iterations, False))
+               for _ in range(2)]
+    single_b2 = sl.subminor_loop.launches
+    n = first[0]
+    if len(calls) != 1 or len(tile_calls) != 1:
+        raise AssertionError(f"{label}: {len(calls)} mesh Clark calls, "
+                             f"{len(tile_calls)} tile launches")
+    if any(r[0] != n or r[2] != (0, 0, 0) or not torch.equal(r[4], first[4])
+           for r in runs):
+        raise AssertionError(f"{label}: the mesh performs differ or launched "
+                             "the Högbom kernels")
+    if not (launches == 1 and b2_single == 0 and single_b2 == 1):
+        raise AssertionError(f"{label}: {launches} tile launches and "
+                             f"{b2_single} single B2 launches a mesh "
+                             f"perform, {single_b2} single-device")
+    mesh = calls[0][0][0]
+    split, counts = _mesh_clark_split(calls[0], first[4])
+    best = min(r[1] for r in runs)
+    best_single = min(r[1] for r in singles)
+    say(f"  {label} (chan {mesh.chan} x tile {mesh.tile}): {n} iterations "
+        f"summed over the tiles; K per tile {counts} (total {sum(counts)}); "
+        f"seconds {', '.join(f'{r[1]:.4f}' for r in runs)}; best "
+        f"{n / best:.1f} minor iterations/s; B2 tile launches {launches} a "
+        f"perform; peak memory {max(r[6] for r in runs):.1f} MiB above the "
+        "inputs")
+    say("  split of one perform's mesh subminor: " + ", ".join(
+        f"{name} {sec * 1e3:.3f} ms" for name, sec in split.items()))
+    say(f"  single device, the same cube: {singles[0][0]} iterations, "
+        f"seconds {', '.join(f'{r[1]:.4f}' for r in singles)}; best "
+        f"{singles[0][0] / best_single:.1f} minor iterations/s; max|mesh "
+        f"residual - single device's| "
+        f"{float((first[4] - singles[0][4]).abs().max()):.3g} (the tiles "
+        "clean their own candidates: a different algorithm by design)")
+    say(f"  residual rms {rms(res):.6g} -> {rms(first[4]):.6g}")
+    if not (rms(first[4]) < rms(res) and n > 0):
+        raise AssertionError(f"{label}: the mesh perform did not clean")
+    worst = _check_tile_replay(label, tile_calls)
+    out = dict(n=n, rate=n / best, single=singles[0][0] / best_single,
+               counts=counts, launches=launches, worst=worst, split=split)
+    if tile_times:
+        out["times"] = _tile_times(tile_calls[0])
+    return out
+
+
+def _tile_times(call):
+    """B2's tile axis at a recorded launch's segments, SUBMINOR_TIMED_ITERATIONS
+    iterations a tile from threshold 0, by CUDA events in turns plain, tile
+    launch, T launches of today's B2 (one a tile, in turn), then the same
+    backwards; the bound of the tile launch.  Returns a dict."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    args, kwargs = call
+    res0, _, rms_k, xs, ys, psfs, coef, proj, _, offsets, counts = args
+    n, k = res0.shape
+    params = sl.SubminorParams.make(0.0, GAIN, 0, SUBMINOR_TIMED_ITERATIONS,
+                                    0.0, True, False)
+    res_k, model_k = res0.clone(), torch.zeros_like(res0)
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    segments = [
+        (res0[:, a:b].contiguous(), torch.zeros((n, b - a), device=DEVICE),
+         None if rms_k is None else rms_k[a:b].contiguous(),
+         xs[a:b].contiguous(), ys[a:b].contiguous())
+        for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+
+    def tiles():
+        return sl.subminor_loop_tiles(res_k, model_k, rms_k, xs, ys, psfs,
+                                      coef, proj, params, offsets, counts,
+                                      **kwargs)
+
+    def sequential():
+        for seg in segments:
+            sl.subminor_loop(*seg, psfs, coef, proj, params, **kwargs)
+
+    def plain():
+        return sl.subminor_loop_tiles_reference(
+            res_k, model_k, rms_k, xs, ys, psfs, coef, proj, params, counts,
+            **kwargs)
+
+    readings = {"plain": [], "tiles": [], "sequential": []}
+    for name in ("plain", "tiles", "sequential", "sequential", "tiles",
+                 "plain"):
+        fn = {"plain": plain, "tiles": tiles, "sequential": sequential}[name]
+        ms, _ = _time_ms(fn, 1 if name == "plain" else 5)
+        readings[name].append(ms)
+    # The least work of the tile launch: every tile's [N, K_t] state read
+    # and written, the model written, the positions (and rms) read, the
+    # coefficients, and the PSF once; per iteration and candidate about
+    # four float32 operations a plane.  The PSF once per cluster (T reads)
+    # is the figure where the clusters' reads do not share the L2.
+    state = 4 * (3 * n * k + 2 * k + (k if rms_k is not None else 0) + n)
+    psf_bytes = 4 * psfs.numel()
+    n_flops = SUBMINOR_TIMED_ITERATIONS * k * 4 * n
+    once = bound_ms(state + psf_bytes, n_flops)
+    per_cluster = bound_ms(state + len(counts) * psf_bytes, n_flops)
+    plan = sl.cluster_plan(n, max(counts))
+    say(f"  B2 tile axis at the recorded segments ({len(counts)} tiles, K "
+        f"{counts}, {n} planes, plan {_plan_name(plan)}), "
+        f"{SUBMINOR_TIMED_ITERATIONS} iterations a tile: ms " + "; ".join(
+            f"{name} {', '.join(f'{v:.4f}' for v in values)}"
+            for name, values in readings.items())
+        + f"; bound {once[0]:.4f} ms ({once[1]}, the PSF once through the "
+        f"L2), {per_cluster[0]:.4f} ms with the PSF once a cluster from HBM")
+    mean = {name: sum(v) / len(v) for name, v in readings.items()}
+    return dict(ms=mean["tiles"], plain_ms=mean["plain"],
+                sequential_ms=mean["sequential"], bound=once,
+                bound_per_cluster=per_cluster)
+
+
+MORE_SANE_STAND_IN = """
+import importlib.util
+import sys
+
+import numpy as np
+
+# The port's FITS module alone, loaded from its file: the package's own
+# import (torch and all) would take most of the stand-in's time.
+spec = importlib.util.spec_from_file_location("fits", {fits!r})
+fits = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(fits)
+read_fits_image, write_fits_image = fits.read_fits_image, fits.write_fits_image
+
+args = sys.argv[1:]
+if "-sl" in args:
+    i = args.index("-sl")
+    del args[i : i + 2]
+dirty_name, psf_name, output_name = args[-3:]
+dirty = read_fits_image(dirty_name)
+# A stand-in for MORESANE: a tenth of every pixel above 5 percent of the
+# peak becomes model flux.
+model = np.where(dirty > 0.05 * dirty.max(), 0.1 * dirty, 0.0)
+write_fits_image(output_name + "_model.fits", model)
+write_fits_image(output_name + "_residual.fits", dirty - model)
+"""
+
+PLUGIN_HOGBOM = """
+import numpy as np
+
+def deconvolve(residual, model, psf, meta):
+    # Hogbom CLEAN in NumPy: subtract the PSF's overlap at each peak.
+    nfreq, npol, h, w = residual.shape
+    res, mod, beam = residual[0, 0], model[0, 0], psf[0]
+    for _ in range(meta.max_iterations):
+        y, x = divmod(int(np.abs(res).argmax()), w)
+        value = meta.gain * res[y, x]
+        y0, y1 = max(0, y - h // 2), min(h, y + h - h // 2)
+        x0, x1 = max(0, x - w // 2), min(w, x + w - w // 2)
+        res[y0:y1, x0:x1] -= value * beam[y0 - y + h // 2:y1 - y + h // 2,
+                                          x0 - x + w // 2:x1 - x + w // 2]
+        mod[y, x] += value
+        meta.iteration_number += 1
+    return {"residual": residual, "model": model,
+            "level": float(np.abs(res).max()), "continue": False}
+"""
+
+
+@contextlib.contextmanager
+def _timed_host_copies(module, seconds):
+    """Add the synchronized time of ``module``'s ``to_host`` and
+    ``to_device`` (the plug-in's copies between the card and the host) to
+    ``seconds``."""
+    real = module.to_host, module.to_device
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return value
+        return run
+
+    module.to_host, module.to_device = timed(real[0]), timed(real[1])
+    try:
+        yield
+    finally:
+        module.to_host, module.to_device = real
+
+
+def phase_host_plugins(psf2, residual2):
+    """MORE_SANE and PYTHON at config 2's field (2048^2 x 1) through
+    Radler.perform on the card: MORE_SANE's two major iterations with a
+    stand-in program written to a temporary directory (never the real
+    one; a temporary ``python`` link to this interpreter goes first on PATH
+    where there is no ``python``), the PYTHON plug-in Högbom-cleaning in
+    NumPy for 50 iterations; each its wall time and the share of it spent
+    copying between the card and the host."""
+    import shutil
+    import tempfile
+
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.models import more_sane, python_plugin
+
+    dev = torch.device(DEVICE)
+    psf_d = torch.as_tensor(psf2, device=dev)
+    res_d = torch.as_tensor(residual2, device=dev)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cwd, path = os.getcwd(), os.environ.get("PATH", "")
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "stand_in_moresane.py")
+        with open(script, "w") as f:
+            f.write(MORE_SANE_STAND_IN.format(fits=os.path.join(
+                repo, "radler_tpu_torch", "utils", "fits.py")))
+        plugin = os.path.join(tmp, "hogbom_plugin.py")
+        with open(plugin, "w") as f:
+            f.write(PLUGIN_HOGBOM)
+        if shutil.which("python") is None:
+            os.symlink(sys.executable, os.path.join(tmp, "python"))
+            os.environ["PATH"] = tmp + os.pathsep + path
+        os.chdir(tmp)
+        try:
+            for algorithm, majors, iterations, module in (
+                    ("MORE_SANE", 2, 2, more_sane),
+                    ("PYTHON", 1, 50, python_plugin)):
+                s = rd.Settings()
+                s.algorithm_type = getattr(rd.AlgorithmType, algorithm)
+                s.trimmed_image_width = s.trimmed_image_height = CLARK_SIZE
+                s.minor_iteration_count = iterations
+                s.minor_loop_gain = GAIN
+                s.more_sane.location = script
+                s.more_sane.sigma_levels = [3.0, 2.0]
+                s.python.filename = plugin
+                res, model = res_d.clone(), torch.zeros_like(res_d)
+                r = rd.Radler(s, psf_d, res, model, 0.0)
+                copies = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with _timed_host_copies(module, copies):
+                    again = [r.perform(i) for i in range(majors)]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                out_res = r._table.front.residual_accessor.array
+                out_mod = r._table.front.model_accessor.array
+                say(f"  {algorithm}: {majors} major iteration(s), performs "
+                    f"{again}, {r.iteration_number} iterations, {wall:.4f} s; "
+                    f"copies between the card and the host {len(copies)}, "
+                    f"{sum(copies) * 1e3:.3f} ms ({100 * sum(copies) / wall:.2f}"
+                    f"% of the wall time); residual rms {rms(res_d):.6g} -> "
+                    f"{rms(out_res):.6g}, model sum "
+                    f"{float(out_mod.double().sum()):.6g}")
+                # The stand-in MORESANE is no deconvolution: only the
+                # plug-in's Högbom loop must lower the residual.
+                cleaned = algorithm == "MORE_SANE" or rms(out_res) < rms(res_d)
+                if not (out_res.device.type == DEVICE
+                        and torch.isfinite(out_res).all() and cleaned
+                        and float(out_mod.abs().max()) > 0
+                        and r.iteration_number == (2 if majors == 2 else 50)):
+                    raise AssertionError(f"{algorithm} did not run on the "
+                                         "card as expected")
+        finally:
+            os.chdir(cwd)
+            os.environ["PATH"] = path
 
 
 def main():
@@ -3672,7 +4190,12 @@ def main():
     say("== the mesh configuration (joined channels, chan 4 x tile 2) "
         "through Radler.perform ==")
     mesh = phase_mesh_perform(psf, residual)
-    del psf, residual
+    say("== the joined-channel cube with the Clark default on a chan 4 x "
+        "tile 2 mesh (B2's tile axis) ==")
+    psfs_j, res_j, kwargs_j = _joined_inputs(psf, residual)
+    mesh_clark_joined = phase_mesh_clark("joined channels", psfs_j, res_j,
+                                         kwargs_j, SIZE, MESH_ITERATIONS)
+    del psf, residual, psfs_j, res_j
     say("== point-source contract, Högbom ==")
     phase_contract()
     say("== point-source contract, Högbom on a chan 1 x tile 8 mesh ==")
@@ -3688,6 +4211,14 @@ def main():
     times["subminor_loop"] = (kernel_ms, plain_ms)
     say("== config 2 (Clark) through Radler.perform ==")
     clark = phase_config2(psf2, residual2)
+    say("== config 2 with the Clark default on a chan 1 x tile 8 mesh "
+        "(B2's tile axis) ==")
+    mesh_clark = phase_mesh_clark(
+        "config 2", torch.as_tensor(psf2, device=DEVICE),
+        torch.as_tensor(residual2, device=DEVICE), {}, CLARK_SIZE,
+        ITERATIONS, tile_times=True)
+    say("== MORE_SANE and PYTHON at config 2's field ==")
+    phase_host_plugins(psf2, residual2)
     say("== local RMS through Radler.perform, Clark ==")
     phase_local_rms(psf2, residual2)
     say("== 2ch x 2pol squared joins on a chan 2 x tile 4 mesh ==")
@@ -3795,6 +4326,20 @@ def main():
         "bound_by": b2_bound[1],
         "library_ms": None,
     })
+    tile_times = mesh_clark["times"]
+    kernels.append({
+        "name": "subminor_loop (tile axis)",
+        "route": "cuda",
+        "source": "radler_tpu_torch/csrc/subminor_loop.cu",
+        "replaces": "radler_tpu/ops/pallas/subminor_fused.py:89",
+        "launches": mesh_clark["launches"],
+        "max_abs_err": max(mesh_clark["worst"], mesh_clark_joined["worst"]),
+        "ms": tile_times["ms"],
+        "plain_ms": tile_times["plain_ms"],
+        "bound_ms": tile_times["bound"][0],
+        "bound_by": tile_times["bound"][1],
+        "library_ms": None,
+    })
     # B3 at the case config 4 gave it most often.
     (shape, n_main), _ = iuwt[2].most_common(1)[0]
     if shape != (IUWT_SIZE, IUWT_SIZE):
@@ -3879,6 +4424,14 @@ def main():
     say(f"config 2: {clark[1]:.1f} minor iterations/s through perform "
         f"(Clark); B2 on a cluster of {b2_cluster} blocks, "
         f"{kernel_ms * 1e3 / SUBMINOR_TIMED_ITERATIONS:.2f} us per iteration")
+    say(f"mesh Clark: config 2 on chan 1 x tile 8 {mesh_clark['rate']:.1f} "
+        f"minor iterations/s through perform (single device "
+        f"{mesh_clark['single']:.1f}), K per tile {mesh_clark['counts']}; "
+        f"the joined cube on chan 4 x tile 2 {mesh_clark_joined['rate']:.1f} "
+        f"(single device {mesh_clark_joined['single']:.1f}); B2's tile "
+        f"axis {tile_times['ms']:.4f} ms against {tile_times['sequential_ms']:.4f} "
+        f"ms for today's B2 on each tile in turn, bound "
+        f"{tile_times['bound'][0]:.4f} ms")
     b3_ms, b3_bound = atrous[3][0], bound_ms(*atrous[3][3:])[0]
     say(f"config 4: {iuwt[1]:.3f} structure iterations/s through perform "
         f"(IUWT); B3 at 4096^2, 3 scales: {b3_ms * 1e3:.1f} us against its "

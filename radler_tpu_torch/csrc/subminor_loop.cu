@@ -95,6 +95,22 @@
 // sector per candidate and PSF plane at worst), about 0.35 us per 1000
 // candidates of a block.
 //
+// Tile axis (the device mesh's Clark subminor, parallel/mesh.py::
+// mesh_subminor_clean; radler_tpu/parallel/mesh.py:488-676 in the JAX
+// package).  The mesh's tiles clean their own candidate sets to a shared
+// threshold from a shared iteration start; a tile that has stopped is gated
+// off, so the lockstep of the JAX program decides nothing, and the program
+// is T independent subminor loops.  One launch runs them all: gridDim.x =
+// T * R with cluster dims R, and cluster c takes the candidate segment
+// [offsets[c], offsets[c + 1]) of the concatenated [N, sum K] state, xs, ys
+// and rms (the state's row stride is the total), and writes its result to
+// out[c] ([T, 3]).  The slice comes from the largest segment, so a block of
+// a shorter one may own no candidate (its best is -inf, index INT_MAX) and
+// an empty segment stops at its first decision with the value 0.  The
+// clusters share nothing, neither memory nor a barrier, so T clusters that
+// do not all fit on the card at once still finish.  Without offsets (T = 1)
+// the single segment is [0, k), today's launch.
+//
 // Rounding: every operation is an explicit _rn intrinsic, so nvcc neither
 // contracts nor reorders anything.  The multiply-adds are explicit fused
 // multiply-adds (__fmaf_rn): the running sum of the integration
@@ -334,6 +350,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                          const float* __restrict__ psf,
                          const float* __restrict__ coef,
                          const float* __restrict__ proj,
+                         const int* __restrict__ offsets,
                          int* __restrict__ out, int n_images, int n_pols,
                          int k, int slice, int height, int width,
                          float threshold, float gain, int start_iteration,
@@ -358,9 +375,24 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int n_chan = n_images / n_pols;
   const int64_t plane = static_cast<int64_t>(height) * width;
 
+  // This cluster's segment of the tile axis: k stays the state's row
+  // stride, seg its candidate count.
+  int seg = k;
+  if (offsets) {
+    const int tile = blockIdx.x / n_ranks;
+    const int begin = offsets[tile];
+    seg = offsets[tile + 1] - begin;
+    res += begin;
+    model += begin;
+    xs += begin;
+    ys += begin;
+    if (rms) rms += begin;
+    out += 3 * tile;
+  }
+
   State st;
   st.first = rank * slice;
-  st.len = min(slice, k - st.first);
+  st.len = min(slice, seg - st.first);
   if (st.len < 0) st.len = 0;
   if constexpr (kOnChip) {
     float* const c_res = dyn + 3 * n_images;
@@ -517,10 +549,13 @@ __global__ void __launch_bounds__(kMaxThreads)
 extern "C" {
 
 // cluster_size, threads, slice, on_chip, ship_raw and shared_bytes are the
-// plan of kernels/subminor_loop.py::cluster_plan.
+// plan of kernels/subminor_loop.py::cluster_plan.  offsets, null for one
+// segment of k candidates, holds the n_tiles + 1 segment bounds of the tile
+// axis; k is then their total, and out holds n_tiles results.
 int subminor_loop(float* res, float* model, const float* rms, const int* xs,
                   const int* ys, const float* psf, const float* coef,
-                  const float* proj, int* out, int n_images, int n_pols,
+                  const float* proj, const int* offsets, int n_tiles,
+                  int* out, int n_images, int n_pols,
                   int k, int height, int width, float threshold, float gain,
                   int start_iteration, int max_iterations,
                   float divergence_limit, int allow_negative,
@@ -534,8 +569,11 @@ int subminor_loop(float* res, float* model, const float* rms, const int* xs,
       n_images % n_pols != 0 || k < 1 || cluster_size < 1 ||
       cluster_size > kMaxCluster || (cluster_size & (cluster_size - 1)) ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-      slice < 1 || static_cast<int64_t>(slice) * cluster_size < k ||
-      (ship_raw && n_images > kShipMax) || shared_bytes < needed)
+      slice < 1 ||
+      (!offsets && static_cast<int64_t>(slice) * cluster_size < k) ||
+      (ship_raw && n_images > kShipMax) || shared_bytes < needed ||
+      n_tiles < 1 || (!offsets && n_tiles != 1) ||
+      static_cast<int64_t>(n_tiles) * cluster_size > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel =
       on_chip ? (ship_raw
@@ -562,13 +600,14 @@ int subminor_loop(float* res, float* model, const float* rms, const int* xs,
   attribute.val.clusterDim.y = 1;
   attribute.val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(cluster_size);
+  config.gridDim = dim3(cluster_size * n_tiles);
   config.blockDim = dim3(threads);
   config.dynamicSmemBytes = shared_bytes;
   config.stream = static_cast<cudaStream_t>(stream);
   config.attrs = &attribute;
   config.numAttrs = 1;
-  // The card must be able to run the whole cluster at once.
+  // The card must be able to run a whole cluster at once (not every
+  // cluster of the tile axis: they wait for one another in nothing).
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -578,7 +617,8 @@ int subminor_loop(float* res, float* model, const float* rms, const int* xs,
                   &rms,        &xs,
                   &ys,         &psf,
                   &coef,       &proj,
-                  &out,        &n_images,
+                  &offsets,    &out,
+                  &n_images,
                   &n_pols,     &k,
                   &slice,      &height,
                   &width,      &threshold,

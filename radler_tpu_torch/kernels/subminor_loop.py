@@ -14,6 +14,12 @@ small int32 tensor ``(iteration, diverging, bits of the last peak value)``
 on the state's device, which :func:`read_result` brings to the host in one
 read.
 
+:func:`subminor_loop_tiles` is the same loop with a tile axis, the device
+mesh's Clark subminor: T independent loops over the segments of a
+concatenated ``[N, sum K]`` state, one cluster a segment, in one launch
+(its plain version :func:`subminor_loop_tiles_reference` runs the plain loop
+over each segment in turn).  It returns ``[T, 3]`` results.
+
 The kernel reads the PSF at image size where the TPU kernel read a prebuilt
 ``[C, K, K]`` interaction matrix; what bounds it, and its design, are in the
 note at the top of the CUDA source.  The plain version performs the same
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -152,12 +158,21 @@ def cluster_plan(n_images: int, k: int, *, cluster_size: Optional[int] = None,
                        bool(ship_raw), per_plane + (state if on_chip else 0))
 
 
+def _decode(row) -> Tuple[int, float, bool]:
+    value = float(np.int32(row[VALUE_BITS]).view(np.float32))
+    return row[ITERATION], value, bool(row[DIVERGING])
+
+
 def read_result(out: torch.Tensor) -> Tuple[int, float, bool]:
     """(iteration, last peak value, diverging) from a run's output tensor,
     in one host read."""
-    host = out.tolist()
-    value = float(np.int32(host[VALUE_BITS]).view(np.float32))
-    return host[ITERATION], value, bool(host[DIVERGING])
+    return _decode(out.tolist())
+
+
+def read_tile_results(out: torch.Tensor) -> List[Tuple[int, float, bool]]:
+    """:func:`read_result` of every tile of a ``[T, 3]`` output, in one host
+    read."""
+    return [_decode(row) for row in out.tolist()]
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +284,43 @@ def subminor_loop_reference(
                         device=dev)
 
 
+def subminor_loop_tiles_reference(
+    residual_k: torch.Tensor,
+    model_k: torch.Tensor,
+    rms_k: Optional[torch.Tensor],
+    xs: torch.Tensor,
+    ys: torch.Tensor,
+    psfs: torch.Tensor,
+    coef: torch.Tensor,
+    proj: Optional[torch.Tensor],
+    params: SubminorParams,
+    counts: Sequence[int],
+    *,
+    n_polarizations: int,
+    fit: Optional[Callable] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`subminor_loop_tiles`:
+    :func:`subminor_loop_reference` on each tile's segment in turn (views
+    of the state, updated in place).  An empty segment stops at once with
+    the value 0, as the kernel's cluster does."""
+    rows, begin = [], 0
+    for count in counts:
+        end = begin + int(count)
+        if count == 0:
+            rows.append(torch.tensor([params.start_iteration, 0, 0],
+                                     dtype=torch.int32,
+                                     device=residual_k.device))
+        else:
+            cut = slice(begin, end)
+            rows.append(subminor_loop_reference(
+                residual_k[:, cut], model_k[:, cut],
+                None if rms_k is None else rms_k[cut], xs[cut], ys[cut],
+                psfs, coef, proj, params, n_polarizations=n_polarizations,
+                fit=fit))
+        begin = end
+    return torch.stack(rows)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
@@ -281,11 +333,56 @@ def _entry():
     fn = _build.library().subminor_loop
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = (
-        [ptr] * 9 + [i32] * 5 + [f32] * 2 + [i32] * 2 + [f32] + [i32] * 8
-        + [ptr]
+        [ptr] * 9 + [i32, ptr] + [i32] * 5 + [f32] * 2 + [i32] * 2 + [f32]
+        + [i32] * 8 + [ptr]
     )
     fn.restype = i32
     return fn
+
+
+def _launch(residual_k, model_k, rms_k, xs, ys, psfs, coef, proj,
+            params: SubminorParams, n_polarizations: int,
+            offsets: Optional[torch.Tensor], n_tiles: int, longest: int,
+            plan: Optional[ClusterPlan], name: str) -> torch.Tensor:
+    """Check the CUDA tensors and launch the kernel over ``n_tiles``
+    segments (``offsets`` None: one segment, the whole state); ``longest``
+    is the largest segment, which sizes the plan."""
+    n, k = residual_k.shape
+    n_psf, height, width = psfs.shape
+    if not (0 < n <= MAX_IMAGES and n_psf * n_polarizations == n and k > 0
+            and height * width < 2**31):
+        raise ValueError(
+            f"{name}: bad shapes, state {tuple(residual_k.shape)}, "
+            f"psfs {tuple(psfs.shape)}, {n_polarizations} polarizations"
+        )
+    dev, f32, i32 = residual_k.device, torch.float32, torch.int32
+    out = torch.empty((n_tiles, 3) if offsets is not None else 3, dtype=i32,
+                      device=dev)
+    ptrs = [
+        _check(residual_k, "residual_k", dev, (n, k), f32),
+        _check(model_k, "model_k", dev, (n, k), f32),
+        _check(rms_k, "rms_k", dev, (k,), f32),
+        _check(xs, "xs", dev, (k,), i32),
+        _check(ys, "ys", dev, (k,), i32),
+        _check(psfs, "psfs", dev, (n_psf, height, width), f32),
+        _check(coef, "coef", dev, (n,), f32),
+        _check(proj, "proj", dev, (n_psf, n_psf), f32),
+        _check(offsets, "offsets", dev, (n_tiles + 1,), i32),
+    ]
+    plan = cluster_plan(n, longest) if plan is None else plan
+    launch = _entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(
+            *ptrs, n_tiles, out.data_ptr(), n, n_polarizations, k, height,
+            width, params.threshold, params.gain, params.start_iteration,
+            params.max_iterations, params.divergence_limit,
+            int(params.allow_negative), int(params.stop_on_negative),
+            plan.cluster_size, plan.threads, plan.slice_len,
+            int(plan.on_chip), int(plan.ship_raw), plan.shared_bytes, stream,
+        )
+    _raise_on(err, name)
+    return out
 
 
 def subminor_loop(
@@ -325,42 +422,63 @@ def subminor_loop(
         raise ValueError(
             "subminor_loop: the kernel applies only a polynomial projection"
         )
-    n, k = residual_k.shape
-    n_psf, height, width = psfs.shape
-    if not (0 < n <= MAX_IMAGES and n_psf * n_polarizations == n and k > 0
-            and height * width < 2**31):
-        raise ValueError(
-            f"subminor_loop: bad shapes, state {tuple(residual_k.shape)}, "
-            f"psfs {tuple(psfs.shape)}, {n_polarizations} polarizations"
-        )
-    dev, f32, i32 = residual_k.device, torch.float32, torch.int32
-    out = torch.empty(3, dtype=i32, device=dev)
-    ptrs = [
-        _check(residual_k, "residual_k", dev, (n, k), f32),
-        _check(model_k, "model_k", dev, (n, k), f32),
-        _check(rms_k, "rms_k", dev, (k,), f32),
-        _check(xs, "xs", dev, (k,), i32),
-        _check(ys, "ys", dev, (k,), i32),
-        _check(psfs, "psfs", dev, (n_psf, height, width), f32),
-        _check(coef, "coef", dev, (n,), f32),
-        _check(proj, "proj", dev, (n_psf, n_psf), f32),
-        out.data_ptr(),
-    ]
-    plan = cluster_plan(n, k) if _plan is None else _plan
-    launch = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(
-            *ptrs, n, n_polarizations, k, height, width, params.threshold,
-            params.gain, params.start_iteration, params.max_iterations,
-            params.divergence_limit, int(params.allow_negative),
-            int(params.stop_on_negative), plan.cluster_size, plan.threads,
-            plan.slice_len,
-            int(plan.on_chip), int(plan.ship_raw), plan.shared_bytes, stream,
-        )
-    _raise_on(err, "subminor_loop")
+    out = _launch(*args, n_polarizations, None, 1, residual_k.shape[1],
+                  _plan, "subminor_loop")
     subminor_loop.launches += 1
     return out
 
 
 subminor_loop.launches = 0
+
+
+def subminor_loop_tiles(
+    residual_k: torch.Tensor,
+    model_k: torch.Tensor,
+    rms_k: Optional[torch.Tensor],
+    xs: torch.Tensor,
+    ys: torch.Tensor,
+    psfs: torch.Tensor,
+    coef: torch.Tensor,
+    proj: Optional[torch.Tensor],
+    params: SubminorParams,
+    offsets: torch.Tensor,
+    counts: Sequence[int],
+    *,
+    n_polarizations: int,
+    fit: Optional[Callable] = None,
+    _plan: Optional[ClusterPlan] = None,
+) -> torch.Tensor:
+    """T independent Clark subminor loops in one launch, one cluster a
+    tile: tile t cleans the candidates ``[offsets[t], offsets[t + 1])`` of
+    the concatenated state (the arguments of :func:`subminor_loop`, with
+    ``K`` the total), from the same start, to the same threshold.
+    ``offsets`` is the ``[T + 1]`` int32 tensor of segment bounds on the
+    state's device and ``counts`` the T segment lengths on the host (they
+    size the plan, by the largest).  Returns ``[T, 3]`` int32 results for
+    :func:`read_tile_results`.  A spectral fit that is not the polynomial
+    projection (``fit``) runs only in the plain version, on the CPU."""
+    args = (residual_k, model_k, rms_k, xs, ys, psfs, coef, proj, params)
+    if residual_k.device.type == "cpu":
+        return subminor_loop_tiles_reference(
+            *args, counts, n_polarizations=n_polarizations, fit=fit)
+    if residual_k.device.type != "cuda":
+        raise ValueError(
+            f"subminor_loop_tiles: unsupported device {residual_k.device}")
+    if fit is not None:
+        raise NotImplementedError(
+            "the mesh Clark subminor loop with a spectral fit other than the "
+            "polynomial projection on the card is not ported (B2 bakes only "
+            "the projection); ROADMAP queue A, item 9 brings it."
+        )
+    counts = [int(c) for c in counts]
+    if sum(counts) != residual_k.shape[1] or min(counts) < 0:
+        raise ValueError(
+            f"subminor_loop_tiles: segments {counts} do not cover "
+            f"{residual_k.shape[1]} candidates")
+    out = _launch(*args, n_polarizations, offsets, len(counts), max(counts),
+                  _plan, "subminor_loop_tiles")
+    subminor_loop_tiles.launches += 1
+    return out
+
+
+subminor_loop_tiles.launches = 0

@@ -6,9 +6,12 @@ linear integration, the major-loop threshold, then either the Clark subminor
 loop of :class:`radler_tpu_torch.models.subminor.SubMinorLoop` followed by
 one FFT residual correction, or the Högbom minor loop of
 :func:`radler_tpu_torch.kernels.hogbom_step.hogbom_loop`, or, with a device
-mesh, its partitioned form
-:func:`radler_tpu_torch.parallel.mesh.mesh_hogbom_loop`; for a facet grid,
-every facet's Högbom loop in lockstep
+mesh, by the JAX package's rule: the mesh's Clark subminor loop
+(:func:`radler_tpu_torch.parallel.mesh.mesh_subminor_clean`, each tile its
+own loop) or the partitioned Högbom loop
+(:func:`radler_tpu_torch.parallel.mesh.mesh_hogbom_loop`), and the
+single-device Högbom loop for a cube that divides over neither; for a facet
+grid, every facet's Högbom loop in lockstep
 (:meth:`GenericClean.execute_batched_facets`); after auto-masking, with
 component optimization set, the amplitudes' optimization
 (:mod:`radler_tpu_torch.ops.component_optimization`) instead.  All run
@@ -31,13 +34,23 @@ from ..kernels.hogbom_step import (
     facet_hogbom_loop,
     hogbom_loop,
 )
+from ..kernels.subminor_loop import SubminorParams
 from ..ops.component_optimization import run_component_optimization
 from ..ops.convolution import untrim
 from ..ops.peak_finder import border_from_ratio, find_peak, window_mask
-from ..parallel.mesh import mesh_hogbom_loop, mesh_pallas_eligible
+from ..parallel.mesh import (
+    mesh_hogbom_loop,
+    mesh_pallas_eligible,
+    mesh_subminor_clean,
+)
 from ..settings import OptimizationAlgorithm, SpectralFittingMode
 from .base import DeconvolutionAlgorithm, DeconvolutionResult
-from .subminor import SubMinorLoop, choose_padded_size
+from .subminor import (
+    SubMinorLoop,
+    choose_padded_size,
+    correct_residual,
+    fit_arguments,
+)
 
 # The batched facet route's budget for its stacks' estimate, in bytes: the
 # JAX package's (generic_clean.py:614-618) on every device, so that the
@@ -96,7 +109,9 @@ class GenericClean(DeconvolutionAlgorithm):
     ) -> DeconvolutionResult:
         meta: CubeMeta = dirty_set.meta
         width, height = dirty_set.width, dirty_set.height
-        mesh = self._active_mesh(meta, height)
+        mesh = self.device_mesh
+        if mesh is not None and mesh.size == 1:
+            mesh = None
         iteration_counter_at_start = self.iteration_number
         if self.stop_on_negative_components:
             self.allow_negative_components = True
@@ -140,7 +155,26 @@ class GenericClean(DeconvolutionAlgorithm):
             if self.spectral_fitter is not None and self.spectral_fitter.is_active
             else None
         )
-        if mesh is None and self.use_sub_minor_optimization and (
+        if mesh is not None:
+            if self.use_sub_minor_optimization and (
+                self._mesh_subminor_eligible(meta, height)
+            ):
+                return self._run_mesh_subminor(
+                    dirty_set,
+                    model_set,
+                    psfs,
+                    first_threshold,
+                    iteration_counter_at_start,
+                    major_iter_threshold,
+                    result,
+                )
+            if not mesh_pallas_eligible(mesh, meta, height):
+                # The JAX package lets XLA partition its single-device
+                # Högbom loop here (generic_clean.py:457-509), which keeps
+                # that loop's semantics; every shard of this mesh lies on
+                # one device, so the loop runs there unpartitioned.
+                mesh = None
+        elif self.use_sub_minor_optimization and (
             self._clark_runs(dirty_set.data.device, fit, height, width)
         ):
             return self._run_clark(
@@ -185,31 +219,77 @@ class GenericClean(DeconvolutionAlgorithm):
             major_iter_threshold,
         )
 
-    def _active_mesh(self, meta: CubeMeta, height: int):
-        """The device mesh the minor loop runs on, or None for one device
-        (no mesh, or a mesh of one shard).  The JAX package's routes that
-        the port has not carried raise (``generic_clean.py:366-391,
-        457-509``)."""
-        mesh = self.device_mesh
-        if mesh is None or mesh.size == 1:
-            return None
-        if self.use_sub_minor_optimization:
-            raise NotImplementedError(
-                "the mesh Clark subminor loop (radler_tpu/parallel/mesh.py:"
-                "488-752) is not ported yet; ROADMAP queue A, item 8 brings "
-                "it. The mesh runs the Högbom loop: set "
-                "settings.generic.use_sub_minor_optimization = False."
-            )
-        if not mesh_pallas_eligible(mesh, meta, height):
-            raise NotImplementedError(
-                f"a {mesh.chan} x {mesh.tile} (chan x tile) mesh needs the "
-                f"{meta.n_images} planes to divide over chan without "
-                f"splitting a group of {meta.n_polarizations} polarizations "
-                f"and the {height} rows to divide over tile; the JAX "
-                "package's XLA-partitioned fallback for other shapes is not "
-                "ported (ROADMAP queue A, item 8)."
-            )
-        return mesh
+    def _mesh_subminor_eligible(self, meta: CubeMeta, height: int) -> bool:
+        """Whether the mesh's Clark subminor loop runs (``generic_clean.py:
+        779-797`` of the JAX package): the cube divides over the mesh as
+        the Högbom mesh loop needs (:func:`mesh_pallas_eligible`; the JAX
+        package's Högbom rule adds TPU tile gates, its Clark rule does
+        not).  ``RADLER_TPU_NO_MESH_SUBMINOR`` sends the run to the mesh's
+        Högbom loop, as in the JAX package; the parity tests set it on both
+        packages' side."""
+        if os.environ.get("RADLER_TPU_NO_MESH_SUBMINOR"):
+            return False
+        return mesh_pallas_eligible(self.device_mesh, meta, height)
+
+    def _run_mesh_subminor(
+        self,
+        dirty_set,
+        model_set,
+        psfs: torch.Tensor,
+        first_threshold: float,
+        iteration_counter_at_start: int,
+        major_iter_threshold: float,
+        result: DeconvolutionResult,
+    ) -> DeconvolutionResult:
+        """The mesh's Clark subminor (``_run_mesh_subminor``,
+        ``generic_clean.py:799-927`` of the JAX package): every tile's
+        candidates at 0.99 of the threshold cleaned on their own to it,
+        then one FFT correction of the whole residual
+        (``subminor_loop.cc:195-218``) and the model update."""
+        meta = dirty_set.meta
+        width, height = dirty_set.width, dirty_set.height
+        dev = dirty_set.data.device
+        window = window_mask(
+            height, width, *border_from_ratio(width, height,
+                                              self.clean_border_ratio))
+        if self.clean_mask is not None:
+            window = window & np.asarray(self.clean_mask, bool)
+        proj, fit = fit_arguments(self.spectral_fitter, meta, dev)
+        out = mesh_subminor_clean(
+            self.device_mesh,
+            dirty_set.data,
+            psfs.contiguous(),
+            self.rms_factor_image,
+            torch.as_tensor(window, device=dev),
+            first_threshold * 0.99,
+            SubminorParams.make(
+                first_threshold,
+                self.minor_loop_gain,
+                self.iteration_number,
+                self.max_iterations,
+                self.divergence_limit,
+                self.allow_negative_components,
+                self.stop_on_negative_components,
+            ),
+            meta=meta,
+            proj=proj,
+            fit=fit,
+        )
+        self.iteration_number = out.iteration
+        if out.any_selected:
+            padded_h, padded_w = choose_padded_size(
+                width, height, self.convolution_padding)
+            dirty_set.data = correct_residual(
+                dirty_set.data, out.delta, psfs, padded_h, padded_w,
+                meta.n_channels)
+            model_set.data = model_set.data + out.delta
+        return self._finish_result(
+            result,
+            out.diverging,
+            out.value if out.any_selected else None,
+            iteration_counter_at_start,
+            major_iter_threshold,
+        )
 
     @staticmethod
     def _clark_runs(device, fit, height: int, width: int) -> bool:

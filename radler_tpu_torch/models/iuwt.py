@@ -19,7 +19,10 @@ reads the device twice per structure iteration, as the JAX package does
 iteration.  Nothing inside a structure iteration copies host data to the
 device, except the label map of the multi-image refit: the windows, the
 prior mask and the PSF's per-scale RMS are made on the device, or copied
-once per run before the structure loop.
+once per run before the structure loop.  The JAX package lays IUWT's rows
+over a device mesh (``models/iuwt.py:107-132``), a placement only; every
+shard of the port's mesh lies on the one device, so IUWT runs there as on
+one device, bit for bit.
 """
 
 from __future__ import annotations

@@ -53,6 +53,48 @@ def correct_residual(
     return residual_cube - conv.reshape(n, h, w)
 
 
+def select_candidates(
+    residual_cube: torch.Tensor,
+    meta: CubeMeta,
+    rms_factor: Optional[torch.Tensor],
+    window: torch.Tensor,
+    threshold: float,
+    allow_negative: bool,
+) -> torch.Tensor:
+    """The flat indices, in raster order, of the candidate pixels
+    (``subminor_loop.cc:143-184``): the linear integration of the ``[N, H,
+    W]`` cube, times the rms factor, its magnitude when negatives are
+    allowed, at or above ``threshold`` (as float32) inside the ``[H, W]``
+    bool ``window``.  ``torch.nonzero`` reads the count to the host."""
+    coef = torch.as_tensor(linear_integration_coefficients(meta),
+                           device=residual_cube.device)
+    value = torch.einsum("i,ihw->hw", coef, residual_cube)
+    if rms_factor is not None:
+        value = value * rms_factor
+    if allow_negative:
+        value = value.abs()
+    selectable = (value >= float(np.float32(threshold))) & window
+    return torch.nonzero(selectable.reshape(-1))[:, 0]
+
+
+def fit_arguments(fitter, meta: CubeMeta, device):
+    """B2's spectral fit for ``fitter``: ``(proj, fit)``, the polynomial
+    fit's ``[C, C]`` projection on ``device``, or ``fit(cv, x, y)`` for any
+    other active fit (the plain version applies it; the kernel cannot), or
+    neither."""
+    if fitter is None or not fitter.is_active:
+        return None, None
+    if fitter.mode == SpectralFittingMode.POLYNOMIAL:
+        return torch.as_tensor(np.asarray(fitter._projection, np.float32),
+                               device=device), None
+    C, P = meta.n_channels, meta.n_polarizations
+
+    def fit(cv, x, y):
+        return fitter.fit_and_evaluate(cv.view(C, P), x, y).reshape(-1)
+
+    return None, fit
+
+
 class SubMinorLoop:
     """Host-side orchestration of one subminor run."""
 
@@ -112,12 +154,6 @@ class SubMinorLoop:
         host read is the count that ``torch.nonzero`` needs."""
         dev = residual_cube.device
         n = residual_cube.shape[0]
-        coef = torch.as_tensor(linear_integration_coefficients(meta), device=dev)
-        value = torch.einsum("i,ihw->hw", coef, residual_cube)
-        if self.rms_factor_image is not None:
-            value = value * self.rms_factor_image
-        if self.allow_negative_components:
-            value = value.abs()
         # The reference's border loop never clamps yiStart against start_y=0
         # (subminor_loop.cc:151-154), equivalent to the plain window.
         window = window_mask(
@@ -125,10 +161,10 @@ class SubMinorLoop:
         )
         if self.mask is not None:
             window = window & np.asarray(self.mask, bool)
-        selectable = (value >= float(np.float32(self.threshold))) & (
-            torch.as_tensor(window, device=dev)
-        )
-        flat = torch.nonzero(selectable.reshape(-1))[:, 0]
+        flat = select_candidates(
+            residual_cube, meta, self.rms_factor_image,
+            torch.as_tensor(window, device=dev), self.threshold,
+            self.allow_negative_components)
         count = int(flat.numel())
         self._count = count
         if count == 0:
@@ -164,18 +200,7 @@ class SubMinorLoop:
             return False, None
         dev = residual_cube.device
         coef = torch.as_tensor(linear_integration_coefficients(meta), device=dev)
-        proj, fit_fn = None, None
-        if fitter is not None and fitter.is_active:
-            if fitter.mode == SpectralFittingMode.POLYNOMIAL:
-                proj = torch.as_tensor(
-                    np.asarray(fitter._projection, np.float32), device=dev
-                )
-            else:
-                C, P = meta.n_channels, meta.n_polarizations
-
-                def fit_fn(cv, x, y):
-                    return fitter.fit_and_evaluate(cv.view(C, P), x, y).reshape(-1)
-
+        proj, fit_fn = fit_arguments(fitter, meta, dev)
         model_k = torch.zeros_like(self._residual_k)
         out = subminor_loop(
             self._residual_k,

@@ -33,31 +33,46 @@ from ..settings import OptimizationAlgorithm
 from .convolution import padded_convolve
 
 
-def linear_component_solve(
-    model: torch.Tensor, residual: torch.Tensor, psf: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Solve the amplitudes at the model's non-zero positions exactly
-    (``LinearComponentSolve``): the dirty image, residual plus the model
-    convolved with the PSF, must equal the new model convolved with the PSF
-    there (wrap-around indexing, the reference's ``(x + width + psf_x -
-    x_i) % width``).  Returns ``(model, residual)``, the residual zeroed at
-    the positions."""
+def linear_system(model: torch.Tensor, residual: torch.Tensor,
+                  psf: torch.Tensor):
+    """The system of :func:`linear_component_solve`: the model's non-zero
+    positions ``(ys, xs)``, the ``K x K`` PSF gather ``a`` between them
+    (wrap-around indexing, the reference's ``(x + width + psf_x - x_i) %
+    width``) and the dirty image, residual plus the model convolved with
+    the PSF, whose values at the positions are the right-hand side.
+    Returns None when the model is empty."""
     h, w = model.shape
     ys, xs = (torch.as_tensor(v, device=model.device)
               for v in np.nonzero(model.cpu().numpy()))
     if ys.numel() == 0:
-        return model, residual
+        return None
     dyy = (ys[:, None] - ys[None, :] + h + h // 2) % h
     dxx = (xs[:, None] - xs[None, :] + w + w // 2) % w
-    a = psf[dyy, dxx]
-    dirty = residual + padded_convolve(model, psf)
-    b = dirty[ys, xs]
-    # In float64: with the components of a CLEAN the system's condition
-    # number reaches thousands, and a float32 solve (the JAX package's)
-    # then differs from call to call on the CPU, and between the CPU and
-    # the card, by its condition number times float32's epsilon.
-    amplitudes = torch.linalg.lstsq(a.double(), b.double()[:, None]
-                                    ).solution[:, 0].to(model.dtype)
+    return ys, xs, psf[dyy, dxx], residual + padded_convolve(model, psf)
+
+
+def solve_amplitudes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The least-squares amplitudes of ``a x = b``, in float64: with the
+    components of a CLEAN the system's condition number reaches thousands,
+    and a float32 solve (the JAX package's) then differs from call to call
+    on the CPU, and between the CPU and the card, by its condition number
+    times float32's epsilon.  Returns float64."""
+    return torch.linalg.lstsq(a.double(), b.double()[:, None]).solution[:, 0]
+
+
+def linear_component_solve(
+    model: torch.Tensor, residual: torch.Tensor, psf: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Solve the amplitudes at the model's non-zero positions exactly
+    (``LinearComponentSolve``): the dirty image must equal the new model
+    convolved with the PSF there (:func:`linear_system`,
+    :func:`solve_amplitudes`).  Returns ``(model, residual)``, the residual
+    zeroed at the positions."""
+    system = linear_system(model, residual, psf)
+    if system is None:
+        return model, residual
+    ys, xs, a, dirty = system
+    amplitudes = solve_amplitudes(a, dirty[ys, xs]).to(model.dtype)
     new_model = torch.zeros_like(model)
     new_model[ys, xs] = amplitudes
     new_residual = dirty - padded_convolve(new_model, psf)

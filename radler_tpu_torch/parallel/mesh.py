@@ -1,7 +1,8 @@
-"""The ("chan", "tile") mesh and the mesh-partitioned Högbom minor loop.
+"""The ("chan", "tile") mesh, the mesh-partitioned Högbom minor loop and the
+mesh's Clark subminor loop.
 
-Port of ``radler_tpu.parallel.mesh`` (``make_mesh``, ``mesh_pallas_eligible``
-and ``mesh_hogbom_loop``).  The ``[N, H, W]`` cube is laid out over
+Port of ``radler_tpu.parallel.mesh`` (``make_mesh``, ``mesh_pallas_eligible``,
+``mesh_hogbom_loop`` and ``mesh_subminor_clean``).  The ``[N, H, W]`` cube is laid out over
 ``chan x tile`` shards: the planes over ``"chan"``, the image rows over
 ``"tile"``.  Each minor iteration runs one kernel launch per shard, and the
 reference's thread-pool exchanges (``parallel_deconvolution.cc:592-617``)
@@ -23,12 +24,19 @@ shards are the blocks of a ``[chan, tile, N_loc, H_loc, W]`` tensor, and
 each collective is a tensor op over the shard axes, the counterpart of the
 JAX package's virtual CPU mesh.  Spreading the shards over several cards
 replaces only :func:`place`, :func:`unplace` and the collectives.
+
+The Clark subminor loop on the mesh (:func:`mesh_subminor_clean`) is each
+tile cleaning its own candidates to the shared threshold; the tiles share
+nothing else, so it runs as T independent loops in one launch of kernel B2
+with a tile axis (:func:`radler_tpu_torch.kernels.subminor_loop.subminor_loop_tiles`),
+and the ``"chan"`` split, which only shares out a tile's planes, is no
+part of it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,11 +56,18 @@ from ..kernels.hogbom_step import (
     run_chunks,
     start_loop,
 )
+from ..kernels.subminor_loop import (
+    SubminorParams,
+    read_tile_results,
+    subminor_loop_tiles,
+)
 from ..kernels.subtract_integrate import (
     plane_coefficients,
     subtract_integrate,
     subtract_integrate_reference,
 )
+from ..image_set import linear_integration_coefficients
+from ..models.subminor import select_candidates
 from ..ops.peak_finder import FLT_MIN
 from ..utils.device_consts import device_const
 
@@ -369,3 +384,136 @@ def mesh_hogbom_loop(
     if coefficients is None:
         unplace(mod_sh, model, mesh)
     return result
+
+
+# ---------------------------------------------------------------------------
+# The Clark subminor loop on the mesh
+# ---------------------------------------------------------------------------
+
+
+class TileCandidates(NamedTuple):
+    """Every tile's candidate set, concatenated tile by tile, each tile's in
+    raster order: the state that :func:`subminor_loop_tiles` runs on."""
+
+    flat: torch.Tensor        # [K] int64 flat pixel of each candidate
+    xs: torch.Tensor          # [K] int32 column
+    ys: torch.Tensor          # [K] int32 row, global (the PSF offsets)
+    residual_k: torch.Tensor  # [N, K] the residual at the candidates
+    rms_k: Optional[torch.Tensor]  # [K] the rms factor there, or None
+    offsets: torch.Tensor     # [T + 1] int32 segment bounds, on the device
+    counts: List[int]         # [T] candidates of each tile, on the host
+
+
+def select_tile_candidates(
+    mesh: Mesh,
+    residual: torch.Tensor,  # [N, H, W]
+    rms_factor: Optional[torch.Tensor],  # [H, W] or None
+    window: torch.Tensor,  # [H, W] bool: border window AND mask
+    considered_threshold: float,
+    *,
+    meta,
+    allow_negative: bool,
+) -> TileCandidates:
+    """Each tile's candidates (``mesh.py:521-541`` of the JAX package,
+    ``subminor_loop.cc:143-184`` run per row band), selected over the whole
+    image at once (:func:`radler_tpu_torch.models.subminor.select_candidates`):
+    raster order keeps each tile's candidates together, a tile being ``y //
+    H_loc``; the per-tile counts are one ``bincount`` and one host read.  K is the exact count: the
+    JAX package's per-tile capacity clamp (2^20, brightest first) has no
+    counterpart."""
+    n, height, width = residual.shape
+    dev = residual.device
+    flat = select_candidates(residual, meta, rms_factor, window,
+                             considered_threshold, allow_negative)
+    ys = flat // width
+    per_tile = torch.bincount(ys // (height // mesh.tile),
+                              minlength=mesh.tile)
+    offsets = torch.zeros(mesh.tile + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(per_tile, 0)
+    counts = per_tile.tolist()
+    rms_k = None
+    if rms_factor is not None:
+        rms_k = rms_factor.reshape(-1)[flat].contiguous()
+    return TileCandidates(
+        flat, (flat % width).to(torch.int32), ys.to(torch.int32),
+        residual.reshape(n, -1)[:, flat].contiguous(), rms_k, offsets,
+        counts)
+
+
+class MeshSubminorResult(NamedTuple):
+    """What :func:`mesh_subminor_clean` returns."""
+
+    delta: Optional[torch.Tensor]  # [N, H, W] model delta; None: no pixel
+    iteration: int        # start + the iterations of every tile
+    value: float          # the signed value of the largest |final value|
+    diverging: bool       # any tile diverged
+    any_selected: bool    # any tile had a candidate
+
+
+def reduce_tile_results(results, start_iteration: int
+                        ) -> Tuple[int, float, bool]:
+    """The reduction over tiles of ``mesh.py:650-664`` of the JAX package:
+    the iterations of every tile added to the shared start, the signed
+    value of the largest magnitude (+v over -v on a tie), and whether any
+    tile diverged."""
+    iteration = start_iteration + sum(it - start_iteration
+                                      for it, _, _ in results)
+    top = max(abs(value) for _, value, _ in results)
+    value = max(v for _, v, _ in results if abs(v) >= top)
+    return iteration, value, any(d for _, _, d in results)
+
+
+def mesh_subminor_clean(
+    mesh: Mesh,
+    residual: torch.Tensor,  # [N, H, W]
+    psfs: torch.Tensor,  # [C, H, W] PSFs at image size
+    rms_factor: Optional[torch.Tensor],  # [H, W] or None
+    window: torch.Tensor,  # [H, W] bool: border window AND mask
+    considered_threshold: float,
+    params: SubminorParams,
+    *,
+    meta,
+    proj: Optional[torch.Tensor] = None,
+    fit=None,
+) -> MeshSubminorResult:
+    """The Clark subminor loop on ``mesh`` (``mesh_subminor_clean`` and its
+    program, ``mesh.py:488-752`` of the JAX package): every tile selects
+    its candidates (:func:`select_tile_candidates`) and cleans them on its
+    own to ``params.threshold``, from ``params.start_iteration`` up to
+    ``params.max_iterations`` each (so the total may pass it, as the
+    reference's per-sub-image counts do), in one launch of B2 with a tile
+    axis; the results are reduced as :func:`reduce_tile_results` does, and
+    the candidates' model values scattered into a model delta.  The
+    caller subtracts ``delta ⊛ psf`` from the residual once
+    (:func:`radler_tpu_torch.models.subminor.correct_residual`) and adds
+    ``delta`` to the model.  ``proj`` is the polynomial fit's ``[C, C]``
+    projection, ``fit(cv, x, y)`` any other fit (CPU tensors only)."""
+    n, height, width = residual.shape
+    if height % mesh.tile != 0:
+        raise ValueError(f"mesh_subminor_clean: {height} rows do not divide "
+                         f"over {mesh.tile} tiles")
+    if residual.device != _index_device(mesh.device):
+        raise ValueError(f"mesh_subminor_clean: the cube is on "
+                         f"{residual.device}, the mesh on {mesh.device}")
+    cand = select_tile_candidates(
+        mesh, residual, rms_factor, window, considered_threshold, meta=meta,
+        allow_negative=params.allow_negative)
+    if sum(cand.counts) == 0:
+        # The reference's fallback FindPeak scans a zeroed scratch and finds
+        # nothing (generic_clean.cc:156-162).
+        return MeshSubminorResult(None, params.start_iteration, 0.0, False,
+                                  False)
+    dev = residual.device
+    model_k = torch.zeros_like(cand.residual_k)
+    out = subminor_loop_tiles(
+        cand.residual_k, model_k, cand.rms_k, cand.xs, cand.ys,
+        psfs.contiguous(),
+        torch.as_tensor(linear_integration_coefficients(meta), device=dev),
+        proj, params, cand.offsets, cand.counts,
+        n_polarizations=meta.n_polarizations, fit=fit)
+    iteration, value, diverging = reduce_tile_results(
+        read_tile_results(out), params.start_iteration)
+    delta = torch.zeros((n, height * width), dtype=torch.float32, device=dev)
+    delta.index_copy_(1, cand.flat, model_k)
+    return MeshSubminorResult(delta.view(n, height, width), iteration, value,
+                              diverging, True)

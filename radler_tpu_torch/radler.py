@@ -46,20 +46,15 @@ from .models.asp import AspAlgorithm
 from .models.base import DeconvolutionAlgorithm
 from .models.generic_clean import GenericClean
 from .models.iuwt import IuwtDeconvolution
+from .models.more_sane import MoreSane
 from .models.multiscale import MultiScaleAlgorithm
+from .models.python_plugin import PythonDeconvolution
 from .ops import rms_image as rms_ops
 from .ops.noise import median_and_stddev_from_mad
 from .ops.spectral_fitting import create_spectral_fitter
 from .parallel.mesh import Mesh, make_mesh
 from .parallel.parallel_deconvolution import ParallelDeconvolution
 from .utils import logging as log
-
-# The ROADMAP queue-A item that ports each algorithm not ported yet.
-_PENDING_ALGORITHMS = {
-    AlgorithmType.MORE_SANE: 7,
-    AlgorithmType.PYTHON: 7,
-}
-
 
 def _check_image(name: str, array, settings: Settings) -> None:
     if isinstance(array, torch.Tensor):
@@ -232,12 +227,6 @@ class Radler:
             self._beam_size = 0.0
 
         settings = self.settings
-        if settings.algorithm_type in _PENDING_ALGORITHMS:
-            raise NotImplementedError(
-                f"{settings.algorithm_type.name} (settings.algorithm_type) is "
-                "not ported yet; ROADMAP queue A, item "
-                f"{_PENDING_ALGORITHMS[settings.algorithm_type]} brings it."
-            )
         algorithm: DeconvolutionAlgorithm
         if settings.algorithm_type == AlgorithmType.ADAPTIVE_SCALE_PIXEL:
             algorithm = AspAlgorithm(
@@ -248,6 +237,8 @@ class Radler:
             )
         elif settings.algorithm_type == AlgorithmType.IUWT:
             algorithm = IuwtDeconvolution()
+        elif settings.algorithm_type == AlgorithmType.MORE_SANE:
+            algorithm = MoreSane(settings.more_sane, settings.prefix_name)
         elif settings.algorithm_type == AlgorithmType.MULTISCALE:
             algorithm = MultiScaleAlgorithm(
                 settings.multiscale,
@@ -256,6 +247,8 @@ class Radler:
                 self._pixel_scale_y,
                 settings.save_source_list,
             )
+        elif settings.algorithm_type == AlgorithmType.PYTHON:
+            algorithm = PythonDeconvolution(settings.python.filename)
         else:
             algorithm = GenericClean(
                 settings.generic.use_sub_minor_optimization)
@@ -290,24 +283,8 @@ class Radler:
         n = settings.parallel.n_devices or (
             torch.cuda.device_count() if self._device.type == "cuda" else 1
         )
-        mesh = make_mesh(n, n_channels=len(table.deconvolution_groups),
+        return make_mesh(n, n_channels=len(table.deconvolution_groups),
                          device=self._device)
-        if mesh.size > 1 and settings.algorithm_type == AlgorithmType.IUWT:
-            raise NotImplementedError(
-                "IUWT on a device mesh "
-                "(settings.parallel.use_device_mesh with "
-                f"{mesh.size} shards) is not ported yet; ROADMAP queue A, "
-                "item 8 brings it."
-            )
-        grid = (settings.parallel.grid_width, settings.parallel.grid_height)
-        if mesh.size > 1 and grid != (1, 1):
-            raise NotImplementedError(
-                f"a {grid[0]}x{grid[1]} facet grid on a device mesh "
-                "(settings.parallel.use_device_mesh with "
-                f"{mesh.size} shards) is not ported yet; ROADMAP queue A, "
-                "item 8 brings it."
-            )
-        return mesh
 
     # ------------------------------------------------------------------
     def free_deconvolution_algorithms(self) -> None:

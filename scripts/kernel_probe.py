@@ -11,6 +11,8 @@ command line, on one NVIDIA GPU.  Run from the root of a checkout:
     python3 scripts/kernel_probe.py facets    # B1's facet mode, config 5 on
                                               # its 5 routes, card vs CPU
     python3 scripts/kernel_probe.py asp       # ASP, component optimization
+    python3 scripts/kernel_probe.py mesh      # the mesh's Clark loop (B2's
+                                              # tile axis), MORE_SANE, PYTHON
     python3 scripts/kernel_probe.py b2 b3 check   # against plain only
     python3 scripts/kernel_probe.py registers PARENT_ROOT .
                         # registers of B1's step instantiations in each
@@ -235,6 +237,22 @@ def main(argv):
         cs.phase_asp_card_vs_cpu()
         cs.say("== component optimization on the card against the CPU ==")
         cs.phase_component_optimization_card_vs_cpu()
+    if "mesh" in argv:
+        psf, residual = cs.make_problem(cs.SIZE, cs.N_SOURCES)
+        psfs, res, kwargs = cs._joined_inputs(psf, residual)
+        del psf, residual
+        cs.say("== the joined-channel cube, Clark, chan 4 x tile 2 ==")
+        cs.phase_mesh_clark("joined channels", psfs, res, kwargs, cs.SIZE,
+                            cs.MESH_ITERATIONS)
+        del psfs, res
+        psf2, residual2 = cs.make_problem(cs.CLARK_SIZE, cs.N_SOURCES)
+        cs.say("== config 2, Clark, chan 1 x tile 8 ==")
+        cs.phase_mesh_clark(
+            "config 2", torch.as_tensor(psf2, device=cs.DEVICE),
+            torch.as_tensor(residual2, device=cs.DEVICE), {}, cs.CLARK_SIZE,
+            cs.ITERATIONS, tile_times=timed)
+        cs.say("== MORE_SANE and PYTHON at config 2's field ==")
+        cs.phase_host_plugins(psf2, residual2)
     cs.say("probe done")
     return 0
 

@@ -280,11 +280,30 @@ def test_full_fit_on_its_window_is_the_whole_image_fit(at):
 
 
 @pytest.mark.parametrize("algorithm", ["MORE_SANE", "PYTHON"])
-def test_the_host_plugins_still_raise(algorithm):
-    """MORE_SANE and PYTHON, the host plug-ins, are the next slice of the
-    port: they raise, naming ROADMAP queue A's item 7."""
+def test_the_host_plugins_still_raise(algorithm, tmp_path, monkeypatch):
+    """MORE_SANE and PYTHON, the host plug-ins, which the port refused
+    until it ported them (ROADMAP queue A, item 7), run on the
+    point-source field through both packages, and the cubes they hand back
+    agree bit for bit (a stand-in MORESANE program; a NumPy plug-in)."""
+    from tests.test_torch_more_sane import write_stand_in
+    from tests.test_torch_python_plugin import PEAK_MOVER
+
+    monkeypatch.chdir(tmp_path)
     s, psf, residual = point_source_case()
     s.algorithm_type = getattr(jrd.AlgorithmType, algorithm)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        rd.Radler(settings_from_reference(s), psf, residual.copy(),
-                  np.zeros_like(residual), 0.0, device="cpu").perform(0)
+    s.more_sane.location = str(write_stand_in(tmp_path))
+    plugin = tmp_path / "plugin.py"
+    plugin.write_text(PEAK_MOVER)
+    s.python.filename = str(plugin)
+    out = []
+    for package, settings, device in (
+        (rd, settings_from_reference(s), {"device": "cpu"}),
+        (jrd, s, {}),
+    ):
+        res, mod = residual.copy(), np.zeros_like(residual)
+        r = package.Radler(settings, psf, res, mod, 0.0, **device)
+        out.append((r.perform(0), r.iteration_number, res, mod))
+    assert out[0][:2] == out[1][:2] and out[0][1] == 1
+    assert np.abs(out[0][3]).max() > 0
+    np.testing.assert_array_equal(out[0][2], out[1][2])
+    np.testing.assert_array_equal(out[0][3], out[1][3])

@@ -429,6 +429,153 @@ def test_subminor_loop_many_planes(cuda):
     assert sl.read_result(outs[0][0])[0] == 200
 
 
+# Segment lengths of B2's tile axis over a candidate set of K: ragged, one
+# tile empty (the rest goes to the last tile).
+TILE_SEGMENTS = {1: [], 2: [0], 8: [150, 0, 37, 1200, 5, 640, 300]}
+
+
+def tile_offsets(counts, device):
+    return torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("tiles", sorted(TILE_SEGMENTS))
+@pytest.mark.parametrize("case", [(1, 1, False, False), (2, 2, True, True)],
+                         ids=["1x1", "2x2-fit-rms"])
+def test_subminor_tiles_bit_equal_to_plain(cuda, case, tiles):
+    """B2's tile axis at T = 1, 2 and 8 (ragged segments, an empty one)
+    against its plain version, bit for bit; at T = 1 also against today's
+    single launch without segments."""
+    C, P, fit, use_rms = case
+    loop, psfs, coef, proj = subminor_case(C, P, use_rms, True, cuda, seed=3)
+    k = loop._residual_k.shape[1]
+    counts = TILE_SEGMENTS[tiles] + [k - sum(TILE_SEGMENTS[tiles])]
+    assert counts[-1] > 100 and (tiles == 1 or 0 in counts)
+    offsets = tile_offsets(counts, cuda)
+    params = sl.SubminorParams.make(0.005, 0.1, 3, 250, 4.0, True, False)
+    outs = []
+    for run in ("kernel", "plain", "single"):
+        if run == "single" and tiles > 1:
+            continue
+        res = loop._residual_k.clone()
+        model = torch.zeros_like(res)
+        args = (res, model, loop._rms_k, loop._xs, loop._ys, psfs, coef,
+                proj if fit else None, params)
+        if run == "kernel":
+            out = sl.subminor_loop_tiles(*args, offsets, counts,
+                                         n_polarizations=P)
+        elif run == "plain":
+            out = sl.subminor_loop_tiles_reference(*args, counts,
+                                                   n_polarizations=P)
+        else:
+            out = sl.subminor_loop(*args, n_polarizations=P)[None]
+        torch.cuda.synchronize()
+        outs.append((out, res, model))
+    (ok, rk, mk) = outs[0]
+    assert ok.shape == (tiles, 3)
+    for op, rp, mp in outs[1:]:
+        assert torch.equal(ok, op)
+        assert torch.equal(rk, rp) and torch.equal(mk, mp)
+    results = sl.read_tile_results(ok)
+    for count, (iteration, value, _) in zip(counts, results):
+        if count == 0:
+            assert (iteration, value) == (3, 0.0)
+        elif count > 100:
+            assert iteration > 3
+
+
+def test_subminor_tiles_every_plan_and_more_clusters_than_fit(cuda):
+    """The tile axis at forced plans (one block, the state in global
+    memory), and 300 tiles of 16 blocks, more clusters than the card holds
+    at once: each bit-equal to the plain version."""
+    loop, psfs, coef, _ = subminor_case(1, 1, False, True, cuda, seed=7)
+    k = loop._residual_k.shape[1]
+    params = sl.SubminorParams.make(0.005, 0.1, 0, 60, 4.0, True, False)
+    many = [k // 300] * 299
+    for counts, plan in (([k // 3, 0, k - k // 3], dict(cluster_size=1)),
+                         ([k // 2, k - k // 2], dict(cluster_size=16,
+                                                     on_chip=False)),
+                         (many + [k - sum(many)], dict(cluster_size=16))):
+        forced = sl.cluster_plan(1, max(counts), **plan)
+        outs = []
+        for kernel in (True, False):
+            res = loop._residual_k.clone()
+            model = torch.zeros_like(res)
+            args = (res, model, None, loop._xs, loop._ys, psfs, coef, None,
+                    params)
+            if kernel:
+                out = sl.subminor_loop_tiles(
+                    *args, tile_offsets(counts, cuda), counts,
+                    n_polarizations=1, _plan=forced)
+            else:
+                out = sl.subminor_loop_tiles_reference(*args, counts,
+                                                       n_polarizations=1)
+            torch.cuda.synchronize()
+            outs.append((out, res, model))
+        assert torch.equal(outs[0][0], outs[1][0])
+        assert torch.equal(outs[0][1], outs[1][1])
+        assert torch.equal(outs[0][2], outs[1][2])
+
+
+def test_subminor_tiles_refuse_a_general_fit(cuda):
+    """B2 bakes only the polynomial projection: another fit on the card
+    raises, naming ROADMAP item 9."""
+    loop, psfs, coef, _ = subminor_case(1, 1, False, True, cuda)
+    k = loop._residual_k.shape[1]
+    params = sl.SubminorParams.make(0.01, 0.1, 0, 10, 0.0, True, False)
+    res = loop._residual_k.clone()
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sl.subminor_loop_tiles(res, torch.zeros_like(res), None, loop._xs,
+                               loop._ys, psfs, coef, None, params,
+                               tile_offsets([k], cuda), [k],
+                               n_polarizations=1, fit=lambda v, x, y: v)
+
+
+def test_perform_mesh_clark_on_card_matches_cpu(cuda):
+    """The mesh's Clark subminor loop (chan 2 x tile 4, 2 channels with a
+    2-term fit) through Radler.perform on the card, one tile-axis launch,
+    against the port's CPU run: equal counts, the cubes within 1e-5 of
+    max(1, |res|max) (the FFT correction rounds differently)."""
+    size = 128
+    yy, xx = np.mgrid[0:size, 0:size]
+    psf = np.exp(-((yy - size // 2) ** 2 + (xx - size // 2) ** 2) / 8.0)
+    psfs = np.stack([psf, 0.9 * psf]).astype(np.float32)
+    rng = np.random.default_rng(9)
+    res = np.zeros((2, size, size))
+    for _ in range(12):
+        y, x, v = rng.integers(8, size - 8), rng.integers(8, size - 8), \
+            rng.uniform(0.3, 1.5)
+        for ch in range(2):
+            res[ch] += v * (1 - 0.1 * ch) * np.roll(
+                psfs[ch], (y - size // 2, x - size // 2), (0, 1))
+    res = res.astype(np.float32)
+    s = rd.Settings()
+    s.trimmed_image_width = s.trimmed_image_height = size
+    s.minor_iteration_count = 300
+    s.minor_loop_gain, s.major_loop_gain = 0.1, 0.8
+    s.spectral_fitting.mode = rd.SpectralFittingMode.POLYNOMIAL
+    s.spectral_fitting.terms = 2
+    s.parallel.use_device_mesh = True
+    s.parallel.n_devices = 8
+    freqs = np.array([[1.0e8, 1.1e8], [1.1e8, 1.2e8]])
+    runs = []
+    for device in ("cpu", cuda):
+        cube, model = res.copy(), np.zeros_like(res)
+        sl.subminor_loop_tiles.launches = 0
+        r = rd.Radler(s, psfs, cube, model, 0.0, frequencies=freqs,
+                      device=device)
+        r.perform(0)
+        mesh = r._parallel.first_algorithm.device_mesh
+        runs.append((r.iteration_number, cube, model,
+                     sl.subminor_loop_tiles.launches, (mesh.chan, mesh.tile)))
+    (n_c, res_c, mod_c, _, shape), (n_g, res_g, mod_g, launches, _) = runs
+    assert shape == (2, 4) and launches == 1
+    assert n_g == n_c > 0
+    scale = max(1.0, float(np.abs(res_c).max()))
+    assert np.abs(res_g - res_c).max() <= 1e-5 * scale
+    assert np.abs(mod_g - mod_c).max() <= 1e-5 * scale
+
+
 def test_perform_clark_point_source_and_count(cuda):
     """The reference contract through Radler.perform with the default Clark
     loop on CUDA tensors: one B2 launch, no Högbom launch."""

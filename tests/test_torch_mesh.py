@@ -618,32 +618,51 @@ def test_place_round_trip():
         assert torch.equal(target, cube)
 
 
-def refusal_settings(**changes):
-    s = mesh_settings(rd, 64, 10, 1e-3, True)
+def refusal_settings(package, **changes):
+    s = mesh_settings(package, 64, 10, 1e-3, True)
     for name, value in changes.items():
         obj = s
         *path, last = name.split(".")
         for part in path:
             obj = getattr(obj, part)
+        if hasattr(value, "name"):  # an enum: the package's own member
+            value = getattr(type(getattr(obj, last)), value.name)
         setattr(obj, last, value)
     return s
 
 
+@needs_8
 @pytest.mark.parametrize("changes, height", [
     ({"generic.use_sub_minor_optimization": True}, 64),
     ({"algorithm_type": rd.AlgorithmType.IUWT}, 64),
     ({}, 60),
 ], ids=["clark", "iuwt", "height-not-divisible"])
 def test_unported_mesh_routes_raise(changes, height):
-    s = refusal_settings(**changes)
-    s.trimmed_image_height = height
-    psf = np.zeros((height, 64), np.float32)
-    psf[height // 2, 32] = 1.0
-    res = np.zeros_like(psf)
-    res[10, 10] = 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 8"):
-        rd.Radler(s, psf, res, np.zeros_like(res), 0.0,
-                  device="cpu").perform(0)
+    """The mesh routes that the port once refused run, and match the JAX
+    package (``assert_same_run``): the mesh's Clark subminor loop (chan 1 x
+    tile 8) and IUWT on the mesh (row placement only in the JAX package,
+    the single-device run in the port) against its mesh run; 60 rows,
+    which do not divide over 8 tiles, take the single-device Högbom loop,
+    against the JAX package's run without a mesh, since its own mesh run
+    raises there (``jax.device_put`` of uneven shards)."""
+    yy, xx = np.mgrid[0:height, 0:64]
+    psf = np.exp(-((yy - height // 2) ** 2 + (xx - 32) ** 2) / 6.0)
+    res = np.zeros((height, 64))
+    for y, x, v in ((10, 10, 1.0), (37, 50, 0.7), (height - 9, 22, -0.45),
+                    (29, 33, 0.55)):
+        res += v * np.roll(psf, (y - height // 2, x - 32), (0, 1))
+    psf, res = psf.astype(np.float32), res.astype(np.float32)
+    runs = []
+    for package in (rd, jrd):
+        s = refusal_settings(package, **changes)
+        s.trimmed_image_height = height
+        if package is jrd and height % 8:
+            with pytest.raises(ValueError, match="divisible"):
+                perform(package, s, psf, res)
+            s.parallel.use_device_mesh = False
+        runs.append(perform(package, s, psf, res))
+    assert runs[0][3] > 0 and np.abs(runs[0][2]).max() > 0
+    assert_same_run(*runs)
 
 
 def test_mesh_of_one_shard_runs_the_single_device_loop():

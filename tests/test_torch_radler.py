@@ -185,23 +185,35 @@ def test_point_source_tensor_accessors(settings):
         ("mesh", True),
     ],
 )
-def test_unported_settings_raise(settings, setting, value):
+def test_unported_settings_raise(settings, setting, value, tmp_path,
+                                 monkeypatch):
+    """The settings that the port once refused (MORE_SANE; facets on a
+    device mesh; the mesh with the Clark loop) run, and match the JAX
+    package's run within the parity contract (``assert_parity``)."""
+    s = jrd.Settings()
+    s.trimmed_image_width = WIDTH
+    s.trimmed_image_height = HEIGHT
+    s.pixel_scale.x = s.pixel_scale.y = PIXEL_SCALE
+    s.minor_iteration_count = MINOR_ITERATION_COUNT
+    s.absolute_threshold = 1e-8
+    s.generic.use_sub_minor_optimization = False
     if setting == "algorithm_type":
-        settings.algorithm_type = value
+        from tests.test_torch_more_sane import write_stand_in
+
+        monkeypatch.chdir(tmp_path)
+        s.algorithm_type = getattr(jrd.AlgorithmType, value.name)
+        s.more_sane.location = str(write_stand_in(tmp_path))
     elif setting == "grid":
-        # Facets run; facets on a device mesh raise (ROADMAP queue A, 8).
-        settings.parallel.grid_width = value
-        settings.parallel.use_device_mesh = True
-        settings.parallel.n_devices = 8
+        s.parallel.grid_width = value
+        s.parallel.use_device_mesh = True
+        s.parallel.n_devices = 8
     else:
-        # The mesh runs the Högbom loop; with the Clark loop it raises.
-        settings.parallel.use_device_mesh = value
-        settings.parallel.n_devices = 8
-        settings.generic.use_sub_minor_optimization = True
-    image = get_psf()
-    with pytest.raises(NotImplementedError):
-        rd.Radler(settings, image, image.copy(), image.copy(), BEAM_SIZE,
-                  device="cpu").perform(0)
+        s.parallel.use_device_mesh = value
+        s.parallel.n_devices = 8
+        s.generic.use_sub_minor_optimization = True
+    jax_out, port_out = run_both(s, get_psf(), get_residual(2.5, -9, 15))
+    assert np.abs(port_out[3]).max() > 0
+    assert_parity(jax_out, port_out)
 
 
 def run_both(jax_settings, psf, residual, model=None, beam_size=0.0,
