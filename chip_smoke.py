@@ -55,14 +55,14 @@ tensors and prints what it measured:
   route, a 2048^2 x 4-channel perform on a chan 4 x tile 2 mesh (B4 in
   linear mode) against the single-device fused perform, and B4's time at
   that mesh's shard;
-* facets: B1's facet mode (one step and one select launch an iteration for
-  every facet) against its plain version, bit for bit (1, 4 and 9 facets,
-  shared and per-facet PSFs, squared and linear, with and without a weight
-  plane, over ragged true boxes (nothing outside them read or written) and
-  over the common box, an inactive facet; one facet against the
-  single-cube kernels) and its time at config 5's shape and true boxes
-  against the bound of those boxes, squared with shared PSFs and linear
-  with a PSF stack a facet, config 5
+* facets: B1's facet mode (one launch an iteration for every facet, each
+  facet's select folded in) against its plain version, bit for bit (1, 4
+  and 9 facets, shared and per-facet PSFs, squared and linear, with and
+  without a weight plane, over ragged true boxes (nothing outside them
+  read or written) and over the common box, an inactive facet; one facet
+  against the single-cube launch) and its time at config 5's shape and
+  true boxes against the bound of those boxes, squared with shared PSFs
+  and linear with a PSF stack a facet, config 5
   (4096^2 x 2 channels x I, Q, U, V, squared joins, 2-term fit, 2 x 2
   facets, 400 iterations a facet) on five routes (generic batched, generic
   serial with the Högbom and the Clark setting, multiscale serial and
@@ -439,9 +439,11 @@ def _case_inputs(mode, C, P, squared, height, width, seed):
 
 
 def _trace(inputs, mode, use_weight, allow_negative, plain):
-    """TRACE_ITERATIONS iterations of step + select from the brightest
-    pixel of plane 0; returns the (y, x) of every iteration and the final
-    tensors."""
+    """TRACE_ITERATIONS iterations of B1 (the step with its select folded
+    in; ``plain``: the plain step, then the plain select) from the
+    brightest pixel of plane 0; returns the (y, x) of every iteration and
+    the final tensors.  The kernel's counter must read 0 after every
+    launch."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
     res = inputs["res"].clone()
@@ -457,27 +459,27 @@ def _trace(inputs, mode, use_weight, allow_negative, plain):
     buffers = hs.LoopBuffers(state, torch.zeros(1, device=res.device), raw,
                              raw * params.gain)
     step = hs.hogbom_step_reference if plain else hs.hogbom_step
-    select = hs.hogbom_select_reference if plain else hs.hogbom_select
     weight = inputs["weight"] if use_weight else None
     peaks = []
     for _ in range(TRACE_ITERATIONS):
-        partials = step(res, model, inputs["psfs"], buffers.values,
-                        buffers.state, inputs["coefs"], weight, mode=mode,
-                        n_polarizations=inputs["P"],
-                        allow_negative=allow_negative)
-        select(partials, res, buffers, params)
+        step(res, model, inputs["psfs"], buffers.values, buffers.state,
+             inputs["coefs"], weight, mode=mode, n_polarizations=inputs["P"],
+             allow_negative=allow_negative, buffers=buffers, params=params)
         peaks.append(buffers.state[:2].clone())
     torch.cuda.synchronize()
+    if not plain and int(buffers.workspace.counters.sum()) != 0:
+        raise AssertionError("B1's counter is not 0 after its launches")
     return torch.stack(peaks), res, model, buffers
 
 
 def phase_kernels_vs_plain():
     """Every integration mode, weight on and off, negatives allowed or not,
-    at the main path's size and at a ragged shape: the kernel loop against
-    the plain loop on the card."""
+    at the main path's size and at a ragged shape: the kernel loop (one
+    launch an iteration, the select folded in) against the plain loop (the
+    plain step, then the plain select) on the card."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
-    worst = {"hogbom_step": 0.0, "hogbom_select": 0.0}
+    worst = {"hogbom_step": 0.0}
     for height, width in ((SIZE, SIZE), RAGGED):
         for name, mode, C, P, squared in KERNEL_CASES:
             inputs = _case_inputs(mode, C, P, squared, height, width,
@@ -511,8 +513,7 @@ def phase_kernels_vs_plain():
                             f"allow_negative={allow_negative}"
                         )
                     worst["hogbom_step"] = max(worst["hogbom_step"], d_res,
-                                               d_mod)
-                    worst["hogbom_select"] = max(worst["hogbom_select"], d_sel)
+                                               d_mod, d_sel)
             del inputs
             torch.cuda.empty_cache()
     return worst
@@ -541,8 +542,12 @@ def _time_ms(fn, repeats):
 
 
 def phase_kernel_times(psf, residual):
-    """Each kernel against its plain version at the main path's shapes
-    (4096^2, one plane, no weight), in turns: plain, kernel, kernel, plain."""
+    """B1 at the main path's shapes (4096^2, one plane, no weight): the
+    launch with its select folded in against its plain version (the plain
+    step, then the plain select), in turns plain, kernel, kernel, plain,
+    and beside them the step alone (the instantiation that writes partials
+    only, as row shards run it): the fused launch less the step alone is
+    the select's tail."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
     dev = torch.device(DEVICE)
@@ -561,43 +566,49 @@ def phase_kernel_times(psf, residual):
         return hs.LoopBuffers(state, torch.zeros(1, device=dev), raw,
                               raw * params.gain)
 
-    b = buffers()
     kw = dict(mode="signed", n_polarizations=1, allow_negative=True)
-    partials = hs.hogbom_step(res, model, psfs, b.values, b.state, coefs,
-                              None, **kw)
-    times = {"hogbom_step": [], "hogbom_select": []}
+    times = {"hogbom_step": [], "step alone": []}
     for plain in (True, False, False, True):
         step = hs.hogbom_step_reference if plain else hs.hogbom_step
-        select = hs.hogbom_select_reference if plain else hs.hogbom_select
         b = buffers()
         t_step, h_step = _time_ms(
             lambda: step(res, model, psfs, b.values, b.state, coefs, None,
-                         **kw), 20)
-        t_select, h_select = _time_ms(
-            lambda: select(partials, res, b, params), 50)
+                         **kw, buffers=b, params=params), 20)
         times["hogbom_step"].append(t_step)
-        times["hogbom_select"].append(t_select)
-        say(f"  {'plain ' if plain else 'kernel'} hogbom_step {t_step:.4f} ms "
-            f"(host enqueue {h_step:.4f} ms), hogbom_select {t_select:.4f} ms "
-            f"(host enqueue {h_select:.4f} ms)")
-    out = {}
-    for name, (p1, k1, k2, p2) in times.items():
-        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-    # The least bytes each must move: the step reads the residual and the
-    # PSF and writes the residual; the select reads the partials and the
-    # residual's values at the peak.
+        line = (f"  {'plain ' if plain else 'kernel'} hogbom_step (select "
+                f"folded in) {t_step:.4f} ms (host enqueue {h_step:.4f} ms)")
+        if not plain:
+            b = buffers()
+            t_alone, h_alone = _time_ms(
+                lambda: hs.hogbom_step(res, model, psfs, b.values, b.state,
+                                       coefs, None, **kw), 20)
+            times["step alone"].append(t_alone)
+            line += (f"; the step alone {t_alone:.4f} ms (host enqueue "
+                     f"{h_alone:.4f} ms)")
+        say(line)
+    p1, k1, k2, p2 = times["hogbom_step"]
+    alone = sum(times["step alone"]) / 2
+    out = {"hogbom_step": ((k1 + k2) / 2, (p1 + p2) / 2), "alone": alone}
+    say(f"  the select's tail: {out['hogbom_step'][0] - alone:.4f} ms (the "
+        "launch less the step alone)")
+    # The least bytes the launch must move: it reads the residual and the
+    # PSF and writes the residual, writes the partials (12 bytes a block;
+    # the last block reads them back from L2) and reads the residual's
+    # values at the peak.
+    n_parts = -(-res[0].numel() // hs.PIXELS_PER_BLOCK)
     out["bytes"] = {
-        "hogbom_step": 3 * res.numel() * 4,
-        "hogbom_select": sum(p.numel() * p.element_size() for p in partials)
+        "hogbom_step": 3 * res.numel() * 4 + 12 * n_parts
         + res.shape[0] * 4,
     }
     return out
 
 
 def _counts():
+    """B1's launches since the last _reset_counts (each one an iteration,
+    its select folded in)."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
-    return hs.hogbom_step.launches, hs.hogbom_select.launches
+    return hs.hogbom_step.launches
 
 
 def _reset_counts():
@@ -607,9 +618,7 @@ def _reset_counts():
     from radler_tpu_torch.kernels import subtract_integrate as si
 
     hs.hogbom_step.launches = 0
-    hs.hogbom_select.launches = 0
     hs.hogbom_step_facets.launches = 0
-    hs.hogbom_select_facets.launches = 0
     sl.subminor_loop.launches = 0
     sl.subminor_loop_tiles.launches = 0
     ia.atrous_decompose_lo.launches = 0
@@ -631,7 +640,7 @@ def _settings(size, iterations, clark=False):
 
 def _perform(psf, res, iterations, **kwargs):
     """One major iteration on fresh CUDA copies; returns (iterations,
-    seconds, launch counts, residual, model)."""
+    seconds, B1 launches, residual, model)."""
     import radler_tpu_torch as rd
     from radler_tpu_torch.kernels import hogbom_step as hs
 
@@ -647,10 +656,10 @@ def _perform(psf, res, iterations, **kwargs):
     seconds = time.perf_counter() - start
     counts = _counts()
     n = r.iteration_number
-    if not (counts[0] == counts[1] and n <= counts[0] < n + hs.CHUNK):
-        raise AssertionError(f"launch counts {counts} for {n} iterations")
-    if n == iterations and counts[0] != n:
-        raise AssertionError(f"launch counts {counts} != {n} iterations")
+    if not n <= counts < n + hs.CHUNK:
+        raise AssertionError(f"B1 launches {counts} for {n} iterations")
+    if n == iterations and counts != n:
+        raise AssertionError(f"B1 launches {counts} != {n} iterations")
     table = r._table
     out_res = torch.stack([e.residual_accessor.array for e in table])
     out_mod = torch.stack([e.model_accessor.array for e in table])
@@ -675,7 +684,7 @@ def phase_main_path(psf, residual):
     say(f"  perform: {n} iterations; seconds "
         f"{', '.join(f'{r[1]:.4f}' for r in runs)}; best "
         f"{n / best:.1f} minor iterations/s; launches hogbom_step "
-        f"{counts[0]}, hogbom_select {counts[1]}")
+        f"{counts} (one an iteration, its select folded in)")
     say(f"  residual rms {rms(res_d):.6g} -> {rms(out_res):.6g}; model sum "
         f"{float(out_mod.double().sum()):.6g}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
@@ -775,17 +784,15 @@ def phase_contract(clark=False, mesh=False):
         _reset_counts()
         if r.perform(0) is not False:
             raise AssertionError("perform asked for another major iteration")
-        if clark and (sl.subminor_loop.launches, _counts()) != (1, (0, 0)):
+        if clark and (sl.subminor_loop.launches, _counts()) != (1, 0):
             raise AssertionError("the Clark perform did not launch B2 once")
         n = r.iteration_number
         if mesh and not (si.subtract_integrate.launches == 0
-                         and hs.hogbom_select.launches == 0
                          and n * MESH_DEVICES <= hs.hogbom_step.launches
                          < (n + hs.CHUNK) * MESH_DEVICES):
             raise AssertionError(
                 f"the mesh perform's launches: B1 {hs.hogbom_step.launches}, "
-                f"select {hs.hogbom_select.launches}, B4 "
-                f"{si.subtract_integrate.launches} for {n} iterations")
+                f"B4 {si.subtract_integrate.launches} for {n} iterations")
         out_res = r._table.front.residual_accessor.array.cpu().numpy()
         out_mod = r._table.front.model_accessor.array.cpu().numpy()
         peak = out_mod[cy, cx]
@@ -1171,8 +1178,8 @@ def phase_config2(psf, residual):
         r.perform(0)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
-        counts = (sl.subminor_loop.launches, *_counts())
-        if counts != (1, 0, 0):
+        counts = (sl.subminor_loop.launches, _counts())
+        if counts != (1, 0):
             raise AssertionError(f"launch counts {counts} for a Clark perform")
         table = r._table
         return (r.iteration_number, seconds, counts[0],
@@ -1800,18 +1807,17 @@ def _mesh_settings(size, iterations, use_mesh):
 
 
 def _launch_counts():
-    """(B4, B1 step, B1 select) launches since the last _reset_counts."""
+    """(B4, B1) launches since the last _reset_counts."""
     from radler_tpu_torch.kernels import hogbom_step as hs
     from radler_tpu_torch.kernels import subtract_integrate as si
 
-    return (si.subtract_integrate.launches, hs.hogbom_step.launches,
-            hs.hogbom_select.launches)
+    return si.subtract_integrate.launches, hs.hogbom_step.launches
 
 
 def _run_perform(make_radler, count_syncs=False):
     """Build a Radler with ``make_radler()``, then time one perform with the
     launch counts reset just before it.  Returns (iterations, seconds,
-    (B4, B1 step, B1 select) launches, host syncs or None, residual cube,
+    (B4, B1) launches, host syncs or None, residual cube,
     model cube, the perform's peak device memory above what was allocated
     before it, in MiB)."""
     r = make_radler()
@@ -1849,12 +1855,12 @@ def _check_mesh_run(label, mesh_run, single_run, chan):
     d_mod = float((mesh_run[5] - single_run[5]).abs().max())
     say(f"  {label}: {n} iterations (single device {single_run[0]}), "
         f"max|dres| {d_res:.3g}, max|dmodel| {d_mod:.3g} against the "
-        f"single-device perform; launches B4 {counts[0]}, B1 step "
-        f"{counts[1]}, B1 select {counts[2]}")
+        f"single-device perform; launches B4 {counts[0]}, B1 "
+        f"{counts[1]}")
     shard_kernel, other = (counts[0], counts[1]) if chan > 1 else (
         counts[1], counts[0])
     if not (n * MESH_DEVICES <= shard_kernel < (n + hs.CHUNK) * MESH_DEVICES
-            and other == 0 and counts[2] == 0 and n > 0):
+            and other == 0 and n > 0):
         raise AssertionError(f"{label}: launches {counts} for {n} iterations")
     if n != single_run[0] or max(d_res, d_mod) > MESH_VS_SINGLE:
         raise AssertionError(f"{label}: the mesh and single-device performs "
@@ -1961,8 +1967,9 @@ def phase_linear_b1():
     """B1 in linear mode with a weight plane at config 3's shape ([8, 2048,
     2048], the linear coefficients of 8 channels): the kernel loop against
     the plain loop over TRACE_ITERATIONS iterations (bit-equal), then the
-    step's time in turns plain, kernel, kernel, plain.  Returns (max
-    |difference|, kernel ms, plain ms, bytes the step must move)."""
+    time of a launch (its select folded in, the weight plane also the rms
+    factor) in turns plain, kernel, kernel, plain.  Returns (max
+    |difference|, kernel ms, plain ms, bytes the launch must move)."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
     inputs = _case_inputs("linear", MS_CHANNELS, 1, False, MS_SIZE, MS_SIZE,
@@ -1991,21 +1998,25 @@ def phase_linear_b1():
     model = torch.zeros_like(res)
     flat = int(torch.argmax(res[0].abs()))
     y0, x0 = divmod(flat, MS_SIZE)
-    gain = 0.1
+    params = hs.LoopParams.make(0.1, 0.0, 1.0, 0.0, 2**30, False)
     kw = dict(mode="linear", n_polarizations=1, allow_negative=True)
     times = {True: [], False: []}
     for plain in (True, False, False, True):
         step = hs.hogbom_step_reference if plain else hs.hogbom_step
         state = torch.tensor([y0, x0, 1, 0, 0, 1, flat, 0], dtype=torch.int32,
                              device=res.device)
-        values = res[:, y0, x0] * gain
+        raw = res[:, y0, x0].clone()
+        b = hs.LoopBuffers(state, torch.zeros(1, device=res.device), raw,
+                           raw * params.gain)
         t_step, h_step = _time_ms(
-            lambda: step(res, model, psfs, values, state, coefs, weight, **kw),
-            20)
+            lambda: step(res, model, psfs, b.values, b.state, coefs, weight,
+                         **kw, buffers=b, params=params, rms=weight), 20)
         times[plain].append(t_step)
-        say(f"  {'plain ' if plain else 'kernel'} hogbom_step linear "
-            f"{t_step:.4f} ms (host enqueue {h_step:.4f} ms)")
-    n_bytes = 3 * res.numel() * 4 + weight.numel() * 4
+        say(f"  {'plain ' if plain else 'kernel'} hogbom_step linear (select "
+            f"folded in) {t_step:.4f} ms (host enqueue {h_step:.4f} ms)")
+    n_parts = -(-weight.numel() // hs.PIXELS_PER_BLOCK)
+    n_bytes = (3 * res.numel() * 4 + weight.numel() * 4 + 12 * n_parts
+               + res.shape[0] * 4)
     del inputs, res, model
     torch.cuda.empty_cache()
     return (worst, sum(times[False]) / 2, sum(times[True]) / 2, n_bytes)
@@ -2078,8 +2089,8 @@ def _ms_perform(psfs, res0, settings, count_syncs=False, route="fused",
                 kept=None):
     """One multiscale perform of ``res0`` on the card on ``route``: on a
     fresh Radler, or on ``kept`` (a :func:`_ms_radler` pair, rewound
-    first).  Returns (iterations, seconds, (B1 step, B1 select, B2)
-    launches, host syncs or None, subminor passes, residual cube, model
+    first).  Returns (iterations, seconds, (B1, B2) launches, host syncs
+    or None, subminor passes, residual cube, model
     cube)."""
     from radler_tpu_torch.kernels import hogbom_step as hs
     from radler_tpu_torch.kernels import subminor_loop as sl
@@ -2116,8 +2127,7 @@ def _ms_perform(psfs, res0, settings, count_syncs=False, route="fused",
                 r.perform(0)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - start
-            launches = (hs.hogbom_step.launches, hs.hogbom_select.launches,
-                        sl.subminor_loop.launches)
+            launches = (hs.hogbom_step.launches, sl.subminor_loop.launches)
     finally:
         for owner, name, fn in saved:
             setattr(owner, name, fn)
@@ -2215,7 +2225,7 @@ def _ms_timed_split(split, memory=None):
         (ms, "_twice_convolved_stack", "PSF convolutions"),
         (alg, "_kernel_fft", "scale kernels (NumPy, copy, rfft2)"),
         (alg, "_scale_valid_stack", "search windows (NumPy, copy)"),
-        (ms, "dense_subminor_loop", "dense loop (B1 linear + select)"),
+        (ms, "dense_subminor_loop", "dense loop (B1 linear)"),
         (alg, "_clark_sub_loop", "Clark loop (candidates, B2, reads)"),
         (ms, "correct_residual", "correction FFTs"),
     ], by_caller={
@@ -2242,7 +2252,7 @@ def _ms_fused_split(split, memory=None):
         (mf, "spectral_scale_maxima",
          "maxima (S inverse FFTs, argmaxes, one host read)"),
         (mf, "scale_convolved_cube", "scale-convolved cube (N inverse FFTs)"),
-        (mf, "dense_subminor_loop", "dense loop (B1 linear + select + fit)"),
+        (mf, "dense_subminor_loop", "dense loop (B1 linear + fit)"),
         (mf, "correct_small", "correction, small size (spectral)"),
         (mf, "correct_large", "correction, large size (image space)"),
     ], memory=memory)
@@ -2263,16 +2273,16 @@ def _ms_best(psf_d, res_d, settings, route, kept=None, count=2):
         raise AssertionError(f"config 3's performs on the {route} route "
                              "differ in iterations, launches, passes or "
                              "residual")
-    step, select, b2 = launches
+    step, b2 = launches
     if route == "clark":
-        ok = step == select == 0 and 0 < b2 <= passes
+        ok = step == 0 and 0 < b2 <= passes
     else:
-        ok = (b2 == 0 and step == select and passes > 0
+        ok = (b2 == 0 and passes > 0
               and n <= step < n + hs.CHUNK * passes)
     if not (ok and n > 0):
         raise AssertionError(f"config 3's {route} route launched B1 {step}, "
-                             f"select {select}, B2 {b2} times for {n} "
-                             f"iterations in {passes} subminor passes")
+                             f"B2 {b2} times for {n} iterations in {passes} "
+                             "subminor passes")
     return min(r[1] for r in runs), runs[-1], [r[1] for r in runs]
 
 
@@ -2382,7 +2392,7 @@ def phase_config3():
             else:
                 best, kept_run, kept_s = runs
                 kept_radler = kept
-        n, _, (step, select, b2), _, passes, out_res, out_mod = run
+        n, _, (step, b2), _, passes, out_res, out_mod = run
         if not (kept_run[0] == n and torch.equal(kept_run[5], out_res)):
             raise AssertionError(f"the {route} route's kept Radler differs "
                                  "from a fresh one")
@@ -2396,7 +2406,7 @@ def phase_config3():
             f"(best {n / fresh:.1f} minor iterations/s); kept Radler "
             f"seconds {', '.join(f'{t:.4f}' for t in kept_s)} (best "
             f"{n / best:.1f} minor iterations/s); launches hogbom_step "
-            f"{step}, hogbom_select {select}, subminor_loop {b2} per "
+            f"{step} (its select folded in), subminor_loop {b2} per "
             f"perform; host syncs {counted[3]} per perform on the kept "
             f"Radler (sync debug mode on, {counted[1]:.4f} s)")
         say(f"    channel 0 residual rms {rms0:.6g} -> {rms1:.6g}; model sum "
@@ -2632,19 +2642,19 @@ def phase_ms_mesh():
         single = _run_perform(radler(False))
         _run_perform(radler(True))  # warm-up
         mesh = _run_perform(radler(True))
-    n, seconds, (b4, step, select) = mesh[:3]
+    n, seconds, (b4, step) = mesh[:3]
     d_res = float((mesh[4] - single[4]).abs().max())
     d_mod = float((mesh[5] - single[5]).abs().max())
     say(f"  chan 4 x tile 2: {n} iterations in {seconds:.4f} s, "
         f"{n / seconds:.1f} minor iterations/s (single device {single[0]} in "
         f"{single[1]:.4f} s, {single[0] / single[1]:.1f}); launches B4 {b4}, "
-        f"B1 step {step}, select {select}; max|dres| {d_res:.3g}, "
+        f"B1 {step}; max|dres| {d_res:.3g}, "
         f"max|dmodel| {d_mod:.3g} against the single-device perform; peak "
         f"device memory above the inputs: mesh {mesh[6]:.1f} MiB, single "
         f"{single[6]:.1f} MiB; channel 0 residual rms {rms(res_d[0]):.6g} -> "
         f"{rms(mesh[4][0]):.6g}")
     if not (n > 0 and n * MESH_DEVICES <= b4
-            and step == select == 0 and single[2][1] >= single[0]):
+            and step == 0 and single[2][1] >= single[0]):
         raise AssertionError(f"the multiscale mesh launched B4 {b4}, B1 "
                              f"{step} times for {n} iterations")
     if n != single[0] or max(d_res, d_mod) > MS_MESH_VS_SINGLE:
@@ -2711,11 +2721,12 @@ def _facet_inputs(mode, n_facets, shared, height, width, seed, boxes=None,
 
 def _facet_trace(inputs, mode, use_weight, plain, iterations,
                  rms_in_select=True, boxed=True):
-    """``iterations`` lockstep iterations of the facet-mode step + select
-    (the weight plane, when used, also the select's RMS plane unless
+    """``iterations`` lockstep iterations of the facet-mode launch, each
+    facet's select folded in (``plain``: the plain step, then the plain
+    select; the weight plane, when used, also the select's RMS plane unless
     ``rms_in_select`` is False, as in config 5's loop), over the true boxes
     or, unless ``boxed``, the common box; returns the final tensors and
-    buffers."""
+    buffers.  The kernel's counters must read 0 after every launch."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
     res = inputs["res"].clone()
@@ -2726,17 +2737,17 @@ def _facet_trace(inputs, mode, use_weight, plain, iterations,
                              inputs["raw"].clone(),
                              inputs["raw"] * params.gain)
     step = hs.hogbom_step_facets_reference if plain else hs.hogbom_step_facets
-    select = (hs.hogbom_select_facets_reference if plain
-              else hs.hogbom_select_facets)
     weight = inputs["weight"] if use_weight else None
     for _ in range(iterations):
-        partials = step(res, model, inputs["psfs"], buffers.values,
-                        buffers.state, inputs["coefs"], weight, mode=mode,
-                        n_polarizations=inputs["P"], allow_negative=True,
-                        boxes=inputs["boxes"] if boxed else None)
-        select(partials, res, buffers, params,
-               weight if rms_in_select else None)
+        step(res, model, inputs["psfs"], buffers.values, buffers.state,
+             inputs["coefs"], weight, mode=mode, n_polarizations=inputs["P"],
+             allow_negative=True, boxes=inputs["boxes"] if boxed else None,
+             buffers=buffers, params=params,
+             rms=weight if rms_in_select else None)
     torch.cuda.synchronize()
+    if not plain and int(buffers.workspace.counters.abs().sum()) != 0:
+        raise AssertionError("B1's facet counters are not 0 after their "
+                             "launches")
     return res, model, buffers
 
 
@@ -2756,8 +2767,9 @@ def phase_facet_b1_vs_plain():
     integration, with and without a weight plane, over ragged true boxes
     (full width, one pixel wide, a few rows; nothing outside them read or
     written) and over the common box, facet 1 inactive from the start; one
-    facet over the common box against the single-cube kernels.  Returns the
-    largest difference."""
+    facet over the common box (the single-cube launch with the facet's
+    limits) against the single-cube launch.  Returns the largest
+    difference."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
     worst = 0.0
@@ -2812,7 +2824,7 @@ def phase_facet_b1_vs_plain():
 
 
 def _single_trace(inputs, mode, use_weight, iterations):
-    """Facet 0 of ``inputs`` through the single-cube kernels."""
+    """Facet 0 of ``inputs`` through the single-cube launch."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
     res = inputs["res"][0].clone()
@@ -2825,11 +2837,10 @@ def _single_trace(inputs, mode, use_weight, iterations):
     weight = inputs["weight"][0] if use_weight else None
     psfs = inputs["psfs"] if inputs["psfs"].ndim == 3 else inputs["psfs"][0]
     for _ in range(iterations):
-        partials = hs.hogbom_step(res, model, psfs, buffers.values,
-                                  buffers.state, inputs["coefs"], weight,
-                                  mode=mode, n_polarizations=inputs["P"],
-                                  allow_negative=True)
-        hs.hogbom_select(partials, res, buffers, params, weight)
+        hs.hogbom_step(res, model, psfs, buffers.values, buffers.state,
+                       inputs["coefs"], weight, mode=mode,
+                       n_polarizations=inputs["P"], allow_negative=True,
+                       buffers=buffers, params=params, rms=weight)
     torch.cuda.synchronize()
     return res, model, buffers
 
@@ -2867,11 +2878,11 @@ def phase_facet_b1_times(boxes, mode="squared", shared=True):
     in their common box, all facets active: squared mode with the PSFs
     shared (generic CLEAN's batched route), or linear mode with a PSF stack
     a facet (multiscale's batched route: each facet's own twice-convolved
-    PSFs).  First F5_TRACE_ITERATIONS lockstep iterations of the kernels
-    against their plain versions from the same inputs, bit for bit; then
-    their times, in turns plain, kernel, kernel, plain.  Returns {"step":
-    (ms, plain ms), "select": (ms, plain ms), "bytes": each one's,
-    "max_abs_err": the comparison's}."""
+    PSFs).  First F5_TRACE_ITERATIONS lockstep iterations of the kernel
+    (each facet's select folded in) against its plain version from the same
+    inputs, bit for bit; then their times, in turns plain, kernel, kernel,
+    plain.  Returns {"step": (ms, plain ms), "bytes": {"step": its least
+    bytes}, "max_abs_err": the comparison's}."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
     height = max(b[0] for b in boxes)
@@ -2906,38 +2917,32 @@ def phase_facet_b1_times(boxes, mode="squared", shared=True):
                               inputs["raw"].clone(),
                               inputs["raw"] * params.gain)
 
-    b = buffers()
-    partials = hs.hogbom_step_facets(res, model, inputs["psfs"], b.values,
-                                     b.state, inputs["coefs"], weight, **kw)
-    times = {"step": [], "select": []}
+    times = []
     for plain in (True, False, False, True):
         step = hs.hogbom_step_facets_reference if plain else (
             hs.hogbom_step_facets)
-        select = hs.hogbom_select_facets_reference if plain else (
-            hs.hogbom_select_facets)
         b = buffers()
         t_step, h_step = _time_ms(
             lambda: step(res, model, inputs["psfs"], b.values, b.state,
-                         inputs["coefs"], weight, **kw), 10)
-        t_select, h_select = _time_ms(
-            lambda: select(partials, res, b, params, None), 50)
-        times["step"].append(t_step)
-        times["select"].append(t_select)
-        say(f"  {'plain ' if plain else 'kernel'} facet step {t_step:.4f} ms "
-            f"(host enqueue {h_step:.4f} ms), facet select {t_select:.4f} ms "
-            f"(host enqueue {h_select:.4f} ms)")
-    out = {name: ((k1 + k2) / 2, (p1 + p2) / 2)
-           for name, (p1, k1, k2, p2) in times.items()}
-    # The least bytes (facet_step_bytes); the select reads the partials and
-    # each facet's values at its peak.
+                         inputs["coefs"], weight, **kw, buffers=b,
+                         params=params), 10)
+        times.append(t_step)
+        say(f"  {'plain ' if plain else 'kernel'} facet step (each facet's "
+            f"select folded in) {t_step:.4f} ms (host enqueue "
+            f"{h_step:.4f} ms)")
+    p1, k1, k2, p2 = times
+    out = {"step": ((k1 + k2) / 2, (p1 + p2) / 2)}
+    # The least bytes: the step's (facet_step_bytes), each facet's partials
+    # written once (12 bytes a run of its box) and its values at its peak
+    # read.
     n_planes, n_chan = res.shape[1], inputs["psfs"].shape[-3]
     peaks = [tuple(p) for p in inputs["state"][:, :2].tolist()]
     pixels = sum(rows * cols for rows, cols in boxes)
+    runs = sum(-(-rows * cols // hs.PIXELS_PER_BLOCK) for rows, cols in boxes)
     out["bytes"] = {
         "step": facet_step_bytes(boxes, peaks, height, width, n_planes,
-                                 n_chan, shared=shared, use_weight=True),
-        "select": sum(p.numel() * p.element_size() for p in partials)
-        + res.shape[0] * res.shape[1] * 4,
+                                 n_chan, shared=shared, use_weight=True)
+        + 12 * runs + n_facets * n_planes * 4,
     }
     out["max_abs_err"] = diff
     say(f"  [{n_facets}, {n_planes}, {height}, {width}], {mode}, "
@@ -2953,8 +2958,9 @@ def phase_facet_b1_times(boxes, mode="squared", shared=True):
 
 def phase_facet_one_times(psf, residual):
     """B1's facet mode with one facet against the single-cube B1 at config
-    1's shape (4096^2, one plane, no weight plane), in turns single,
-    facet, facet, single; returns (facet ms, single ms)."""
+    1's shape (4096^2, one plane, no weight plane), each with its select
+    folded in, in turns single, facet, facet, single; returns (facet ms,
+    single ms)."""
     from radler_tpu_torch.kernels import hogbom_step as hs
 
     dev = torch.device(DEVICE)
@@ -2964,16 +2970,22 @@ def phase_facet_one_times(psf, residual):
     coefs = torch.ones(1, device=dev)
     flat = int(torch.argmax(res[0].abs()))
     y0, x0 = divmod(flat, SIZE)
-    state = torch.tensor([y0, x0, 1, 0, 0, 1, flat, 0], dtype=torch.int32,
+    state = torch.tensor([[y0, x0, 1, 0, 0, 1, flat, 0]], dtype=torch.int32,
                          device=dev)
-    values = res[:, y0, x0] * GAIN
+    raw = res[None, :, y0, x0].clone()
+    params = hs.FacetLoopParams.make(GAIN, [0.0], [1.0], 0.0, [2**30],
+                                     False, dev)
+    one = hs.LoopBuffers(state.clone(), torch.zeros(1, device=dev),
+                         raw.clone(), raw * GAIN)
+    single = one.facet(0)
     kw = dict(mode="signed", n_polarizations=1, allow_negative=True)
     runs = {
-        "single": lambda: hs.hogbom_step(res, model, psfs, values, state,
-                                         coefs, None, **kw),
+        "single": lambda: hs.hogbom_step(
+            res, model, psfs, single.values, single.state, coefs, None, **kw,
+            buffers=single, params=params.facet(0)),
         "facet": lambda: hs.hogbom_step_facets(
-            res[None], model[None], psfs, values[None], state[None], coefs,
-            None, **kw),
+            res[None], model[None], psfs, one.values, one.state, coefs,
+            None, **kw, buffers=one, params=params),
     }
     times = {"single": [], "facet": []}
     for name in ("single", "facet", "facet", "single"):
@@ -3049,9 +3061,7 @@ def _f5_launches():
     from radler_tpu_torch.kernels import subminor_loop as sl
 
     return {"facet step": hs.hogbom_step_facets.launches,
-            "facet select": hs.hogbom_select_facets.launches,
             "B1 step": hs.hogbom_step.launches,
-            "B1 select": hs.hogbom_select.launches,
             "B2": sl.subminor_loop.launches}
 
 
@@ -3218,16 +3228,17 @@ def _f5_split(settings, psfs, base, route, label):
 
 def _f5_check_launches(label, run):
     """The kernels of the run's route were launched, and no other Högbom
-    kernel."""
+    kernel: on the batched routes one facet-mode launch a lockstep
+    iteration (each facet's select folded in)."""
     n = run["launches"]
     batched = run["route"] == "batched"
     if batched:
-        ok = (n["facet step"] == n["facet select"] >= run["lockstep"] > 0
-              and n["B1 step"] == n["B1 select"] == n["B2"] == 0)
+        ok = (n["facet step"] == run["lockstep"] > 0
+              and n["B1 step"] == n["B2"] == 0)
     elif "Clark" in label:
         ok = n["B2"] > 0 and n["facet step"] == 0
     else:
-        ok = n["B1 step"] == n["B1 select"] > 0 and n["facet step"] == 0
+        ok = n["B1 step"] > 0 and n["facet step"] == 0
     if not ok:
         raise AssertionError(f"config 5, {label}: launches {n} on the "
                              f"{run['route']} route")
@@ -3912,7 +3923,7 @@ def phase_mesh_clark(label, psfs, res, kwargs, size, iterations,
     if len(calls) != 1 or len(tile_calls) != 1:
         raise AssertionError(f"{label}: {len(calls)} mesh Clark calls, "
                              f"{len(tile_calls)} tile launches")
-    if any(r[0] != n or r[2] != (0, 0, 0) or not torch.equal(r[4], first[4])
+    if any(r[0] != n or r[2] != (0, 0) or not torch.equal(r[4], first[4])
            for r in runs):
         raise AssertionError(f"{label}: the mesh performs differ or launched "
                              "the Högbom kernels")
@@ -4284,24 +4295,23 @@ def main():
     say(f"phases took {time.perf_counter() - start:.1f} s")
 
     kernels = []
-    for name, launches in zip(("hogbom_step", "hogbom_select"), counts):
-        b_ms, b_by = bound_ms(times["bytes"][name])
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "radler_tpu_torch/csrc/hogbom_step.cu",
-            "replaces": "radler_tpu/ops/pallas/hogbom_step.py:37",
-            "launches": launches,
-            "max_abs_err": worst[name],
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": None,
-        })
+    b_ms, b_by = bound_ms(times["bytes"]["hogbom_step"])
+    kernels.append({
+        "name": "hogbom_step (select folded in)",
+        "route": "cuda",
+        "source": "radler_tpu_torch/csrc/hogbom_step.cu",
+        "replaces": "radler_tpu/ops/pallas/hogbom_step.py:37",
+        "launches": counts,
+        "max_abs_err": worst["hogbom_step"],
+        "ms": times["hogbom_step"][0],
+        "plain_ms": times["hogbom_step"][1],
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    })
     lin_bound_ms, lin_bound_by = bound_ms(linear[3])
     kernels.append({
-        "name": "hogbom_step (linear, weight plane)",
+        "name": "hogbom_step (linear, weight plane, select folded in)",
         "route": "cuda",
         "source": "radler_tpu_torch/csrc/hogbom_step.cu",
         "replaces": "radler_tpu/ops/pallas/hogbom_step.py:37",
@@ -4388,27 +4398,24 @@ def main():
         "bound_by": b4l_bound_by,
         "library_ms": None,
     })
-    for name, key, count in (("hogbom_step (facets)", "step", "facet step"),
-                             ("hogbom_select (facets)", "select",
-                              "facet select")):
-        f_bound_ms, f_bound_by = bound_ms(facet_times["bytes"][key])
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "radler_tpu_torch/csrc/hogbom_step.cu",
-            "replaces": "radler_tpu/ops/pallas/hogbom_step.py:37",
-            "launches": batched["launches"][count],
-            "max_abs_err": max(worst_facets, facet_times["max_abs_err"]),
-            "ms": facet_times[key][0],
-            "plain_ms": facet_times[key][1],
-            "bound_ms": f_bound_ms,
-            "bound_by": f_bound_by,
-            "library_ms": None,
-        })
+    f_bound_ms, f_bound_by = bound_ms(facet_times["bytes"]["step"])
+    kernels.append({
+        "name": "hogbom_step (facets, select folded in)",
+        "route": "cuda",
+        "source": "radler_tpu_torch/csrc/hogbom_step.cu",
+        "replaces": "radler_tpu/ops/pallas/hogbom_step.py:37",
+        "launches": batched["launches"]["facet step"],
+        "max_abs_err": max(worst_facets, facet_times["max_abs_err"]),
+        "ms": facet_times["step"][0],
+        "plain_ms": facet_times["step"][1],
+        "bound_ms": f_bound_ms,
+        "bound_by": f_bound_by,
+        "library_ms": None,
+    })
     ms_batched = config5["multiscale, batched"]
     fl_bound_ms, fl_bound_by = bound_ms(facet_linear["bytes"]["step"])
     kernels.append({
-        "name": "hogbom_step (facets, linear)",
+        "name": "hogbom_step (facets, linear, select folded in)",
         "route": "cuda",
         "source": "radler_tpu_torch/csrc/hogbom_step.cu",
         "replaces": "radler_tpu/ops/pallas/hogbom_step.py:37",
@@ -4420,7 +4427,11 @@ def main():
         "bound_by": fl_bound_by,
         "library_ms": None,
     })
-    say(f"config 1: {rate:.1f} minor iterations/s through perform (Högbom)")
+    say(f"config 1: {rate:.1f} minor iterations/s through perform (Högbom), "
+        f"{counts} B1 launches (its select folded in); B1 "
+        f"{times['hogbom_step'][0]:.4f} ms a launch, the step alone "
+        f"{times['alone']:.4f} ms, against its "
+        f"{bound_ms(times['bytes']['hogbom_step'])[0]:.4f} ms bound")
     say(f"config 2: {clark[1]:.1f} minor iterations/s through perform "
         f"(Clark); B2 on a cluster of {b2_cluster} blocks, "
         f"{kernel_ms * 1e3 / SUBMINOR_TIMED_ITERATIONS:.2f} us per iteration")

@@ -1,25 +1,25 @@
-// One Högbom CLEAN minor iteration for Hopper (sm_90a), as two launches.
+// One Högbom CLEAN minor iteration for Hopper (sm_90a), in one launch.
 //
 // Replaces radler_tpu/ops/pallas/hogbom_step.py::_step_kernel (reached
 // through fused_clean_step and the device loop hogbom_loop_pallas).
 //
 // What it computes, per iteration, with the peak (y, x) and the component
 // values read from a small device state buffer:
-//   hogbom_step    model[n, y, x] += values[n]; then for every pixel p:
-//                  res[n, p] -= values[n] * psf[n / P] shifted to (y, x)
-//                  (zero outside the PSF, the clipping of
-//                  simple_clean.cc:61-96), the joined integration of the N
-//                  new values in one of four modes, times the peak-search
-//                  weight, abs() when negatives are allowed.  Each block
-//                  reduces its pixels to one partial (max, smallest flat
-//                  index, signed integrated value).
-//   hogbom_select  one block reduces the partials with the same tie-break
-//                  (the smallest flat index among equal maxima, as the TPU
-//                  kernel's block-ordered running max gives), then runs the
-//                  loop body's epilogue: the signed, rms-weighted value at
-//                  the new peak, found = cmp > FLT_MIN, the divergence test,
-//                  the stop test of the loop condition, and the next
-//                  iteration's gain-scaled component values.
+//   the step      model[n, y, x] += values[n]; then for every pixel p:
+//                 res[n, p] -= values[n] * psf[n / P] shifted to (y, x)
+//                 (zero outside the PSF, the clipping of
+//                 simple_clean.cc:61-96), the joined integration of the N
+//                 new values in one of four modes, times the peak-search
+//                 weight, abs() when negatives are allowed.  Each block
+//                 reduces its pixels to one partial (max, smallest flat
+//                 index, signed integrated value).
+//   the select    the last block to finish reduces the partials with the
+//                 same tie-break (the smallest flat index among equal
+//                 maxima, as the TPU kernel's block-ordered running max
+//                 gives), then runs the loop body's epilogue: the signed,
+//                 rms-weighted value at the new peak, found = cmp > FLT_MIN,
+//                 the divergence test, the stop test of the loop condition,
+//                 and the next iteration's gain-scaled component values.
 //
 // What bounds it: device-memory bytes.  One iteration reads the residual
 // and the shifted PSF and writes the residual back, about 3 * N * H * W * 4
@@ -28,11 +28,28 @@
 // few flops per byte.  The design streams each plane once, in contiguous
 // runs of flat pixels per block so that neighbouring threads touch
 // neighbouring addresses in the residual, the PSF and the weight, and keeps
-// the integration in registers.  The cross-block argmax needs a second
-// launch because blocks run in no order; its work is a few thousand
-// partials.  TPU-only machinery (the padded PSF canvas, tile-aligned
-// over-fetch, DMA double buffer and rotate) is not carried: the PSF is read
-// un-padded with a bounds check.
+// the integration in registers.  TPU-only machinery (the padded PSF canvas,
+// tile-aligned over-fetch, DMA double buffer and rotate) is not carried:
+// the PSF is read un-padded with a bounds check.
+//
+// The cross-block argmax: the TPU kernel carries a running max across its
+// sequential grid steps; here blocks run in no order, so each block writes
+// its partial, fences and takes a ticket from a counter in device memory
+// (one int a loop, or a facet), and the block that takes the last ticket
+// reads every partial and runs the select, then sets the counter back to
+// 0 for the next launch.  Its work is a few thousand partials (49 KB at
+// 4096^2) and N residual values, read through L2 (ld.global.cg): L1 is not
+// coherent across multiprocessors.  Every block reads the state and the
+// component values before its ticket and the last block writes them after
+// every ticket, so no block sees the next iteration's; a step that selects
+// does not read them through the read-only (non-coherent) path, so it reads
+// signed mode's one component value once, before its pixels (the compiler
+// reloads a plain pointer after every residual store).  The select's code
+// is a function of its own (noinline), out of the pixel loop's registers,
+// and the selecting kernel is held to 8 blocks a multiprocessor (32
+// registers), as many as the step alone reaches in signed mode.  A launch
+// whose state is inactive returns in every block and leaves the counter
+// at 0.
 //
 // Rounding: every multiply, add, subtract and square root uses the _rn
 // intrinsics (__fmul_rn, __fadd_rn, __fsub_rn, __fsqrt_rn), which nvcc never
@@ -48,6 +65,8 @@
 // shards run their own instantiation of the kernel: in the single-device
 // one the offset and the PSF height fold away, which keeps its registers
 // (the PSF's own plane stride cost a spill and 1% of config 1's time).
+// A shard's step writes its partials and does not select: the mesh loop
+// combines the shards' partials itself.
 //
 // Facets: the batched facet route runs F facets' loops in lockstep, each
 // facet's cube, weight plane, state, component values and partials one
@@ -60,18 +79,19 @@
 // shared memory with cp.async, three tasks (a pixel and up to 8 of its
 // planes) ahead of the one they compute, which keeps more bytes in flight
 // than registers could hold, and a channel's PSF value is copied once for
-// its P planes.  Addresses and partial indices stay flat indices in the common
-// box, which row-major order in a box keeps monotone, so the select, the
+// its P planes.  Addresses and partial indices stay flat indices in the
+// common box, which row-major order in a box keeps monotone, so the select, the
 // state and the partials' tie-break are unchanged; a facet's partials past
-// its own box's blocks hold no peak.  The select runs one block a facet; a
+// its own box's blocks hold no peak.  Each facet has its own counter, and
+// the last of its blocks to finish runs its select with its own limits; a
 // stopped facet's blocks read its state and return.  One facet whose box
-// is the whole common box launches the single-cube step itself.  What
-// bounds the facet step is device-memory bytes too, those of the true
-// boxes: each facet's N residual planes read and written, its weight plane
-// read, and the PSF pixels that the windows shifted to the facets' peaks
-// reach, each read once.
+// is the whole common box launches the single-cube step itself, with the
+// facet's limits.  What bounds the facet step is device-memory bytes too,
+// those of the true boxes: each facet's N residual planes read and
+// written, its weight plane read, and the PSF pixels that the windows
+// shifted to the facets' peaks reach, each read once.
 //
-// Loop control stays on the device: both kernels return at once when the
+// Loop control stays on the device: the kernels return at once when the
 // state's `active` flag is 0, so iterations enqueued after the stop leave
 // every tensor unchanged, and the host reads the state only every few
 // iterations.
@@ -102,7 +122,6 @@ enum StateSlot {
 constexpr int kStateSize = 8;
 
 constexpr int kStepThreads = 256;
-constexpr int kSelectThreads = 1024;
 
 struct Best {
   float cmp;
@@ -156,24 +175,146 @@ __device__ __forceinline__ float clamp_min0(float x) {
   return x < 0.0f ? 0.0f : x;
 }
 
+// What a step that selects writes besides its state and component values,
+// and the loop's scalars.  counters: one int a launch (facets: one a
+// facet), 0 before and after every launch.  rms ([H, W], facets [F, H, W])
+// may be null.  value [1] / [F], peak [N] / [F, N].  facet_limits ([F, 2]:
+// first threshold, initial |peak|) and facet_max_iterations ([F]), when
+// set, replace first_threshold, initial_abs_peak and max_iterations.
+struct Select {
+  int* counters;
+  const float* rms;
+  float* value;
+  float* peak;
+  const float* facet_limits;
+  const int* facet_max_iterations;
+  float gain;
+  float first_threshold;
+  float initial_abs_peak;
+  float divergence_limit;
+  int max_iterations;
+  int stop_on_negative;
+};
+
+// Loads through L2 (ld.global.cg) of what another block of this launch
+// wrote: L1 is not coherent across multiprocessors.  Volatile with a memory
+// clobber, so the compiler keeps them after the fence that orders them.
+__device__ __forceinline__ float load_l2(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ int load_l2(const int* p) {
+  int v;
+  asm volatile("ld.global.cg.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Called by every thread of a block after block_reduce and after thread 0
+// has written the block's partial: true in the last of n_blocks blocks to
+// take a ticket from *counter, which that block sets back to 0.  The fence
+// before the ticket orders the block's stores (the residual, the model and
+// the partial; block_reduce's barrier puts the other threads' stores before
+// thread 0's fence) before it; the fence after the last ticket orders the
+// last block's later loads after every block's stores.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int n_blocks) {
+  __shared__ int s_last;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const bool last = atomicAdd(counter, 1) == n_blocks - 1;
+    if (last) {
+      __threadfence();
+      *counter = 0;
+    }
+    s_last = last;
+  }
+  __syncthreads();
+  return s_last != 0;
+}
+
+// The select, run by every thread of the last block: the n_runs partials
+// reduce to the new peak with better() (a total order on (cmp, idx) that
+// never takes a NaN, so the order of the reduction cannot change the
+// winner), then the loop body's epilogue writes state, *value, peak[n]
+// and values[n], operation for operation as the plain version
+// (hogbom_select_reference).  rms, value and peak are this cube's.
+__device__ __noinline__ void select_peak(
+    const float* part_cmp, const int* part_idx, const float* part_integ,
+    int n_runs, const float* res, int n_images, int64_t plane, int width,
+    int* state, float* values, const float* rms, float* value, float* peak,
+    float gain, float first_threshold, float initial_abs_peak,
+    float divergence_limit, int max_iterations, int stop_on_negative) {
+  Best best = no_peak();
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n_runs; i += kStepThreads) {
+    const float cmp = load_l2(part_cmp + i);
+    const int idx = load_l2(part_idx + i);
+    const float integ = load_l2(part_integ + i);
+    if (better(cmp, idx, best)) best = Best{cmp, idx, integ};
+  }
+  best = block_reduce<kStepThreads>(best);
+  __shared__ int s_idx;
+  if (threadIdx.x == 0) s_idx = best.idx == INT_MAX ? 0 : best.idx;
+  __syncthreads();
+  const int idx = s_idx;
+  if (threadIdx.x == 0) {
+    const bool found = best.cmp > FLT_MIN;
+    const float v = rms ? __fmul_rn(best.integ, rms[idx]) : best.integ;
+    const bool diverging =
+        divergence_limit != 0.0f && found &&
+        fabsf(v) > __fmul_rn(initial_abs_peak, divergence_limit);
+    const int iteration = state[kIteration] + 1;
+    bool active = found && fabsf(v) > first_threshold &&
+                  iteration < max_iterations && !diverging;
+    if (stop_on_negative) active = active && v >= 0.0f;
+    state[kY] = idx / width;
+    state[kX] = idx % width;
+    state[kFound] = found;
+    state[kDiverging] = diverging;
+    state[kIteration] = iteration;
+    state[kActive] = active;
+    state[kIndex] = idx;
+    *value = v;
+  }
+  // The other warps read the residual at the peak meanwhile.
+  if (threadIdx.x >= 32) {
+    for (int n = threadIdx.x - 32; n < n_images; n += kStepThreads - 32) {
+      const float r = load_l2(res + n * plane + idx);
+      peak[n] = r;
+      values[n] = __fmul_rn(r, gain);
+    }
+  }
+}
+
+// How a step reads the component values and the state: read-only (and
+// not aliased) when it only writes partials; plain pointers when its last
+// block writes both.
+template <bool kSelect>
+struct StepIo {
+  using Values = const float* __restrict__;
+  using State = const int* __restrict__;
+};
+template <>
+struct StepIo<true> {
+  using Values = float*;
+  using State = int*;
+};
+
 // coefs: [N] per-plane coefficients (signed: the single coefficient; linear:
 // one per plane; normal: the polarization coefficient of the plane; squared:
 // channel x polarization coefficient), then [C] channel coefficients
 // (normal mode only).
-template <int kMode, bool kRowShard>
-__global__ void __launch_bounds__(kStepThreads)
-    hogbom_step_kernel(float* __restrict__ res, float* __restrict__ model,
-                       const float* __restrict__ psf,
-                       const float* __restrict__ weight,
-                       const float* __restrict__ coefs,
-                       const float* __restrict__ values,
-                       const int* __restrict__ state,
-                       float* __restrict__ part_cmp,
-                       int* __restrict__ part_idx,
-                       float* __restrict__ part_integ, int n_images,
-                       int n_pols, int height, int width,
-                       int shard_psf_height, int shard_row_offset,
-                       int pixels_per_block, int allow_negative) {
+// With kSelect the last block to finish runs the select (sel).
+template <int kMode, bool kRowShard, bool kSelect>
+__device__ __forceinline__ void step_body(
+    float* __restrict__ res, float* __restrict__ model,
+    const float* __restrict__ psf, const float* __restrict__ weight,
+    const float* __restrict__ coefs, typename StepIo<kSelect>::Values values,
+    typename StepIo<kSelect>::State state, float* __restrict__ part_cmp,
+    int* __restrict__ part_idx, float* __restrict__ part_integ, int n_images,
+    int n_pols, int height, int width, int shard_psf_height,
+    int shard_row_offset, int pixels_per_block, int allow_negative,
+    const Select& sel) {
   if (state[kActive] == 0) return;
   const int y = state[kY];
   const int x = state[kX];
@@ -195,6 +336,10 @@ __global__ void __launch_bounds__(kStepThreads)
   // Local row py is image row py + row_offset, and reads PSF row py + oy.
   const int oy = row_offset + psf_height / 2 - y;
   const int ox = width / 2 - x;
+  // A step that selects reads values through a plain pointer, which the
+  // compiler reloads after every residual store; signed mode's one value is
+  // read once.
+  const float value0 = kSelect && kMode == kSigned ? values[0] : 0.0f;
   const int begin = blockIdx.x * pixels_per_block;
   const int end = min(begin + pixels_per_block, static_cast<int>(plane));
   Best best = no_peak();
@@ -212,7 +357,10 @@ __global__ void __launch_bounds__(kStepThreads)
       const int pol = n - c * n_pols;
       const float shifted = inside ? psf[c * psf_plane + src] : 0.0f;
       float* r = res + n * plane + p;
-      const float v = __fsub_rn(*r, __fmul_rn(values[n], shifted));
+      const float value = kSelect && kMode == kSigned
+                              ? value0
+                              : static_cast<float>(values[n]);
+      const float v = __fsub_rn(*r, __fmul_rn(value, shifted));
       *r = v;
       if (kMode == kSigned) {
         integ = __fmul_rn(v, coefs[0]);
@@ -252,6 +400,63 @@ __global__ void __launch_bounds__(kStepThreads)
     part_idx[blockIdx.x] = best.idx;
     part_integ[blockIdx.x] = best.integ;
   }
+  if constexpr (kSelect) {
+    if (!last_to_arrive(sel.counters, gridDim.x)) return;
+    const bool limits = sel.facet_limits != nullptr;
+    select_peak(part_cmp, part_idx, part_integ, gridDim.x, res, n_images,
+                plane, width, state, values, sel.rms, sel.value, sel.peak,
+                sel.gain,
+                limits ? sel.facet_limits[0] : sel.first_threshold,
+                limits ? sel.facet_limits[1] : sel.initial_abs_peak,
+                sel.divergence_limit,
+                limits ? sel.facet_max_iterations[0] : sel.max_iterations,
+                sel.stop_on_negative);
+  }
+}
+
+// The step that writes its partials only (row shards, and the step timed
+// alone).
+template <int kMode, bool kRowShard>
+__global__ void __launch_bounds__(kStepThreads)
+    hogbom_step_kernel(float* __restrict__ res, float* __restrict__ model,
+                       const float* __restrict__ psf,
+                       const float* __restrict__ weight,
+                       const float* __restrict__ coefs,
+                       const float* __restrict__ values,
+                       const int* __restrict__ state,
+                       float* __restrict__ part_cmp,
+                       int* __restrict__ part_idx,
+                       float* __restrict__ part_integ, int n_images,
+                       int n_pols, int height, int width,
+                       int shard_psf_height, int shard_row_offset,
+                       int pixels_per_block, int allow_negative) {
+  step_body<kMode, kRowShard, false>(
+      res, model, psf, weight, coefs, values, state, part_cmp, part_idx,
+      part_integ, n_images, n_pols, height, width, shard_psf_height,
+      shard_row_offset, pixels_per_block, allow_negative, Select{});
+}
+
+// The step with its select, held to 8 blocks a multiprocessor (2048
+// threads, 32 registers each): linear, squared and normal mode ran faster
+// so than at the registers the compiler picks for them (PERF.md, the
+// kernel table); signed mode gets 32 either way.
+template <int kMode>
+__global__ void __launch_bounds__(kStepThreads, 8)
+    hogbom_select_step_kernel(float* __restrict__ res,
+                              float* __restrict__ model,
+                              const float* __restrict__ psf,
+                              const float* __restrict__ weight,
+                              const float* __restrict__ coefs, float* values,
+                              int* state, float* __restrict__ part_cmp,
+                              int* __restrict__ part_idx,
+                              float* __restrict__ part_integ, int n_images,
+                              int n_pols, int height, int width,
+                              int pixels_per_block, int allow_negative,
+                              const Select sel) {
+  step_body<kMode, false, true>(res, model, psf, weight, coefs, values, state,
+                                part_cmp, part_idx, part_integ, n_images,
+                                n_pols, height, width, height, 0,
+                                pixels_per_block, allow_negative, sel);
 }
 
 // The facets of one facet-step launch: where each facet's blocks start in
@@ -340,22 +545,23 @@ __device__ __forceinline__ void chunk_pols(int chunk, int n_images,
 // operation and in its order.  Every pointer but coefs advances by the
 // block's facet (psf by psf_facet_stride floats, 0 for shared PSFs);
 // partials are [F, n_parts], and the last run of each facet marks the
-// facet's partials past its own runs as no peak.
+// facet's partials past its own runs as no peak.  The last of a facet's
+// runs to finish runs the facet's select (sel, with its counter and
+// limits).
 template <int kMode>
 __global__ void __launch_bounds__(kStepThreads)
     hogbom_facet_step_kernel(float* __restrict__ res,
                              float* __restrict__ model,
                              const float* __restrict__ psf,
                              const float* __restrict__ weight,
-                             const float* __restrict__ coefs,
-                             const float* __restrict__ values,
-                             const int* __restrict__ state,
-                             float* __restrict__ part_cmp,
+                             const float* __restrict__ coefs, float* values,
+                             int* state, float* __restrict__ part_cmp,
                              int* __restrict__ part_idx,
                              float* __restrict__ part_integ, int n_parts,
                              int n_facets, int n_images, int n_pols,
                              int height, int width, int pixels_per_block,
                              int allow_negative, int64_t psf_facet_stride,
+                             const Select sel,
                              const __grid_constant__ FacetBoxes boxes) {
   extern __shared__ float staged[];  // [kFacetStages][kSlots][kStepThreads]
   const int f = facet_of(boxes, n_facets, blockIdx.x);
@@ -559,6 +765,13 @@ __global__ void __launch_bounds__(kStepThreads)
     part_idx[run] = best.idx;
     part_integ[run] = best.integ;
   }
+  if (!last_to_arrive(sel.counters + f, n_runs)) return;
+  select_peak(part_cmp, part_idx, part_integ, n_runs, res, n_images, plane,
+              width, state, values, sel.rms ? sel.rms + f * plane : nullptr,
+              sel.value + f, sel.peak + f * n_images, sel.gain,
+              sel.facet_limits[2 * f], sel.facet_limits[2 * f + 1],
+              sel.divergence_limit, sel.facet_max_iterations[f],
+              sel.stop_on_negative);
 }
 
 // Launches the facet step with its shared memory, more than the 48 KB a
@@ -579,104 +792,51 @@ cudaError_t launch_facet_step(int n_blocks, cudaStream_t s, Args... args) {
   return cudaGetLastError();
 }
 
-// With kFacets, block f reduces facet f's partials and advances its state;
-// its first threshold, initial |peak| and iteration limit come from
-// facet_limits[2f], facet_limits[2f + 1] and facet_max_iterations[f].
-template <bool kFacets>
-__global__ void __launch_bounds__(kSelectThreads)
-    hogbom_select_kernel(const float* __restrict__ part_cmp,
-                         const int* __restrict__ part_idx,
-                         const float* __restrict__ part_integ, int n_parts,
-                         const float* __restrict__ res,
-                         const float* __restrict__ rms, int n_images,
-                         int height, int width, int* __restrict__ state,
-                         float* __restrict__ value, float* __restrict__ peak,
-                         float* __restrict__ values, float gain,
-                         float first_threshold, float initial_abs_peak,
-                         float divergence_limit, int max_iterations,
-                         int stop_on_negative,
-                         const float* __restrict__ facet_limits,
-                         const int* __restrict__ facet_max_iterations) {
-  if (kFacets) {
-    const int f = blockIdx.x;
-    const int64_t cube = static_cast<int64_t>(n_images) * height * width;
-    part_cmp += f * n_parts;
-    part_idx += f * n_parts;
-    part_integ += f * n_parts;
-    res += f * cube;
-    if (rms) rms += f * static_cast<int64_t>(height) * width;
-    state += f * kStateSize;
-    value += f;
-    peak += f * n_images;
-    values += f * n_images;
-  }
-  if (state[kActive] == 0) return;
-  if (kFacets) {
-    first_threshold = facet_limits[2 * blockIdx.x];
-    initial_abs_peak = facet_limits[2 * blockIdx.x + 1];
-    max_iterations = facet_max_iterations[blockIdx.x];
-  }
-  Best best = no_peak();
-  for (int i = threadIdx.x; i < n_parts; i += kSelectThreads) {
-    if (better(part_cmp[i], part_idx[i], best))
-      best = Best{part_cmp[i], part_idx[i], part_integ[i]};
-  }
-  best = block_reduce<kSelectThreads>(best);
-  __shared__ int s_idx;
-  if (threadIdx.x == 0) {
-    const int idx = best.idx == INT_MAX ? 0 : best.idx;
-    const bool found = best.cmp > FLT_MIN;
-    const float v = rms ? __fmul_rn(best.integ, rms[idx]) : best.integ;
-    const bool diverging =
-        divergence_limit != 0.0f && found &&
-        fabsf(v) > __fmul_rn(initial_abs_peak, divergence_limit);
-    const int iteration = state[kIteration] + 1;
-    bool active = found && fabsf(v) > first_threshold &&
-                  iteration < max_iterations && !diverging;
-    if (stop_on_negative) active = active && v >= 0.0f;
-    state[kY] = idx / width;
-    state[kX] = idx % width;
-    state[kFound] = found;
-    state[kDiverging] = diverging;
-    state[kIteration] = iteration;
-    state[kActive] = active;
-    state[kIndex] = idx;
-    *value = v;
-    s_idx = idx;
-  }
-  __syncthreads();
-  const int64_t plane = static_cast<int64_t>(height) * width;
-  for (int n = threadIdx.x; n < n_images; n += kSelectThreads) {
-    const float r = res[n * plane + s_idx];
-    peak[n] = r;
-    values[n] = __fmul_rn(r, gain);
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
+// The single-cube step: partials [n_parts].  With a counter it selects
+// too (counter [1], 0 on entry; rms [H, W] or null, value [1], peak and
+// values [N]; facet_limits [2] and facet_max_iterations [1], when set,
+// replace first_threshold, initial_abs_peak and max_iterations); without
+// one it writes its partials only.  A row shard (row_offset != 0 or
+// psf_height != height) does not select.
 int hogbom_step(float* res, float* model, const float* psf,
-                const float* weight, const float* coefs, const float* values,
-                const int* state, float* part_cmp, int* part_idx,
-                float* part_integ, int n_parts, int n_images, int n_pols,
-                int height, int width, int psf_height, int row_offset,
-                int pixels_per_block, int mode, int allow_negative,
+                const float* weight, const float* coefs, float* values,
+                int* state, float* part_cmp, int* part_idx, float* part_integ,
+                int n_parts, int n_images, int n_pols, int height, int width,
+                int psf_height, int row_offset, int pixels_per_block,
+                int mode, int allow_negative, int* counter, const float* rms,
+                float* value, float* peak, float gain, float first_threshold,
+                float initial_abs_peak, float divergence_limit,
+                int max_iterations, int stop_on_negative,
+                const float* facet_limits, const int* facet_max_iterations,
                 void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool row_shard = row_offset != 0 || psf_height != height;
+  if (row_shard && counter) return static_cast<int>(cudaErrorInvalidValue);
+  const Select sel{counter,          rms,
+                   value,            peak,
+                   facet_limits,     facet_max_iterations,
+                   gain,             first_threshold,
+                   initial_abs_peak, divergence_limit,
+                   max_iterations,   stop_on_negative};
 #define RADLER_STEP_ARGS                                                  \
   res, model, psf, weight, coefs, values, state, part_cmp, part_idx,      \
-      part_integ, n_images, n_pols, height, width, psf_height,            \
-      row_offset, pixels_per_block, allow_negative
+      part_integ, n_images, n_pols, height, width
 #define RADLER_STEP_LAUNCH(MODE)                                          \
   if (row_shard)                                                          \
-    hogbom_step_kernel<MODE, true>                                        \
-        <<<n_parts, kStepThreads, 0, s>>>(RADLER_STEP_ARGS);              \
+    hogbom_step_kernel<MODE, true><<<n_parts, kStepThreads, 0, s>>>(      \
+        RADLER_STEP_ARGS, psf_height, row_offset, pixels_per_block,       \
+        allow_negative);                                                  \
+  else if (counter)                                                       \
+    hogbom_select_step_kernel<MODE><<<n_parts, kStepThreads, 0, s>>>(     \
+        RADLER_STEP_ARGS, pixels_per_block, allow_negative, sel);         \
   else                                                                    \
-    hogbom_step_kernel<MODE, false>                                       \
-        <<<n_parts, kStepThreads, 0, s>>>(RADLER_STEP_ARGS)
+    hogbom_step_kernel<MODE, false><<<n_parts, kStepThreads, 0, s>>>(     \
+        RADLER_STEP_ARGS, psf_height, row_offset, pixels_per_block,       \
+        allow_negative)
   switch (mode) {
     case kSigned:
       RADLER_STEP_LAUNCH(kSigned);
@@ -698,43 +858,34 @@ int hogbom_step(float* res, float* model, const float* psf,
   return static_cast<int>(cudaGetLastError());
 }
 
-int hogbom_select(const float* part_cmp, const int* part_idx,
-                  const float* part_integ, int n_parts, const float* res,
-                  const float* rms, int n_images, int height, int width,
-                  int* state, float* value, float* peak, float* values,
-                  float gain, float first_threshold, float initial_abs_peak,
-                  float divergence_limit, int max_iterations,
-                  int stop_on_negative, void* stream) {
-  hogbom_select_kernel<false><<<1, kSelectThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      part_cmp, part_idx, part_integ, n_parts, res, rms, n_images, height,
-      width, state, value, peak, values, gain, first_threshold,
-      initial_abs_peak, divergence_limit, max_iterations, stop_on_negative,
-      nullptr, nullptr);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The facet-batched pair: n_facets cubes [N, H, W] one after another,
-// psf_facet_stride floats between facets' PSF stacks (0: shared), boxes
-// [n_facets, 2] on the host (each facet's true box, rows and columns, at
-// the top left), partials [n_facets, n_parts], state [n_facets, 8], value
-// [n_facets], peak and values [n_facets, N], limits [n_facets, 2] (first
-// threshold, initial |peak|), max_iterations [n_facets].  The step launches
-// once for every kMaxFacets facets.
+// The facet-batched step, which always selects: n_facets cubes [N, H, W]
+// one after another, psf_facet_stride floats between facets' PSF stacks
+// (0: shared), boxes [n_facets, 2] on the host (each facet's true box,
+// rows and columns, at the top left), partials [n_facets, n_parts], state
+// [n_facets, 8], counters [n_facets] (0 on entry), rms [n_facets, H, W] or
+// null, value [n_facets], peak and values [n_facets, N], limits
+// [n_facets, 2] (first threshold, initial |peak|), max_iterations
+// [n_facets].  The step launches once for every kMaxFacets facets.
 int hogbom_step_facets(float* res, float* model, const float* psf,
                        long long psf_facet_stride, const float* weight,
-                       const float* coefs, const float* values,
-                       const int* state, float* part_cmp, int* part_idx,
-                       float* part_integ, const int* boxes, int n_parts,
-                       int n_facets, int n_images, int n_pols, int height,
-                       int width, int pixels_per_block, int mode,
-                       int allow_negative, void* stream) {
+                       const float* coefs, float* values, int* state,
+                       float* part_cmp, int* part_idx, float* part_integ,
+                       const int* boxes, int n_parts, int n_facets,
+                       int n_images, int n_pols, int height, int width,
+                       int pixels_per_block, int mode, int allow_negative,
+                       int* counters, const float* rms, float* value,
+                       float* peak, const float* limits,
+                       const int* max_iterations, float gain,
+                       float divergence_limit, int stop_on_negative,
+                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_facets == 1 && boxes[0] == height && boxes[1] == width) {
     return hogbom_step(res, model, psf, weight, coefs, values, state,
                        part_cmp, part_idx, part_integ, n_parts, n_images,
                        n_pols, height, width, height, 0, pixels_per_block,
-                       mode, allow_negative, stream);
+                       mode, allow_negative, counters, rms, value, peak, gain,
+                       0.0f, 0.0f, divergence_limit, 0, stop_on_negative,
+                       limits, max_iterations, stream);
   }
   const int64_t plane = static_cast<int64_t>(height) * width;
   for (int f0 = 0; f0 < n_facets; f0 += kMaxFacets) {
@@ -752,6 +903,18 @@ int hogbom_step_facets(float* res, float* model, const float* psf,
     }
     const int n_blocks = table.block_start[count];
     const int64_t at = static_cast<int64_t>(f0);
+    const Select sel{counters + at,
+                     rms ? rms + at * plane : nullptr,
+                     value + at,
+                     peak + at * n_images,
+                     limits + 2 * at,
+                     max_iterations + at,
+                     gain,
+                     0.0f,
+                     0.0f,
+                     divergence_limit,
+                     0,
+                     stop_on_negative};
 #define RADLER_FACET_ARGS                                                 \
   res + at * n_images * plane, model + at * n_images * plane,             \
       psf + at * psf_facet_stride, weight ? weight + at * plane : nullptr, \
@@ -759,7 +922,7 @@ int hogbom_step_facets(float* res, float* model, const float* psf,
       part_cmp + at * n_parts, part_idx + at * n_parts,                   \
       part_integ + at * n_parts, n_parts, count, n_images, n_pols,        \
       height, width, pixels_per_block, allow_negative, psf_facet_stride,  \
-      table
+      sel, table
     cudaError_t err;
     switch (mode) {
       case kSigned:
@@ -781,22 +944,6 @@ int hogbom_step_facets(float* res, float* model, const float* psf,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
-}
-
-int hogbom_select_facets(const float* part_cmp, const int* part_idx,
-                         const float* part_integ, int n_parts, int n_facets,
-                         const float* res, const float* rms, int n_images,
-                         int height, int width, int* state, float* value,
-                         float* peak, float* values, const float* limits,
-                         const int* max_iterations, float gain,
-                         float divergence_limit, int stop_on_negative,
-                         void* stream) {
-  hogbom_select_kernel<true><<<n_facets, kSelectThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      part_cmp, part_idx, part_integ, n_parts, res, rms, n_images, height,
-      width, state, value, peak, values, gain, 0.0f, 0.0f, divergence_limit,
-      0, stop_on_negative, limits, max_iterations);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

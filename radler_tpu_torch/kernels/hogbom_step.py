@@ -2,39 +2,42 @@
 
 Port of ``radler_tpu.ops.pallas.hogbom_step`` (the TPU kernel
 ``_step_kernel`` behind ``fused_clean_step`` and its device loop
-``hogbom_loop_pallas``).  One iteration is two launches of
-``csrc/hogbom_step.cu``:
+``hogbom_loop_pallas``).  One iteration is one launch of
+``csrc/hogbom_step.cu`` (:func:`hogbom_step` given the loop's
+``buffers`` and ``params``):
 
-* :func:`hogbom_step` adds the component values to the model at the current
-  peak, subtracts the shifted PSF from every plane of the residual (in
-  place), forms the joined integration, weights it and reduces each block of
-  pixels to a partial ``(max, smallest flat index, signed integrated
-  value)``.
-* :func:`hogbom_select` reduces the partials to the new peak and updates the
-  loop state on the device: the signed value at the peak, ``found``, the
-  divergence and stop tests, the iteration count and the next component
-  values.
+* the step adds the component values to the model at the current peak,
+  subtracts the shifted PSF from every plane of the residual (in place),
+  forms the joined integration, weights it and reduces each block of pixels
+  to a partial ``(max, smallest flat index, signed integrated value)``;
+* the select, run by the launch's last block to finish, reduces the
+  partials to the new peak and updates the loop state on the device: the
+  signed value at the peak, ``found``, the divergence and stop tests, the
+  iteration count and the next component values.
 
-What bounds the pair, and how the design meets it, is in the note at the top
-of the CUDA source.  Each wrapper runs its plain PyTorch version
-(:func:`hogbom_step_reference`, :func:`hogbom_select_reference`) when given
-CPU tensors, and launches its kernel (or raises) when given CUDA tensors.
-The plain versions perform the same float32 operations in the same order as
-the kernels, so the two agree bit for bit.
+Without ``buffers`` the step writes its partials only: the mesh loop runs
+it so on row shards and combines the shards' partials itself.
+
+What bounds the launch, and how the design meets it, is in the note at the
+top of the CUDA source.  Each wrapper runs its plain PyTorch version
+(:func:`hogbom_step_reference`, which ends in :func:`hogbom_select_reference`
+when it selects) when given CPU tensors, and launches its kernel (or
+raises) when given CUDA tensors.  The plain versions perform the same
+float32 operations in the same order as the kernels, so the two agree bit
+for bit.
 
 The loop state is a small int32 tensor on the device (layout below) plus a
-float32 value; both kernels return at once when ``state[ACTIVE]`` is 0, so
+float32 value; the kernels return at once when ``state[ACTIVE]`` is 0, so
 :func:`hogbom_loop` enqueues ``CHUNK`` iterations at a time and reads the
 state back only between chunks.
 
 The batched facet route runs F facets' loops in lockstep through the facet
-mode of the same pair (:func:`hogbom_step_facets`,
-:func:`hogbom_select_facets`, driven by :func:`facet_hogbom_loop`): one
-step launch and one select launch an iteration for all facets, each facet
-with its own state, and the PSFs shared or one stack a facet.  The step
-runs over each facet's true box (top left in the common box) and never
+mode of the same launch (:func:`hogbom_step_facets`, driven by
+:func:`facet_hogbom_loop`): one launch an iteration for all facets, each
+facet with its own state, and the PSFs shared or one stack a facet.  The
+step runs over each facet's true box (top left in the common box) and never
 touches the padding around it.  Its plain version is the single-cube plain
-step on each facet's box in turn.
+step and select on each facet's box in turn.
 """
 
 from __future__ import annotations
@@ -187,6 +190,30 @@ class FacetLoopParams(NamedTuple):
 
 
 @dataclasses.dataclass
+class StepWorkspace:
+    """A selecting step's scratch on the device, made at a loop's first
+    launch and kept on its :class:`LoopBuffers`: the partials
+    (``[n_parts]``, facet mode ``[F, n_parts]``) and the counters of blocks
+    that finished (one, facet mode one a facet), 0 between launches."""
+
+    part_cmp: torch.Tensor
+    part_idx: torch.Tensor
+    part_integ: torch.Tensor
+    counters: torch.Tensor
+
+    @classmethod
+    def make(cls, lead: Tuple[int, ...], n_parts: int,
+             device) -> "StepWorkspace":
+        shape = (*lead, n_parts)
+        return cls(
+            torch.empty(shape, dtype=torch.float32, device=device),
+            torch.empty(shape, dtype=torch.int32, device=device),
+            torch.empty(shape, dtype=torch.float32, device=device),
+            torch.zeros(lead or (1,), dtype=torch.int32, device=device),
+        )
+
+
+@dataclasses.dataclass
 class LoopBuffers:
     """Device-resident loop state between launches (facet mode: a leading
     facet axis on each)."""
@@ -195,6 +222,8 @@ class LoopBuffers:
     value: torch.Tensor  # float32 [1]: signed rms-weighted peak value
     peak: torch.Tensor  # float32 [N]: residual values at the peak
     values: torch.Tensor  # float32 [N]: this iteration's component values
+    workspace: Optional[StepWorkspace] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def facet(self, f: int) -> "LoopBuffers":
         """Views of facet ``f``'s buffers in facet-mode buffers."""
@@ -303,6 +332,9 @@ def hogbom_step_reference(
     row_offset: int = 0,
     box: Optional[Tuple[int, int]] = None,
     n_parts: Optional[int] = None,
+    buffers: Optional[LoopBuffers] = None,
+    params: Optional[LoopParams] = None,
+    rms: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of :func:`hogbom_step`; reads nothing back to the host.
 
@@ -311,7 +343,8 @@ def hogbom_step_reference(
     it is read or written but the model at the peak.  The partials are runs
     of :data:`PIXELS_PER_BLOCK` box pixels in row-major order, with the
     cube's flat indices; ``n_parts`` pads them with no peak (-inf,
-    INT_MAX, 0) past the box's runs."""
+    INT_MAX, 0) past the box's runs.  With ``params`` the step selects:
+    :func:`hogbom_select_reference` on the partials into ``buffers``."""
     n, height, width = residual.shape
     rows, cols = box if box is not None else (height, width)
     dev = residual.device
@@ -341,7 +374,10 @@ def hogbom_step_reference(
     part_cmp = part_cmp.masked_fill(tail, -np.inf)
     part_idx = part_idx.masked_fill(tail, INT_MAX)
     part_integ = part_integ.masked_fill(tail, 0.0)
-    return part_cmp, part_idx.to(torch.int32), part_integ
+    partials = part_cmp, part_idx.to(torch.int32), part_integ
+    if params is not None:
+        hogbom_select_reference(partials, residual, buffers, params, rms)
+    return partials
 
 
 def hogbom_select_reference(
@@ -351,8 +387,9 @@ def hogbom_select_reference(
     params: LoopParams,
     rms: Optional[torch.Tensor] = None,
 ) -> None:
-    """Plain version of :func:`hogbom_select`; reads nothing back to the
-    host."""
+    """The select that ends :func:`hogbom_step_reference` when it selects:
+    the partials reduce to the new peak, and :func:`advance_state` updates
+    ``buffers``; reads nothing back to the host."""
     part_cmp, part_idx, part_integ = partials
     n, height, width = residual.shape
     # Blocks hold ascending pixel ranges, so the first block attaining the
@@ -439,9 +476,14 @@ def hogbom_step_facets_reference(
     n_polarizations: int,
     allow_negative: bool,
     boxes: Optional[torch.Tensor] = None,
+    buffers: Optional[LoopBuffers] = None,
+    params: Optional[FacetLoopParams] = None,
+    rms: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of :func:`hogbom_step_facets`: the single-cube plain
-    step on each facet's true box in turn; partials ``[F, n_parts]``."""
+    step on each facet's true box in turn; partials ``[F, n_parts]``.
+    With ``params`` each facet's step is followed by its select
+    (:func:`hogbom_select_facets_reference`)."""
     n_facets, _, height, width = residual.shape
     sizes, n_parts = facet_parts(boxes, height, width, n_facets)
     shared = psfs.ndim == 3
@@ -453,7 +495,11 @@ def hogbom_step_facets_reference(
             allow_negative=allow_negative, box=sizes[f], n_parts=n_parts)
         for f in range(n_facets)
     ]
-    return tuple(torch.stack(p) for p in zip(*parts))
+    partials = tuple(torch.stack(p) for p in zip(*parts))
+    if params is not None:
+        hogbom_select_facets_reference(partials, residual, buffers, params,
+                                       rms)
+    return partials
 
 
 def hogbom_select_facets_reference(
@@ -463,8 +509,8 @@ def hogbom_select_facets_reference(
     params: FacetLoopParams,
     rms: Optional[torch.Tensor] = None,
 ) -> None:
-    """Plain version of :func:`hogbom_select_facets`: the single-cube plain
-    select on each facet in turn."""
+    """The select that ends :func:`hogbom_step_facets_reference`: the
+    single-cube plain select on each facet in turn."""
     for f in range(residual.shape[0]):
         hogbom_select_reference(
             tuple(p[f] for p in partials), residual[f], buffers.facet(f),
@@ -486,20 +532,14 @@ def _lib():
 
         lib = _build.library()
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hogbom_step.argtypes = [ptr] * 10 + [i32] * 10 + [ptr]
+        lib.hogbom_step.argtypes = (
+            [ptr] * 10 + [i32] * 10 + [ptr] * 4 + [f32] * 4 + [i32] * 2
+            + [ptr] * 3)
         lib.hogbom_step.restype = i32
-        lib.hogbom_select.argtypes = (
-            [ptr] * 3 + [i32] + [ptr] * 2 + [i32] * 3 + [ptr] * 4
-            + [f32] * 4 + [i32] * 2 + [ptr]
-        )
-        lib.hogbom_select.restype = i32
         lib.hogbom_step_facets.argtypes = (
-            [ptr] * 3 + [ctypes.c_longlong] + [ptr] * 8 + [i32] * 9 + [ptr])
+            [ptr] * 3 + [ctypes.c_longlong] + [ptr] * 8 + [i32] * 9
+            + [ptr] * 6 + [f32] * 2 + [i32] + [ptr])
         lib.hogbom_step_facets.restype = i32
-        lib.hogbom_select_facets.argtypes = (
-            [ptr] * 3 + [i32] * 2 + [ptr] * 2 + [i32] * 3 + [ptr] * 6
-            + [f32] * 2 + [i32] + [ptr])
-        lib.hogbom_select_facets.restype = i32
         _bound_lib = lib
     return _bound_lib
 
@@ -523,6 +563,30 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+def _selects(name: str, values: torch.Tensor, state: torch.Tensor,
+             buffers: Optional[LoopBuffers], params) -> bool:
+    """Whether a step call selects (``params`` given); its ``values`` and
+    ``state`` must then be ``buffers``' own, which the select rewrites."""
+    if params is None:
+        return False
+    if buffers is None or not (
+            values.data_ptr() == buffers.values.data_ptr()
+            and state.data_ptr() == buffers.state.data_ptr()):
+        raise ValueError(f"{name}: a step that selects reads buffers.values "
+                         "and buffers.state")
+    return True
+
+
+def _workspace(buffers: LoopBuffers, lead: Tuple[int, ...], n_parts: int,
+               device) -> StepWorkspace:
+    """``buffers``' step workspace, made at its first use."""
+    ws = buffers.workspace
+    if (ws is None or ws.part_cmp.shape != (*lead, n_parts)
+            or ws.part_cmp.device != device):
+        ws = buffers.workspace = StepWorkspace.make(lead, n_parts, device)
+    return ws
+
+
 def hogbom_step(
     residual: torch.Tensor,
     model: torch.Tensor,
@@ -536,6 +600,9 @@ def hogbom_step(
     n_polarizations: int,
     allow_negative: bool,
     row_offset: int = 0,
+    buffers: Optional[LoopBuffers] = None,
+    params: Optional[LoopParams] = None,
+    rms: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Add ``values`` to ``model`` at the peak in ``state``, subtract the
     shifted PSFs from ``residual`` (both in place) and return the per-block
@@ -548,30 +615,56 @@ def hogbom_step(
     its first image row as ``row_offset`` and the PSFs at the image's full
     height ``H_psf``; the peak in ``state`` is in image rows, and the
     partials' indices are flat indices within the shard.
+
+    With ``params`` (a :class:`LoopParams`) the same launch also selects:
+    it reduces the partials to the new peak and advances ``buffers``
+    (whose ``values`` and ``state`` are the ones passed) with the rms
+    factor ``rms`` (``[H, W]`` or None), as :func:`hogbom_select_reference`
+    does.  The partials are then ``buffers``' workspace, rewritten by the
+    next launch.  A row shard does not select.
     """
     args = (residual, model, psfs, values, state, coefs, weight)
     kw = dict(mode=mode, n_polarizations=n_polarizations,
               allow_negative=allow_negative, row_offset=row_offset)
+    selects = _selects("hogbom_step", values, state, buffers, params)
     if residual.device.type == "cpu":
-        return hogbom_step_reference(*args, **kw)
+        return hogbom_step_reference(*args, **kw, buffers=buffers,
+                                     params=params, rms=rms)
     if residual.device.type != "cuda":
         raise ValueError(f"hogbom_step: unsupported device {residual.device}")
     n, height, width = residual.shape
     n_chan = n // n_polarizations
     psf_height = psfs.shape[1] if psfs.ndim == 3 else -1
     if (n_chan * n_polarizations != n or psf_height * width >= 2**31
-            or not 0 <= row_offset <= psf_height - height):
+            or not 0 <= row_offset <= psf_height - height
+            or (selects and (row_offset != 0 or psf_height != height))):
         raise ValueError(
             f"hogbom_step: bad cube shape {tuple(residual.shape)} at row "
-            f"{row_offset} of PSFs {tuple(psfs.shape)}")
+            f"{row_offset} of PSFs {tuple(psfs.shape)}"
+            + (" (a row shard does not select)" if selects else ""))
     if mode == "signed" and n != 1:
         raise ValueError("hogbom_step: signed mode takes one plane")
     n_coefs = n + (n_chan if mode == "normal" else 0)
     dev, f32 = residual.device, torch.float32
     n_parts = -(-height * width // PIXELS_PER_BLOCK)
-    part_cmp = torch.empty(n_parts, dtype=f32, device=dev)
-    part_idx = torch.empty(n_parts, dtype=torch.int32, device=dev)
-    part_integ = torch.empty(n_parts, dtype=f32, device=dev)
+    if selects:
+        ws = _workspace(buffers, (), n_parts, dev)
+        part_cmp, part_idx, part_integ = (ws.part_cmp, ws.part_idx,
+                                          ws.part_integ)
+        select = [
+            ws.counters.data_ptr(),
+            _check(rms, "rms", dev, (height, width), f32),
+            _check(buffers.value, "value", dev, (1,), f32),
+            _check(buffers.peak, "peak", dev, (n,), f32),
+            params.gain, params.first_threshold, params.initial_abs_peak,
+            params.divergence_limit, params.max_iterations,
+            int(params.stop_on_negative), None, None,
+        ]
+    else:
+        part_cmp = torch.empty(n_parts, dtype=f32, device=dev)
+        part_idx = torch.empty(n_parts, dtype=torch.int32, device=dev)
+        part_integ = torch.empty(n_parts, dtype=f32, device=dev)
+        select = [None] * 4 + [0.0] * 4 + [0, 0, None, None]
     ptrs = [
         _check(residual, "residual", dev, (n, height, width), f32),
         _check(model, "model", dev, (n, height, width), f32),
@@ -590,7 +683,7 @@ def hogbom_step(
         err = lib.hogbom_step(
             *ptrs, n_parts, n, n_polarizations, height, width, psf_height,
             row_offset, PIXELS_PER_BLOCK, MODES.index(mode),
-            int(allow_negative), stream,
+            int(allow_negative), *select, stream,
         )
     _raise_on(err, "hogbom_step")
     hogbom_step.launches += 1
@@ -598,53 +691,6 @@ def hogbom_step(
 
 
 hogbom_step.launches = 0
-
-
-def hogbom_select(
-    partials: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-    residual: torch.Tensor,
-    buffers: LoopBuffers,
-    params: LoopParams,
-    rms: Optional[torch.Tensor] = None,
-) -> None:
-    """Reduce the step's partials to the new peak and update ``buffers``
-    (state, value, peak values, next component values) on the device.
-    A no-op when ``state[ACTIVE]`` is 0."""
-    if residual.device.type == "cpu":
-        return hogbom_select_reference(partials, residual, buffers, params, rms)
-    if residual.device.type != "cuda":
-        raise ValueError(f"hogbom_select: unsupported device {residual.device}")
-    part_cmp, part_idx, part_integ = partials
-    n, height, width = residual.shape
-    n_parts = part_cmp.shape[0]
-    dev, f32 = residual.device, torch.float32
-    ptrs_in = [
-        _check(part_cmp, "part_cmp", dev, (n_parts,), f32),
-        _check(part_idx, "part_idx", dev, (n_parts,), torch.int32),
-        _check(part_integ, "part_integ", dev, (n_parts,), f32),
-    ]
-    res_ptr = _check(residual, "residual", dev, (n, height, width), f32)
-    rms_ptr = _check(rms, "rms", dev, (height, width), f32)
-    ptrs_out = [
-        _check(buffers.state, "state", dev, (STATE_SIZE,), torch.int32),
-        _check(buffers.value, "value", dev, (1,), f32),
-        _check(buffers.peak, "peak", dev, (n,), f32),
-        _check(buffers.values, "values", dev, (n,), f32),
-    ]
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hogbom_select(
-            *ptrs_in, n_parts, res_ptr, rms_ptr, n, height, width, *ptrs_out,
-            params.gain, params.first_threshold, params.initial_abs_peak,
-            params.divergence_limit, params.max_iterations,
-            int(params.stop_on_negative), stream,
-        )
-    _raise_on(err, "hogbom_select")
-    hogbom_select.launches += 1
-
-
-hogbom_select.launches = 0
 
 
 def hogbom_step_facets(
@@ -660,21 +706,32 @@ def hogbom_step_facets(
     n_polarizations: int,
     allow_negative: bool,
     boxes: Optional[torch.Tensor] = None,
+    buffers: LoopBuffers,
+    params: FacetLoopParams,
+    rms: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`hogbom_step` for F facets in one launch: ``residual`` and
-    ``model`` ``[F, N, H, W]``, ``psfs`` ``[C, H, W]`` shared by every facet
-    or ``[F, C, H, W]``, ``values`` ``[F, N]``, ``state`` ``[F,
-    STATE_SIZE]``, ``weight`` ``[F, H, W]`` or None; ``boxes``, an int32
-    ``[F, 2]`` tensor on the CPU, each facet's true box (rows, columns) at
-    the top left of the common box ``H`` x ``W`` (None: the whole box).
-    Only the true boxes are read and written.  Returns the partials ``[F,
-    n_parts]`` (:func:`facet_parts`), a facet's unused tail as no peak.  A
-    facet whose ``state[f, ACTIVE]`` is 0 is left unchanged."""
+    """:func:`hogbom_step` for F facets in one launch, each facet's select
+    included: ``residual`` and ``model`` ``[F, N, H, W]``, ``psfs`` ``[C,
+    H, W]`` shared by every facet or ``[F, C, H, W]``, ``values`` ``[F,
+    N]`` and ``state`` ``[F, STATE_SIZE]`` (``buffers``' own, in facet
+    mode), ``weight`` ``[F, H, W]`` or None, ``rms`` ``[F, H, W]`` or None;
+    ``boxes``, an int32 ``[F, 2]`` tensor on the CPU, each facet's true
+    box (rows, columns) at the top left of the common box ``H`` x ``W``
+    (None: the whole box).  Only the true boxes are read and written.  Each
+    facet's partials reduce to its own peak (the smallest flat index among
+    equal maxima) and advance its own state with its own limits in
+    ``params``.  Returns the partials ``[F, n_parts]`` (:func:`facet_parts`;
+    ``buffers``' workspace), a facet's unused tail as no peak.  A facet
+    whose ``state[f, ACTIVE]`` is 0 is left unchanged."""
     args = (residual, model, psfs, values, state, coefs, weight)
     kw = dict(mode=mode, n_polarizations=n_polarizations,
               allow_negative=allow_negative, boxes=boxes)
+    if not _selects("hogbom_step_facets", values, state, buffers, params):
+        raise ValueError("hogbom_step_facets: the facet step selects; pass "
+                         "buffers and params")
     if residual.device.type == "cpu":
-        return hogbom_step_facets_reference(*args, **kw)
+        return hogbom_step_facets_reference(*args, **kw, buffers=buffers,
+                                            params=params, rms=rms)
     if residual.device.type != "cuda":
         raise ValueError(
             f"hogbom_step_facets: unsupported device {residual.device}")
@@ -689,10 +746,7 @@ def hogbom_step_facets(
     box_table = torch.tensor(sizes, dtype=torch.int32)
     n_coefs = n + (n_chan if mode == "normal" else 0)
     dev, f32 = residual.device, torch.float32
-    part_cmp = torch.empty((n_facets, n_parts), dtype=f32, device=dev)
-    part_idx = torch.empty((n_facets, n_parts), dtype=torch.int32,
-                           device=dev)
-    part_integ = torch.empty((n_facets, n_parts), dtype=f32, device=dev)
+    ws = _workspace(buffers, (n_facets,), n_parts, dev)
     psf_shape = (n_chan, height, width) if shared else (
         n_facets, n_chan, height, width)
     cube = (n_facets, n, height, width)
@@ -705,78 +759,35 @@ def hogbom_step_facets(
         _check(coefs, "coefs", dev, (n_coefs,), f32),
         _check(values, "values", dev, (n_facets, n), f32),
         _check(state, "state", dev, (n_facets, STATE_SIZE), torch.int32),
-        part_cmp.data_ptr(),
-        part_idx.data_ptr(),
-        part_integ.data_ptr(),
+        ws.part_cmp.data_ptr(),
+        ws.part_idx.data_ptr(),
+        ws.part_integ.data_ptr(),
         box_table.data_ptr(),
+    ]
+    select = [
+        ws.counters.data_ptr(),
+        _check(rms, "rms", dev, (n_facets, height, width), f32),
+        _check(buffers.value, "value", dev, (n_facets,), f32),
+        _check(buffers.peak, "peak", dev, (n_facets, n), f32),
+        _check(params.limits, "limits", dev, (n_facets, 2), f32),
+        _check(params.max_iterations_device, "max_iterations", dev,
+               (n_facets,), torch.int32),
+        params.gain, params.divergence_limit, int(params.stop_on_negative),
     ]
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hogbom_step_facets(
             *ptrs, n_parts, n_facets, n, n_polarizations, height, width,
-            PIXELS_PER_BLOCK, MODES.index(mode), int(allow_negative), stream,
+            PIXELS_PER_BLOCK, MODES.index(mode), int(allow_negative),
+            *select, stream,
         )
     _raise_on(err, "hogbom_step_facets")
     hogbom_step_facets.launches += -(-n_facets // FACETS_PER_LAUNCH)
-    return part_cmp, part_idx, part_integ
+    return ws.part_cmp, ws.part_idx, ws.part_integ
 
 
 hogbom_step_facets.launches = 0
-
-
-def hogbom_select_facets(
-    partials: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-    residual: torch.Tensor,
-    buffers: LoopBuffers,
-    params: FacetLoopParams,
-    rms: Optional[torch.Tensor] = None,
-) -> None:
-    """:func:`hogbom_select` for F facets in one launch, one block a facet:
-    each facet's partials reduce to its own peak (the smallest flat index
-    among equal maxima) and advance its own state; ``buffers`` in facet
-    mode, ``rms`` ``[F, H, W]`` or None."""
-    if residual.device.type == "cpu":
-        return hogbom_select_facets_reference(partials, residual, buffers,
-                                              params, rms)
-    if residual.device.type != "cuda":
-        raise ValueError(
-            f"hogbom_select_facets: unsupported device {residual.device}")
-    part_cmp, part_idx, part_integ = partials
-    n_facets, n, height, width = residual.shape
-    n_parts = part_cmp.shape[1]
-    dev, f32 = residual.device, torch.float32
-    ptrs_in = [
-        _check(part_cmp, "part_cmp", dev, (n_facets, n_parts), f32),
-        _check(part_idx, "part_idx", dev, (n_facets, n_parts), torch.int32),
-        _check(part_integ, "part_integ", dev, (n_facets, n_parts), f32),
-    ]
-    res_ptr = _check(residual, "residual", dev, (n_facets, n, height, width),
-                     f32)
-    rms_ptr = _check(rms, "rms", dev, (n_facets, height, width), f32)
-    ptrs_out = [
-        _check(buffers.state, "state", dev, (n_facets, STATE_SIZE),
-               torch.int32),
-        _check(buffers.value, "value", dev, (n_facets,), f32),
-        _check(buffers.peak, "peak", dev, (n_facets, n), f32),
-        _check(buffers.values, "values", dev, (n_facets, n), f32),
-        _check(params.limits, "limits", dev, (n_facets, 2), f32),
-        _check(params.max_iterations_device, "max_iterations", dev,
-               (n_facets,), torch.int32),
-    ]
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hogbom_select_facets(
-            *ptrs_in, n_parts, n_facets, res_ptr, rms_ptr, n, height, width,
-            *ptrs_out, params.gain, params.divergence_limit,
-            int(params.stop_on_negative), stream,
-        )
-    _raise_on(err, "hogbom_select_facets")
-    hogbom_select_facets.launches += 1
-
-
-hogbom_select_facets.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -924,9 +935,10 @@ def hogbom_loop(
     contract as the JAX package's ``hogbom_loop_pallas`` and
     ``_hogbom_loop``.
 
-    On CUDA tensors each iteration is the two kernel launches (``plain``
-    runs their plain versions instead, for comparison); on CPU tensors it is
-    the plain versions.  Between launches, only device-side torch ops run
+    On CUDA tensors each iteration is one kernel launch, the step with its
+    select (``plain`` runs the plain versions instead, for comparison); on
+    CPU tensors it is the plain versions.  Between launches, only
+    device-side torch ops run
     (the spectral fit, when a fitter is active); the host reads the state
     once per ``CHUNK`` iterations.
 
@@ -950,7 +962,6 @@ def hogbom_loop(
     coefs = torch.as_tensor(kernel_coefficients(mode, chan_np, pol_np),
                             device=dev)
     step = hogbom_step_reference if plain else hogbom_step
-    select = hogbom_select_reference if plain else hogbom_select
     C, P = meta.n_channels, meta.n_polarizations
     buffers, active0 = start_loop(residual, peak0, params, start_iteration,
                                   meta=meta, fitter=fitter)
@@ -964,12 +975,10 @@ def hogbom_loop(
         state = buffers.state
         if coef_fit is not None:
             coef_fit.add()
-        partials = step(
-            residual, kernel_model, psfs, buffers.values, state, coefs,
-            weight, mode=mode, n_polarizations=P,
-            allow_negative=allow_negative,
-        )
-        select(partials, residual, buffers, params, rms)
+        step(residual, kernel_model, psfs, buffers.values, state, coefs,
+             weight, mode=mode, n_polarizations=P,
+             allow_negative=allow_negative, buffers=buffers, params=params,
+             rms=rms)
         if coef_fit is not None:
             coef_fit.refit()
         elif fitter is not None:
@@ -1033,9 +1042,10 @@ def facet_hogbom_loop(
     coefficients: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> FacetLoopResult:
     """F facets' Högbom minor loops in lockstep: the loop of
-    :func:`hogbom_loop` on each facet, with one facet-mode step and select
-    launch an iteration for all of them (the JAX package's vmapped
-    ``_facet_hogbom_program``, ``generic_clean.py:154``, and its vmapped
+    :func:`hogbom_loop` on each facet, with one facet-mode launch (the
+    step and each facet's select) an iteration for all of them (the JAX
+    package's vmapped ``_facet_hogbom_program``, ``generic_clean.py:154``,
+    and its vmapped
     fused multiscale loop's dense subminor, ``multiscale.py:1335-1641``).
     Facets stop on their own; the launches go on, no-ops for stopped
     facets, until the last one stops.  The host reads every facet's state
@@ -1059,7 +1069,6 @@ def facet_hogbom_loop(
     coefs = torch.as_tensor(kernel_coefficients(mode, chan_np, pol_np),
                             device=dev)
     step = hogbom_step_facets_reference if plain else hogbom_step_facets
-    select = hogbom_select_facets_reference if plain else hogbom_select_facets
     C, P = meta.n_channels, meta.n_polarizations
     width = residual.shape[-1]
 
@@ -1110,12 +1119,10 @@ def facet_hogbom_loop(
     def iterate():
         for fit in coef_fits:
             fit.add()
-        partials = step(
-            residual, kernel_model, psfs, buffers.values, buffers.state,
-            coefs, weight, mode=mode, n_polarizations=P,
-            allow_negative=allow_negative, boxes=boxes,
-        )
-        select(partials, residual, buffers, params, rms)
+        step(residual, kernel_model, psfs, buffers.values, buffers.state,
+             coefs, weight, mode=mode, n_polarizations=P,
+             allow_negative=allow_negative, boxes=boxes, buffers=buffers,
+             params=params, rms=rms)
         refit()
 
     iterations = list(start_iterations)

@@ -30,7 +30,7 @@ Clark subminor loop run as a *dense masked clean* over the scale-convolved
 cube (the candidate-set restriction is an optimization, not a semantic
 requirement: both subtract the twice-convolved PSF and stop at the same
 threshold, ``subminor_loop.h:17-50``).  Each iteration is the Högbom kernel
-pair of :mod:`radler_tpu_torch.kernels.hogbom_step` (B1) in its *linear*
+launch of :mod:`radler_tpu_torch.kernels.hogbom_step` (B1) in its *linear*
 integration mode (``SubMinorModel::GetMaxComponent``,
 ``subminor_loop.cc:13-36``) with the search weight plane, through
 :func:`~radler_tpu_torch.kernels.hogbom_step.hogbom_loop`; on a device mesh

@@ -17,7 +17,7 @@ command line, on one NVIDIA GPU.  Run from the root of a checkout:
     python3 scripts/kernel_probe.py registers PARENT_ROOT .
                         # registers of B1's step instantiations in each
                         # checkout, and whether the single-cube step's SASS
-                        # is the first checkout's
+                        # (the partials-only one) is the first checkout's
 
 ``check`` leaves out the timing phases.  It imports nothing of JAX.
 """
@@ -89,8 +89,8 @@ def _step_kernels(root):
     """The kernel library of the checkout at ``root``, built there (or
     reused) by its own ``_build``: {(kind, template arguments): (registers,
     SASS instructions)} for each instantiation of B1's single-cube step
-    (mode, row shard) and facet step, from ``cuobjdump``, which reads a
-    reused library as well as a fresh one."""
+    (mode, row shard), its selecting step and its facet step, from
+    ``cuobjdump``, which reads a reused library as well as a fresh one."""
     import re
     import shutil
     import subprocess
@@ -107,8 +107,9 @@ def _step_kernels(root):
                               capture_output=True, check=True).stdout
 
     def key(mangled):
-        entry = re.search(r"(hogbom_(?:facet_)?step_kernel)I((?:L[ib]\d+E)+)E",
-                          mangled)
+        entry = re.search(
+            r"(hogbom_(?:facet_|select_)?step_kernel)I((?:L[ib]\d+E)+)E",
+            mangled)
         if not entry:
             return None
         args = tuple(int(a) for a in re.findall(r"L[ib](\d+)E", entry[2]))
@@ -143,8 +144,10 @@ def step_registers(roots=(".",)):
             names = [modes[args[0]], *map(str, args[1:])]
             label = f"{kind}<{', '.join(names)}>"
             same = ""
-            # The single-cube step: (mode, row shard) and, in checkouts
-            # before the facet step had its own kernel, a facet flag of 0.
+            # The single-cube step that writes partials only: (mode, row
+            # shard) and a third flag of 0 (a facet flag in checkouts
+            # before the facet step had its own kernel, the select flag
+            # since the select is folded into the step).
             single = kind == "hogbom_step_kernel" and not any(args[2:])
             if single and first is not None:
                 theirs = first.get(args[:2])

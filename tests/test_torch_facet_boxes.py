@@ -82,8 +82,8 @@ def inside(boxes, shape):
 
 
 def run_steps(c, res, boxes, iterations=3):
-    """``iterations`` facet steps and selects from ``c``'s state; returns
-    the model, the last partials and the buffers."""
+    """``iterations`` facet steps, each with its select, from ``c``'s
+    state; returns the model, the last partials and the buffers."""
     n_facets = res.shape[0]
     model = torch.zeros_like(res)
     params = hs.FacetLoopParams.make(
@@ -95,8 +95,8 @@ def run_steps(c, res, boxes, iterations=3):
         partials = hs.hogbom_step_facets(
             res, model, c["psfs"], buffers.values, buffers.state, c["coefs"],
             c["weight"], mode=c["mode"], n_polarizations=c["P"],
-            allow_negative=True, boxes=boxes)
-        hs.hogbom_select_facets(partials, res, buffers, params, c["weight"])
+            allow_negative=True, boxes=boxes, buffers=buffers,
+            params=params, rms=c["weight"])
     return model, partials, buffers
 
 

@@ -132,6 +132,7 @@ def test_step_matches_pallas_interpret(case, use_weight):
     residual = torch.as_tensor(res.copy())
     model = torch.zeros_like(residual)
     buffers = port_buffers(meta.n_images, y, x, values)
+    params = hs.LoopParams.make(0.1, 0.0, 1.0, 0.0, 10, False)
     partials = hs.hogbom_step(
         residual,
         model,
@@ -143,9 +144,9 @@ def test_step_matches_pallas_interpret(case, use_weight):
         mode=mode,
         n_polarizations=P,
         allow_negative=True,
+        buffers=buffers,
+        params=params,
     )
-    params = hs.LoopParams.make(0.1, 0.0, 1.0, 0.0, 10, False)
-    hs.hogbom_select(partials, residual, buffers, params)
 
     np.testing.assert_allclose(residual.numpy(), np.asarray(new_res), atol=ATOL)
     assert int(buffers.state[hs.INDEX]) == int(idx)
@@ -302,13 +303,14 @@ def test_kernel_coefficients_layout():
 def test_wrapper_runs_plain_version_on_cpu_without_counting():
     """CPU tensors take the plain version; launch counts move only when a
     kernel is launched."""
-    before = (hs.hogbom_step.launches, hs.hogbom_select.launches)
+    before = (hs.hogbom_step.launches, hs.hogbom_step_facets.launches)
     meta = make_meta(1, 1, False)
     res, psfs = make_cube(meta, seed=9)
     value0, x0, y0, found0 = initial_peak(meta, res)
     params = hs.LoopParams.make(0.1, 0.0, abs(value0), 0.0, 5, False)
     run_port_loop(meta, res, psfs, None, (value0, x0, y0, found0), params, True)
-    assert (hs.hogbom_step.launches, hs.hogbom_select.launches) == before
+    assert (hs.hogbom_step.launches,
+            hs.hogbom_step_facets.launches) == before
 
 
 @pytest.mark.parametrize(

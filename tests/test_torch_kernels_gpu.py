@@ -82,33 +82,114 @@ def start_buffers(res, gain):
                           raw * gain)
 
 
-@pytest.mark.parametrize("allow_negative", [True, False])
-@pytest.mark.parametrize("use_weight", [False, True])
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
-def test_step_and_select_bit_equal_to_plain(cuda, case, use_weight,
-                                            allow_negative):
-    c = make_case(case, cuda)
-    params = hs.LoopParams.make(0.1, 0.0, 10.0, 0.0, 100, False)
+def fused_and_plain(c, params, use_weight, allow_negative, rms=None,
+                    buffers=None, iterations=1):
+    """``iterations`` launches of the step with its select folded in, and
+    as many of the plain pair (step, then select), from the same start;
+    the kernel's counter is read back after each launch and must be 0.
+    Returns (residual, model, partials, buffers) of each."""
     outs = []
     for plain in (False, True):
         res = c["res"].clone()
         model = torch.zeros_like(res)
-        buffers = start_buffers(res, params.gain)
+        b = (start_buffers(res, params.gain) if buffers is None
+             else hs.LoopBuffers(*(t.clone() for t in buffers)))
         step = hs.hogbom_step_reference if plain else hs.hogbom_step
-        select = hs.hogbom_select_reference if plain else hs.hogbom_select
-        partials = step(res, model, c["psfs"], buffers.values, buffers.state,
-                        c["coefs"], c["weight"] if use_weight else None,
-                        mode=c["mode"], n_polarizations=c["P"],
-                        allow_negative=allow_negative)
-        select(partials, res, buffers, params)
+        for _ in range(iterations):
+            partials = step(res, model, c["psfs"], b.values, b.state,
+                            c["coefs"], c["weight"] if use_weight else None,
+                            mode=c["mode"], n_polarizations=c["P"],
+                            allow_negative=allow_negative, buffers=b,
+                            params=params, rms=rms)
+            if not plain:
+                assert b.workspace.counters.tolist() == [0]
         torch.cuda.synchronize()
-        outs.append((res, model, partials, buffers))
+        outs.append((res, model, [p.clone() for p in partials], b))
+    return outs
+
+
+def assert_bit_equal(outs):
     (rk, mk, pk, bk), (rp, mp, pp, bp) = outs
     assert torch.equal(rk, rp) and torch.equal(mk, mp)
     for a, b in zip(pk, pp):
         assert torch.equal(a, b)
     for name in ("state", "value", "peak", "values"):
         assert torch.equal(getattr(bk, name), getattr(bp, name)), name
+
+
+@pytest.mark.parametrize("use_rms", [False, True], ids=["-", "rms"])
+@pytest.mark.parametrize("allow_negative", [True, False])
+@pytest.mark.parametrize("use_weight", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+def test_step_and_select_bit_equal_to_plain(cuda, case, use_weight,
+                                            allow_negative, use_rms):
+    """One launch, the step with its select folded in, against the plain
+    step followed by the plain select: residual, model, partials and loop
+    state bit for bit, over 3 iterations."""
+    c = make_case(case, cuda)
+    params = hs.LoopParams.make(0.1, 0.0, 10.0, 0.0, 100, False)
+    rms = (torch.as_tensor(np.random.default_rng(2).uniform(
+        0.5, 1.5, (HEIGHT, WIDTH)), dtype=torch.float32, device=cuda)
+        if use_rms else None)
+    outs = fused_and_plain(c, params, use_weight, allow_negative, rms,
+                           iterations=3)
+    assert_bit_equal(outs)
+    assert int(outs[0][3].state[hs.ITERATION]) == 3
+
+
+@pytest.mark.parametrize("allow_negative", [True, False])
+def test_fused_select_ties_take_the_smallest_index(cuda, allow_negative):
+    """Equal maxima in several blocks (and twice in one): the launch picks
+    the smallest flat index, as the plain pair does."""
+    c = make_case(CASES[0], cuda)
+    res = torch.full((1, HEIGHT, WIDTH), 0.001, device=cuda)
+    ties = [90_000, 5000, 61_000, 4100, 4099 + 3 * hs.PIXELS_PER_BLOCK]
+    res.view(-1)[ties] = 3.0
+    c["res"] = res
+    params = hs.LoopParams.make(0.1, 0.0, 10.0, 0.0, 100, False)
+    state = torch.tensor([0, 0, 1, 0, 0, 1, 0, 0], dtype=torch.int32,
+                         device=cuda)
+    zeros = torch.zeros(1, device=cuda)  # component values 0: no change
+    buffers = (state, zeros, zeros, zeros)
+    outs = fused_and_plain(c, params, False, allow_negative, buffers=buffers)
+    assert_bit_equal(outs)
+    assert int(outs[0][3].state[hs.INDEX]) == min(ties)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+def test_fused_select_on_an_all_zero_cube(cuda, case):
+    """A cube of +0.0 and -0.0, which compare equal: every pixel ties, the
+    launch takes flat index 0, finds no peak and stops, as the plain pair
+    does."""
+    c = make_case(case, cuda)
+    signs = torch.rand(c["res"].shape, device=cuda) < 0.5
+    c["res"] = torch.where(signs, torch.tensor(-0.0, device=cuda),
+                           torch.tensor(0.0, device=cuda))
+    params = hs.LoopParams.make(0.1, 0.0, 10.0, 0.0, 100, False)
+    for allow_negative in (True, False):
+        outs = fused_and_plain(c, params, True, allow_negative)
+        assert_bit_equal(outs)
+        state = outs[0][3].state.tolist()
+        assert (state[hs.INDEX], state[hs.FOUND], state[hs.ACTIVE]) == (
+            0, 0, 0)
+
+
+def test_fused_select_on_an_inactive_state_changes_nothing(cuda):
+    c = make_case(CASES[3], cuda)
+    params = hs.LoopParams.make(0.1, 0.0, 10.0, 0.0, 100, False)
+    b = start_buffers(c["res"], params.gain)
+    b.state[hs.ACTIVE] = 0
+    before = [t.clone() for t in (b.state, b.value, b.peak, b.values)]
+    outs = fused_and_plain(c, params, True, True, buffers=before)
+    # The launch returns at once in every block: its partials are not
+    # written, and only what the plain pair leaves alone is compared.
+    for out in outs:
+        out[2].clear()
+    assert_bit_equal(outs)
+    assert torch.equal(outs[0][0], c["res"]) and not outs[0][1].any()
+    for got, was in zip((outs[0][3].state, outs[0][3].value,
+                         outs[0][3].peak, outs[0][3].values), before):
+        assert torch.equal(got, was)
 
 
 @pytest.mark.parametrize("fit_mode", ["NO_FITTING", "POLYNOMIAL"])
@@ -144,7 +225,7 @@ def test_loop_bit_equal_to_plain(cuda, fit_mode):
 
 def test_perform_point_source_and_counts(cuda):
     """The reference contract through Radler.perform on CUDA tensors, and
-    one launch of each kernel per iteration."""
+    one launch an iteration (the step with its select)."""
     size = 64
     point = np.array([[0.0, 0.4, 0.0], [0.25, 1.0, 0.5], [0.0, 0.6, 0.0]],
                      np.float32)
@@ -160,9 +241,9 @@ def test_perform_point_source_and_counts(cuda):
     r = rd.Radler(s, torch.as_tensor(psf, device=cuda),
                   torch.as_tensor(res, device=cuda),
                   torch.zeros(size, size, device=cuda), 0.0)
-    hs.hogbom_step.launches = hs.hogbom_select.launches = 0
+    hs.hogbom_step.launches = 0
     assert r.perform(0) is False
-    assert hs.hogbom_step.launches == hs.hogbom_select.launches
+    assert not hasattr(hs, "hogbom_select")  # the select is in the launch
     assert r.iteration_number <= hs.hogbom_step.launches
     assert hs.hogbom_step.launches < r.iteration_number + hs.CHUNK
     front = r._table.front
@@ -187,6 +268,18 @@ def test_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         hs.hogbom_step(c["res"], torch.zeros_like(c["res"]).cpu(), c["psfs"],
                        buffers.values, buffers.state, c["coefs"], **kw)
+    # A row shard does not select; a selecting step reads the buffers'
+    # own values and state.
+    params = hs.LoopParams.make(0.1, 0.0, 10.0, 0.0, 100, False)
+    tall = torch.cat([c["psfs"], c["psfs"]], dim=1)
+    with pytest.raises(ValueError):
+        hs.hogbom_step(c["res"], torch.zeros_like(c["res"]), tall,
+                       buffers.values, buffers.state, c["coefs"], **kw,
+                       row_offset=1, buffers=buffers, params=params)
+    with pytest.raises(ValueError):
+        hs.hogbom_step(c["res"], torch.zeros_like(c["res"]), c["psfs"],
+                       buffers.values.clone(), buffers.state, c["coefs"],
+                       **kw, buffers=buffers, params=params)
 
 
 def test_numpy_inputs_run_on_the_device_argument(cuda):
@@ -990,9 +1083,8 @@ def test_perform_mesh_point_source_and_counts(cuda):
     r = rd.Radler(s, torch.as_tensor(psf, device=cuda),
                   torch.as_tensor(res, device=cuda),
                   torch.zeros(size, size, device=cuda), 0.0)
-    hs.hogbom_step.launches = hs.hogbom_select.launches = 0
+    hs.hogbom_step.launches = 0
     assert r.perform(0) is False
-    assert hs.hogbom_select.launches == 0
     assert hs.hogbom_step.launches >= 8 * r.iteration_number > 0
     front = r._table.front
     out_res = front.residual_accessor.array.cpu().numpy()
@@ -1042,7 +1134,7 @@ from radler_tpu_torch.models.multiscale_fused import (  # noqa: E402
 ], ids=["plain", "fit_rms", "stop_on_negative", "positive_diverging"])
 def test_dense_subminor_loop_bit_equal_to_plain(cuda, options):
     """Multiscale's dense subminor loop on the kernels (B1 in linear mode
-    with the weight plane, and the select) against its plain run, from the
+    with the weight plane, its select folded in) against its plain run, from the
     same start: the same result, component cube and residual, bit for
     bit."""
     c = make_case(("linear", 4, 1, False), cuda, seed=5)
@@ -1059,7 +1151,7 @@ def test_dense_subminor_loop_bit_equal_to_plain(cuda, options):
     y, x = divmod(flat, WIDTH)
     outs = []
     for plain in (False, True):
-        hs.hogbom_step.launches = hs.hogbom_select.launches = 0
+        hs.hogbom_step.launches = 0
         res = c["res"].clone()
         _, comp, it, value, found, div = dense_subminor_loop(
             res, c["psfs"], weight, rms if use_rms else None, 0.02, 0.1, 3,
@@ -1069,12 +1161,12 @@ def test_dense_subminor_loop_bit_equal_to_plain(cuda, options):
             stop_on_negative=bool(options.get("stop_on_negative")),
             fitter=fitter, plain=plain,
         )
-        launches = (hs.hogbom_step.launches, hs.hogbom_select.launches)
-        outs.append(((it, value, found, div), comp, res, launches))
+        outs.append(((it, value, found, div), comp, res,
+                     hs.hogbom_step.launches))
     (rk, ck, resk, lk), (rp, cp, resp, lp) = outs
     assert rk == rp and rk[0] > 4
     assert torch.equal(ck, cp) and torch.equal(resk, resp)
-    assert lp == (0, 0) and lk[0] == lk[1] >= rk[0] - 3
+    assert lp == 0 and lk >= rk[0] - 3
 
 
 def multiscale_problem(size, n_channels, seed=5):
@@ -1305,15 +1397,18 @@ def assert_padding_untouched(res, c):
                          ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
 def test_facet_step_and_select_bit_equal_to_plain(cuda, case, n_facets,
                                                   shared, use_weight, boxed):
-    """The facet-mode pair against its plain version (the per-facet loop of
-    the single-cube plain versions); one facet over the whole box
-    reproduces the single-cube kernels bit for bit.  With true boxes the
-    step reads and writes nothing outside them, and a facet's partials past
-    its own runs hold no peak."""
+    """The facet-mode launch (the step, each facet's select folded in)
+    against its plain version (the per-facet loop of the single-cube plain
+    step and select); one facet over the whole box reproduces the
+    single-cube launch bit for bit, with the facet's limits (the other
+    facets stop at their iteration limit of 2).  With true boxes the step
+    reads and writes nothing outside them, and a facet's partials past its
+    own runs hold no peak.  Every facet's counter reads 0 after each
+    launch."""
     c = make_facet_case(case, n_facets, shared, cuda, boxed=boxed)
     params = hs.FacetLoopParams.make(
-        0.1, [0.0] * n_facets, [10.0] * n_facets, 4.0, [100] * n_facets,
-        False, cuda)
+        0.1, [0.0] * n_facets, [10.0] * n_facets, 4.0,
+        [100] + [2] * (n_facets - 1), False, cuda)
     outs = []
     for plain in (False, True):
         res = c["res"].clone()
@@ -1323,16 +1418,17 @@ def test_facet_step_and_select_bit_equal_to_plain(cuda, case, n_facets,
                                  c["raw"].clone(), c["raw"] * params.gain)
         step = hs.hogbom_step_facets_reference if plain else (
             hs.hogbom_step_facets)
-        select = hs.hogbom_select_facets_reference if plain else (
-            hs.hogbom_select_facets)
         for _ in range(3):
             partials = step(res, model, c["psfs"], buffers.values,
                             buffers.state, c["coefs"],
                             c["weight"] if use_weight else None,
                             mode=c["mode"], n_polarizations=c["P"],
-                            allow_negative=True, boxes=c["boxes"])
-            select(partials, res, buffers, params,
-                   c["weight"] if use_weight else None)
+                            allow_negative=True, boxes=c["boxes"],
+                            buffers=buffers, params=params,
+                            rms=c["weight"] if use_weight else None)
+            if not plain:
+                counters = buffers.workspace.counters.tolist()
+                assert counters == [0] * n_facets
         torch.cuda.synchronize()
         outs.append((res, model, partials, buffers))
     (rk, mk, pk, bk), (rp, mp, pp, bp) = outs
@@ -1359,13 +1455,13 @@ def test_facet_step_and_select_bit_equal_to_plain(cuda, case, n_facets,
                              torch.zeros(1, device=cuda), c["raw"][0].clone(),
                              c["raw"][0] * params.gain)
         for _ in range(3):
-            partials = hs.hogbom_step(
+            hs.hogbom_step(
                 res, model, c["psfs"] if shared else c["psfs"][0],
                 one.values, one.state, c["coefs"],
                 c["weight"][0] if use_weight else None, mode=c["mode"],
-                n_polarizations=c["P"], allow_negative=True)
-            hs.hogbom_select(partials, res, one, params.facet(0),
-                             c["weight"][0] if use_weight else None)
+                n_polarizations=c["P"], allow_negative=True, buffers=one,
+                params=params.facet(0),
+                rms=c["weight"][0] if use_weight else None)
         assert torch.equal(res, rk[0]) and torch.equal(model, mk[0])
         assert torch.equal(one.state, bk.state[0])
 
@@ -1412,9 +1508,11 @@ def test_facet_loop_bit_equal_to_plain(cuda, shared, boxed):
 
 def test_facet_step_over_more_facets_than_a_launch_takes(cuda):
     """More facets than one facet-step launch takes (FACETS_PER_LAUNCH):
-    the step launches in turns, each on its own facets' cubes, states and
-    partials, bit-equal to the plain version over ragged true boxes."""
-    n_facets, height, width = hs.FACETS_PER_LAUNCH + 3, 24, 40
+    300 facets, two launches, each on its own facets' cubes, states,
+    partials, counters and limits, bit-equal to the plain version over
+    ragged true boxes, three iterations with a stopped facet in each
+    launch."""
+    n_facets, height, width = 300, 24, 40
     rng = np.random.default_rng(6)
     res = torch.as_tensor(rng.normal(scale=0.01, size=(
         n_facets, 1, height, width)).astype(np.float32), device=cuda)
@@ -1428,25 +1526,41 @@ def test_facet_step_over_more_facets_than_a_launch_takes(cuda):
     yy, xx = np.mgrid[0:height, 0:width]
     psf = torch.as_tensor(np.exp(-((yy - height // 2) ** 2 + (
         xx - width // 2) ** 2) / 4.0).astype(np.float32), device=cuda)[None]
+    for f in (5, 290):
+        states[f][hs.ACTIVE] = 0
     state = torch.tensor(states, dtype=torch.int32, device=cuda)
-    values = res[torch.arange(n_facets), 0, state[:, 0].long(),
-                 state[:, 1].long()][:, None] * 0.1
+    raw = res[torch.arange(n_facets), :, state[:, 0].long(),
+              state[:, 1].long()]
     coefs = torch.ones(1, device=cuda)
+    params = hs.FacetLoopParams.make(
+        0.1, [0.0] * n_facets, [10.0] * n_facets, 4.0,
+        [2 + f % 3 for f in range(n_facets)], False, cuda)
     outs = []
     for step in (hs.hogbom_step_facets, hs.hogbom_step_facets_reference):
         r, m = res.clone(), torch.zeros_like(res)
+        buffers = hs.LoopBuffers(state.clone(),
+                                 torch.zeros(n_facets, device=cuda),
+                                 raw.clone(), raw * params.gain)
         launches = hs.hogbom_step_facets.launches
-        partials = step(r, m, psf, values, state, coefs, weight,
-                        mode="signed", n_polarizations=1, allow_negative=True,
-                        boxes=torch.tensor(boxes, dtype=torch.int32))
+        for _ in range(3):
+            partials = step(r, m, psf, buffers.values, buffers.state, coefs,
+                            weight, mode="signed", n_polarizations=1,
+                            allow_negative=True,
+                            boxes=torch.tensor(boxes, dtype=torch.int32),
+                            buffers=buffers, params=params, rms=weight)
         torch.cuda.synchronize()
-        outs.append((r, m, partials, hs.hogbom_step_facets.launches
-                     - launches))
-    (rk, mk, pk, nk), (rp, mp, pp, np_) = outs
+        outs.append((r, m, partials, buffers,
+                     hs.hogbom_step_facets.launches - launches))
+    (rk, mk, pk, bk, nk), (rp, mp, pp, bp, np_) = outs
     assert torch.equal(rk, rp) and torch.equal(mk, mp)
+    active = [f for f in range(n_facets) if f not in (5, 290)]
     for a, b in zip(pk, pp):
-        assert torch.equal(a, b)
-    assert (nk, np_) == (2, 0)
+        assert torch.equal(a[active], b[active])
+    for name in ("state", "value", "peak", "values"):
+        assert torch.equal(getattr(bk, name), getattr(bp, name)), name
+    assert bk.workspace.counters.tolist() == [0] * n_facets
+    assert torch.equal(bk.state[5], state[5])
+    assert (nk, np_) == (6, 0)
 
 
 @pytest.mark.parametrize("fit", ["coefficients", "none"])
