@@ -41,6 +41,18 @@ tensors and prints what it measured:
   against the plain version, and the tile axis timed at config 2's
   segments against today's B2 launched on each tile in turn and the plain
   version;
+* the Clark loop with the log-polynomial and the forced-term fit in B2's
+  body: B2 against its plain version with each fit (4 x 1, 2 x 2, 8 x 1
+  and 40 x 1 planes, with and without an rms factor, at every plan; the
+  tile axis over 8 ragged tiles), 8192^2 x 4 channels (1200 sources with
+  their own spectral index) through Radler.perform with each fit (rate,
+  launches, K and the plan, peak memory, the split of a perform, B2 at the
+  recorded state against plain and timed beside the projection), a 4096^2
+  x 4 log-polynomial perform on the Högbom kernel (the JAX package's rule),
+  512^2 x 4 on the card against the port's CPU run with each fit, the
+  joined-channel cube on chan 4 x tile 2 with a log-polynomial fit against
+  the port's CPU mesh run, and multiscale's Clark route with it (config
+  3's field, every B2 call replayed; 256^2 x 4 against the CPU);
 * MORE_SANE (two major iterations of a stand-in program written to a
   temporary directory, never the real one) and a PYTHON plug-in
   Högbom-cleaning in NumPy, at config 2's field: wall time and the share of
@@ -236,12 +248,60 @@ CO_SIZE = 256
 CO_LINEAR_CARD_VS_CPU = 1e-3
 # The card's published peaks (H100 SXM data sheet, 700 W): device memory
 # and float32 outside the tensor cores.
+# The spectral cells: make_problem's field over 8192^2 at config 1's
+# density (300 sources per 4096^2), 4 channels (weights 1), each source's
+# spectral index from N(-0.7, 0.2); the Clark loop with a 2-term
+# LOG_POLYNOMIAL or FORCED_TERMS fit in B2's body.  At 4096^2 the JAX
+# package's rule takes the Högbom kernel for such a fit (a 4096^2 x 4
+# perform, SPECTRAL_HOGBOM_ITERATIONS, shows it); at 512^2 x 4 the card's
+# B2 is held against the port's CPU run.
+SPECTRAL_SIZE = 8192
+SPECTRAL_SOURCES = 1200
+SPECTRAL_MHZ = (120.0, 140.0, 160.0, 180.0)
+SPECTRAL_INDEX = (-0.7, 0.2)
+SPECTRAL_HOGBOM_SIZE = 4096
+SPECTRAL_HOGBOM_SOURCES = 300
+SPECTRAL_HOGBOM_ITERATIONS = 1000
+SPECTRAL_CHECK_SIZE = 512
+SPECTRAL_CHECK_SOURCES = 40
+SPECTRAL_CHECK_ITERATIONS = 1000
+FIT_MODES = ("LOG_POLYNOMIAL", "FORCED_TERMS")
+# The parity contract (ROADMAP): the residual within 2e-6 absolute, the
+# model within 1e-4 of its peak; between card and CPU only the FFT
+# correction's rounding differs.
+FIT_RESIDUAL_ATOL = 2e-6
+FIT_MODEL_RTOL = 1e-4
+# The mesh's Clark loop with a fit, a tile's iterations (its CPU run is
+# the plain tile axis, each tile in turn).
+MESH_FIT_ITERATIONS = 150
+# B2 with a fit against its plain version: iterations a case (a third of
+# them at 40 planes), and the iterations of the timed launches at the
+# 8192^2 cell's recorded state (the plain version's turns pace both).
+FIT_CASE_ITERATIONS = 100
+FIT_TIMED_ITERATIONS = 100
+
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+# Each phase's heading, start and seconds, for the summary at the end.
+_phase_log = []
+
+
+def section(title=None):
+    """Close the running phase (print its seconds) and, given a title, print
+    the next one's heading and start it."""
+    now = time.perf_counter()
+    if _phase_log and _phase_log[-1][2] is None:
+        _phase_log[-1][2] = now - _phase_log[-1][1]
+        say(f"  (phase: {_phase_log[-1][2]:.1f} s)")
+    if title is not None:
+        _phase_log.append([title, now, None])
+        say(f"== {title} ==")
 
 
 # ---------------------------------------------------------------------------
@@ -881,12 +941,13 @@ def _subminor_replay(args, kwargs, plan=None):
 def _subminor_replay_all(name, args, kwargs):
     """The plain version of one B2 call against the kernel at every plan of
     :func:`_subminor_plans`: equal output bits and state, else raises.
-    Returns (the plain result, the plans, max |difference|)."""
+    Returns (the plain result, the plans, max |difference|, the plain
+    model)."""
     from radler_tpu_torch.kernels import subminor_loop as sl
 
     out_p, res_p, mod_p = _subminor_replay(args, kwargs)
     got_p = sl.read_result(out_p)
-    plans = _subminor_plans(*args[0].shape)
+    plans = _subminor_plans(*args[0].shape, fit=args[7])
     d = 0.0
     for plan in plans:
         out_k, res_k, mod_k = _subminor_replay(args, kwargs, plan)
@@ -898,24 +959,27 @@ def _subminor_replay_all(name, args, kwargs):
                 f"{_plan_name(plan)}: kernel {sl.read_result(out_k)}, "
                 f"plain {got_p}, max|diff| {d_plan:.3g}")
         d = max(d, d_plan)
-    return got_p, plans, d
+    return got_p, plans, d, mod_p
 
 
-def _subminor_plans(n, k):
-    """The launch plans a case is held to: the plan the wrapper takes by
-    itself, every cluster size (the state in shared memory where it fits),
-    the largest cluster with the state in global memory, and, where the raw
-    values can travel with the argmax, a cluster and one block where they
-    do not."""
+def _subminor_plans(n, k, fit=None):
+    """The launch plans a case (with the spectral fit ``fit``) is held to:
+    the plan the wrapper takes by itself, every cluster size (the state in
+    shared memory where it fits), the largest cluster with the state in
+    global memory, and, where the raw values travel with the argmax, a
+    cluster and one block where they do not."""
     from radler_tpu_torch.kernels import subminor_loop as sl
 
-    plans = [sl.cluster_plan(n, k)]
-    plans += [sl.cluster_plan(n, k, cluster_size=r) for r in CLUSTER_SIZES]
-    plans.append(sl.cluster_plan(n, k, cluster_size=sl.MAX_CLUSTER,
+    plans = [sl.cluster_plan(n, k, fit=fit)]
+    plans += [sl.cluster_plan(n, k, fit=fit, cluster_size=r)
+              for r in CLUSTER_SIZES]
+    plans.append(sl.cluster_plan(n, k, fit=fit, cluster_size=sl.MAX_CLUSTER,
                                  on_chip=False))
-    if n <= sl.SHIP_RAW_MAX_IMAGES:
-        plans.append(sl.cluster_plan(n, k, cluster_size=4, ship_raw=False))
-        plans.append(sl.cluster_plan(n, k, cluster_size=1, ship_raw=False))
+    if plans[0].ship_raw:
+        plans.append(sl.cluster_plan(n, k, fit=fit, cluster_size=4,
+                                     ship_raw=False))
+        plans.append(sl.cluster_plan(n, k, fit=fit, cluster_size=1,
+                                     ship_raw=False))
     return plans
 
 
@@ -975,8 +1039,8 @@ def phase_subminor_vs_plain():
             fitter = SpectralFitter(SpectralFittingMode.POLYNOMIAL, 2,
                                     state["meta"].frequencies,
                                     state["meta"].weights)
-            proj = torch.as_tensor(
-                np.asarray(fitter._projection, np.float32), device=DEVICE)
+            proj = sl.projection_fit(torch.as_tensor(
+                np.asarray(fitter._projection, np.float32), device=DEVICE))
         params = sl.SubminorParams.make(
             float(state["loop"].threshold) * 0.3, GAIN, 0,
             SUBMINOR_ITERATIONS, divergence, allow_negative, stop_neg)
@@ -984,7 +1048,7 @@ def phase_subminor_vs_plain():
         args = (loop._residual_k, torch.zeros_like(loop._residual_k),
                 loop._rms_k, loop._xs, loop._ys, state["psfs"], state["coef"],
                 proj, params)
-        got_p, plans, d = _subminor_replay_all(
+        got_p, plans, d, _ = _subminor_replay_all(
             name, args, dict(n_polarizations=P))
         if k_target == SUBMINOR_K_GLOBAL and plans[0].on_chip:
             raise AssertionError(f"{name}: the plan kept K = {state['k']} in "
@@ -1001,6 +1065,617 @@ def phase_subminor_vs_plain():
         worst = max(worst, d)
         del state
     return worst
+
+
+# ---------------------------------------------------------------------------
+# B2 with the log-polynomial and forced-term fits
+# ---------------------------------------------------------------------------
+
+
+def _b2_registers():
+    """ptxas's registers and spill stores for each instantiation of B2
+    (state place, exchange, fit), from this process's build log; returns
+    {(on_chip, ship_raw, fit): (registers, spill bytes)}."""
+    import re
+
+    from radler_tpu_torch.kernels import _build
+
+    fits = {1: "none/projection", 2: "log-polynomial", 3: "forced terms"}
+    out, current = {}, None
+    for line in _build.BuildInfo.log.splitlines():
+        m = re.search(r"subminor_loop_kernelILb(\d)ELb(\d)ELi(\d)EE", line)
+        if "Compiling entry function" in line:
+            current = (m.group(1), m.group(2), fits[int(m.group(3))]) if m \
+                else None
+        elif current and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            out[current] = [None, spill]
+        elif current and "Used" in line and "registers" in line:
+            out.setdefault(current, [None, 0])[0] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            current = None
+    for (on_chip, ship_raw, fit), (regs, spill) in sorted(out.items()):
+        say(f"  B2 on_chip={on_chip} ship_raw={ship_raw} {fit}: {regs} "
+            f"registers, {spill} bytes spill stores")
+    return out
+
+
+def _fit_for(mode, state, seed):
+    """B2's fit of ``mode`` (2 terms) for a :func:`_subminor_state`
+    candidate set; the forced terms a spectral-index image drawn from
+    SPECTRAL_INDEX, gathered at the candidates."""
+    from radler_tpu_torch.models.subminor import fit_arguments
+    from radler_tpu_torch.ops.spectral_fitting import SpectralFitter
+    from radler_tpu_torch.settings import SpectralFittingMode
+
+    meta = state["meta"]
+    fitter = SpectralFitter(getattr(SpectralFittingMode, mode), 2,
+                            meta.frequencies, meta.weights)
+    if mode == "FORCED_TERMS":
+        rng = np.random.default_rng(seed)
+        fitter.set_forced_terms(torch.as_tensor(rng.normal(
+            *SPECTRAL_INDEX, (1, SUBMINOR_SIZE, SUBMINOR_SIZE)).astype(
+                np.float32), device=DEVICE))
+    loop = state["loop"]
+    return fit_arguments(fitter, DEVICE, loop._xs, loop._ys)
+
+
+def _tile_fit_check(label, args, counts, P):
+    """B2's tile axis on ``args`` (the single launch's arguments) cut into
+    the segments ``counts``: the kernel at its own plan and at the largest
+    cluster with the state in global memory and no raw values, against
+    the plain version, bit for bit.  Returns max |difference|."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]),
+                              dtype=torch.int32, device=DEVICE)
+    n = args[0].shape[0]
+    plans = [None, sl.cluster_plan(n, max(counts), fit=args[7],
+                                   cluster_size=sl.MAX_CLUSTER, on_chip=False,
+                                   ship_raw=False)]
+    outs = []
+    for plan in ["plain"] + plans:
+        res, model = args[0].clone(), args[1].clone()
+        run = (res, model) + tuple(args[2:])
+        if plan == "plain":
+            out = sl.subminor_loop_tiles_reference(*run, counts,
+                                                   n_polarizations=P)
+        else:
+            out = sl.subminor_loop_tiles(*run, offsets, counts,
+                                         n_polarizations=P, _plan=plan)
+        torch.cuda.synchronize()
+        outs.append((out, res, model))
+    (op, rp, mp), d = outs[0], 0.0
+    for ok, rk, mk in outs[1:]:
+        d = max(d, float((rk - rp).abs().max()), float((mk - mp).abs().max()))
+        if not (torch.equal(ok, op) and torch.equal(rk, rp)
+                and torch.equal(mk, mp)):
+            raise AssertionError(
+                f"{label}: B2's tile axis and its plain version disagree: "
+                f"kernel {sl.read_tile_results(ok)}, plain "
+                f"{sl.read_tile_results(op)}")
+    iterations = [it for it, _, _ in sl.read_tile_results(op)]
+    say(f"  {label}, tile axis over {len(counts)} tiles K {counts}: "
+        f"iterations {iterations}, kernel equal to plain at its own plan and "
+        f"R=16 global, no raw values; max|diff| {d:.3g}")
+    if max(iterations) == 0:
+        raise AssertionError(f"{label}: the tile axis made no iteration")
+    return d
+
+
+def phase_subminor_fits_vs_plain():
+    """B2 with the log-polynomial and the forced-term fit in its body against
+    its plain version on the card: 4 x 1, 2 x 2, 8 x 1 and 40 x 1 planes
+    (the ship-raw exchange up to 8 planes, the owner's above), with and
+    without an rms factor, over :func:`_subminor_state`'s positive and
+    negative sources, negatives allowed (the log-polynomial's sign); each at
+    every plan of :func:`_subminor_plans`.  Then each fit on B2's tile axis
+    over 8 ragged tiles, an empty one among them.  Equal output bits and
+    state, else raises.  Returns {mode: max |difference|}."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    start = time.perf_counter()
+    _b2_registers()
+    worst = {}
+    shapes = ((4, 1), (2, 2), (8, 1), (40, 1))
+    for mode in FIT_MODES:
+        worst[mode], negatives_seen = 0.0, 0
+        for i, ((C, P), use_rms) in enumerate(
+                itertools.product(shapes, (False, True))):
+            state = _subminor_state(C, P, use_rms, True, seed=60 + i)
+            fit = _fit_for(mode, state, seed=80 + i)
+            loop = state["loop"]
+            iterations = FIT_CASE_ITERATIONS // (1 if C * P <= 8 else 3)
+            params = sl.SubminorParams.make(
+                float(loop.threshold) * 0.3, GAIN, 0, iterations, 4.0, True,
+                False)
+            args = (loop._residual_k, torch.zeros_like(loop._residual_k),
+                    loop._rms_k, loop._xs, loop._ys, state["psfs"],
+                    state["coef"], fit, params)
+            name = f"{mode} {C}ch x {P}pol rms={use_rms:d}"
+            got_p, plans, d, mod_p = _subminor_replay_all(
+                name, args, dict(n_polarizations=P))
+            negatives = int((mod_p.sum(0) < 0).sum())
+            say(f"  {name:34s} K={state['k']}: plain {got_p}, "
+                f"{negatives} negative components; kernel equal at "
+                f"{_plan_name(plans[0])} (its own plan), "
+                f"{', '.join(_plan_name(p) for p in plans[1:])}; max|diff| "
+                f"{d:.3g}")
+            if got_p[0] < 10:
+                raise AssertionError(f"{name}: {got_p[0]} iterations")
+            negatives_seen += negatives
+            worst[mode] = max(worst[mode], d)
+            if (C, P, use_rms) == (2, 2, True):
+                k = state["k"]
+                counts = [150, 0, 37, 1200, 5, 640, 300]
+                counts.append(k - sum(counts))
+                worst[mode] = max(worst[mode], _tile_fit_check(
+                    name, args, counts, P))
+            del state
+        if negatives_seen == 0:
+            raise AssertionError(f"{mode}: no case took a negative component")
+    say(f"  ({time.perf_counter() - start:.1f} s)")
+    return worst
+
+
+def make_spectral_problem(size, n_sources, seed=SEED):
+    """:func:`make_problem`'s field over the SPECTRAL_MHZ channels, made on
+    the card with torch.fft: each source's amplitude (0.2 to 1.0 at the
+    reference frequency, the channels' mean) times (nu / nu_ref)^alpha, alpha
+    drawn from N(SPECTRAL_INDEX); each channel's PSF make_problem's with its
+    width scaled by nu_ref / nu.  Returns (psfs [C, H, W], residual [C, H,
+    W], the spectral-index map [1, H, W] (each source's alpha at its pixel,
+    the mean elsewhere), channel edges [C, 2] in Hz)."""
+    rng = np.random.default_rng(seed)
+    nu = np.array(SPECTRAL_MHZ) * 1e6
+    ref = nu.mean()
+    margin = size // 8
+    ys = rng.integers(margin, size - margin, n_sources)
+    xs = rng.integers(margin, size - margin, n_sources)
+    amps = rng.uniform(0.2, 1.0, n_sources)
+    alphas = rng.normal(*SPECTRAL_INDEX, n_sources)
+    dev = torch.device(DEVICE)
+    at = (torch.as_tensor(ys, device=dev), torch.as_tensor(xs, device=dev))
+    index_map = np.full((1, size, size), SPECTRAL_INDEX[0], np.float32)
+    index_map[0, ys[::-1], xs[::-1]] = alphas[::-1]  # the first one wins
+    d = torch.arange(size, device=dev, dtype=torch.float32) - size // 2
+    r2 = d[:, None] ** 2 + d[None, :] ** 2
+    psfs = torch.empty((len(nu), size, size), device=dev)
+    residual = torch.empty_like(psfs)
+    for c, f in enumerate(nu):
+        s = float(ref / f)
+        psfs[c] = (torch.exp(-r2 / (2.0 * (2.5 * s) ** 2))
+                   + 0.08 * torch.exp(-(torch.sqrt(r2) - 12.0 * s) ** 2
+                                      / (2.0 * (2.0 * s) ** 2)))
+        sky = torch.zeros((size, size), device=dev)
+        sky.index_put_(at, torch.as_tensor(amps * (f / ref) ** alphas,
+                                           dtype=torch.float32, device=dev),
+                       accumulate=True)
+        residual[c] = torch.fft.irfft2(
+            torch.fft.rfft2(sky) * torch.fft.rfft2(
+                torch.fft.ifftshift(psfs[c])), s=(size, size))
+        del sky
+    del r2, d
+    freqs = np.stack([nu - 5e6, nu + 5e6], axis=1)
+    return psfs, residual, index_map, freqs
+
+
+def _spectral_settings(size, iterations, mode, forced_filename=None):
+    """Clark (the default) with the 2-term ``mode`` fit."""
+    import radler_tpu_torch as rd
+
+    s = _settings(size, iterations, clark=True)
+    s.spectral_fitting.mode = getattr(rd.SpectralFittingMode, mode)
+    s.spectral_fitting.terms = 2
+    if mode == "FORCED_TERMS":
+        s.spectral_fitting.forced_filename = forced_filename
+    return s
+
+
+def _spectral_radler(settings, psfs, res0, freqs, device=None):
+    import radler_tpu_torch as rd
+
+    extra = {} if device is None else {"device": device}
+    return rd.Radler(settings, psfs, res0.clone(), torch.zeros_like(res0),
+                     0.0, frequencies=freqs, weights=np.ones(len(freqs)),
+                     **extra)
+
+
+@contextlib.contextmanager
+def _recording_b2(calls):
+    """Record each B2 call of the Clark route (copies of its inputs)."""
+    from radler_tpu_torch.models import subminor as subminor_module
+
+    real = subminor_module.subminor_loop
+
+    def recording(*args, **kwargs):
+        calls.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                            for a in args), kwargs))
+        return real(*args, **kwargs)
+
+    subminor_module.subminor_loop = recording
+    try:
+        yield
+    finally:
+        subminor_module.subminor_loop = real
+
+
+def _b2_fit_times(call, fitter_args):
+    """B2 at a recorded call's candidate state, FIT_TIMED_ITERATIONS
+    iterations from threshold 0, with the call's fit: kernel against plain
+    first (bit-equal), then timed by CUDA events in turns plain, the fit,
+    the polynomial projection of the same channels, no fit, and back.
+    Returns a dict (ms, plain_ms, projection_ms, none_ms, max|diff|,
+    bound)."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+    from radler_tpu_torch.ops.spectral_fitting import SpectralFitter
+    from radler_tpu_torch.settings import SpectralFittingMode
+
+    args, kwargs = call
+    res0, _, rms_k, xs, ys, psfs, coef, fit, _ = args
+    n, k = res0.shape
+    params = sl.SubminorParams.make(0.0, GAIN, 0, FIT_TIMED_ITERATIONS, 0.0,
+                                    True, False)
+    projection = sl.projection_fit(torch.as_tensor(np.asarray(SpectralFitter(
+        SpectralFittingMode.POLYNOMIAL, 2, *fitter_args)._projection,
+        np.float32), device=DEVICE))
+    res_k, model_k = res0.clone(), torch.zeros_like(res0)
+
+    def run(kind, res=res_k, model=model_k):
+        chosen = {"fit": fit, "plain": fit, "projection": projection,
+                  "none": None}[kind]
+        a = (res, model, rms_k, xs, ys, psfs, coef, chosen, params)
+        if kind == "plain":
+            return sl.subminor_loop_reference(*a, **kwargs)
+        return sl.subminor_loop(*a, **kwargs)
+
+    finals = []
+    for kind in ("fit", "plain"):
+        res, model = res0.clone(), torch.zeros_like(res0)
+        out = run(kind, res, model)
+        torch.cuda.synchronize()
+        finals.append((out, res, model))
+    (ok, rk, mk), (op, rp, mp) = finals
+    d = max(float((rk - rp).abs().max()), float((mk - mp).abs().max()))
+    if not (torch.equal(ok, op) and d == 0.0):
+        raise AssertionError(f"B2 with its fit and plain disagree at the "
+                             f"recorded state: kernel {sl.read_result(ok)}, "
+                             f"plain {sl.read_result(op)}")
+    readings = {"plain": [], "fit": [], "projection": [], "none": []}
+    for kind in ("plain", "fit", "projection", "none", "none", "projection",
+                 "fit", "plain"):
+        ms, _ = _time_ms(lambda: run(kind), 1 if kind == "plain" else 5)
+        readings[kind].append(ms)
+    mean = {kind: sum(v) / len(v) for kind, v in readings.items()}
+    # The least work: the [N, K] state read and written, the model written,
+    # the positions (and rms, and forced terms) read, the coefficients, the
+    # fit's constants and the PSF values gathered; per iteration and candidate about
+    # four float32 operations a plane (the fit's own are a few hundred an
+    # iteration, nothing beside them).
+    # The PSF values are gathered, one a candidate and a channel each
+    # iteration: at most the run's iterations times K times the channels,
+    # never more than the whole PSF.
+    iterations = sl.read_result(ok)[0]
+    rows = fit.forced_rows
+    psf_values = min(psfs.numel(), iterations * k * psfs.shape[0])
+    n_bytes = 4 * (3 * n * k + 2 * k + (k if rms_k is not None else 0)
+                   + rows * k + n + fit.shared_floats(n) + psf_values)
+    bound = bound_ms(n_bytes, iterations * k * 4 * n)
+    return dict(ms=mean["fit"], plain_ms=mean["plain"],
+                projection_ms=mean["projection"], none_ms=mean["none"],
+                readings=readings, worst=d, bound=bound)
+
+
+def phase_spectral_performs():
+    """The spectral cells: :func:`make_spectral_problem`'s 8192^2 x 4
+    channels (1200 sources), Clark (the default), ITERATIONS minor
+    iterations, gain GAIN, threshold THRESHOLD, through Radler.perform with
+    a 2-term LOG_POLYNOMIAL and a 2-term FORCED_TERMS fit (the term image
+    the sources' spectral-index map, written to a FITS file as a user gives
+    it).  For each: a recorded warm-up and the best of 2 (minor iterations
+    per second, B2 and B1 launches of each perform: 1 and 0), K and the
+    plan, peak device memory, the split of one perform (selection; the fit's
+    constants, B2 and its read; scatter and FFT correction), and B2 at the
+    recorded state against its plain version and timed beside the
+    projection.  Then a 4096^2 x 4 log-polynomial perform, which takes the
+    Högbom kernel by the JAX package's rule (B1 launches, no B2).  Returns
+    {mode: dict}."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+    from radler_tpu_torch.models import subminor as subminor_module
+    from radler_tpu_torch.utils.fits import write_fits_image
+    import tempfile
+
+    start = time.perf_counter()
+    psfs, res, index_map, freqs = make_spectral_problem(SPECTRAL_SIZE,
+                                                        SPECTRAL_SOURCES)
+    torch.cuda.synchronize()
+    say(f"  problem made on the card in {time.perf_counter() - start:.1f} s")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        forced = os.path.join(tmp, "forced.fits")
+        write_fits_image(forced, index_map)
+        for mode in FIT_MODES:
+            settings = _spectral_settings(SPECTRAL_SIZE, ITERATIONS, mode,
+                                          forced)
+
+            def make():
+                return _spectral_radler(settings, psfs, res, freqs)
+
+            calls = []
+            with _recording_b2(calls):
+                first = _run_perform(make)
+            runs = []
+            for _ in range(2):
+                run = _run_perform(make)
+                runs.append(run + ((sl.subminor_loop.launches,),))
+                del run
+            launches = [(r[7][0], r[2][1]) for r in runs]
+            if len(calls) != 1 or any(lc != (1, 0) for lc in launches):
+                raise AssertionError(f"{mode}: {len(calls)} recorded B2 "
+                                     f"calls, (B2, B1) launches {launches}")
+            n = first[0]
+            if not (all(r[0] == n for r in runs) and torch.equal(
+                    runs[0][4], first[4])):
+                raise AssertionError(f"{mode}: the performs differ")
+            split, memory = {}, {}
+            restore = _timed_steps(split, [
+                (subminor_module.SubMinorLoop, "find_peak_positions",
+                 "selection"),
+                (subminor_module.SubMinorLoop, "run",
+                 "fit constants, B2 and its read"),
+                (subminor_module.SubMinorLoop, "correct_residual_dirty",
+                 "scatter and FFT correction"),
+            ], memory=memory)
+            try:
+                timed = _run_perform(make)
+            finally:
+                restore()
+            if not torch.equal(timed[4], first[4]):
+                raise AssertionError(f"{mode}: the split perform differs")
+            args = calls[0][0]
+            k, fit = args[0].shape[1], args[7]
+            plan = sl.cluster_plan(args[0].shape[0], k, fit=fit)
+            best = min(r[1] for r in runs)
+            out_res = first[4]
+            say(f"  {mode}: {n} iterations, K = {k}, plan "
+                f"{_plan_name(plan)}; seconds "
+                f"{', '.join(f'{r[1]:.4f}' for r in runs)}; best "
+                f"{n / best:.1f} minor iterations/s; (B2, B1) launches a "
+                f"perform {launches[0]}; peak memory "
+                f"{max(r[6] for r in runs):.1f} MiB above the inputs "
+                f"(inputs {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+                "allocated)")
+            say("  split of one perform: " + ", ".join(
+                f"{name} {sec * 1e3:.3f} ms ({calls_} call"
+                f"{'s' if calls_ > 1 else ''})"
+                for name, (calls_, sec) in split.items()))
+            say(f"  residual rms {rms(res):.6g} -> {rms(out_res):.6g}; "
+                f"model sum {float(first[5].double().sum()):.6g}")
+            if not (rms(out_res) < rms(res) and n > 0):
+                raise AssertionError(f"{mode}: the perform did not clean")
+            del first, runs, timed, out_res
+            times = _b2_fit_times(calls[0], (freqs.mean(axis=1),
+                                             np.ones(len(freqs))))
+            say(f"  B2 at the recorded state, {FIT_TIMED_ITERATIONS} "
+                f"iterations from threshold 0: kernel equal to plain "
+                f"(max|diff| {times['worst']:.3g}); ms " + "; ".join(
+                    f"{kind} {', '.join(f'{v:.4f}' for v in values)}"
+                    for kind, values in times["readings"].items())
+                + f"; {times['ms'] * 1e3 / FIT_TIMED_ITERATIONS:.2f} us "
+                f"an iteration with the fit, "
+                f"{times['projection_ms'] * 1e3 / FIT_TIMED_ITERATIONS:.2f}"
+                f" with the projection; bound {times['bound'][0]:.4f} ms "
+                f"({times['bound'][1]})")
+            out[mode] = dict(rate=n / best, launches=launches[0][0], k=k,
+                             plan=_plan_name(plan), split=split, **times)
+            del calls
+            torch.cuda.empty_cache()
+    del psfs, res, index_map
+    torch.cuda.empty_cache()
+
+    # The JAX package's rule at 4096^2: a fit that is not the projection
+    # takes the Högbom kernel.
+    psfs, res, _, freqs = make_spectral_problem(SPECTRAL_HOGBOM_SIZE,
+                                                SPECTRAL_HOGBOM_SOURCES)
+    settings = _spectral_settings(SPECTRAL_HOGBOM_SIZE,
+                                  SPECTRAL_HOGBOM_ITERATIONS,
+                                  "LOG_POLYNOMIAL")
+    run = _run_perform(lambda: _spectral_radler(settings, psfs, res, freqs))
+    b2, b1 = sl.subminor_loop.launches, run[2][1]
+    say(f"  {SPECTRAL_HOGBOM_SIZE}^2 x 4 LOG_POLYNOMIAL: {run[0]} "
+        f"iterations in {run[1]:.4f} s; B1 launches {b1}, B2 launches {b2}")
+    if not (b2 == 0 and b1 >= run[0] > 0):
+        raise AssertionError(f"{SPECTRAL_HOGBOM_SIZE}^2 with a "
+                             "log-polynomial fit did not take the Högbom "
+                             "kernel")
+    del psfs, res, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spectral_perform_on(device, settings, psfs, res0, freqs):
+    """One perform on ``device`` of copies of the inputs; returns (again,
+    iterations, residual, model on the host, B2 launches)."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    psfs, res = psfs.to(device), res0.to(device).clone()
+    model = torch.zeros_like(res)
+    r = rd.Radler(settings, psfs, res, model, 0.0, frequencies=freqs,
+                  weights=np.ones(len(freqs)), device=device)
+    _reset_counts()
+    again = r.perform(0)
+    launches = sl.subminor_loop.launches
+    return (again, r.iteration_number,
+            torch.stack([e.residual_accessor.array for e in r._table]).cpu(),
+            torch.stack([e.model_accessor.array for e in r._table]).cpu(),
+            launches)
+
+
+def phase_spectral_card_vs_cpu():
+    """:func:`make_spectral_problem` at SPECTRAL_CHECK_SIZE^2 x 4 with each
+    fit, Clark, on the card (B2 with the fit in its body: the Högbom rule's
+    size limit set to 0 for the run) against the port's CPU run (its plain
+    version): equal ``perform()`` results and iteration counts, the
+    residual within FIT_RESIDUAL_ATOL, the model within FIT_MODEL_RTOL of
+    its peak."""
+    from radler_tpu_torch.models import generic_clean as gc
+    from radler_tpu_torch.utils.fits import write_fits_image
+    import tempfile
+
+    psfs, res, index_map, freqs = make_spectral_problem(
+        SPECTRAL_CHECK_SIZE, SPECTRAL_CHECK_SOURCES)
+    limit = gc._HOGBOM_FALLBACK_PIXELS
+    gc._HOGBOM_FALLBACK_PIXELS = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            forced = os.path.join(tmp, "forced.fits")
+            write_fits_image(forced, index_map)
+            for mode in FIT_MODES:
+                settings = _spectral_settings(
+                    SPECTRAL_CHECK_SIZE, SPECTRAL_CHECK_ITERATIONS, mode,
+                    forced)
+                start = time.perf_counter()
+                card = _spectral_perform_on(DEVICE, settings, psfs, res,
+                                            freqs)
+                t_card = time.perf_counter() - start
+                start = time.perf_counter()
+                cpu = _spectral_perform_on("cpu", settings, psfs, res, freqs)
+                t_cpu = time.perf_counter() - start
+                d_res = float((card[2] - cpu[2]).abs().max())
+                peak = float(cpu[3].abs().max())
+                d_mod = float((card[3] - cpu[3]).abs().max())
+                say(f"  {mode}: card {card[1]} iterations ({t_card:.2f} s, "
+                    f"{card[4]} B2 launches), CPU {cpu[1]} ({t_cpu:.2f} s); "
+                    f"perform() {card[0]} / {cpu[0]}; max|dres| {d_res:.3g}, "
+                    f"max|dmodel| {d_mod:.3g} of the model peak {peak:.4g}")
+                if not (card[:2] == cpu[:2] and card[1] > 0 and card[4] >= 1
+                        and d_res <= FIT_RESIDUAL_ATOL
+                        and d_mod <= FIT_MODEL_RTOL * peak):
+                    raise AssertionError(f"{mode}: the card and the CPU "
+                                         "disagree")
+    finally:
+        gc._HOGBOM_FALLBACK_PIXELS = limit
+
+
+def phase_mesh_clark_fit(psfs, res, kwargs):
+    """The joined-channel cube on a chan 4 x tile 2 mesh (the mesh's Clark
+    loop: B2's tile axis) with a 2-term LOG_POLYNOMIAL fit in its body,
+    MESH_FIT_ITERATIONS a tile: a recorded perform and a timed one on the
+    card (one tile launch, no B1 or single B2 launch), the split and the
+    banded emulation, every tile replayed against the plain version, and
+    the port's CPU mesh run of the same cube: equal counts, the residual
+    within FIT_RESIDUAL_ATOL, the model within FIT_MODEL_RTOL of its peak.
+    Returns a dict."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    settings = _mesh_settings(SIZE, MESH_FIT_ITERATIONS, True)
+    settings.generic.use_sub_minor_optimization = True
+    settings.spectral_fitting.mode = rd.SpectralFittingMode.LOG_POLYNOMIAL
+    settings.spectral_fitting.terms = 2
+
+    def make(device=None):
+        extra = {} if device is None else {"device": device}
+        p = psfs if device is None else psfs.to(device)
+        r0 = res if device is None else res.to(device)
+        return lambda: rd.Radler(settings, p, r0.clone(),
+                                 torch.zeros_like(r0), 0.0, **kwargs, **extra)
+
+    calls, tile_calls = [], []
+    with _recording_mesh_clark(calls, tile_calls):
+        first = _run_perform(make())
+    timed = _run_perform(make())
+    launches = (sl.subminor_loop_tiles.launches, sl.subminor_loop.launches,
+                timed[2][1])
+    if len(calls) != 1 or len(tile_calls) != 1 or launches != (1, 0, 0):
+        raise AssertionError(f"mesh with a fit: {len(calls)} calls, "
+                             f"(tile, single B2, B1) launches {launches}")
+    if timed[0] != first[0] or not torch.equal(timed[4], first[4]):
+        raise AssertionError("mesh with a fit: the performs differ")
+    split, counts = _mesh_clark_split(calls[0], first[4])
+    worst = _check_tile_replay("mesh, log-polynomial", tile_calls)
+    start = time.perf_counter()
+    r = make("cpu")()
+    r.perform(0)
+    t_cpu = time.perf_counter() - start
+    cpu_res = torch.stack([e.residual_accessor.array for e in r._table])
+    cpu_mod = torch.stack([e.model_accessor.array for e in r._table])
+    d_res = float((first[4].cpu() - cpu_res).abs().max())
+    peak = float(cpu_mod.abs().max())
+    d_mod = float((first[5].cpu() - cpu_mod).abs().max())
+    n = first[0]
+    say(f"  chan 4 x tile 2, LOG_POLYNOMIAL: {n} iterations summed over the "
+        f"tiles, K per tile {counts}; {timed[1]:.4f} s, "
+        f"{n / timed[1]:.1f} minor iterations/s; (tile, single B2, B1) "
+        f"launches {launches}")
+    say("  split of one perform's mesh subminor: " + ", ".join(
+        f"{name} {sec * 1e3:.3f} ms" for name, sec in split.items()))
+    say(f"  the port's CPU mesh run: {r.iteration_number} iterations "
+        f"({t_cpu:.1f} s); max|dres| {d_res:.3g}, max|dmodel| {d_mod:.3g} "
+        f"of the model peak {peak:.4g}")
+    if not (r.iteration_number == n > 0 and d_res <= FIT_RESIDUAL_ATOL
+            and d_mod <= FIT_MODEL_RTOL * peak):
+        raise AssertionError("the mesh with a fit: card and CPU disagree")
+    return dict(n=n, rate=n / timed[1], launches=launches[0], worst=worst,
+                counts=counts)
+
+
+def phase_ms_clark_fit():
+    """Multiscale's Clark route (the host path with the dense loop's limit
+    at 0, as config 3's Clark route) with a 2-term LOG_POLYNOMIAL fit: config
+    3's field through Radler.perform on the card (rate, B2 launches, no
+    B1), every B2 call replayed against its plain version at every plan;
+    then :func:`make_ms_check_problem`'s field against the port's CPU run
+    at the multiscale gate (equal iterations and components per scale,
+    cubes within MS_CARD_VS_CPU).  Returns a dict."""
+    psfs, residual = make_diffuse_problem(MS_SIZE, MS_CHANNELS)
+    psf_d = torch.as_tensor(psfs, device=DEVICE)
+    res_d = torch.as_tensor(residual, device=DEVICE)
+    del psfs, residual
+    settings = _ms_settings(MS_SIZE, MS_ITERATIONS, "LOG_POLYNOMIAL")
+    calls = []
+    with _recording_b2(calls):
+        first = _ms_perform(psf_d, res_d, settings, route="clark")
+    run = _ms_perform(psf_d, res_d, settings, route="clark")
+    n, seconds, (b1, b2) = run[0], run[1], run[2]
+    say(f"  config 3's field, LOG_POLYNOMIAL, Clark route: {n} iterations "
+        f"in {seconds:.4f} s, {n / seconds:.1f} minor iterations/s; B2 "
+        f"launches {b2}, B1 {b1}; {run[4]} subminor passes; channel 0's "
+        f"residual rms {rms(res_d[0]):.6g} -> {rms(run[5][0]):.6g}")
+    if not (b1 == 0 and b2 == len(calls) > 0 and first[0] == n
+            and torch.equal(first[5], run[5])):
+        raise AssertionError("the multiscale Clark route with a fit ran the "
+                             "wrong kernels or differs between performs")
+    del first, run, psf_d, res_d
+    worst = 0.0
+    for i, (args, kwargs) in enumerate(calls):
+        _, _, d, _ = _subminor_replay_all(f"multiscale LOG_POLYNOMIAL pass {i}",
+                                          args, kwargs)
+        worst = max(worst, d)
+    say(f"  its {len(calls)} B2 calls replayed: kernel equal to plain at "
+        f"every plan; max|diff| {worst:.3g}")
+    del calls
+    torch.cuda.empty_cache()
+    psfs, residual = make_ms_check_problem(MS_CHECK_SIZE, MS_CHECK_CHANNELS)
+    cpu, card = [_ms_check_perform(psfs, residual, MS_CHECK_ITERATIONS,
+                                   device, "clark", "LOG_POLYNOMIAL")
+                 for device in ("cpu", DEVICE)]
+    (n_c, comp_c, res_c, mod_c, t_c, _), (n_g, comp_g, res_g, mod_g, t_g, _) = (
+        cpu, card)
+    scale = max(1.0, float(np.abs(res_c).max()))
+    d_res = float(np.abs(res_g - res_c).max()) / scale
+    d_mod = float(np.abs(mod_g - mod_c).max()) / scale
+    say(f"  {MS_CHECK_SIZE}^2 x {MS_CHECK_CHANNELS}, LOG_POLYNOMIAL, Clark "
+        f"route: card {n_g} iterations ({t_g:.2f} s), CPU {n_c} "
+        f"({t_c:.2f} s); components per scale {comp_g} / {comp_c}; "
+        f"max|dres| {d_res:.3g}, max|dmodel| {d_mod:.3g} of max(1, "
+        "|res|max)")
+    if not (n_g == n_c > 0 and comp_g == comp_c and d_res <= MS_CARD_VS_CPU
+            and d_mod <= MS_CARD_VS_CPU):
+        raise AssertionError("the multiscale Clark route with a fit: card "
+                             "and CPU disagree")
+    return dict(rate=n / seconds, b2=b2, worst=worst)
 
 
 def _clark_loop(res_d, meta, settings):
@@ -2022,7 +2697,7 @@ def phase_linear_b1():
     return (worst, sum(times[False]) / 2, sum(times[True]) / 2, n_bytes)
 
 
-def _ms_settings(size, iterations):
+def _ms_settings(size, iterations, fit_mode="POLYNOMIAL"):
     import radler_tpu_torch as rd
 
     s = rd.Settings()
@@ -2031,7 +2706,7 @@ def _ms_settings(size, iterations):
     s.minor_iteration_count = iterations
     s.minor_loop_gain = 0.1
     s.major_loop_gain = 0.85
-    s.spectral_fitting.mode = rd.SpectralFittingMode.POLYNOMIAL
+    s.spectral_fitting.mode = getattr(rd.SpectralFittingMode, fit_mode)
     s.spectral_fitting.terms = 2
     return s
 
@@ -2458,7 +3133,7 @@ def _check_config3_b2(calls):
     start = time.perf_counter()
     worst, ks, done, own = 0.0, [], [], set()
     for i, (args, kwargs) in enumerate(calls):
-        (iteration, _, _), plans, d = _subminor_replay_all(
+        (iteration, _, _), plans, d, _ = _subminor_replay_all(
             f"config 3, Clark pass {i}", args, kwargs)
         ks.append(args[0].shape[1])
         done.append(iteration - args[8].start_iteration)
@@ -2524,9 +3199,11 @@ def phase_ms_contract(route):
         raise AssertionError("the multiscale point-source contract failed")
 
 
-def _ms_check_perform(psfs, residual, iterations, device, route):
-    """One perform of config 3's settings at ``iterations`` on a copy of
-    ``residual`` on ``device`` on ``route``; returns (iterations,
+def _ms_check_perform(psfs, residual, iterations, device, route,
+                      fit_mode="POLYNOMIAL"):
+    """One perform of config 3's settings (with the 2-term ``fit_mode``
+    fit) at ``iterations`` on a copy of ``residual`` on ``device`` on
+    ``route``; returns (iterations,
     components per scale, residual, model, seconds, (the major iteration's
     first threshold, the biased peak its last stop test read) on the host
     path, the final biased peak on the fused route)."""
@@ -2558,7 +3235,7 @@ def _ms_check_perform(psfs, residual, iterations, device, route):
     try:
         with _ms_route(route):
             start = time.perf_counter()
-            settings = _ms_settings(size, iterations)
+            settings = _ms_settings(size, iterations, fit_mode)
             r = rd.Radler(settings, psfs, res, model, 0.0,
                           frequencies=_ms_frequencies(n_channels),
                           device=device)
@@ -3816,9 +4493,11 @@ def _mesh_clark_split(call, out_res):
     )
     from radler_tpu_torch.parallel import mesh as pm
 
+    from radler_tpu_torch.models.subminor import fit_arguments
+
     (mesh, residual, psfs, rms_factor, window, considered, params), kwargs = (
         call)
-    meta, proj = kwargs["meta"], kwargs.get("proj")
+    meta, fitter = kwargs["meta"], kwargs.get("fitter")
     n, height, width = residual.shape
     ph, pw = choose_padded_size(width, height, 1.1)
     coef = torch.as_tensor(linear_integration_coefficients(meta),
@@ -3840,7 +4519,9 @@ def _mesh_clark_split(call, out_res):
     res_k = cand.residual_k.clone()
     results = step("B2 tile launch and read", lambda: sl.read_tile_results(
         sl.subminor_loop_tiles(res_k, model_k, cand.rms_k, cand.xs, cand.ys,
-                               psfs, coef, proj, params, cand.offsets,
+                               psfs, coef, fit_arguments(
+                                   fitter, residual.device, cand.xs,
+                                   cand.ys), params, cand.offsets,
                                cand.counts,
                                n_polarizations=meta.n_polarizations)))
     iteration, _, _ = pm.reduce_tile_results(results, params.start_iteration)
@@ -3877,7 +4558,8 @@ def _mesh_clark_split(call, out_res):
         band_model = torch.zeros_like(own.residual_k)
         band_results.append(sl.read_result(sl.subminor_loop(
             own.residual_k, band_model, own.rms_k, own.xs, own.ys, psfs,
-            coef, proj, params, n_polarizations=meta.n_polarizations)))
+            coef, fit_arguments(fitter, residual.device, own.xs, own.ys),
+            params, n_polarizations=meta.n_polarizations)))
         delta.index_copy_(1, own.flat, band_model)
     emulated = correct_residual(residual, delta.view(n, height, width), psfs,
                                 ph, pw, meta.n_channels)
@@ -3968,30 +4650,32 @@ def _tile_times(call):
     from radler_tpu_torch.kernels import subminor_loop as sl
 
     args, kwargs = call
-    res0, _, rms_k, xs, ys, psfs, coef, proj, _, offsets, counts = args
+    res0, _, rms_k, xs, ys, psfs, coef, fit, _, offsets, counts = args
     n, k = res0.shape
     params = sl.SubminorParams.make(0.0, GAIN, 0, SUBMINOR_TIMED_ITERATIONS,
                                     0.0, True, False)
     res_k, model_k = res0.clone(), torch.zeros_like(res0)
     bounds = np.concatenate([[0], np.cumsum(counts)])
     segments = [
-        (res0[:, a:b].contiguous(), torch.zeros((n, b - a), device=DEVICE),
-         None if rms_k is None else rms_k[a:b].contiguous(),
-         xs[a:b].contiguous(), ys[a:b].contiguous())
+        ((res0[:, a:b].contiguous(), torch.zeros((n, b - a), device=DEVICE),
+          None if rms_k is None else rms_k[a:b].contiguous(),
+          xs[a:b].contiguous(), ys[a:b].contiguous()),
+         fit if fit is None or fit.terms is None
+         else fit._replace(terms=fit.terms[:, a:b].contiguous()))
         for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
 
     def tiles():
         return sl.subminor_loop_tiles(res_k, model_k, rms_k, xs, ys, psfs,
-                                      coef, proj, params, offsets, counts,
+                                      coef, fit, params, offsets, counts,
                                       **kwargs)
 
     def sequential():
-        for seg in segments:
-            sl.subminor_loop(*seg, psfs, coef, proj, params, **kwargs)
+        for seg, seg_fit in segments:
+            sl.subminor_loop(*seg, psfs, coef, seg_fit, params, **kwargs)
 
     def plain():
         return sl.subminor_loop_tiles_reference(
-            res_k, model_k, rms_k, xs, ys, psfs, coef, proj, params, counts,
+            res_k, model_k, rms_k, xs, ys, psfs, coef, fit, params, counts,
             **kwargs)
 
     readings = {"plain": [], "tiles": [], "sequential": []}
@@ -4010,7 +4694,7 @@ def _tile_times(call):
     n_flops = SUBMINOR_TIMED_ITERATIONS * k * 4 * n
     once = bound_ms(state + psf_bytes, n_flops)
     per_cluster = bound_ms(state + len(counts) * psf_bytes, n_flops)
-    plan = sl.cluster_plan(n, max(counts))
+    plan = sl.cluster_plan(n, max(counts), fit=fit)
     say(f"  B2 tile axis at the recorded segments ({len(counts)} tiles, K "
         f"{counts}, {n} planes, plan {_plan_name(plan)}), "
         f"{SUBMINOR_TIMED_ITERATIONS} iterations a tile: ms " + "; ".join(
@@ -4178,121 +4862,143 @@ def main():
     import radler_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     start = time.perf_counter()
-    say("== the card ==")
+    section("the card")
     smi = phase_card()
-    say("== Högbom kernels against their plain versions ==")
+    section("Högbom kernels against their plain versions")
     worst = phase_kernels_vs_plain()
-    say("== the 4096^2 problem (seed 7, 300 sources) ==")
+    section("the 4096^2 problem (seed 7, 300 sources)")
     psf, residual = make_problem(SIZE, N_SOURCES)
-    say("== Högbom kernel times at the main path's shapes ==")
+    section("Högbom kernel times at the main path's shapes")
     times = phase_kernel_times(psf, residual)
-    say("== B1's facet mode with one facet against B1 at config 1's shape ==")
+    section("B1's facet mode with one facet against B1 at config 1's shape")
     facet_one = phase_facet_one_times(psf, residual)
-    say("== config 1 through Radler.perform ==")
+    section("config 1 through Radler.perform")
     counts, rate = phase_main_path(psf, residual)
-    say("== joined channels through Radler.perform ==")
+    section("joined channels through Radler.perform")
     phase_joined_channels(psf, residual)
-    say("== B4 and B1 on row shards against their plain versions ==")
+    section("B4 and B1 on row shards against their plain versions")
     worst_mesh = phase_mesh_kernels_vs_plain()
     worst["hogbom_step"] = max(worst["hogbom_step"], worst_mesh["hogbom_step"])
     worst["subtract_integrate"] = worst_mesh["subtract_integrate"]
-    say("== B4 time at the mesh configuration's shard ==")
+    section("B4 time at the mesh configuration's shard")
     b4_times = phase_b4_times()
-    say("== the mesh configuration (joined channels, chan 4 x tile 2) "
-        "through Radler.perform ==")
+    section("the mesh configuration (joined channels, chan 4 x tile 2) "
+        "through Radler.perform")
     mesh = phase_mesh_perform(psf, residual)
-    say("== the joined-channel cube with the Clark default on a chan 4 x "
-        "tile 2 mesh (B2's tile axis) ==")
+    section("the joined-channel cube with the Clark default on a chan 4 x "
+        "tile 2 mesh (B2's tile axis)")
     psfs_j, res_j, kwargs_j = _joined_inputs(psf, residual)
     mesh_clark_joined = phase_mesh_clark("joined channels", psfs_j, res_j,
                                          kwargs_j, SIZE, MESH_ITERATIONS)
+    section("the joined-channel cube with a log-polynomial fit on the chan 4 "
+        "x tile 2 mesh (B2's tile axis, the fit in its body) against the "
+        "port's CPU run")
+    mesh_fit = phase_mesh_clark_fit(psfs_j, res_j, kwargs_j)
     del psf, residual, psfs_j, res_j
-    say("== point-source contract, Högbom ==")
+    section("point-source contract, Högbom")
     phase_contract()
-    say("== point-source contract, Högbom on a chan 1 x tile 8 mesh ==")
+    section("point-source contract, Högbom on a chan 1 x tile 8 mesh")
     phase_contract(mesh=True)
-    say("== the subminor kernel against its plain version ==")
+    section("the subminor kernel against its plain version")
     worst_small = phase_subminor_vs_plain()
-    say("== the 2048^2 problem (seed 7, 300 sources) ==")
+    section("the subminor kernel with the log-polynomial and forced-term "
+        "fits against its plain version")
+    worst_fits = phase_subminor_fits_vs_plain()
+    worst_fits["LOG_POLYNOMIAL"] = max(worst_fits["LOG_POLYNOMIAL"],
+                                       mesh_fit["worst"])
+    section("the 2048^2 problem (seed 7, 300 sources)")
     psf2, residual2 = make_problem(CLARK_SIZE, N_SOURCES)
-    say("== the subminor kernel at config 2's shapes ==")
+    section("the subminor kernel at config 2's shapes")
     worst_config2, kernel_ms, plain_ms, b2_bound, b2_cluster = (
         phase_subminor_times(psf2, residual2))
     worst["subminor_loop"] = max(worst_small, worst_config2)
     times["subminor_loop"] = (kernel_ms, plain_ms)
-    say("== config 2 (Clark) through Radler.perform ==")
+    section("config 2 (Clark) through Radler.perform")
     clark = phase_config2(psf2, residual2)
-    say("== config 2 with the Clark default on a chan 1 x tile 8 mesh "
-        "(B2's tile axis) ==")
+    section("config 2 with the Clark default on a chan 1 x tile 8 mesh "
+        "(B2's tile axis)")
     mesh_clark = phase_mesh_clark(
         "config 2", torch.as_tensor(psf2, device=DEVICE),
         torch.as_tensor(residual2, device=DEVICE), {}, CLARK_SIZE,
         ITERATIONS, tile_times=True)
-    say("== MORE_SANE and PYTHON at config 2's field ==")
+    section("MORE_SANE and PYTHON at config 2's field")
     phase_host_plugins(psf2, residual2)
-    say("== local RMS through Radler.perform, Clark ==")
+    section("local RMS through Radler.perform, Clark")
     phase_local_rms(psf2, residual2)
-    say("== 2ch x 2pol squared joins on a chan 2 x tile 4 mesh ==")
+    section("2ch x 2pol squared joins on a chan 2 x tile 4 mesh")
     phase_mesh_squared(psf2, residual2)
-    say("== point-source contract, Clark ==")
+    section("point-source contract, Clark")
     phase_contract(clark=True)
-    say("== batched irfft2 ==")
+    section(f"{SPECTRAL_SIZE}^2 x 4 channels through Radler.perform, Clark "
+        "with the log-polynomial and the forced-term fit (B2)")
+    spectral = phase_spectral_performs()
+    section(f"B2 with each fit on the card against the port's CPU run "
+        f"({SPECTRAL_CHECK_SIZE}^2 x 4)")
+    phase_spectral_card_vs_cpu()
+    section("batched irfft2")
     phase_batched_irfft()
-    say("== the à-trous kernel (B3) against its plain version ==")
+    section("the à-trous kernel (B3) against its plain version")
     worst["atrous_decompose_lo"] = phase_atrous_vs_plain()
-    say("== B3 times at 4096^2 ==")
+    section("B3 times at 4096^2")
     atrous = phase_atrous_times()
-    say("== config 4 (IUWT 4096^2) through Radler.perform ==")
+    section("config 4 (IUWT 4096^2) through Radler.perform")
     iuwt = phase_config4()
-    say("== B3 against its plain version at config 4's shapes ==")
+    section("B3 against its plain version at config 4's shapes")
     worst["atrous_decompose_lo"] = max(worst["atrous_decompose_lo"],
                                        phase_atrous_main_shapes(iuwt[2]))
-    say("== the IUWT diffuse-source contract ==")
+    section("the IUWT diffuse-source contract")
     phase_iuwt_contract()
-    say("== B1 in linear mode at config 3's shape against its plain "
-        "version ==")
+    section("B1 in linear mode at config 3's shape against its plain "
+        "version")
     linear = phase_linear_b1()
-    say("== config 3 (multiscale 2048^2 x 8 channels) through "
-        "Radler.perform: the fused, dense and Clark routes ==")
+    section("config 3 (multiscale 2048^2 x 8 channels) through "
+        "Radler.perform: the fused, dense and Clark routes")
     config3 = phase_config3()
     worst["subminor_loop"] = max(worst["subminor_loop"], config3["worst_b2"])
     for route in ("fused", "dense"):
-        say(f"== point-source contract, multiscale, {route} route ==")
+        section(f"point-source contract, multiscale, {route} route")
         phase_ms_contract(route)
     for route in ("fused", "dense"):
-        say(f"== multiscale on the card against the CPU, {route} route ==")
+        section(f"multiscale on the card against the CPU, {route} route")
         phase_ms_card_vs_cpu(route)
-    say("== multiscale on a chan 4 x tile 2 mesh (2048^2 x 4 channels) ==")
+    section("multiscale's Clark route with a log-polynomial fit")
+    ms_fit = phase_ms_clark_fit()
+    worst_fits["LOG_POLYNOMIAL"] = max(worst_fits["LOG_POLYNOMIAL"],
+                                       ms_fit["worst"])
+    section("multiscale on a chan 4 x tile 2 mesh (2048^2 x 4 channels)")
     ms_mesh = phase_ms_mesh()
-    say("== B4 in linear mode at the multiscale mesh's shard ==")
+    section("B4 in linear mode at the multiscale mesh's shard")
     b4_linear = phase_b4_times(B4_LINEAR_CASE)
-    say("== B1's facet mode against its plain version ==")
+    section("B1's facet mode against its plain version")
     worst_facets = phase_facet_b1_vs_plain()
-    say("== config 5 (4096^2 x 2 channels x I, Q, U, V, 2 x 2 facets) "
+    section("config 5 (4096^2 x 2 channels x I, Q, U, V, 2 x 2 facets) "
         "through Radler.perform: generic batched, generic serial (Högbom, "
-        "Clark), multiscale serial and batched ==")
+        "Clark), multiscale serial and batched")
     config5 = phase_config5()
     batched = config5["generic, batched"]
     f5_boxes = [(b[3], b[2]) for b in batched["boxes"]]
     box = (max(b[0] for b in f5_boxes), max(b[1] for b in f5_boxes))
-    say(f"== B1's facet mode at config 5's shape ({box[0]}x{box[1]}) and "
-        "true boxes ==")
+    section(f"B1's facet mode at config 5's shape ({box[0]}x{box[1]}) and "
+        "true boxes")
     facet_times = phase_facet_b1_times(f5_boxes)
-    say(f"== B1's facet mode in linear mode with a PSF stack a facet at "
-        f"config 5's shape ({box[0]}x{box[1]}) and true boxes ==")
+    section(f"B1's facet mode in linear mode with a PSF stack a facet at "
+        f"config 5's shape ({box[0]}x{box[1]}) and true boxes")
     facet_linear = phase_facet_b1_times(f5_boxes, "linear", shared=False)
-    say("== faceted performs on the card against the CPU ==")
+    section("faceted performs on the card against the CPU")
     phase_facets_card_vs_cpu()
-    say("== point-source contract, ASP ==")
+    section("point-source contract, ASP")
     phase_asp_contract()
-    say(f"== ASP ({ASP_SIZE}^2 x {ASP_CHANNELS} channels) through "
-        "Radler.perform ==")
+    section(f"ASP ({ASP_SIZE}^2 x {ASP_CHANNELS} channels) through "
+        "Radler.perform")
     asp_run = phase_asp_perform()
-    say("== ASP on the card against the CPU ==")
+    section("ASP on the card against the CPU")
     phase_asp_card_vs_cpu()
-    say("== component optimization on the card against the CPU ==")
+    section("component optimization on the card against the CPU")
     phase_component_optimization_card_vs_cpu()
-    say(f"phases took {time.perf_counter() - start:.1f} s")
+    section()
+    say(f"phases took {time.perf_counter() - start:.1f} s; the longest: "
+        + "; ".join(f"{seconds:.1f} s {title}" for title, _, seconds in
+                    sorted(_phase_log, key=lambda p: -p[2])[:12]))
 
     kernels = []
     b_ms, b_by = bound_ms(times["bytes"]["hogbom_step"])
@@ -4336,6 +5042,22 @@ def main():
         "bound_by": b2_bound[1],
         "library_ms": None,
     })
+    for mode, name in (("LOG_POLYNOMIAL", "log-polynomial"),
+                       ("FORCED_TERMS", "forced terms")):
+        cell = spectral[mode]
+        kernels.append({
+            "name": f"subminor_loop ({name})",
+            "route": "cuda",
+            "source": "radler_tpu_torch/csrc/subminor_loop.cu",
+            "replaces": "radler_tpu/ops/pallas/subminor_fused.py:89",
+            "launches": cell["launches"],
+            "max_abs_err": max(worst_fits[mode], cell["worst"]),
+            "ms": cell["ms"],
+            "plain_ms": cell["plain_ms"],
+            "bound_ms": cell["bound"][0],
+            "bound_by": cell["bound"][1],
+            "library_ms": None,
+        })
     tile_times = mesh_clark["times"]
     kernels.append({
         "name": "subminor_loop (tile axis)",
@@ -4443,6 +5165,14 @@ def main():
         f"axis {tile_times['ms']:.4f} ms against {tile_times['sequential_ms']:.4f} "
         f"ms for today's B2 on each tile in turn, bound "
         f"{tile_times['bound'][0]:.4f} ms")
+    say(f"spectral fits: {SPECTRAL_SIZE}^2 x 4 Clark " + "; ".join(
+        f"{mode} {cell['rate']:.1f} minor iterations/s (K {cell['k']}, "
+        f"{cell['plan']}), B2 {cell['ms'] * 1e3 / FIT_TIMED_ITERATIONS:.2f}"
+        f" us an iteration against the projection's "
+        f"{cell['projection_ms'] * 1e3 / FIT_TIMED_ITERATIONS:.2f}"
+        for mode, cell in spectral.items())
+        + f"; the mesh with a log-polynomial fit {mesh_fit['rate']:.1f}; "
+        f"multiscale's Clark route with it {ms_fit['rate']:.1f}")
     b3_ms, b3_bound = atrous[3][0], bound_ms(*atrous[3][3:])[0]
     say(f"config 4: {iuwt[1]:.3f} structure iterations/s through perform "
         f"(IUWT); B3 at 4096^2, 3 scales: {b3_ms * 1e3:.1f} us against its "

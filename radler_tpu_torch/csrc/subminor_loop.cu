@@ -17,8 +17,14 @@
 //      max_iterations, not diverging, and s[m] >= 0 when stopping on
 //      negative components.
 //   4. The component values cv[i] = res[i, m] * gain, then the optional
-//      polynomial spectral fit: a constant [C, C] projection applied per
-//      polarization, summed in channel order (subminor_fused.py:169-182).
+//      spectral fit, each polarization on its own (FitMode): the polynomial
+//      fit's constant [C, C] projection, summed in channel order
+//      (subminor_fused.py:169-182); or, as the JAX package's XLA loop
+//      (radler_tpu/models/subminor.py:162-167, ops/spectral_fitting.py:
+//      156-190) applies them, the log-polynomial fit (the sign of the
+//      weighted mean, then exp(D F log max(|v|, 1e-36))) or the forced-term
+//      fit (the amplitude against exp(sum_k terms_k[m] lx^(k+1))), whose
+//      term vectors ride in the slice's state beside x and y.
 //   5. model[i, m] += cv[i].
 //   6. res[i, j] -= psf[i / P, ys[j] - ys[m] + H/2, xs[j] - xs[m] + W/2] *
 //      cv[i] for every j; the PSF value is 0 outside the PSF
@@ -71,10 +77,26 @@
 //     the same values, so the same bits), and the block that owns the
 //     winner adds cv to the model.  One cluster barrier and one block
 //     barrier per iteration.
+//     With a log-polynomial or forced-term fit each lane recomputes its
+//     polarization's sums (mean, logs, coefficients; curve, amplitude) from
+//     the slot's raw values (and forced terms, which travel in the slot
+//     too) in the same order, so every warp of every block holds the same
+//     bits without a broadcast.
 //   * Any N (kShipRaw false): warp 0 of the block that owns the winner
-//     computes cv (gain, then the projection), adds it to the model and
-//     writes cv and the winner's position into every block's shared memory;
-//     a second cluster.sync() publishes them.
+//     computes cv (gain, then the fit), adds it to the model and writes cv
+//     and the winner's position into every block's shared memory; a second
+//     cluster.sync() publishes them.  A log-polynomial or forced-term fit
+//     computes each plane's logs (each channel's curve), then each
+//     polarization's sign and coefficients (amplitude) once into shared
+//     memory, then every plane's value from them: the same operations in
+//     the same order as the ship-raw lanes.
+//
+// The fit is a template parameter (kFit): no fit and the projection share
+// one instantiation (proj null or not), and the two other fits have their
+// own, so that neither adds registers or shared memory to the others.
+// Their constants (F, D and the normalised weights; the weights and the
+// abscissa powers) are loaded into shared memory beside the integration
+// coefficients, with the scratch of the owner's computation.
 //
 // Why the slots have no write-after-read hazard: the slot written in
 // iteration t (before its barrier) is read only between the barriers of t
@@ -115,7 +137,10 @@
 // contracts nor reorders anything.  The multiply-adds are explicit fused
 // multiply-adds (__fmaf_rn): the running sum of the integration
 // (s = fma(res[i, j], coef[i], s) after s = res[0, j] * coef[0]), the
-// subtraction (res = fma(-psf, cv, res)) and the projection's sum.  That is
+// subtraction (res = fma(-psf, cv, res)), the projection's sum and every
+// sum of the two other fits.  logf and expf are the CUDA math library's
+// full-precision functions (no fast-math flag), which PyTorch's float32
+// log and exp on the card call too.  That is
 // what the JAX package's loop computes on its CPU backend, where XLA
 // contracts each multiply-add (and its einsum and matrix product sum in
 // this order); with separate roundings the port's Clark run of the
@@ -153,8 +178,46 @@ constexpr int kMaxImages = 4000;
 // kernels/subminor_loop.py::SHIP_RAW_MAX_IMAGES.
 constexpr int kShipMax = 8;
 
+// Forced terms that travel in a slot;
+// kernels/subminor_loop.py::SHIP_RAW_MAX_TERMS.
+constexpr int kShipTerms = 4;
+
 // Output slots, shared with kernels/subminor_loop.py.
 enum OutSlot { kIteration = 0, kDiverging = 1, kValueBits = 2 };
+
+// Step 4's spectral fit, shared with kernels/subminor_loop.py (FIT_*): 0 is
+// no fit, which runs in the projection's instantiation with proj null.
+enum FitMode {
+  kFitNone = 0,
+  kFitProjection = 1,
+  kFitLogPolynomial = 2,
+  kFitForced = 3
+};
+
+constexpr float kTiny = 1e-36f;
+
+// Floats of a fit's constants in shared memory: F [T, C], D [C, T] and the
+// normalised weights [C]; or the weights [C] and the powers [T-1, C].
+__host__ __device__ inline int fit_constant_floats(int mode, int n_chan,
+                                                   int n_terms) {
+  if (mode == kFitLogPolynomial) return 2 * n_terms * n_chan + n_chan;
+  if (mode == kFitForced) return n_terms * n_chan;
+  return 0;
+}
+
+// Floats of a fit's constants and of the owner's scratch (the logs of the
+// N values, then a sign and T coefficients per polarization; the curve
+// [C], then an amplitude per polarization), N bounding the polarizations;
+// kernels/subminor_loop.py::SubminorFit.shared_floats.
+__host__ __device__ inline int fit_shared_floats(int mode, int n_images,
+                                                 int n_chan, int n_terms) {
+  if (mode == kFitLogPolynomial)
+    return fit_constant_floats(mode, n_chan, n_terms) +
+           n_images * (n_terms + 2);
+  if (mode == kFitForced)
+    return fit_constant_floats(mode, n_chan, n_terms) + n_chan + n_images;
+  return 0;
+}
 
 struct Best {
   float cmp;  // comparison value
@@ -197,6 +260,7 @@ struct Slot {
   int x;
   int y;
   float raw[kShipMax];
+  float terms[kShipTerms];  // the best's forced terms (kFitForced)
 };
 
 struct Shared {
@@ -254,13 +318,92 @@ __device__ __forceinline__ float component_value(int i, Scaled scaled,
   return cv;
 }
 
+// The log-polynomial fit of plane i (channel c, polarization p) from the
+// gain-scaled values alone, as each lane of the ship-raw exchange computes
+// it: mean = sum_c wbar_c v_cp, l_c = logf(max(|v_cp|, 1e-36)), coef_t =
+// sum_c F_tc l_c, e = sum_t D_ct coef_t, cv = sign(mean) expf(e).  C is at
+// most kShipMax, so the logs stay in registers.
+template <typename Scaled>
+__device__ __forceinline__ float log_polynomial_value(
+    int i, Scaled scaled, const float* __restrict__ fit, int n_pols,
+    int n_chan, int n_terms) {
+  const float* fit_m = fit;                          // [T, C]
+  const float* design = fit + n_terms * n_chan;      // [C, T]
+  const float* wbar = design + n_chan * n_terms;     // [C]
+  const int c_own = i / n_pols;
+  const int p = i - c_own * n_pols;
+  float logs[kShipMax];
+  float mean = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kShipMax; ++c) {
+    if (c < n_chan) {
+      const float v = scaled(c * n_pols + p);
+      mean = c == 0 ? __fmul_rn(wbar[0], v) : __fmaf_rn(wbar[c], v, mean);
+      logs[c] = logf(fmaxf(fabsf(v), kTiny));
+    }
+  }
+  float e = 0.0f;
+  for (int t = 0; t < n_terms; ++t) {
+    const float* row = fit_m + t * n_chan;
+    float coef = __fmul_rn(row[0], logs[0]);
+#pragma unroll
+    for (int c = 1; c < kShipMax; ++c)
+      if (c < n_chan) coef = __fmaf_rn(row[c], logs[c], coef);
+    const float d = design[c_own * n_terms + t];
+    e = t == 0 ? __fmul_rn(d, coef) : __fmaf_rn(d, coef, e);
+  }
+  return __fmul_rn(mean < 0.0f ? -1.0f : 1.0f, expf(e));
+}
+
+// The forced curve at channel c: expf(sum_k terms[k * stride] powers[k,
+// c]), summed in term order.
+__device__ __forceinline__ float forced_curve(int c,
+                                              const float* __restrict__ terms,
+                                              int64_t stride,
+                                              const float* __restrict__ powers,
+                                              int n_chan, int n_forced) {
+  float q = 0.0f;
+  for (int t = 0; t < n_forced; ++t)
+    q = t == 0 ? __fmul_rn(terms[0], powers[c])
+               : __fmaf_rn(terms[t * stride], powers[t * n_chan + c], q);
+  return expf(q);
+}
+
+// The forced-term fit of plane i from the gain-scaled values and the
+// winner's terms alone, as each lane of the ship-raw exchange computes it:
+// wc_c = w_c curve_c, amp = (sum_c wc_c v_cp) / max(sum_c wc_c curve_c,
+// 1e-36), cv = curve_c amp.
+template <typename Scaled>
+__device__ __forceinline__ float forced_value(int i, Scaled scaled,
+                                              const float* __restrict__ terms,
+                                              const float* __restrict__ fit,
+                                              int n_pols, int n_chan,
+                                              int n_terms) {
+  const float* w = fit;                 // [C]
+  const float* powers = fit + n_chan;   // [T-1, C]
+  const int c_own = i / n_pols;
+  const int p = i - c_own * n_pols;
+  float num = 0.0f, den = 0.0f;
+  for (int c = 0; c < n_chan; ++c) {
+    const float curve = forced_curve(c, terms, 1, powers, n_chan, n_terms - 1);
+    const float wc = __fmul_rn(w[c], curve);
+    const float v = scaled(c * n_pols + p);
+    num = c == 0 ? __fmul_rn(wc, v) : __fmaf_rn(wc, v, num);
+    den = c == 0 ? __fmul_rn(wc, curve) : __fmaf_rn(wc, curve, den);
+  }
+  const float amp = __fdiv_rn(num, fmaxf(den, kTiny));
+  return __fmul_rn(
+      forced_curve(c_own, terms, 1, powers, n_chan, n_terms - 1), amp);
+}
+
 // The slice's state: in shared memory (stride = slice) or in place in
 // global memory (stride = K), indexed by the candidate's place in the slice.
 struct State {
   float* res;
   const int* xs;
   const int* ys;
-  const float* rms;  // null without an rms factor
+  const float* rms;    // null without an rms factor
+  const float* terms;  // kFitForced: [T-1] rows, else null
   int64_t stride;
   int first;  // the slice's first candidate
   int len;    // candidates in the slice
@@ -341,7 +484,7 @@ __device__ __forceinline__ void cluster_barrier(cg::cluster_group& cluster,
     cluster.sync();
 }
 
-template <bool kOnChip, bool kShipRaw>
+template <bool kOnChip, bool kShipRaw, int kFit>
 __global__ void __launch_bounds__(kMaxThreads)
     subminor_loop_kernel(float* __restrict__ res, float* __restrict__ model,
                          const float* __restrict__ rms,
@@ -349,7 +492,9 @@ __global__ void __launch_bounds__(kMaxThreads)
                          const int* __restrict__ ys,
                          const float* __restrict__ psf,
                          const float* __restrict__ coef,
-                         const float* __restrict__ proj,
+                         const float* __restrict__ fit_consts,
+                         int n_terms,
+                         const float* __restrict__ terms,
                          const int* __restrict__ offsets,
                          int* __restrict__ out, int n_images, int n_pols,
                          int k, int slice, int height, int width,
@@ -361,18 +506,25 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int n_ranks = static_cast<int>(cluster.num_blocks());
   __shared__ Shared sh;
   // Per plane: the integration coefficient, the gain-scaled residual value
-  // at the component and the component value after the spectral fit; then,
-  // with kOnChip, the slice's residual [N, slice], xs, ys and rms.
+  // at the component and the component value after the spectral fit; the
+  // fit's constants and the owner's scratch; then, with kOnChip, the
+  // slice's residual [N, slice], xs, ys, rms and forced terms [T-1, slice].
   extern __shared__ float dyn[];
+  const int n_chan = n_images / n_pols;
+  const int n_forced = kFit == kFitForced ? n_terms - 1 : 0;
   float* const s_coef = dyn;
   float* const s_raw = dyn + n_images;
   float* const s_cv = dyn + 2 * n_images;
+  // kFit above the projection: the constants, then the scratch.
+  float* const s_fit = dyn + 3 * n_images;
+  float* const s_scratch = s_fit + fit_constant_floats(kFit, n_chan, n_terms);
+  // The projection, read from global memory, or null.
+  const float* const proj = kFit == kFitProjection ? fit_consts : nullptr;
   const int tid = threadIdx.x;
   const int n_threads = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n_warps = n_threads >> 5;
-  const int n_chan = n_images / n_pols;
   const int64_t plane = static_cast<int64_t>(height) * width;
 
   // This cluster's segment of the tile axis: k stays the state's row
@@ -387,6 +539,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     xs += begin;
     ys += begin;
     if (rms) rms += begin;
+    if (terms) terms += begin;
     out += 3 * tile;
   }
 
@@ -395,11 +548,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   st.len = min(slice, seg - st.first);
   if (st.len < 0) st.len = 0;
   if constexpr (kOnChip) {
-    float* const c_res = dyn + 3 * n_images;
+    float* const c_res =
+        s_fit + fit_shared_floats(kFit, n_images, n_chan, n_terms);
     int* const c_xs = reinterpret_cast<int*>(
         c_res + static_cast<int64_t>(n_images) * slice);
     int* const c_ys = c_xs + slice;
     float* const c_rms = reinterpret_cast<float*>(c_ys + slice);
+    float* const c_terms = c_rms + slice;
     for (int jj = tid; jj < st.len; jj += n_threads) {
       const int j = st.first + jj;
       c_xs[jj] = xs[j];
@@ -408,20 +563,29 @@ __global__ void __launch_bounds__(kMaxThreads)
       for (int i = 0; i < n_images; ++i)
         c_res[static_cast<int64_t>(i) * slice + jj] =
             res[static_cast<int64_t>(i) * k + j];
+      for (int t = 0; t < n_forced; ++t)
+        c_terms[static_cast<int64_t>(t) * slice + jj] =
+            terms[static_cast<int64_t>(t) * k + j];
     }
     st.res = c_res;
     st.xs = c_xs;
     st.ys = c_ys;
     st.rms = rms ? c_rms : nullptr;
+    st.terms = n_forced ? c_terms : nullptr;
     st.stride = slice;
   } else {
     st.res = res + st.first;
     st.xs = xs + st.first;
     st.ys = ys + st.first;
     st.rms = rms ? rms + st.first : nullptr;
+    st.terms = n_forced ? terms + st.first : nullptr;
     st.stride = k;
   }
   for (int i = tid; i < n_images; i += n_threads) s_coef[i] = coef[i];
+  if constexpr (kFit != kFitProjection) {
+    const int n_consts = fit_constant_floats(kFit, n_chan, n_terms);
+    for (int i = tid; i < n_consts; i += n_threads) s_fit[i] = fit_consts[i];
+  }
   // Every block of the cluster runs before any writes into another.
   cluster_barrier(cluster, n_ranks);
 
@@ -455,6 +619,8 @@ __global__ void __launch_bounds__(kMaxThreads)
           slot->y = st.ys[at];
           for (int i = 0; i < n_images; ++i)
             slot->raw[i] = st.res[i * st.stride + at];
+          for (int t = 0; t < n_forced; ++t)
+            slot->terms[t] = st.terms[t * st.stride + at];
         }
       }
     }
@@ -479,9 +645,16 @@ __global__ void __launch_bounds__(kMaxThreads)
         if (!go) break;
         const Slot& ws = sh.slots[parity][owner];
         if (lane < n_images) {
-          const float v = component_value(
-              lane, [&](int q) { return __fmul_rn(ws.raw[q], gain); }, proj,
-              n_pols, n_chan);
+          const auto scaled = [&](int q) { return __fmul_rn(ws.raw[q], gain); };
+          float v;
+          if constexpr (kFit == kFitProjection)
+            v = component_value(lane, scaled, proj, n_pols, n_chan);
+          else if constexpr (kFit == kFitLogPolynomial)
+            v = log_polynomial_value(lane, scaled, s_fit, n_pols, n_chan,
+                                     n_terms);
+          else
+            v = forced_value(lane, scaled, ws.terms, s_fit, n_pols, n_chan,
+                             n_terms);
           sh.warp_cv[warp][lane] = v;
           // The last warp has the fewest candidates to pass over.
           if (warp == n_warps - 1 && rank == owner) {
@@ -496,12 +669,73 @@ __global__ void __launch_bounds__(kMaxThreads)
       } else {
         if (go && rank == owner) {
           const int at = m - st.first;
-          for (int i = lane; i < n_images; i += 32)
-            s_raw[i] = __fmul_rn(st.res[i * st.stride + at], gain);
-          __syncwarp();
           for (int i = lane; i < n_images; i += 32) {
-            const float v = component_value(
-                i, [&](int q) { return s_raw[q]; }, proj, n_pols, n_chan);
+            const float v = __fmul_rn(st.res[i * st.stride + at], gain);
+            s_raw[i] = v;
+            if constexpr (kFit == kFitLogPolynomial)
+              s_scratch[i] = logf(fmaxf(fabsf(v), kTiny));
+          }
+          if constexpr (kFit == kFitForced) {
+            const float* own = n_forced ? st.terms + at : nullptr;
+            for (int c = lane; c < n_chan; c += 32)
+              s_scratch[c] = forced_curve(c, own, st.stride, s_fit + n_chan,
+                                          n_chan, n_forced);
+          }
+          __syncwarp();
+          // Each polarization's sign and coefficients, or its amplitude.
+          if constexpr (kFit == kFitLogPolynomial) {
+            const float* fit_m = s_fit;
+            const float* wbar = s_fit + 2 * n_terms * n_chan;
+            const float* logs = s_scratch;
+            for (int p = lane; p < n_pols; p += 32) {
+              float* pol = s_scratch + n_images + p * (n_terms + 1);
+              float mean = __fmul_rn(wbar[0], s_raw[p]);
+              for (int c = 1; c < n_chan; ++c)
+                mean = __fmaf_rn(wbar[c], s_raw[c * n_pols + p], mean);
+              pol[0] = mean < 0.0f ? -1.0f : 1.0f;
+              for (int t = 0; t < n_terms; ++t) {
+                const float* row = fit_m + t * n_chan;
+                float cf = __fmul_rn(row[0], logs[p]);
+                for (int c = 1; c < n_chan; ++c)
+                  cf = __fmaf_rn(row[c], logs[c * n_pols + p], cf);
+                pol[1 + t] = cf;
+              }
+            }
+          } else if constexpr (kFit == kFitForced) {
+            const float* w = s_fit;
+            const float* curve = s_scratch;
+            for (int p = lane; p < n_pols; p += 32) {
+              float num = 0.0f, den = 0.0f;
+              for (int c = 0; c < n_chan; ++c) {
+                const float wc = __fmul_rn(w[c], curve[c]);
+                const float v = s_raw[c * n_pols + p];
+                num = c == 0 ? __fmul_rn(wc, v) : __fmaf_rn(wc, v, num);
+                den = c == 0 ? __fmul_rn(wc, curve[c])
+                             : __fmaf_rn(wc, curve[c], den);
+              }
+              s_scratch[n_chan + p] = __fdiv_rn(num, fmaxf(den, kTiny));
+            }
+          }
+          if constexpr (kFit != kFitProjection) __syncwarp();
+          for (int i = lane; i < n_images; i += 32) {
+            float v;
+            if constexpr (kFit == kFitProjection) {
+              v = component_value(i, [&](int q) { return s_raw[q]; }, proj,
+                                  n_pols, n_chan);
+            } else {
+              const int c = i / n_pols;
+              const int p = i - c * n_pols;
+              if constexpr (kFit == kFitLogPolynomial) {
+                const float* design = s_fit + n_terms * n_chan;
+                const float* pol = s_scratch + n_images + p * (n_terms + 1);
+                float e = __fmul_rn(design[c * n_terms], pol[1]);
+                for (int t = 1; t < n_terms; ++t)
+                  e = __fmaf_rn(design[c * n_terms + t], pol[1 + t], e);
+                v = __fmul_rn(pol[0], expf(e));
+              } else {
+                v = __fmul_rn(s_scratch[c], s_scratch[n_chan + p]);
+              }
+            }
             float* mo = model + static_cast<int64_t>(i) * k + m;
             *mo = __fadd_rn(*mo, v);
             for (int r = 0; r < n_ranks; ++r)
@@ -544,17 +778,37 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// The instantiation for a launch's state place, exchange and fit.
+template <bool kOnChip, bool kShipRaw>
+const void* kernel_for(int fit_mode) {
+  switch (fit_mode) {
+    case kFitLogPolynomial:
+      return reinterpret_cast<const void*>(
+          &subminor_loop_kernel<kOnChip, kShipRaw, kFitLogPolynomial>);
+    case kFitForced:
+      return reinterpret_cast<const void*>(
+          &subminor_loop_kernel<kOnChip, kShipRaw, kFitForced>);
+    default:
+      return reinterpret_cast<const void*>(
+          &subminor_loop_kernel<kOnChip, kShipRaw, kFitProjection>);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // cluster_size, threads, slice, on_chip, ship_raw and shared_bytes are the
-// plan of kernels/subminor_loop.py::cluster_plan.  offsets, null for one
-// segment of k candidates, holds the n_tiles + 1 segment bounds of the tile
-// axis; k is then their total, and out holds n_tiles results.
+// plan of kernels/subminor_loop.py::cluster_plan.  fit_mode is a FitMode;
+// fit_consts is the projection [C, C] (or null: no fit) or the other fits'
+// packed constants, n_terms their T, and terms the forced terms [T-1, k]
+// of the candidates.  offsets, null for one segment of k candidates, holds
+// the n_tiles + 1 segment bounds of the tile axis; k is then their total,
+// and out holds n_tiles results.
 int subminor_loop(float* res, float* model, const float* rms, const int* xs,
                   const int* ys, const float* psf, const float* coef,
-                  const float* proj, const int* offsets, int n_tiles,
+                  int fit_mode, const float* fit_consts, int n_terms,
+                  const float* terms, const int* offsets, int n_tiles,
                   int* out, int n_images, int n_pols,
                   int k, int height, int width, float threshold, float gain,
                   int start_iteration, int max_iterations,
@@ -562,30 +816,35 @@ int subminor_loop(float* res, float* model, const float* rms, const int* xs,
                   int stop_on_negative, int cluster_size, int threads,
                   int slice, int on_chip, int ship_raw, int shared_bytes,
                   void* stream) {
+  const bool fitted = fit_mode == kFitLogPolynomial || fit_mode == kFitForced;
+  const int n_forced = fit_mode == kFitForced ? n_terms - 1 : 0;
+  const int n_chan = n_pols > 0 ? n_images / n_pols : 0;
   const int64_t needed =
       4 * (3 * static_cast<int64_t>(n_images) +
-           (on_chip ? static_cast<int64_t>(slice) * (n_images + 3) : 0));
+           fit_shared_floats(fit_mode, n_images, n_chan, n_terms) +
+           (on_chip ? static_cast<int64_t>(slice) *
+                          (n_images + 3 + n_forced)
+                    : 0));
   if (n_images < 1 || n_images > kMaxImages || n_pols < 1 ||
       n_images % n_pols != 0 || k < 1 || cluster_size < 1 ||
       cluster_size > kMaxCluster || (cluster_size & (cluster_size - 1)) ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
       slice < 1 ||
       (!offsets && static_cast<int64_t>(slice) * cluster_size < k) ||
-      (ship_raw && n_images > kShipMax) || shared_bytes < needed ||
+      fit_mode < kFitNone || fit_mode > kFitForced ||
+      (fit_mode == kFitNone && fit_consts) ||
+      (fitted && (n_terms < 1 || !fit_consts)) ||
+      (n_forced > 0 && !terms) ||
+      (ship_raw && (n_images > kShipMax || n_forced > kShipTerms)) ||
+      shared_bytes < needed ||
       n_tiles < 1 || (!offsets && n_tiles != 1) ||
       static_cast<int64_t>(n_tiles) * cluster_size > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel =
-      on_chip ? (ship_raw
-                     ? reinterpret_cast<const void*>(
-                           &subminor_loop_kernel<true, true>)
-                     : reinterpret_cast<const void*>(
-                           &subminor_loop_kernel<true, false>))
-              : (ship_raw
-                     ? reinterpret_cast<const void*>(
-                           &subminor_loop_kernel<false, true>)
-                     : reinterpret_cast<const void*>(
-                           &subminor_loop_kernel<false, false>));
+      on_chip ? (ship_raw ? kernel_for<true, true>(fit_mode)
+                          : kernel_for<true, false>(fit_mode))
+              : (ship_raw ? kernel_for<false, true>(fit_mode)
+                          : kernel_for<false, false>(fit_mode));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -616,7 +875,8 @@ int subminor_loop(float* res, float* model, const float* rms, const int* xs,
   void* args[] = {&res,        &model,
                   &rms,        &xs,
                   &ys,         &psf,
-                  &coef,       &proj,
+                  &coef,       &fit_consts,
+                  &n_terms,    &terms,
                   &offsets,    &out,
                   &n_images,
                   &n_pols,     &k,

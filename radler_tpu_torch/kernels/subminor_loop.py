@@ -20,18 +20,24 @@ concatenated ``[N, sum K]`` state, one cluster a segment, in one launch
 (its plain version :func:`subminor_loop_tiles_reference` runs the plain loop
 over each segment in turn).  It returns ``[T, 3]`` results.
 
+Both apply the spectral fit of :class:`SubminorFit` in the loop's body, as
+the JAX package's ``_subminor_while`` does: the polynomial fit's constant
+projection (all the TPU kernel applied), or the log-polynomial or
+forced-term fit, the forced terms gathered at the candidates.
+
 The kernel reads the PSF at image size where the TPU kernel read a prebuilt
 ``[C, K, K]`` interaction matrix; what bounds it, and its design, are in the
 note at the top of the CUDA source.  The plain version performs the same
 float32 operations in the same order (each fused multiply-add emulated
-exactly by :func:`fma`), so the two agree bit for bit.
+exactly by :func:`fma`, ``log`` and ``exp`` the card's own functions on CUDA
+tensors), so the two agree bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +62,12 @@ MIN_THREADS = 128
 # count (4.4, 6.2, 9.0 us against 4.9, 7.9, 11.5 at 512).  From
 # scripts/subminor_k_times.py, NVIDIA H100 80GB HBM3, 700 W.
 CANDIDATES_PER_THREAD = 2.5
+# Spectral fits of the loop's body, shared with csrc/subminor_loop.cu
+# (FitMode); no fit passes 0.
+FIT_PROJECTION, FIT_LOG_POLYNOMIAL, FIT_FORCED_TERMS = 1, 2, 3
+# Forced terms that travel in a slot with the raw values (kShipTerms): more
+# take the exchange without raw values.
+SHIP_RAW_MAX_TERMS = 4
 # Planes up to which each block's raw values travel with its argmax, so that
 # one cluster barrier per iteration is enough (kShipMax).  A cluster of 16
 # gains 0.3 to 0.7 us per iteration by it at 1, 4 and 8 planes; on one
@@ -103,6 +115,85 @@ class SubminorParams(NamedTuple):
                    bool(allow_negative), bool(stop_on_negative))
 
 
+class SubminorFit(NamedTuple):
+    """The spectral fit B2 applies to the component values ``cv = res[:, m]
+    * gain`` of each iteration, per polarization, as float32 tensors on the
+    state's device (``None`` for no fit).  ``mode`` is one of:
+
+    * ``FIT_PROJECTION``: ``cv[c] = sum_c' proj[c, c'] cv[c']`` with the
+      polynomial fit's ``proj`` ``[C, C]``;
+    * ``FIT_LOG_POLYNOMIAL``: with the fit matrix ``fit_matrix`` F ``[T,
+      C]``, the design ``design`` D ``[C, T]`` and the normalised weights
+      ``mean_weights`` ``[C]``: ``sign = -1`` where ``sum_c w_c cv[c] < 0``
+      (else 1), ``coef = F log(max(|cv|, 1e-36))``, ``cv = sign exp(D
+      coef)`` (``_log_poly_fit`` of the fitter);
+    * ``FIT_FORCED_TERMS``: with the weights ``weights`` ``[C]``, the
+      abscissa powers ``powers`` ``[T-1, C]`` and the term vectors
+      ``terms`` ``[T-1, K]`` of the K candidates: ``curve = exp(terms[:,
+      m] @ powers)``, ``amp = sum_c w_c curve_c cv[c] / max(sum_c w_c
+      curve_c^2, 1e-36)``, ``cv = curve amp`` (``_forced_fit``).
+
+    Every sum runs in channel (or term) order, one fused multiply-add per
+    step after the first product."""
+
+    mode: int
+    proj: Optional[torch.Tensor] = None
+    fit_matrix: Optional[torch.Tensor] = None
+    design: Optional[torch.Tensor] = None
+    mean_weights: Optional[torch.Tensor] = None
+    weights: Optional[torch.Tensor] = None
+    powers: Optional[torch.Tensor] = None
+    terms: Optional[torch.Tensor] = None
+
+    @property
+    def n_terms(self) -> int:
+        """T: the log-polynomial's terms, or the forced terms plus one."""
+        if self.mode == FIT_LOG_POLYNOMIAL:
+            return self.fit_matrix.shape[0]
+        if self.mode == FIT_FORCED_TERMS:
+            return self.powers.shape[0] + 1
+        return 0
+
+    @property
+    def forced_rows(self) -> int:
+        """Forced terms a candidate carries in the slice's state."""
+        return self.n_terms - 1 if self.mode == FIT_FORCED_TERMS else 0
+
+    def constants(self) -> Optional[torch.Tensor]:
+        """The kernel's constants in one float32 vector (the projection
+        stays apart, read from global memory): F, D and the normalised
+        weights, or the weights and the powers."""
+        if self.mode == FIT_LOG_POLYNOMIAL:
+            parts = (self.fit_matrix, self.design, self.mean_weights)
+        elif self.mode == FIT_FORCED_TERMS:
+            parts = (self.weights, self.powers)
+        else:
+            return None
+        return torch.cat([t.reshape(-1) for t in parts])
+
+    def shared_floats(self, n_images: int) -> int:
+        """Floats of shared memory the fit takes beside the per-plane
+        scalars: its constants, then the scratch of the exchange without
+        raw values (the logs of the N values and a sign and T coefficients
+        per polarization; the curve and an amplitude per polarization),
+        with N bounding the polarizations.  csrc/subminor_loop.cu::
+        fit_shared_floats counts the same."""
+        t = self.n_terms
+        if self.mode == FIT_LOG_POLYNOMIAL:
+            c = self.fit_matrix.shape[1]
+            return 2 * t * c + c + n_images * (t + 2)
+        if self.mode == FIT_FORCED_TERMS:
+            c = self.weights.shape[0]
+            return t * c + c + n_images
+        return 0
+
+
+def projection_fit(proj: Optional[torch.Tensor]) -> Optional[SubminorFit]:
+    """The polynomial fit's ``[C, C]`` projection as a :class:`SubminorFit`
+    (``None`` for none)."""
+    return None if proj is None else SubminorFit(FIT_PROJECTION, proj=proj)
+
+
 class ClusterPlan(NamedTuple):
     """How one launch spreads over its cluster."""
 
@@ -114,19 +205,22 @@ class ClusterPlan(NamedTuple):
     shared_bytes: int  # dynamic shared memory per block
 
 
-def cluster_plan(n_images: int, k: int, *, cluster_size: Optional[int] = None,
+def cluster_plan(n_images: int, k: int, *, fit: Optional[SubminorFit] = None,
+                 cluster_size: Optional[int] = None,
                  on_chip: Optional[bool] = None,
                  ship_raw: Optional[bool] = None) -> ClusterPlan:
-    """The launch plan for ``n_images`` planes and ``k`` candidates.
+    """The launch plan for ``n_images`` planes and ``k`` candidates under
+    the spectral fit ``fit``.
 
     One block up to ``ONE_BLOCK_VALUES`` values, else ``MAX_CLUSTER``;
     threads by the candidates of a block; raw values in the exchange up to
-    ``SHIP_RAW_MAX_IMAGES`` planes.
+    ``SHIP_RAW_MAX_IMAGES`` planes and ``SHIP_RAW_MAX_TERMS`` forced terms.
     The slices' state (``4 * n_images + 12`` bytes per candidate: residual,
-    x, y, rms) lives in shared memory where it fits there, else in global
-    memory.  ``cluster_size``, ``on_chip`` and ``ship_raw``
-    override the choice (tests and timings); a forced choice that the
-    kernel cannot take raises.
+    x, y, rms; and ``4 (T - 1)`` with forced terms) lives in shared memory
+    where it fits there beside the per-plane scalars and the fit's
+    constants, else in global memory.  ``cluster_size``, ``on_chip`` and
+    ``ship_raw`` override the choice (tests and timings); a forced choice
+    that the kernel cannot take raises.
     """
     if n_images < 1 or k < 1:
         raise ValueError(f"cluster_plan: {n_images} planes, {k} candidates")
@@ -136,8 +230,10 @@ def cluster_plan(n_images: int, k: int, *, cluster_size: Optional[int] = None,
             and cluster_size & (cluster_size - 1) == 0):
         raise ValueError(f"cluster_plan: cluster size {cluster_size}")
     slice_len = -(-k // cluster_size)
-    per_plane = 12 * n_images
-    state = slice_len * (4 * n_images + 12)
+    forced_rows = 0 if fit is None else fit.forced_rows
+    per_plane = 12 * n_images + (
+        0 if fit is None else 4 * fit.shared_floats(n_images))
+    state = slice_len * (4 * n_images + 12 + 4 * forced_rows)
     fits = (per_plane + state + STATIC_SHARED_RESERVE
             <= SHARED_BYTES_PER_BLOCK)
     # About CANDIDATES_PER_THREAD candidates a thread: fewer warps make the
@@ -150,10 +246,13 @@ def cluster_plan(n_images: int, k: int, *, cluster_size: Optional[int] = None,
         raise ValueError(
             f"cluster_plan: {n_images} x {k} values do not fit in the shared "
             f"memory of {cluster_size} blocks")
+    can_ship = (n_images <= SHIP_RAW_MAX_IMAGES
+                and forced_rows <= SHIP_RAW_MAX_TERMS)
     if ship_raw is None:
-        ship_raw = n_images <= SHIP_RAW_MAX_IMAGES
-    elif ship_raw and n_images > SHIP_RAW_MAX_IMAGES:
-        raise ValueError(f"cluster_plan: {n_images} planes cannot ship raw")
+        ship_raw = can_ship
+    elif ship_raw and not can_ship:
+        raise ValueError(f"cluster_plan: {n_images} planes and {forced_rows} "
+                         "forced terms cannot ship raw")
     return ClusterPlan(cluster_size, threads, slice_len, bool(on_chip),
                        bool(ship_raw), per_plane + (state if on_chip else 0))
 
@@ -221,6 +320,62 @@ def _project(cv: torch.Tensor, proj: torch.Tensor, n_pols: int) -> torch.Tensor:
     return torch.stack(out)
 
 
+_TINY = float(np.float32(1e-36))
+
+
+def _log_polynomial(vals: torch.Tensor, fit: SubminorFit) -> torch.Tensor:
+    """The log-polynomial fit of the ``[C, P]`` values, each polarization
+    on its own, in the kernel's order: the weighted mean's sign, the logs,
+    ``coef_t = sum_c F[t, c] l_c`` and ``e_c = sum_t D[c, t] coef_t``, then
+    ``sign * exp(e)``."""
+    sign = torch.where(_integrate(vals, fit.mean_weights) < 0.0, -1.0, 1.0)
+    logs = torch.log(torch.clamp_min(vals.abs(), _TINY))
+    design = fit.design
+    e = None
+    for t in range(design.shape[1]):
+        coef = _integrate(logs, fit.fit_matrix[t])  # [P]
+        d = design[:, t, None]
+        e = d * coef if e is None else fma(d, coef[None, :], e)
+    return sign.to(vals.dtype) * torch.exp(e)
+
+
+def _forced_curve(fit: SubminorFit, m) -> torch.Tensor:
+    """``exp(sum_k terms[k, m] powers[k])`` over the channels, summed in
+    term order."""
+    q = torch.zeros_like(fit.weights)
+    for t in range(fit.forced_rows):
+        term = fit.terms[t, m]
+        q = term * fit.powers[t] if t == 0 else fma(term, fit.powers[t], q)
+    return torch.exp(q)
+
+
+def _forced(vals: torch.Tensor, fit: SubminorFit, m) -> torch.Tensor:
+    """The forced-term fit of the ``[C, P]`` values at candidate ``m``:
+    the amplitude per polarization against the candidate's curve, in the
+    kernel's order."""
+    curve = _forced_curve(fit, m)
+    wc = fit.weights * curve
+    num = _integrate(vals, wc)  # [P]
+    den = _integrate(curve, wc)
+    return curve[:, None] * (num / torch.clamp_min(den, _TINY))[None, :]
+
+
+def apply_fit(cv: torch.Tensor, fit: Optional[SubminorFit], m,
+              n_pols: int) -> torch.Tensor:
+    """The ``[N]`` component values ``cv`` after ``fit`` at candidate
+    ``m``, with the kernel's operations in its order."""
+    if fit is None:
+        return cv
+    if fit.mode == FIT_PROJECTION:
+        return _project(cv, fit.proj, n_pols)
+    vals = cv.view(-1, n_pols)
+    if fit.mode == FIT_LOG_POLYNOMIAL:
+        return _log_polynomial(vals, fit).reshape(-1)
+    if fit.mode == FIT_FORCED_TERMS:
+        return _forced(vals, fit, m).reshape(-1)
+    raise ValueError(f"SubminorFit: unknown mode {fit.mode}")
+
+
 def subminor_loop_reference(
     residual_k: torch.Tensor,
     model_k: torch.Tensor,
@@ -229,18 +384,14 @@ def subminor_loop_reference(
     ys: torch.Tensor,
     psfs: torch.Tensor,
     coef: torch.Tensor,
-    proj: Optional[torch.Tensor],
+    fit: Optional[SubminorFit],
     params: SubminorParams,
     *,
     n_polarizations: int,
-    fit: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`subminor_loop`: a torch loop with the
     kernel's operations in its order (each fused multiply-add emulated by
-    :func:`fma`), reading the peak value to the host once per iteration.
-    ``fit(cv, x, y)``, for CPU tensors only, applies a spectral fit that is
-    not a constant projection (log-polynomial, forced terms), as
-    ``_subminor_while`` of the JAX package does."""
+    :func:`fma`), reading the peak value to the host once per iteration."""
     n, _ = residual_k.shape
     n_psf, height, width = psfs.shape
     dev = residual_k.device
@@ -264,11 +415,8 @@ def subminor_loop_reference(
     bound = np.float32(abs(value)) * np.float32(params.divergence_limit)
     iteration, diverging = params.start_iteration, False
     while go(value, iteration, diverging):
-        cv = residual_k[:, m] * params.gain
-        if proj is not None:
-            cv = _project(cv, proj, n_polarizations)
-        elif fit is not None:
-            cv = fit(cv, xs[m], ys[m])
+        cv = apply_fit(residual_k[:, m] * params.gain, fit, m,
+                       n_polarizations)
         model_k[:, m] = model_k[:, m] + cv
         sy = ys - ys[m] + height // 2
         sx = xs - xs[m] + width // 2
@@ -292,17 +440,17 @@ def subminor_loop_tiles_reference(
     ys: torch.Tensor,
     psfs: torch.Tensor,
     coef: torch.Tensor,
-    proj: Optional[torch.Tensor],
+    fit: Optional[SubminorFit],
     params: SubminorParams,
     counts: Sequence[int],
     *,
     n_polarizations: int,
-    fit: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`subminor_loop_tiles`:
     :func:`subminor_loop_reference` on each tile's segment in turn (views
-    of the state, updated in place).  An empty segment stops at once with
-    the value 0, as the kernel's cluster does."""
+    of the state and of the forced terms, the state updated in place).  An
+    empty segment stops at once with the value 0, as the kernel's cluster
+    does."""
     rows, begin = [], 0
     for count in counts:
         end = begin + int(count)
@@ -312,11 +460,14 @@ def subminor_loop_tiles_reference(
                                      device=residual_k.device))
         else:
             cut = slice(begin, end)
+            seg_fit = fit
+            if fit is not None and fit.terms is not None:
+                seg_fit = fit._replace(terms=fit.terms[:, cut])
             rows.append(subminor_loop_reference(
                 residual_k[:, cut], model_k[:, cut],
                 None if rms_k is None else rms_k[cut], xs[cut], ys[cut],
-                psfs, coef, proj, params, n_polarizations=n_polarizations,
-                fit=fit))
+                psfs, coef, seg_fit, params,
+                n_polarizations=n_polarizations))
         begin = end
     return torch.stack(rows)
 
@@ -333,17 +484,46 @@ def _entry():
     fn = _build.library().subminor_loop
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = (
-        [ptr] * 9 + [i32, ptr] + [i32] * 5 + [f32] * 2 + [i32] * 2 + [f32]
-        + [i32] * 8 + [ptr]
+        [ptr] * 7 + [i32, ptr, i32, ptr] + [ptr, i32, ptr] + [i32] * 5
+        + [f32] * 2 + [i32] * 2 + [f32] + [i32] * 8 + [ptr]
     )
     fn.restype = i32
     return fn
 
 
-def _launch(residual_k, model_k, rms_k, xs, ys, psfs, coef, proj,
-            params: SubminorParams, n_polarizations: int,
-            offsets: Optional[torch.Tensor], n_tiles: int, longest: int,
-            plan: Optional[ClusterPlan], name: str) -> torch.Tensor:
+def _fit_pointers(fit: Optional[SubminorFit], n_chan: int, k: int, dev,
+                  name: str):
+    """The kernel's fit arguments (mode, constants pointer, T, terms
+    pointer) and the packed constants tensor, which the caller keeps alive
+    across the launch; the fit's tensors are checked first."""
+    if fit is None:
+        return 0, None, 0, None, None
+    f32 = torch.float32
+    if fit.mode == FIT_PROJECTION:
+        return (FIT_PROJECTION,
+                _check(fit.proj, "fit.proj", dev, (n_chan, n_chan), f32),
+                0, None, None)
+    t = fit.n_terms
+    if fit.mode == FIT_LOG_POLYNOMIAL:
+        _check(fit.fit_matrix, "fit.fit_matrix", dev, (t, n_chan), f32)
+        _check(fit.design, "fit.design", dev, (n_chan, t), f32)
+        _check(fit.mean_weights, "fit.mean_weights", dev, (n_chan,), f32)
+        terms = None
+    elif fit.mode == FIT_FORCED_TERMS:
+        _check(fit.weights, "fit.weights", dev, (n_chan,), f32)
+        _check(fit.powers, "fit.powers", dev, (t - 1, n_chan), f32)
+        terms = _check(fit.terms, "fit.terms", dev, (t - 1, k), f32)
+    else:
+        raise ValueError(f"{name}: unknown fit mode {fit.mode}")
+    constants = fit.constants()
+    return fit.mode, constants.data_ptr(), t, terms, constants
+
+
+def _launch(residual_k, model_k, rms_k, xs, ys, psfs, coef,
+            fit: Optional[SubminorFit], params: SubminorParams,
+            n_polarizations: int, offsets: Optional[torch.Tensor],
+            n_tiles: int, longest: int, plan: Optional[ClusterPlan],
+            name: str) -> torch.Tensor:
     """Check the CUDA tensors and launch the kernel over ``n_tiles``
     segments (``offsets`` None: one segment, the whole state); ``longest``
     is the largest segment, which sizes the plan."""
@@ -366,15 +546,17 @@ def _launch(residual_k, model_k, rms_k, xs, ys, psfs, coef, proj,
         _check(ys, "ys", dev, (k,), i32),
         _check(psfs, "psfs", dev, (n_psf, height, width), f32),
         _check(coef, "coef", dev, (n,), f32),
-        _check(proj, "proj", dev, (n_psf, n_psf), f32),
-        _check(offsets, "offsets", dev, (n_tiles + 1,), i32),
     ]
-    plan = cluster_plan(n, longest) if plan is None else plan
+    mode, constants, n_terms, terms, _keep = _fit_pointers(
+        fit, n_psf, k, dev, name)
+    offsets_ptr = _check(offsets, "offsets", dev, (n_tiles + 1,), i32)
+    plan = cluster_plan(n, longest, fit=fit) if plan is None else plan
     launch = _entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
-            *ptrs, n_tiles, out.data_ptr(), n, n_polarizations, k, height,
+            *ptrs, mode, constants, n_terms, terms, offsets_ptr, n_tiles,
+            out.data_ptr(), n, n_polarizations, k, height,
             width, params.threshold, params.gain, params.start_iteration,
             params.max_iterations, params.divergence_limit,
             int(params.allow_negative), int(params.stop_on_negative),
@@ -393,11 +575,10 @@ def subminor_loop(
     ys: torch.Tensor,
     psfs: torch.Tensor,
     coef: torch.Tensor,
-    proj: Optional[torch.Tensor],
+    fit: Optional[SubminorFit],
     params: SubminorParams,
     *,
     n_polarizations: int,
-    fit: Optional[Callable] = None,
     _plan: Optional[ClusterPlan] = None,
 ) -> torch.Tensor:
     """Run the Clark subminor loop over the candidate state in one launch.
@@ -407,21 +588,17 @@ def subminor_loop(
     ``[K]`` int32 positions of the candidates, ``psfs`` the
     ``[C, H, W]`` PSFs at image size (plane n uses PSF
     ``n // n_polarizations``), ``coef`` the ``[N]`` linear integration
-    coefficients and ``proj`` the optional ``[C, C]`` polynomial-fit
-    projection.  Returns the output tensor for :func:`read_result`.
-    The launch follows :func:`cluster_plan` (``_plan`` overrides it, for
-    tests and timings); a cluster that the card cannot schedule raises.
+    coefficients and ``fit`` the optional spectral fit
+    (:class:`SubminorFit`).  Returns the output tensor for
+    :func:`read_result`.  The launch follows :func:`cluster_plan` (``_plan``
+    overrides it, for tests and timings); a cluster that the card cannot
+    schedule raises.
     """
-    args = (residual_k, model_k, rms_k, xs, ys, psfs, coef, proj, params)
+    args = (residual_k, model_k, rms_k, xs, ys, psfs, coef, fit, params)
     if residual_k.device.type == "cpu":
-        return subminor_loop_reference(*args, n_polarizations=n_polarizations,
-                                       fit=fit)
+        return subminor_loop_reference(*args, n_polarizations=n_polarizations)
     if residual_k.device.type != "cuda":
         raise ValueError(f"subminor_loop: unsupported device {residual_k.device}")
-    if fit is not None:
-        raise ValueError(
-            "subminor_loop: the kernel applies only a polynomial projection"
-        )
     out = _launch(*args, n_polarizations, None, 1, residual_k.shape[1],
                   _plan, "subminor_loop")
     subminor_loop.launches += 1
@@ -439,13 +616,12 @@ def subminor_loop_tiles(
     ys: torch.Tensor,
     psfs: torch.Tensor,
     coef: torch.Tensor,
-    proj: Optional[torch.Tensor],
+    fit: Optional[SubminorFit],
     params: SubminorParams,
     offsets: torch.Tensor,
     counts: Sequence[int],
     *,
     n_polarizations: int,
-    fit: Optional[Callable] = None,
     _plan: Optional[ClusterPlan] = None,
 ) -> torch.Tensor:
     """T independent Clark subminor loops in one launch, one cluster a
@@ -455,21 +631,15 @@ def subminor_loop_tiles(
     ``offsets`` is the ``[T + 1]`` int32 tensor of segment bounds on the
     state's device and ``counts`` the T segment lengths on the host (they
     size the plan, by the largest).  Returns ``[T, 3]`` int32 results for
-    :func:`read_tile_results`.  A spectral fit that is not the polynomial
-    projection (``fit``) runs only in the plain version, on the CPU."""
-    args = (residual_k, model_k, rms_k, xs, ys, psfs, coef, proj, params)
+    :func:`read_tile_results`.  The forced terms of ``fit`` follow the
+    state's segments."""
+    args = (residual_k, model_k, rms_k, xs, ys, psfs, coef, fit, params)
     if residual_k.device.type == "cpu":
         return subminor_loop_tiles_reference(
-            *args, counts, n_polarizations=n_polarizations, fit=fit)
+            *args, counts, n_polarizations=n_polarizations)
     if residual_k.device.type != "cuda":
         raise ValueError(
             f"subminor_loop_tiles: unsupported device {residual_k.device}")
-    if fit is not None:
-        raise NotImplementedError(
-            "the mesh Clark subminor loop with a spectral fit other than the "
-            "polynomial projection on the card is not ported (B2 bakes only "
-            "the projection); ROADMAP queue A, item 9 brings it."
-        )
     counts = [int(c) for c in counts]
     if sum(counts) != residual_k.shape[1] or min(counts) < 0:
         raise ValueError(

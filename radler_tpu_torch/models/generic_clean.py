@@ -49,7 +49,6 @@ from .subminor import (
     SubMinorLoop,
     choose_padded_size,
     correct_residual,
-    fit_arguments,
 )
 
 # The batched facet route's budget for its stacks' estimate, in bytes: the
@@ -58,9 +57,9 @@ from .subminor import (
 BATCHED_FACETS_BUDGET = 4e9
 
 
-# The largest image (pixels) whose Clark run falls back to the Högbom kernel
-# on the card when the spectral fit is not a constant projection, as the
-# JAX package routes it on a TPU (generic_clean.py:420-425).
+# The largest image (pixels) whose Clark run takes the Högbom kernel on the
+# card when the spectral fit is not a constant projection, as the JAX
+# package routes it on a TPU (generic_clean.py:410-424).
 _HOGBOM_FALLBACK_PIXELS = 4096 * 4096
 
 
@@ -254,7 +253,6 @@ class GenericClean(DeconvolutionAlgorithm):
                                               self.clean_border_ratio))
         if self.clean_mask is not None:
             window = window & np.asarray(self.clean_mask, bool)
-        proj, fit = fit_arguments(self.spectral_fitter, meta, dev)
         out = mesh_subminor_clean(
             self.device_mesh,
             dirty_set.data,
@@ -272,8 +270,7 @@ class GenericClean(DeconvolutionAlgorithm):
                 self.stop_on_negative_components,
             ),
             meta=meta,
-            proj=proj,
-            fit=fit,
+            fitter=self.spectral_fitter,
         )
         self.iteration_number = out.iteration
         if out.any_selected:
@@ -296,21 +293,16 @@ class GenericClean(DeconvolutionAlgorithm):
         """Whether the Clark subminor loop runs, or the Högbom loop instead.
 
         CPU tensors always run it (its plain version, as the JAX package
-        does off the TPU).  On the card its kernel bakes no fit or the
-        polynomial projection; with another fit an image up to 4096^2 runs
-        the Högbom kernel, which applies any fit between launches, as the
-        JAX package routes it on a TPU (generic_clean.py:420-425)."""
+        does off the TPU).  On the card the JAX package's TPU rule holds
+        (generic_clean.py:410-424): no fit or the polynomial projection
+        runs the Clark loop; another fit runs the Högbom kernel on an image
+        up to 4096^2 and the Clark loop (B2 with the fit in its body)
+        above."""
         if device.type == "cpu" or fit is None:
             return True
         if fit.mode == SpectralFittingMode.POLYNOMIAL:
             return True
-        if height * width <= _HOGBOM_FALLBACK_PIXELS:
-            return False
-        raise NotImplementedError(
-            f"the Clark subminor loop with {fit.mode.name} spectral fitting "
-            f"on a {height}x{width} image on the card is not ported; ROADMAP "
-            "queue A, item 9 brings it."
-        )
+        return height * width > _HOGBOM_FALLBACK_PIXELS
 
     def _run_clark(
         self,

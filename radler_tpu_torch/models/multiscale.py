@@ -1340,22 +1340,14 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         conv_w: int,
     ):
         """The Clark loop on the candidate set at the selected scale (one
-        B2 launch on the card): returns (diverging, last peak value, the
-        full component cube), or None when it selected no candidates."""
+        B2 launch on the card, the spectral fit in its body; forced terms
+        gathered at the candidates' full-image coordinates, as the JAX
+        package's ``SubMinorLoop.run`` indexes them): returns (diverging,
+        last peak value, the full component cube), or None when it
+        selected no candidates."""
         height, width = individual_convolved.shape[-2:]
         entry = self.scale_infos[scale_with_peak]
         fitter = self.spectral_fitter
-        if (
-            individual_convolved.device.type == "cuda"
-            and fitter is not None
-            and fitter.is_active
-            and fitter.mode != SpectralFittingMode.POLYNOMIAL
-        ):
-            raise NotImplementedError(
-                f"the Clark subminor loop with {fitter.mode.name} spectral "
-                f"fitting on a {height}x{width} image on the card is not "
-                "ported; ROADMAP queue A, item 9 brings it."
-            )
         sub = SubMinorLoop(width, height, conv_w, conv_h)
         sub.set_iteration_info(self.iteration_number, self.max_iterations)
         sub.set_threshold(

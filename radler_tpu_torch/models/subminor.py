@@ -26,10 +26,19 @@ import numpy as np
 import torch
 
 from ..image_set import CubeMeta, linear_integration_coefficients
-from ..kernels.subminor_loop import SubminorParams, read_result, subminor_loop
+from ..kernels.subminor_loop import (
+    FIT_FORCED_TERMS,
+    FIT_LOG_POLYNOMIAL,
+    SubminorFit,
+    SubminorParams,
+    projection_fit,
+    read_result,
+    subminor_loop,
+)
 from ..ops.convolution import padded_convolve
 from ..ops.peak_finder import window_mask
 from ..settings import SpectralFittingMode
+from ..utils.device_consts import device_const
 from ..utils.fft_size import calculate_good_fft_size
 
 
@@ -77,22 +86,32 @@ def select_candidates(
     return torch.nonzero(selectable.reshape(-1))[:, 0]
 
 
-def fit_arguments(fitter, meta: CubeMeta, device):
-    """B2's spectral fit for ``fitter``: ``(proj, fit)``, the polynomial
-    fit's ``[C, C]`` projection on ``device``, or ``fit(cv, x, y)`` for any
-    other active fit (the plain version applies it; the kernel cannot), or
-    neither."""
+def fit_arguments(fitter, device, xs: torch.Tensor,
+                  ys: torch.Tensor) -> Optional[SubminorFit]:
+    """B2's spectral fit for ``fitter`` on ``device``, or None without an
+    active fit: the polynomial fit's ``[C, C]`` projection, the
+    log-polynomial fit's constants, or the forced-term fit's constants with
+    the term vectors gathered at the candidates ``(xs, ys)`` (``[K]``
+    int32, in the coordinates of the fitter's term images, as
+    ``_forced_fit`` indexes them)."""
     if fitter is None or not fitter.is_active:
-        return None, None
+        return None
     if fitter.mode == SpectralFittingMode.POLYNOMIAL:
-        return torch.as_tensor(np.asarray(fitter._projection, np.float32),
-                               device=device), None
-    C, P = meta.n_channels, meta.n_polarizations
-
-    def fit(cv, x, y):
-        return fitter.fit_and_evaluate(cv.view(C, P), x, y).reshape(-1)
-
-    return None, fit
+        return projection_fit(device_const(fitter._projection, device))
+    if fitter.mode == SpectralFittingMode.LOG_POLYNOMIAL:
+        fit_m, design, mean_weights = fitter.log_polynomial_constants(device)
+        return SubminorFit(FIT_LOG_POLYNOMIAL, fit_matrix=fit_m,
+                           design=design, mean_weights=mean_weights)
+    if fitter.mode == SpectralFittingMode.FORCED_TERMS:
+        images = fitter._forced_terms
+        if images is None:
+            raise RuntimeError("Forced terms have not been set")
+        weights, powers = fitter.forced_constants(images.shape[0], device)
+        terms = images.to(device=device, dtype=torch.float32)[
+            :, ys.long(), xs.long()].contiguous()
+        return SubminorFit(FIT_FORCED_TERMS, weights=weights, powers=powers,
+                           terms=terms)
+    return None
 
 
 class SubMinorLoop:
@@ -200,7 +219,7 @@ class SubMinorLoop:
             return False, None
         dev = residual_cube.device
         coef = torch.as_tensor(linear_integration_coefficients(meta), device=dev)
-        proj, fit_fn = fit_arguments(fitter, meta, dev)
+        fit = fit_arguments(fitter, dev, self._xs, self._ys)
         model_k = torch.zeros_like(self._residual_k)
         out = subminor_loop(
             self._residual_k,
@@ -210,7 +229,7 @@ class SubMinorLoop:
             self._ys,
             psfs.contiguous(),
             coef,
-            proj,
+            fit,
             SubminorParams.make(
                 self.threshold,
                 self.gain,
@@ -221,7 +240,6 @@ class SubMinorLoop:
                 self.stop_on_negative_component,
             ),
             n_polarizations=meta.n_polarizations,
-            fit=fit_fn,
         )
         self._model_k = model_k
         iteration, value, diverging = read_result(out)

@@ -23,7 +23,7 @@ Modes:
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,12 +161,35 @@ class SpectralFitter:
             out = vals
         return out[:, 0] if squeeze else out
 
+    def log_polynomial_constants(
+        self, device
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The log-polynomial fit's float32 constants on ``device``: the fit
+        matrix F ``[T, C]``, the design D ``[C, T]`` and the normalised
+        weights ``weights / max(sum(weights), 1e-300)`` ``[C]``."""
+        return (device_const(self._fit_matrix, device),
+                device_const(self._design, device),
+                device_const(self._mean_weights, device))
+
+    def forced_constants(
+        self, n_forced: int, device
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The forced-term fit's float32 constants on ``device`` for
+        ``n_forced`` term images: the weights ``[C]`` and the abscissa
+        powers ``lx^(k+1)`` ``[n_forced, C]`` (``lx`` = log(nu/nu_ref) in
+        float32, each power by repeated float32 products in the order of
+        JAX's ``integer_pow``)."""
+        lx = np.asarray(self._x, np.float32)
+        powers = np.stack([_integer_power(lx, k + 1) for k in range(n_forced)]
+                          ) if n_forced else np.zeros((0, lx.shape[0]))
+        return (device_const(self.weights, device),
+                device_const(powers, device))
+
     def _log_poly_fit(self, vals: torch.Tensor) -> torch.Tensor:
         """vals: [C, P] -> fitted [C, P] through a log-log polynomial."""
-        fit_m = self._on("_fit_matrix", vals)  # [T, C]
-        design = self._on("_design", vals)  # [C, T]
-        mean_flux = torch.einsum("c,cp->p", self._on("_mean_weights", vals),
-                                 vals)
+        fit_m, design, mean_weights = self.log_polynomial_constants(
+            vals.device)
+        mean_flux = torch.einsum("c,cp->p", mean_weights, vals)
         sign = torch.where(mean_flux < 0, -1.0, 1.0).to(vals.dtype)
         logs = torch.log(torch.clamp_min(vals.abs(), float(np.float32(1e-36))))
         coeffs = fit_m @ logs  # [T, P]
@@ -180,12 +203,8 @@ class SpectralFitter:
             terms = self._forced_terms[:, y, x]  # [T-1]
         else:
             raise RuntimeError("Forced terms have not been set")
-        lx = self._on("_x", vals)  # [C]
-        powers = torch.stack(
-            [lx ** (k + 1) for k in range(terms.shape[0])], dim=0
-        )  # [T-1, C]
+        w, powers = self.forced_constants(terms.shape[0], vals.device)
         curve = torch.exp(torch.einsum("t,tc->c", terms.to(vals.dtype), powers))
-        w = self._on("weights", vals)
         denom = torch.einsum("c,c,c->", w, curve, curve)
         amp = torch.einsum("c,c,cp->p", w, curve, vals) / torch.clamp_min(
             denom, float(np.float32(1e-36))
@@ -242,6 +261,20 @@ class SpectralFitter:
             )
             return out * sign * nonzero
         raise RuntimeError("evaluate_image does not support forced-term fitting")
+
+
+def _integer_power(x: np.ndarray, n: int) -> np.ndarray:
+    """``x ** n`` for a positive int ``n`` by binary exponentiation in
+    ``x``'s type, the products in the order of JAX's ``lax.integer_pow``
+    (which ``jnp`` arrays' ``** n`` lowers to)."""
+    acc = None
+    while n:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n:
+            x = x * x
+    return acc
 
 
 def create_spectral_fitter(settings, table) -> SpectralFitter:

@@ -67,7 +67,7 @@ from ..kernels.subtract_integrate import (
     subtract_integrate_reference,
 )
 from ..image_set import linear_integration_coefficients
-from ..models.subminor import select_candidates
+from ..models.subminor import fit_arguments, select_candidates
 from ..ops.peak_finder import FLT_MIN
 from ..utils.device_consts import device_const
 
@@ -473,8 +473,7 @@ def mesh_subminor_clean(
     params: SubminorParams,
     *,
     meta,
-    proj: Optional[torch.Tensor] = None,
-    fit=None,
+    fitter=None,
 ) -> MeshSubminorResult:
     """The Clark subminor loop on ``mesh`` (``mesh_subminor_clean`` and its
     program, ``mesh.py:488-752`` of the JAX package): every tile selects
@@ -486,8 +485,13 @@ def mesh_subminor_clean(
     the candidates' model values scattered into a model delta.  The
     caller subtracts ``delta ⊛ psf`` from the residual once
     (:func:`radler_tpu_torch.models.subminor.correct_residual`) and adds
-    ``delta`` to the model.  ``proj`` is the polynomial fit's ``[C, C]``
-    projection, ``fit(cv, x, y)`` any other fit (CPU tensors only)."""
+    ``delta`` to the model.  ``fitter``'s spectral fit runs in every
+    tile's loop (:func:`radler_tpu_torch.models.subminor.fit_arguments`,
+    the forced terms gathered at the candidates in the state's tile order,
+    so they follow the segments).  The port multiplies by the gain before
+    the fit, as the single-device loop does; the JAX mesh fits first
+    (``mesh.py:598-601``), which for the log-polynomial and forced fits
+    differs by rounding alone."""
     n, height, width = residual.shape
     if height % mesh.tile != 0:
         raise ValueError(f"mesh_subminor_clean: {height} rows do not divide "
@@ -509,8 +513,8 @@ def mesh_subminor_clean(
         cand.residual_k, model_k, cand.rms_k, cand.xs, cand.ys,
         psfs.contiguous(),
         torch.as_tensor(linear_integration_coefficients(meta), device=dev),
-        proj, params, cand.offsets, cand.counts,
-        n_polarizations=meta.n_polarizations, fit=fit)
+        fit_arguments(fitter, dev, cand.xs, cand.ys), params, cand.offsets,
+        cand.counts, n_polarizations=meta.n_polarizations)
     iteration, value, diverging = reduce_tile_results(
         read_tile_results(out), params.start_iteration)
     delta = torch.zeros((n, height * width), dtype=torch.float32, device=dev)

@@ -4,6 +4,10 @@
 command line, on one NVIDIA GPU.  Run from the root of a checkout:
 
     python3 scripts/kernel_probe.py b2        # the subminor kernel
+    python3 scripts/kernel_probe.py fits      # B2 with the log-polynomial and
+                                              # forced-term fits: against plain,
+                                              # 8192^2 x 4 performs, card vs CPU,
+                                              # the mesh and multiscale
     python3 scripts/kernel_probe.py b3        # the à-trous kernel
     python3 scripts/kernel_probe.py ms        # multiscale: B1 linear, config 3
                                               # on its 3 routes, the mesh
@@ -181,6 +185,22 @@ def main(argv):
         cs.phase_config2(psf2, residual2)
         cs.say("== point-source contract, Clark ==")
         cs.phase_contract(clark=True)
+    if "fits" in argv:
+        cs.say("== the subminor kernel with the log-polynomial and "
+               "forced-term fits against its plain version ==")
+        cs.phase_subminor_fits_vs_plain()
+        if timed:
+            cs.say("== 8192^2 x 4 channels, Clark with each fit ==")
+            cs.phase_spectral_performs()
+        cs.say("== B2 with each fit on the card against the CPU ==")
+        cs.phase_spectral_card_vs_cpu()
+        cs.say("== the joined cube with a log-polynomial fit on a chan 4 x "
+               "tile 2 mesh against the CPU ==")
+        psf, residual = cs.make_problem(cs.SIZE, cs.N_SOURCES)
+        cs.phase_mesh_clark_fit(*cs._joined_inputs(psf, residual))
+        del psf, residual
+        cs.say("== multiscale's Clark route with a log-polynomial fit ==")
+        cs.phase_ms_clark_fit()
     if "b3" in argv:
         cs.say("== the à-trous kernel (B3) against its plain version ==")
         cs.phase_atrous_vs_plain()

@@ -19,7 +19,7 @@ from radler_tpu_torch.image_set import CubeMeta, linear_integration_coefficients
 from radler_tpu_torch.kernels import hogbom_step as hs
 from radler_tpu_torch.kernels import iuwt_atrous as ia
 from radler_tpu_torch.kernels import subminor_loop as sl
-from radler_tpu_torch.models.subminor import SubMinorLoop
+from radler_tpu_torch.models.subminor import SubMinorLoop, fit_arguments
 from radler_tpu_torch.ops import iuwt as iuwt_ops
 from radler_tpu_torch.ops.convolution import padded_convolve
 from radler_tpu_torch.ops.spectral_fitting import SpectralFitter
@@ -313,25 +313,32 @@ def test_numpy_inputs_run_on_the_device_argument(cuda):
 # ---------------------------------------------------------------------------
 
 
-def subminor_case(C, P, use_rms, allow_negative, device, seed=0):
+def subminor_case(C, P, use_rms, allow_negative, device, seed=0,
+                  fit_mode="POLYNOMIAL", threshold=0.01):
     """A candidate set of the ragged cube of :func:`make_case`, selected by
-    SubMinorLoop."""
+    SubMinorLoop at ``threshold``, and B2's spectral fit of ``fit_mode`` (2
+    terms; the forced terms a spectral-index image about -0.7) for more
+    than one channel."""
     c = make_case(("linear", C, P, False), device, seed)
     loop = SubMinorLoop(WIDTH, HEIGHT, 2 * WIDTH, 2 * HEIGHT)
-    loop.set_threshold(0.01, 0.0)
+    loop.set_threshold(threshold, 0.0)
     loop.allow_negative_components = allow_negative
     if use_rms:
         loop.rms_factor_image = c["weight"] + 0.5
     assert loop.find_peak_positions(c["res"], c["meta"]) > 100
     coef = torch.as_tensor(linear_integration_coefficients(c["meta"]),
                            device=device)
-    proj = None
+    fit = None
     if C > 1:
-        fitter = SpectralFitter(rd.SpectralFittingMode.POLYNOMIAL, 2,
+        fitter = SpectralFitter(getattr(rd.SpectralFittingMode, fit_mode), 2,
                                 c["meta"].frequencies, c["meta"].weights)
-        proj = torch.as_tensor(np.asarray(fitter._projection, np.float32),
-                               device=device)
-    return loop, c["psfs"], coef, proj
+        if fit_mode == "FORCED_TERMS":
+            rng = np.random.default_rng(seed + 100)
+            fitter.set_forced_terms(torch.as_tensor(
+                rng.normal(-0.7, 0.2, (1, HEIGHT, WIDTH)).astype(np.float32),
+                device=device))
+        fit = fit_arguments(fitter, device, loop._xs, loop._ys)
+    return loop, c["psfs"], coef, fit
 
 
 # (C, P, polynomial fit, rms factor, allow negative, stop on negative); a
@@ -434,6 +441,54 @@ def test_subminor_loop_few_candidates_on_a_full_cluster(cuda):
     assert sl.read_result(outs[1][0])[0] == 100
 
 
+# (fit, C, P, rms factor, allow negative): the log-polynomial and
+# forced-term fits on the ship-raw exchange (up to 8 planes) and without
+# it (40 planes), squared-join-like P > 1 among them.
+GENERAL_FIT_CASES = [
+    (mode, C, P, use_rms, allow_negative)
+    for mode in ("LOG_POLYNOMIAL", "FORCED_TERMS")
+    for C, P in ((4, 1), (2, 2), (8, 1), (40, 1))
+    for use_rms, allow_negative in ((False, True), (True, False))
+]
+
+
+@pytest.mark.parametrize(
+    "case", GENERAL_FIT_CASES,
+    ids=lambda c: "{}-{}x{}-rms{:d}-neg{:d}".format(*c))
+def test_subminor_loop_general_fits_bit_equal_to_plain(cuda, case):
+    """B2 with the log-polynomial or forced-term fit in its body, at its own
+    plan and at every plan of SUBMINOR_PLANS, against its plain version, bit
+    for bit."""
+    mode, C, P, use_rms, allow_negative = case
+    # The noise of the linear integration falls as 1/sqrt(C P): 40 planes
+    # select a few thousand candidates at a lower threshold.
+    loop, psfs, coef, fit = subminor_case(
+        C, P, use_rms, allow_negative, cuda, seed=8, fit_mode=mode,
+        threshold=0.01 if C * P <= 8 else 0.003)
+    n, k = loop._residual_k.shape
+    params = sl.SubminorParams.make(0.005, 0.1, 0, 250, 4.0, allow_negative,
+                                    False)
+    plans = [None] + [sl.cluster_plan(n, k, fit=fit, **plan)
+                      for plan in SUBMINOR_PLANS]
+    outs = []
+    for plan in ["plain"] + plans:
+        res = loop._residual_k.clone()
+        model = torch.zeros_like(res)
+        args = (res, model, loop._rms_k, loop._xs, loop._ys, psfs, coef, fit,
+                params)
+        if plan == "plain":
+            out = sl.subminor_loop_reference(*args, n_polarizations=P)
+        else:
+            out = sl.subminor_loop(*args, n_polarizations=P, _plan=plan)
+        torch.cuda.synchronize()
+        outs.append((out, res, model))
+    op, rp, mp = outs[0]
+    for ok, rk, mk in outs[1:]:
+        assert torch.equal(ok, op)
+        assert torch.equal(rk, rp) and torch.equal(mk, mp)
+    assert sl.read_result(op)[0] > 3
+
+
 def test_subminor_refused_launch_raises(cuda):
     """A launch the card cannot take (more shared memory than a block may
     hold) raises from the wrapper; nothing falls back to a smaller
@@ -484,8 +539,12 @@ def test_subminor_wrapper_rejects_bad_inputs(cuda):
         broken[index] = value
         with pytest.raises(error):
             sl.subminor_loop(*broken, n_polarizations=1)
-    with pytest.raises(ValueError):  # the kernel bakes no general fit
-        sl.subminor_loop(*args, n_polarizations=1, fit=lambda v, x, y: v)
+    with pytest.raises(ValueError):  # a fit whose constants do not match
+        fit = sl.SubminorFit(sl.FIT_LOG_POLYNOMIAL,
+                             fit_matrix=torch.ones(2, 3, device=cuda),
+                             design=torch.ones(3, 2, device=cuda),
+                             mean_weights=torch.ones(3, device=cuda))
+        sl.subminor_loop(*args[:7], fit, params, n_polarizations=1)
     with pytest.raises(ValueError):  # more planes than the kernel takes
         n, k = sl.MAX_IMAGES + 1, 10
         big = torch.zeros(n, k, device=cuda)
@@ -610,18 +669,39 @@ def test_subminor_tiles_every_plan_and_more_clusters_than_fit(cuda):
         assert torch.equal(outs[0][2], outs[1][2])
 
 
-def test_subminor_tiles_refuse_a_general_fit(cuda):
-    """B2 bakes only the polynomial projection: another fit on the card
-    raises, naming ROADMAP item 9."""
-    loop, psfs, coef, _ = subminor_case(1, 1, False, True, cuda)
-    k = loop._residual_k.shape[1]
-    params = sl.SubminorParams.make(0.01, 0.1, 0, 10, 0.0, True, False)
-    res = loop._residual_k.clone()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sl.subminor_loop_tiles(res, torch.zeros_like(res), None, loop._xs,
-                               loop._ys, psfs, coef, None, params,
-                               tile_offsets([k], cuda), [k],
-                               n_polarizations=1, fit=lambda v, x, y: v)
+@pytest.mark.parametrize("mode", ["LOG_POLYNOMIAL", "FORCED_TERMS"])
+def test_subminor_tiles_with_each_fit_bit_equal_to_plain(cuda, mode):
+    """B2's tile axis with the log-polynomial or forced-term fit (the forced
+    terms following the segments) on 8 ragged tiles, an empty one among
+    them, at its own plan and with the state in global memory without raw
+    values, against its plain version, bit for bit."""
+    loop, psfs, coef, fit = subminor_case(2, 2, True, True, cuda, seed=3,
+                                          fit_mode=mode)
+    n, k = loop._residual_k.shape
+    counts = TILE_SEGMENTS[8] + [k - sum(TILE_SEGMENTS[8])]
+    offsets = tile_offsets(counts, cuda)
+    params = sl.SubminorParams.make(0.005, 0.1, 3, 250, 4.0, True, False)
+    plans = [None, sl.cluster_plan(n, max(counts), fit=fit, cluster_size=16,
+                                   on_chip=False, ship_raw=False)]
+    outs = []
+    for plan in ["plain"] + plans:
+        res = loop._residual_k.clone()
+        model = torch.zeros_like(res)
+        args = (res, model, loop._rms_k, loop._xs, loop._ys, psfs, coef, fit,
+                params)
+        if plan == "plain":
+            out = sl.subminor_loop_tiles_reference(*args, counts,
+                                                   n_polarizations=2)
+        else:
+            out = sl.subminor_loop_tiles(*args, offsets, counts,
+                                         n_polarizations=2, _plan=plan)
+        torch.cuda.synchronize()
+        outs.append((out, res, model))
+    op, rp, mp = outs[0]
+    for ok, rk, mk in outs[1:]:
+        assert torch.equal(ok, op)
+        assert torch.equal(rk, rp) and torch.equal(mk, mp)
+    assert max(it for it, _, _ in sl.read_tile_results(op)) > 3
 
 
 def test_perform_mesh_clark_on_card_matches_cpu(cuda):

@@ -182,7 +182,7 @@ def run_three(case):
         res_k, mod_k, k(loop._rms_k) if use_rms else None,
         k(loop._xs), k(loop._ys), torch.as_tensor(psfs),
         torch.as_tensor(coef),
-        None if proj is None else torch.as_tensor(proj),
+        None if proj is None else sl.projection_fit(torch.as_tensor(proj)),
         sl.SubminorParams.make(threshold, gain, 0, max_iters, divergence_limit,
                                allow_negative, stop_on_negative),
         n_polarizations=P,
@@ -285,8 +285,8 @@ def test_find_peak_positions_nothing_selected():
 def test_run_and_correction_match_jax(fit_mode):
     """SubMinorLoop.run then correct_residual_dirty, both packages: the
     corrected residual, the full model and the auto-mask/component-list
-    updates.  The log-polynomial fit runs through the plain loop's general
-    fit hook, as the JAX package's XLA loop applies it."""
+    updates.  The log-polynomial fit runs in the plain loop's body, as the
+    JAX package's XLA loop applies it."""
     C = 1 if fit_mode == "NO_FITTING" else 3
     (jloop, tloop), psfs, residual, meta_args = jax_and_port_loops(
         C, 1, 6, threshold=0.1
@@ -320,9 +320,10 @@ def test_run_and_correction_match_jax(fit_mode):
 
 
 def test_generic_clean_routing_on_the_card():
-    """Which loop a Clark run takes, decided without a card: the kernel for
-    no fit and the polynomial projection, the Högbom kernel for other fits
-    up to 4096^2, and a raise above."""
+    """Which loop a Clark run takes, decided without a card, by the JAX
+    package's TPU rule: B2 for no fit and the polynomial projection at any
+    size; for the log-polynomial and forced-term fits the Högbom kernel up
+    to 4096^2 and B2 (the fit in its body) above."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     fitters = {
         mode: SpectralFitter(getattr(SpectralFittingMode, mode), 2,
@@ -335,8 +336,8 @@ def test_generic_clean_routing_on_the_card():
     assert runs(cpu, fitters["LOG_POLYNOMIAL"], 8192, 8192)
     for mode in ("LOG_POLYNOMIAL", "FORCED_TERMS"):
         assert not runs(cuda, fitters[mode], 4096, 4096)
-        with pytest.raises(NotImplementedError):
-            runs(cuda, fitters[mode], 4096, 4097)
+        assert runs(cuda, fitters[mode], 4096, 4097)
+        assert runs(cuda, fitters[mode], 8192, 8192)
 
 
 def test_kernel_wrapper_rejects_other_devices():
