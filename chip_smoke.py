@@ -26,7 +26,7 @@ tensors and prints what it measured:
   iterations) with the time split of a perform, the kernel against its
   plain version at every shape config 4 gave it, and the 128^2
   diffuse-source contract;
-* the mesh Högbom loop, its shards all on the one card: the shard-local
+* the mesh Högbom loop, its shards on the card: the shard-local
   kernel (B4) and the Högbom step on row shards against their plain
   versions, B4's time, the joined-channel cube on a chan 4 x tile 2 mesh
   against the single-device perform, 2 channels x 2 polarizations with
@@ -41,6 +41,14 @@ tensors and prints what it measured:
   against the plain version, and the tile axis timed at config 2's
   segments against today's B2 launched on each tile in turn and the plain
   version;
+* the mesh over several cards through Radler.perform: config 1 on chan 1
+  x tile 8, the joined-channel cube on chan 4 x tile 2, config 2's mesh
+  Clark and the multiscale mesh, their shards spread over every visible
+  card (up to 8; with one card, over 4 groups of shards on it), each
+  bit-equal to the same mesh on one card and within its gate of the
+  single device (the Clark mesh's difference printed), with the launches,
+  the time an iteration and the peak memory on each card, and a profiled
+  perform's busy share of each card;
 * the Clark loop with the log-polynomial and the forced-term fit in B2's
   body: B2 against its plain version with each fit (4 x 1, 2 x 2, 8 x 1
   and 40 x 1 planes, with and without an rms factor, at every plan; the
@@ -217,6 +225,14 @@ MS_CARD_VS_CPU = 1e-5
 # package's own gate, tests/test_mesh_multiscale.py).
 MS_MESH_CHANNELS = 4
 MS_MESH_VS_SINGLE = 2e-5
+# The mesh over several cards: the mesh cells' MESH_DEVICES shards spread
+# over the visible cards, up to 8, or over this many groups on the one
+# card; CARDS_ITERATIONS Högbom iterations a perform at 4096^2.
+MESH_GROUPS_ON_ONE_CARD = 4
+CARDS_ITERATIONS = 1000
+# The profiled performs of the Högbom cells (the profiler's events of a
+# 1000-iteration perform take about a minute to read back).
+CARDS_PROFILE_ITERATIONS = 100
 # Config 5 (``benchmarks/config5_proxy.py --size 4096 --channels 2 --facets
 # 2 --iters 400``): I, Q, U, V x 2 channels of config 3's diffuse emission,
 # squared joins, a 2-term polynomial fit, gain 0.1, major gain 0.85, 2 x 2
@@ -683,6 +699,8 @@ def _reset_counts():
     sl.subminor_loop_tiles.launches = 0
     ia.atrous_decompose_lo.launches = 0
     si.subtract_integrate.launches = 0
+    for fn in (hs.hogbom_step, sl.subminor_loop_tiles, si.subtract_integrate):
+        fn.launches_by_card.clear()
 
 
 def _settings(size, iterations, clark=False):
@@ -3344,6 +3362,305 @@ def phase_ms_mesh():
 
 
 # ---------------------------------------------------------------------------
+# The mesh over several cards
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _listed_cards(cards):
+    """While open, Radler's meshes spread over ``cards`` (the run's card
+    first): the mesh module's card listing is replaced.  ``None`` keeps the
+    real listing, every visible card."""
+    from radler_tpu_torch.parallel import mesh as pm
+
+    real = pm.visible_cards
+    if cards is not None:
+        pm.visible_cards = lambda device: list(cards)
+    try:
+        yield
+    finally:
+        pm.visible_cards = real
+
+
+def _mesh_kernels():
+    from radler_tpu_torch.kernels import hogbom_step as hs
+    from radler_tpu_torch.kernels import subminor_loop as sl
+    from radler_tpu_torch.kernels import subtract_integrate as si
+
+    return {"B1": hs.hogbom_step, "B4": si.subtract_integrate,
+            "B2": sl.subminor_loop_tiles}
+
+
+def _run_on_cards(make_radler, cards):
+    """One perform of ``make_radler()`` with the meshes over ``cards``
+    (see :func:`_listed_cards`), every card synchronized around it and the
+    launch counts reset just before it.  Returns a dict: iterations,
+    seconds, launches of B1, B4 and B2 by card, the cubes, each card's peak
+    memory above what it held before (MiB) and the mesh."""
+    count = torch.cuda.device_count()
+    with _listed_cards(cards):
+        r = make_radler()
+        before = []
+        for i in range(count):
+            torch.cuda.synchronize(i)
+            torch.cuda.reset_peak_memory_stats(i)
+            before.append(torch.cuda.memory_allocated(i))
+        _reset_counts()
+        start = time.perf_counter()
+        r.perform(0)
+        for i in range(count):
+            torch.cuda.synchronize(i)
+        seconds = time.perf_counter() - start
+    launches = {name: dict(fn.launches_by_card)
+                for name, fn in _mesh_kernels().items()}
+    out_res = torch.stack([e.residual_accessor.array for e in r._table])
+    out_mod = torch.stack([e.model_accessor.array for e in r._table])
+    if not (torch.isfinite(out_res).all() and torch.isfinite(out_mod).all()):
+        raise AssertionError("non-finite residual or model")
+    peaks = [(torch.cuda.max_memory_allocated(i) - before[i]) / 2**20
+             for i in range(count)]
+    mesh = r._parallel.first_algorithm.device_mesh
+    return dict(n=r.iteration_number, seconds=seconds, launches=launches,
+                res=out_res, mod=out_mod, peaks=peaks, mesh=mesh)
+
+
+def _card_time(make_radler, cards):
+    """Where a perform's time goes: one perform with the meshes over
+    ``cards`` under ``torch.profiler``.  For each card, the union of its
+    device intervals over the window from the first device interval on
+    any card to the last (its busy share) and its device time by name (the
+    three largest); for the host, the six largest self CPU times by op,
+    with their calls, both per iteration.  Returns a dict (``cards`` None
+    where the profiler saw no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with _listed_cards(cards):
+        r = make_radler()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            r.perform(0)
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+            seconds = time.perf_counter() - start
+    n = max(r.iteration_number, 1)
+    host = sorted(((e.key, e.count / n, e.self_cpu_time_total / n)
+                   for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda t: -t[2])[:6]
+    out = dict(ms=seconds / n * 1e3, host=host, cards=None)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        return out
+    first = min(e.time_range.start for e in device)
+    window = max(e.time_range.end for e in device) - first
+    out["cards"] = {}
+    for index in sorted({e.device_index for e in device}):
+        mine = [e for e in device if e.device_index == index]
+        busy, reach = 0.0, None
+        for begin, end in sorted((e.time_range.start, e.time_range.end)
+                                 for e in mine):
+            if reach is None or begin > reach:
+                busy, reach = busy + end - begin, end
+            elif end > reach:
+                busy, reach = busy + end - reach, end
+        by_name = {}
+        for e in mine:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        out["cards"][index] = (busy / window,
+                               [(k[:48], t / 1e3) for k, t in top])
+    return out
+
+
+def _say_card_time(label, timed):
+    say(f"    profiled perform, {label}: {timed['ms']:.4f} ms an iteration "
+        "(profiler on); host self CPU an iteration: " + ", ".join(
+            f"{key} {us:.1f} us ({calls:.1f} calls)"
+            for key, calls, us in timed["host"]))
+    if timed["cards"] is None:
+        say("    the profiler saw no device time (busy shares not measured)")
+    for index, (share, top) in (timed["cards"] or {}).items():
+        say(f"      card {index}: busy {share:.4f} of the window; "
+            + ", ".join(f"{name} {ms:.3f} ms" for name, ms in top))
+
+
+def _expected_launches(mesh, kernel, n):
+    """The least launches of ``kernel`` on each card for ``n`` iterations
+    on ``mesh``: every shard once an iteration (B1 and B4), one tile-axis
+    launch a group that holds Clark tiles (B2)."""
+    from radler_tpu_torch.parallel import mesh as pm
+
+    want = {}
+    if kernel == "B2":
+        for _, _, g in pm.tile_runs(mesh):
+            index = mesh.card(g).index
+            want[index] = want.get(index, 0) + 1
+        return want
+    per_group = mesh.size // mesh.groups
+    for g in range(mesh.groups):
+        index = mesh.card(g).index
+        want[index] = want.get(index, 0) + n * per_group
+    return want
+
+
+def _cards_cell(label, make_radler, kernel, spread, one, single_gate,
+                loops=1, profiled=False):
+    """One cell of the mesh-over-cards phase: the perform with the shards
+    over ``spread`` (None: every visible card) against the same perform on
+    one group on the card (``one``), bit for bit, and against the
+    single-device perform within ``single_gate`` (None: printed only, the
+    mesh's Clark loop being another algorithm than the single device's).
+    Checks that ``kernel`` launched on every card that holds shards, every
+    shard every iteration (and, over ``loops`` minor loops a perform, fewer
+    than CHUNK times more, the no-op launches after each loop's stop; None:
+    not counted), and no other mesh kernel; with ``profiled``, a perform
+    of CARDS_PROFILE_ITERATIONS iterations on one group and one spread
+    under the profiler (:func:`_card_time`; ``make_radler`` then takes the
+    iterations as its second argument).  Returns the cell's numbers."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+
+    single = _run_on_cards(lambda: make_radler(False), one)
+    base = _run_on_cards(lambda: make_radler(True), one)
+    run = _run_on_cards(lambda: make_radler(True), spread)
+    mesh, n = run["mesh"], run["n"]
+    if base["mesh"].groups != 1 or mesh.groups < 2:
+        raise AssertionError(f"{label}: {base['mesh'].groups} and "
+                             f"{mesh.groups} groups")
+    same = (n == base["n"] and torch.equal(run["res"], base["res"])
+            and torch.equal(run["mod"], base["mod"]))
+    d_res = float((run["res"] - single["res"]).abs().max())
+    d_mod = float((run["mod"] - single["mod"]).abs().max())
+    want = _expected_launches(mesh, kernel, n)
+    got = run["launches"][kernel]
+    others = {k: v for k, v in run["launches"].items() if k != kernel and v}
+    say(f"  {label}: chan {mesh.chan} x tile {mesh.tile} over "
+        f"{[str(d) for d in mesh.devices]}; {n} iterations (one group "
+        f"{base['n']}, single device {single['n']}); bit-equal to the "
+        f"one-group mesh: {same}; max|dres| {d_res:.3g}, max|dmodel| "
+        f"{d_mod:.3g} against the single device")
+    say(f"    {kernel} launches by card {dict(sorted(got.items()))} (at least "
+        f"{dict(sorted(want.items()))}); seconds {run['seconds']:.4f}, "
+        f"{run['seconds'] / max(n, 1) * 1e3:.4f} ms an iteration against "
+        f"{base['seconds'] / max(base['n'], 1) * 1e3:.4f} on one group and "
+        f"{single['seconds'] / max(single['n'], 1) * 1e3:.4f} on one device; "
+        f"peak memory by card (MiB above its inputs) "
+        f"{[round(p, 1) for p in run['peaks']]}, one group "
+        f"{[round(p, 1) for p in base['peaks']]}")
+    if not same:
+        raise AssertionError(f"{label}: the spread mesh and the one-group "
+                             "mesh differ")
+    def in_range(i):
+        if kernel == "B2":
+            return got[i] == want[i]
+        shards = want[i] // n
+        return want[i] <= got[i] and (
+            loops is None or got[i] < want[i] + loops * hs.CHUNK * shards)
+
+    if n <= 0 or others or set(got) != set(want) or not all(
+            in_range(i) for i in want):
+        raise AssertionError(f"{label}: launches {run['launches']} for {n} "
+                             f"iterations, expected {want}")
+    if single_gate is not None and (n != single["n"]
+                                    or max(d_res, d_mod) > single_gate):
+        raise AssertionError(f"{label}: the mesh and single-device performs "
+                             "differ")
+    busy = None
+    if profiled:
+        busy = {which: _card_time(
+                    lambda: make_radler(True, CARDS_PROFILE_ITERATIONS),
+                    cards) for which, cards in (("one group", one),
+                                                ("spread", spread))}
+        for which, timed in busy.items():
+            _say_card_time(which, timed)
+    return dict(groups=[str(d) for d in mesh.devices], n=n, busy=busy,
+                ms=run["seconds"] / n * 1e3,
+                one_ms=base["seconds"] / base["n"] * 1e3,
+                single_ms=single["seconds"] / single["n"] * 1e3,
+                launches=got, peaks=run["peaks"])
+
+
+def phase_mesh_cards(psf, residual):
+    """The mesh over several cards through Radler.perform: config 1 on chan
+    1 x tile 8 (B1 on row shards), the joined-channel cube on chan 4 x
+    tile 2 (B4), config 2 with the Clark default on chan 1 x tile 8 (B2's
+    tile axis) and the multiscale mesh (MS_MESH_CHANNELS x MS_SIZE^2, B4
+    linear), MESH_DEVICES shards each, spread over the visible cards (up
+    to 8) or, with one card, over MESH_GROUPS_ON_ONE_CARD groups on it.
+    Each cell is bit-equal to its one-group mesh and holds MESH_VS_SINGLE
+    (MS_MESH_VS_SINGLE for multiscale) against the single device.  Returns
+    the cells' numbers."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.parallel import mesh as pm
+
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    say(f"  visible cards: {count}")
+    for i, line in enumerate(smi.splitlines()):
+        say(f"    card {i}: {torch.cuda.get_device_name(i)}; nvidia-smi: "
+            f"{line.strip()}")
+    psf_1 = torch.as_tensor(psf, device=DEVICE)
+    res_1 = torch.as_tensor(residual, device=DEVICE)
+    lead = psf_1.device
+    say(f"  peer access: {pm.peer_access(pm.visible_cards(lead))}")
+    one = [lead]
+    spread = None
+    if count < 2:
+        spread = [lead] * MESH_GROUPS_ON_ONE_CARD
+        say(f"  one card: the shards spread over {MESH_GROUPS_ON_ONE_CARD} "
+            "groups on it")
+    psfs_j, res_j, kwargs_j = _joined_inputs(psf, residual)
+
+    def hogbom(psfs, res, kwargs):
+        return lambda use_mesh, iterations=CARDS_ITERATIONS: rd.Radler(
+            _mesh_settings(SIZE, iterations, use_mesh), psfs, res.clone(),
+            torch.zeros_like(res), 0.0, **kwargs)
+
+    cells = {}
+    cells["config 1"] = _cards_cell(
+        "config 1 (4096^2, Högbom)", hogbom(psf_1, res_1, {}), "B1", spread,
+        one, MESH_VS_SINGLE, profiled=True)
+    cells["joined"] = _cards_cell(
+        "joined channels (4 x 4096^2, Högbom)",
+        hogbom(psfs_j, res_j, kwargs_j), "B4", spread, one, MESH_VS_SINGLE,
+        profiled=True)
+    del psfs_j, res_j, psf_1, res_1
+    psf2, residual2 = make_problem(CLARK_SIZE, N_SOURCES)
+    psf_2 = torch.as_tensor(psf2, device=DEVICE)
+    res_2 = torch.as_tensor(residual2, device=DEVICE)
+    cells["config 2"] = _cards_cell(
+        "config 2 (2048^2, Clark)",
+        lambda use_mesh: _mesh_clark_radler(psf_2, res_2, {}, CLARK_SIZE,
+                                            ITERATIONS, use_mesh)(),
+        "B2", spread, one, None)
+    del psf_2, res_2
+    psfs, residual_ms = make_ms_check_problem(MS_SIZE, MS_MESH_CHANNELS)
+    psf_d = torch.as_tensor(psfs, device=DEVICE)
+    res_d = torch.as_tensor(residual_ms, device=DEVICE)
+
+    def multiscale(use_mesh):
+        s = _ms_settings(MS_SIZE, MS_ITERATIONS)
+        s.parallel.use_device_mesh = use_mesh
+        s.parallel.n_devices = MESH_DEVICES if use_mesh else 0
+        return rd.Radler(s, psf_d, res_d.clone(), torch.zeros_like(res_d),
+                         0.0, frequencies=_ms_frequencies(MS_MESH_CHANNELS))
+
+    with _ms_route("fused"):
+        cells["multiscale"] = _cards_cell(
+            f"multiscale ({MS_MESH_CHANNELS} x {MS_SIZE}^2, fused)",
+            multiscale, "B4", spread, one, MS_MESH_VS_SINGLE, loops=None)
+    del psf_d, res_d
+    torch.cuda.empty_cache()
+    return cells
+
+
+# ---------------------------------------------------------------------------
 # Facets (config 5)
 # ---------------------------------------------------------------------------
 
@@ -4894,7 +5211,11 @@ def main():
         "x tile 2 mesh (B2's tile axis, the fit in its body) against the "
         "port's CPU run")
     mesh_fit = phase_mesh_clark_fit(psfs_j, res_j, kwargs_j)
-    del psf, residual, psfs_j, res_j
+    del psfs_j, res_j
+    section("the mesh over several cards (up to 8 cards; one card: "
+        f"{MESH_GROUPS_ON_ONE_CARD} groups on it) through Radler.perform")
+    cards = phase_mesh_cards(psf, residual)
+    del psf, residual
     section("point-source contract, Högbom")
     phase_contract()
     section("point-source contract, Högbom on a chan 1 x tile 8 mesh")
@@ -5212,6 +5533,13 @@ def main():
         f"{ms_batched['passes']} lockstep passes, B1's facet step in linear "
         f"mode with a PSF stack a facet {facet_linear['step'][0]:.4f} ms "
         f"against its {fl_bound_ms:.4f} ms bound")
+    say("mesh over cards: " + "; ".join(
+        f"{label} over {len(cell['groups'])} groups "
+        f"({len(set(cell['groups']))} cards) {cell['ms']:.4f} ms an "
+        f"iteration (one group {cell['one_ms']:.4f}, one device "
+        f"{cell['single_ms']:.4f}), launches by card "
+        f"{dict(sorted(cell['launches'].items()))}"
+        for label, cell in cards.items()))
     say(f"ASP: {asp_run['rate']:.1f} minor iterations/s through perform "
         f"({ASP_CHANNELS} x {ASP_SIZE}^2, point grid), {asp_run['syncs']} "
         f"host syncs, {asp_run['peak_mib']:.1f} MiB")

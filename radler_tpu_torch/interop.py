@@ -49,9 +49,12 @@ def cube_meta_from_reference(meta) -> CubeMeta:
     return CubeMeta(**{name: getattr(meta, name) for name in CubeMeta._fields})
 
 
-def mesh_from_jax(mesh, device="cuda") -> Mesh:
+def mesh_from_jax(mesh, device="cuda", devices=None) -> Mesh:
     """The port's ``Mesh`` of the same ``("chan", "tile")`` shape as
     ``mesh``, a ``jax.sharding.Mesh`` (read through its ``shape``
-    mapping), with every shard on ``device``."""
+    mapping), with the shards over the groups of ``devices`` (the lead
+    first) or, without them, one group on ``device``."""
     shape = dict(mesh.shape)
-    return Mesh(int(shape["chan"]), int(shape["tile"]), torch.device(device))
+    devices = tuple(torch.device(d) for d in devices or ())
+    return Mesh(int(shape["chan"]), int(shape["tile"]),
+                devices[0] if devices else torch.device(device), devices)

@@ -42,6 +42,7 @@ step and select on each facet's box in turn.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
@@ -687,10 +688,12 @@ def hogbom_step(
         )
     _raise_on(err, "hogbom_step")
     hogbom_step.launches += 1
+    hogbom_step.launches_by_card[dev.index] += 1
     return part_cmp, part_idx, part_integ
 
 
 hogbom_step.launches = 0
+hogbom_step.launches_by_card = collections.Counter()
 
 
 def hogbom_step_facets(

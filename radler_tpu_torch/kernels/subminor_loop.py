@@ -35,6 +35,7 @@ tensors), so the two agree bit for bit.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -648,7 +649,9 @@ def subminor_loop_tiles(
     out = _launch(*args, n_polarizations, offsets, len(counts), max(counts),
                   _plan, "subminor_loop_tiles")
     subminor_loop_tiles.launches += 1
+    subminor_loop_tiles.launches_by_card[residual_k.device.index] += 1
     return out
 
 
 subminor_loop_tiles.launches = 0
+subminor_loop_tiles.launches_by_card = collections.Counter()

@@ -20,6 +20,7 @@ operations in the same order.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -198,7 +199,9 @@ def subtract_integrate(
                      row_offset, MODES.index(mode), stream)
     _raise_on(err, "subtract_integrate")
     subtract_integrate.launches += 1
+    subtract_integrate.launches_by_card[dev.index] += 1
     return out
 
 
 subtract_integrate.launches = 0
+subtract_integrate.launches_by_card = collections.Counter()

@@ -15,9 +15,9 @@ Pallas kernel).  The Gaussian fits are small least-squares solves on the
 host (:mod:`radler_tpu_torch.ops.gaussian_fit`), which read only the fit's
 window, so only that window is copied from the device; the Gaussians are
 drawn on the host in NumPy, as in the JAX package.  The JAX package
-row-shards ASP's cube on a device mesh, a placement only; every shard of
-the port's mesh lies on the one device, so ASP runs there as on one
-device.
+row-shards ASP's cube on a device mesh, a placement only with the same
+results; on a mesh the port runs ASP on the mesh's lead device as on one
+device (spreading its work over the cards is later work).
 """
 
 from __future__ import annotations

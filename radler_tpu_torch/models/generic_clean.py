@@ -170,8 +170,8 @@ class GenericClean(DeconvolutionAlgorithm):
             if not mesh_pallas_eligible(mesh, meta, height):
                 # The JAX package lets XLA partition its single-device
                 # Högbom loop here (generic_clean.py:457-509), which keeps
-                # that loop's semantics; every shard of this mesh lies on
-                # one device, so the loop runs there unpartitioned.
+                # that loop's semantics; the loop runs unpartitioned on the
+                # mesh's lead, where the cube lies.
                 mesh = None
         elif self.use_sub_minor_optimization and (
             self._clark_runs(dirty_set.data.device, fit, height, width)

@@ -20,9 +20,10 @@ iteration.  Nothing inside a structure iteration copies host data to the
 device, except the label map of the multi-image refit: the windows, the
 prior mask and the PSF's per-scale RMS are made on the device, or copied
 once per run before the structure loop.  The JAX package lays IUWT's rows
-over a device mesh (``models/iuwt.py:107-132``), a placement only; every
-shard of the port's mesh lies on the one device, so IUWT runs there as on
-one device, bit for bit.
+over a device mesh (``models/iuwt.py:107-132``), a placement only with the
+same results; on a mesh the port runs IUWT on the mesh's lead device as
+on one device, bit for bit (spreading its FFT work over the cards is
+later work).
 """
 
 from __future__ import annotations

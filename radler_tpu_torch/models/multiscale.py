@@ -848,9 +848,10 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
                        result: DeconvolutionResult) -> DeconvolutionResult:
         """One major iteration on the fused route (``_execute_fused`` of
         the JAX package, ``multiscale.py:1071-1332``).  On a device mesh
-        the inputs are checked to lie on its device and, where the cube
-        divides over it, the dense subminor loop runs partitioned (B4 or
-        B1 on row shards)."""
+        the inputs are checked to lie on its lead device and, where the
+        cube divides over it, the dense subminor loop runs partitioned (B4
+        or B1 on row shards, each group of shards on its card); the banks,
+        the FFT work and the host decisions stay on the lead."""
         meta: CubeMeta = dirty_set.meta
         width, height = dirty_set.width, dirty_set.height
         (kernel_f, twice, psf_f, kernel_f_large, psf_f_large, bias, gain_arr,

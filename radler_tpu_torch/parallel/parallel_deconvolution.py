@@ -23,9 +23,9 @@ rule (:meth:`ParallelDeconvolution._can_batch_facets`):
 
 On a device mesh (``mesh.py:842-886`` of the JAX package lays the batched
 facet axis over the mesh's devices, a placement only) the batched routes
-run as on one device, every shard of the port's mesh lying on it; on the
-serial route each facet's clone keeps the mesh and takes the mesh routes
-by the JAX package's rule, applied to the facet's own height.
+run on the mesh's lead device as on one device; on the serial route each
+facet's clone keeps the mesh and takes the mesh routes by the JAX
+package's rule, applied to the facet's own height.
 """
 
 from __future__ import annotations

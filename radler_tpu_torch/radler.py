@@ -52,6 +52,7 @@ from .models.python_plugin import PythonDeconvolution
 from .ops import rms_image as rms_ops
 from .ops.noise import median_and_stddev_from_mad
 from .ops.spectral_fitting import create_spectral_fitter
+from .parallel import mesh as mesh_module
 from .parallel.mesh import Mesh, make_mesh
 from .parallel.parallel_deconvolution import ParallelDeconvolution
 from .utils import logging as log
@@ -276,15 +277,20 @@ class Radler:
 
     def _make_mesh(self, table: WorkTable) -> Mesh:
         """The ("chan", "tile") mesh of ``settings.parallel.n_devices``
-        shards, or of the visible devices of the run's type when that is 0
-        (``cpp/radler.cc``'s thread pool; ``radler.py:263-269`` of the JAX
-        package).  Every shard lives on the run's device."""
-        settings = self.settings
-        n = settings.parallel.n_devices or (
-            torch.cuda.device_count() if self._device.type == "cuda" else 1
-        )
-        return make_mesh(n, n_channels=len(table.deconvolution_groups),
-                         device=self._device)
+        shards, or one shard a visible card when that is 0 (``cpp/radler.cc``'s
+        thread pool; ``radler.py:263-269`` of the JAX package), spread over
+        the visible cards of the run (:func:`~.parallel.mesh.visible_cards`:
+        the run's card first) by :func:`~.parallel.mesh.make_mesh`'s rule.
+        A CPU run is one group on the CPU."""
+        cards = mesh_module.visible_cards(self._device)
+        n = self.settings.parallel.n_devices or len(cards)
+        mesh = make_mesh(n, n_channels=len(table.deconvolution_groups),
+                         device=cards[0], cards=cards)
+        if mesh.groups > 1 and log.is_enabled("info"):
+            log.info(f"device mesh: chan {mesh.chan} x tile {mesh.tile} "
+                     f"over {[str(d) for d in mesh.devices]}; peer access "
+                     f"{mesh_module.peer_access(mesh.devices)}")
+        return mesh
 
     # ------------------------------------------------------------------
     def free_deconvolution_algorithms(self) -> None:

@@ -17,6 +17,13 @@ command line, on one NVIDIA GPU.  Run from the root of a checkout:
     python3 scripts/kernel_probe.py asp       # ASP, component optimization
     python3 scripts/kernel_probe.py mesh      # the mesh's Clark loop (B2's
                                               # tile axis), MORE_SANE, PYTHON
+    python3 scripts/kernel_probe.py onecard   # the one-card mesh cells: the
+                                              # joined cube and the multiscale
+                                              # mesh (copy the script into an
+                                              # older checkout to compare)
+    python3 scripts/kernel_probe.py cards     # the mesh over every visible
+                                              # card (one card: 4 groups on it),
+                                              # its 1000-iteration performs profiled
     python3 scripts/kernel_probe.py b2 b3 check   # against plain only
     python3 scripts/kernel_probe.py registers PARENT_ROOT .
                         # registers of B1's step instantiations in each
@@ -276,6 +283,21 @@ def main(argv):
             cs.ITERATIONS, tile_times=timed)
         cs.say("== MORE_SANE and PYTHON at config 2's field ==")
         cs.phase_host_plugins(psf2, residual2)
+    if "onecard" in argv:
+        psf, residual = cs.make_problem(cs.SIZE, cs.N_SOURCES)
+        cs.say("== the mesh configuration (joined channels, chan 4 x tile "
+               "2) through Radler.perform ==")
+        cs.phase_mesh_perform(psf, residual)
+        del psf, residual
+        cs.say("== multiscale on a chan 4 x tile 2 mesh ==")
+        cs.phase_ms_mesh()
+    if "cards" in argv:
+        cs.say("== the mesh over several cards ==")
+        # The whole 1000-iteration performs under the profiler (the smoke
+        # profiles CARDS_PROFILE_ITERATIONS, to keep its length).
+        cs.CARDS_PROFILE_ITERATIONS = cs.CARDS_ITERATIONS
+        psf, residual = cs.make_problem(cs.SIZE, cs.N_SOURCES)
+        cs.phase_mesh_cards(psf, residual)
     cs.say("probe done")
     return 0
 

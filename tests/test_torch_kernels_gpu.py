@@ -706,9 +706,10 @@ def test_subminor_tiles_with_each_fit_bit_equal_to_plain(cuda, mode):
 
 def test_perform_mesh_clark_on_card_matches_cpu(cuda):
     """The mesh's Clark subminor loop (chan 2 x tile 4, 2 channels with a
-    2-term fit) through Radler.perform on the card, one tile-axis launch,
-    against the port's CPU run: equal counts, the cubes within 1e-5 of
-    max(1, |res|max) (the FFT correction rounds differently)."""
+    2-term fit) through Radler.perform on the card, one tile-axis launch a
+    card that holds tiles (one with one card), against the port's CPU run:
+    equal counts, the cubes within 1e-5 of max(1, |res|max) (the FFT
+    correction rounds differently)."""
     size = 128
     yy, xx = np.mgrid[0:size, 0:size]
     psf = np.exp(-((yy - size // 2) ** 2 + (xx - size // 2) ** 2) / 8.0)
@@ -742,7 +743,7 @@ def test_perform_mesh_clark_on_card_matches_cpu(cuda):
         runs.append((r.iteration_number, cube, model,
                      sl.subminor_loop_tiles.launches, (mesh.chan, mesh.tile)))
     (n_c, res_c, mod_c, _, shape), (n_g, res_g, mod_g, launches, _) = runs
-    assert shape == (2, 4) and launches == 1
+    assert shape == (2, 4) and launches == len(pm.tile_runs(mesh))
     assert n_g == n_c > 0
     scale = max(1.0, float(np.abs(res_c).max()))
     assert np.abs(res_g - res_c).max() <= 1e-5 * scale
@@ -1765,3 +1766,190 @@ def test_asp_on_card_matches_cpu(cuda):
     scale = max(1.0, float(np.abs(res_c).max()))
     assert np.abs(res_g - res_c).max() <= 1e-5 * scale
     assert np.abs(mod_g - mod_c).max() <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# Several cards: the mesh kernels on a card other than the current one, and
+# the mesh loops over two cards
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def two_cards():
+    """Cards 0 and 1, card 0 the current device; skips with fewer."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def on_each_card(cards, run):
+    """``run(card)`` on each card from a process whose current device is
+    card 0; the outputs on the host, and the current device after."""
+    outs = []
+    for card in cards:
+        out = run(card)
+        torch.cuda.synchronize(card)
+        outs.append([t.cpu() for t in out])
+        assert torch.cuda.current_device() == 0
+    return outs
+
+
+def assert_cards_bit_equal(outs):
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [CASES[2], CASES[4]],
+                         ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+def test_step_with_row_offset_on_card_1_bit_equal_to_card_0(two_cards, case):
+    """B1 on a row shard launched on card 1, bit-equal to the same launch on
+    card 0, and counted on card 1."""
+    r0 = 64
+
+    def run(card):
+        c = make_case(case, card)
+        values = torch.as_tensor(np.random.default_rng(2).uniform(
+            -0.5, 0.8, c["res"].shape[0]).astype(np.float32), device=card)
+        weight = c["weight"][r0:r0 + SHARD_ROWS].contiguous()
+        res = c["res"][:, r0:r0 + SHARD_ROWS].clone()
+        model = torch.zeros_like(res)
+        parts = []
+        for y, x in shard_peaks(r0):
+            state = torch.tensor([y, x, 1, 0, 0, 1, y * WIDTH + x, 0],
+                                 dtype=torch.int32, device=card)
+            parts += hs.hogbom_step(
+                res, model, c["psfs"], values, state, c["coefs"], weight,
+                mode=c["mode"], n_polarizations=c["P"], allow_negative=True,
+                row_offset=r0)
+        return [res, model, *parts]
+
+    before = hs.hogbom_step.launches_by_card[1]
+    assert_cards_bit_equal(on_each_card(two_cards, run))
+    assert hs.hogbom_step.launches_by_card[1] - before == len(shard_peaks(r0))
+
+
+@pytest.mark.parametrize("case", [CASES[1], CASES[4]],
+                         ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+def test_subtract_integrate_on_card_1_bit_equal_to_card_0(two_cards, case):
+    """B4, linear and squared, launched on card 1, bit-equal to card 0."""
+    r0 = HEIGHT - SHARD_ROWS
+
+    def run(card):
+        c = shard_case(case, card)
+        values = torch.as_tensor(np.random.default_rng(1).uniform(
+            -0.5, 0.8, c["res"].shape[0]).astype(np.float32), device=card)
+        res = c["res"][:, r0:r0 + SHARD_ROWS].clone()
+        model = torch.zeros_like(res)
+        parts = []
+        for y, x in shard_peaks(r0):
+            state = torch.tensor([y, x, 1, 0, 0, 1, y * WIDTH + x, 0],
+                                 dtype=torch.int32, device=card)
+            part = torch.full((SHARD_ROWS, WIDTH), 3.0, device=card)
+            si.subtract_integrate(res, model, c["psfs"], values, state,
+                                  c["plane_coefs"], c["pol"], part,
+                                  mode=c["mode"], n_polarizations=c["P"],
+                                  row_offset=r0)
+            parts.append(part)
+        return [res, model, *parts]
+
+    before = si.subtract_integrate.launches_by_card[1]
+    assert_cards_bit_equal(on_each_card(two_cards, run))
+    assert si.subtract_integrate.launches_by_card[1] - before == len(
+        shard_peaks(r0))
+
+
+def test_subminor_tiles_on_card_1_bit_equal_to_card_0(two_cards):
+    """B2's tile axis over 8 ragged tiles (an empty one) with a fit and an
+    rms factor, launched on card 1, bit-equal to card 0."""
+
+    def run(card):
+        loop, psfs, coef, fit = subminor_case(2, 2, True, True, card, seed=3)
+        k = loop._residual_k.shape[1]
+        counts = TILE_SEGMENTS[8] + [k - sum(TILE_SEGMENTS[8])]
+        res = loop._residual_k.clone()
+        model = torch.zeros_like(res)
+        out = sl.subminor_loop_tiles(
+            res, model, loop._rms_k, loop._xs, loop._ys, psfs, coef, fit,
+            sl.SubminorParams.make(0.005, 0.1, 3, 250, 4.0, True, False),
+            tile_offsets(counts, card), counts, n_polarizations=2)
+        return [out, res, model]
+
+    before = sl.subminor_loop_tiles.launches_by_card[1]
+    outs = on_each_card(two_cards, run)
+    assert_cards_bit_equal(outs)
+    assert sl.subminor_loop_tiles.launches_by_card[1] - before == 1
+    assert max(it for it, _, _ in sl.read_tile_results(outs[0][0])) > 3
+
+
+@pytest.mark.parametrize("mesh_shape, case", [
+    ((1, 4), ("normal", 2, 4, False)),
+    ((2, 2), ("normal", 2, 4, False)),
+    ((4, 2), ("normal", 4, 1, False)),
+], ids=["chan1-B1", "chan2-normal", "chan4-normal"])
+def test_mesh_loop_over_two_cards_bit_equal_to_one(two_cards, mesh_shape,
+                                                   case):
+    """The Högbom mesh loop with its shards over cards 0 and 1, bit-equal to
+    the same loop with every shard on card 0; each card launches its
+    shards' kernels."""
+    card0, card1 = two_cards
+    c = make_case(case, card0, seed=4)
+    rows = 256
+    res0 = c["res"][:, :rows].contiguous()
+    psfs = c["psfs"][:, :rows].contiguous()
+    weight = c["weight"][:rows].contiguous()
+    rms = torch.as_tensor(np.random.default_rng(4).uniform(
+        0.5, 1.5, (rows, WIDTH)), dtype=torch.float32, device=card0)
+    flat = int(torch.argmax(res0[0].abs()))
+    y, x = divmod(flat, WIDTH)
+    kernel = hs.hogbom_step if mesh_shape[0] == 1 else si.subtract_integrate
+    outs = []
+    for devices in ((card0,), (card0, card1)):
+        mesh = pm.Mesh(*mesh_shape, card0, devices)
+        res = res0.clone()
+        model = torch.zeros_like(res)
+        params = hs.LoopParams.make(0.2, 0.05, 5.0, 4.0, 150, False)
+        before = kernel.launches_by_card[1]
+        out = pm.mesh_hogbom_loop(
+            mesh, res, model, psfs, weight * rms, rms,
+            (float(res[0, y, x]), x, y, True), params, 0, meta=c["meta"],
+            allow_negative=True)
+        torch.cuda.synchronize(card0)
+        torch.cuda.synchronize(card1)
+        outs.append((out, res, model, kernel.launches_by_card[1] - before))
+    (o1, r1, m1, n1), (o2, r2, m2, n2) = outs
+    assert o1 == o2 and o1.iteration > 10
+    assert torch.equal(r1, r2) and torch.equal(m1, m2)
+    assert n1 == 0 and n2 >= o2.iteration * mesh_shape[0] * mesh_shape[1] // 2
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 8), (4, 2)],
+                         ids=["chan1-tile8", "chan4-tile2"])
+def test_mesh_clark_over_two_cards_bit_equal_to_one(two_cards, mesh_shape):
+    """The mesh's Clark loop with its tiles over cards 0 and 1 (one B2
+    launch a card), bit-equal to every tile on card 0."""
+    card0, card1 = two_cards
+    c = make_case(("linear", 4, 1, False), card0, seed=6)
+    rows = 256
+    res = c["res"][:, :rows].contiguous()
+    psfs = c["psfs"][:, :rows].contiguous()
+    rms = c["weight"][:rows] + 0.5
+    window = torch.ones((rows, WIDTH), dtype=torch.bool, device=card0)
+    fitter = SpectralFitter(rd.SpectralFittingMode.LOG_POLYNOMIAL, 2,
+                            c["meta"].frequencies, c["meta"].weights)
+    outs = []
+    for devices in ((card0,), (card0, card1)):
+        before = sl.subminor_loop_tiles.launches_by_card.copy()
+        out = pm.mesh_subminor_clean(
+            pm.Mesh(*mesh_shape, card0, devices), res, psfs, rms, window,
+            0.012, sl.SubminorParams.make(0.012, 0.1, 0, 300, 4.0, True,
+                                          False),
+            meta=c["meta"], fitter=fitter)
+        torch.cuda.synchronize(card0)
+        torch.cuda.synchronize(card1)
+        launched = sl.subminor_loop_tiles.launches_by_card - before
+        outs.append((out, launched))
+    (o1, l1), (o2, l2) = outs
+    assert o1._replace(delta=None) == o2._replace(delta=None)
+    assert o1.iteration > 10 and torch.equal(o1.delta, o2.delta)
+    assert dict(l1) == {0: 1} and dict(l2) == {0: 1, 1: 1}
