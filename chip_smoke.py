@@ -107,6 +107,7 @@ It imports nothing of JAX or of the ``radler_tpu`` package.
 """
 
 import contextlib
+import inspect
 import itertools
 import json
 import os
@@ -230,6 +231,19 @@ MS_MESH_VS_SINGLE = 2e-5
 # card; CARDS_ITERATIONS Högbom iterations a perform at 4096^2.
 MESH_GROUPS_ON_ONE_CARD = 4
 CARDS_ITERATIONS = 1000
+# The spread workloads (batched facets, IUWT, ASP): meshes of this many
+# shards (config 5: one facet a shard), config 4 cut to so many structure
+# iterations and ASP to so many minor iterations, both held within
+# SPREAD_GATE of max(1, |res|max) against one group (the JAX package's
+# tolerance between a mesh and a single device: the slab FFTs and the
+# partial sums round apart).
+SPREAD_DEVICES = 4
+SPREAD_IUWT_ITERATIONS = 8
+SPREAD_ASP_ITERATIONS = 20
+SPREAD_GATE = 2e-5
+# B3's row-block mode is checked, every launch on every block, at the main
+# path's scale count and at this one, the most a 4096^2 image has.
+ROW_BLOCK_CHECK_SCALES = 9
 # The profiled performs of the Högbom cells (the profiler's events of a
 # 1000-iteration perform take about a minute to read back).
 CARDS_PROFILE_ITERATIONS = 100
@@ -699,7 +713,9 @@ def _reset_counts():
     sl.subminor_loop_tiles.launches = 0
     ia.atrous_decompose_lo.launches = 0
     si.subtract_integrate.launches = 0
-    for fn in (hs.hogbom_step, sl.subminor_loop_tiles, si.subtract_integrate):
+    ia.atrous_rows.launches = 0
+    for fn in (hs.hogbom_step, sl.subminor_loop_tiles, si.subtract_integrate,
+               hs.hogbom_step_facets, ia.atrous_rows):
         fn.launches_by_card.clear()
 
 
@@ -2836,6 +2852,12 @@ def _ms_perform(psfs, res0, settings, count_syncs=False, route="fused",
             out_mod)
 
 
+def _sync_cards():
+    """Wait for every visible card."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def _timed_steps(split, targets, by_caller=None, memory=None):
     """Wrap each ``(owner, name, label)`` of ``targets`` with a synchronized
     timer that adds the step's own time, without the wrapped steps it
@@ -2845,7 +2867,8 @@ def _timed_steps(split, targets, by_caller=None, memory=None):
     peak: ``(peak, allocated at its entry)`` in bytes, the peak including
     the wrapped steps it calls; the peaks reached outside every wrapped
     step go under None (the caller adds the perform's tail after it).
-    Returns a function that restores them."""
+    Every card is synchronized around each step.  Returns a function that
+    restores them."""
     saved = []
     nested = []  # per open step: the seconds of the wrapped steps it called
     peaks = []  # per open step: the highest device memory read inside it
@@ -2861,13 +2884,16 @@ def _timed_steps(split, targets, by_caller=None, memory=None):
     def wrap(owner, name, label):
         fn = getattr(owner, name)
         saved.append((owner, name, fn))
+        if inspect.isgeneratorfunction(fn):
+            setattr(owner, name, timed_resumes(fn, label))
+            return
 
         def timed(*args, **kwargs):
             key = label
             if key is None:
                 key = by_caller.get(sys._getframe(1).f_code.co_name,
                                     "PSF convolutions")
-            torch.cuda.synchronize()
+            _sync_cards()
             if memory is not None:
                 read_peak()
                 entry = torch.cuda.memory_allocated()
@@ -2876,7 +2902,7 @@ def _timed_steps(split, targets, by_caller=None, memory=None):
             nested.append(0.0)
             try:
                 out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
+                _sync_cards()
             finally:
                 inner = nested.pop()
                 if memory is not None:
@@ -2892,6 +2918,35 @@ def _timed_steps(split, targets, by_caller=None, memory=None):
             return out
 
         setattr(owner, name, timed)
+
+    def timed_resumes(fn, label):
+        """A generator loop's wrapper: each resume, from one yield to the
+        next, adds its own time to ``split[label]`` (its device memory is
+        not kept); a call counts once, at its end."""
+        def timed(*args, **kwargs):
+            loop = fn(*args, **kwargs)
+            while True:
+                _sync_cards()
+                start = time.perf_counter()
+                nested.append(0.0)
+                end = None
+                try:
+                    next(loop)
+                except StopIteration as stop:
+                    end = stop
+                _sync_cards()
+                inner = nested.pop()
+                seconds = time.perf_counter() - start
+                if nested:
+                    nested[-1] += seconds
+                calls, total = split.get(label, (0, 0.0))
+                split[label] = (calls + (end is not None),
+                                total + seconds - inner)
+                if end is not None:
+                    return end.value
+                yield
+
+        return timed
 
     for target in targets:
         wrap(*target)
@@ -3661,6 +3716,438 @@ def phase_mesh_cards(psf, residual):
 
 
 # ---------------------------------------------------------------------------
+# The batched facets, IUWT and ASP spread over the cards
+# ---------------------------------------------------------------------------
+
+
+def _spread_run(make_radler, cards):
+    """One perform of ``make_radler()`` with the meshes over ``cards`` (the
+    run's card alone for one group), every card synchronized around it and
+    the launch counts and the slab FFTs' exchanged bytes reset just before
+    it.  Returns a dict: iterations (a facet each where there are facets),
+    seconds, B1's facet-mode and B3's row-block launches by card, bytes
+    exchanged, peak memory by card above its start (MiB), the cubes, the
+    mesh and the lockstep iterations."""
+    from radler_tpu_torch.kernels import hogbom_step as hs
+    from radler_tpu_torch.kernels import iuwt_atrous as ia
+    from radler_tpu_torch.parallel import rows as pr
+
+    count = torch.cuda.device_count()
+    with _listed_cards(cards):
+        r = make_radler()
+        before = []
+        for i in range(count):
+            torch.cuda.synchronize(i)
+            torch.cuda.reset_peak_memory_stats(i)
+            before.append(torch.cuda.memory_allocated(i))
+        _reset_counts()
+        pr.exchange_bytes[0] = 0
+        start = time.perf_counter()
+        r.perform(0)
+        for i in range(count):
+            torch.cuda.synchronize(i)
+        seconds = time.perf_counter() - start
+    p = r._parallel
+    out_res = torch.stack([e.residual_accessor.array for e in r._table])
+    out_mod = torch.stack([e.model_accessor.array for e in r._table])
+    if not (torch.isfinite(out_res).all() and torch.isfinite(out_mod).all()):
+        raise AssertionError("non-finite residual or model")
+    return dict(
+        n=[a.iteration_number for a in p.algorithms], seconds=seconds,
+        facet_launches=dict(hs.hogbom_step_facets.launches_by_card),
+        row_launches=dict(ia.atrous_rows.launches_by_card),
+        exchanged=pr.exchange_bytes[0],
+        peaks=[(torch.cuda.max_memory_allocated(i) - before[i]) / 2**20
+               for i in range(count)],
+        res=out_res, mod=out_mod, mesh=p.first_algorithm.device_mesh,
+        lockstep=p.last_lockstep, route=p.last_route)
+
+
+def _spread_cell(label, make_radler, spread, one, gate, timed=()):
+    """A spread cell: the perform over ``spread`` between two performs on
+    one group on the card (``one``; the first also warms the card up),
+    bit-equal to them where ``gate`` is None, else with equal counts and
+    within ``gate`` of max(1, |res|max).  The last two performs time the
+    steps ``timed`` (:func:`_timed_steps` targets, a synchronize around
+    each).  Prints the times, the steps, launches by card and peak memory
+    by card; returns the spread run and the second one-group run."""
+    first = _spread_run(make_radler, one)
+    splits = []
+    for cards in (spread, one):
+        split = {}
+        restore = _timed_steps(split, list(timed))
+        try:
+            splits.append((_spread_run(make_radler, cards), split))
+        finally:
+            restore()
+    (run, run_split), (base, base_split) = splits
+    if not (first["n"] == base["n"] and torch.equal(first["res"], base["res"])
+            and torch.equal(first["mod"], base["mod"])):
+        raise AssertionError(f"{label}: two one-group performs differ")
+    if base["mesh"].groups != 1 or run["mesh"].groups < 2:
+        raise AssertionError(f"{label}: {base['mesh'].groups} and "
+                             f"{run['mesh'].groups} groups")
+    scale = max(1.0, float(base["res"].abs().max()))
+    d_res = float((run["res"] - base["res"]).abs().max()) / scale
+    d_mod = float((run["mod"] - base["mod"]).abs().max()) / scale
+    same = (run["n"] == base["n"] and torch.equal(run["res"], base["res"])
+            and torch.equal(run["mod"], base["mod"]))
+    say(f"  {label}: chan {run['mesh'].chan} x tile {run['mesh'].tile} over "
+        f"{[str(d) for d in run['mesh'].devices]}; counts {run['n']} (one "
+        f"group {base['n']}); bit-equal: {same}; max|dres|, max|dmodel| "
+        f"{d_res:.3g}, {d_mod:.3g} of max(1, |res|max)")
+    say(f"    perform {run['seconds']:.4f} s (one group, before and "
+        f"after: {first['seconds']:.4f}, {base['seconds']:.4f} s); lockstep {run['lockstep']} (one group "
+        f"{base['lockstep']}); B1 facet-mode launches by card "
+        f"{dict(sorted(run['facet_launches'].items()))} (one group "
+        f"{dict(sorted(base['facet_launches'].items()))}); B3 row-block "
+        f"launches by card {dict(sorted(run['row_launches'].items()))}; "
+        f"slab exchanges {run['exchanged'] / 1e6:.1f} MB; peak memory by "
+        f"card (MiB above its start) {[round(p, 1) for p in run['peaks']]}, "
+        f"one group {[round(p, 1) for p in base['peaks']]}")
+    for which, split, perform in (("spread", run_split, run),
+                                  ("one group", base_split, base)):
+        for key, (calls, seconds) in split.items():
+            say(f"    {which}: {key}: {calls} calls, {seconds * 1e3:.1f} ms "
+                f"({100 * seconds / perform['seconds']:.1f}% of its "
+                "perform)")
+    if gate is None and not same:
+        raise AssertionError(f"{label}: the spread perform and the one-group "
+                             "perform differ")
+    if gate is not None and (run["n"] != base["n"] or max(d_res, d_mod)
+                             > gate):
+        raise AssertionError(f"{label}: the spread perform parts from the "
+                             "one-group perform")
+    return run, base
+
+
+def _row_block_checks(n_lo, parts):
+    """B3's row-block mode at IUWT_SIZE^2 cut into ``parts`` row blocks, at
+    ``n_lo`` scales: every launch of the plan (the fused pair, then each
+    lattice scale, whose halo of 4 dilations spans several blocks from
+    scale 8 on) on every part's block (the edge parts with the image's
+    zero boundary on one side, the inner ones with halos on both) against
+    its plain version and against the whole image's decompose, its wavelet
+    planes and its carried plane; then the spread decompose over ``parts``
+    groups of the card against the whole-image decompose.  Raises where
+    the bits differ; returns the largest |kernel - plain| and |spread -
+    whole|."""
+    from radler_tpu_torch.kernels import iuwt_atrous as ia
+    from radler_tpu_torch.parallel import rows as pr
+
+    rng = np.random.default_rng(SEED + n_lo)
+    img = torch.as_tensor(
+        rng.standard_normal((IUWT_SIZE, IUWT_SIZE)).astype(np.float32),
+        device=DEVICE)
+    w, smooth = ia.atrous_decompose_lo(img, n_lo)
+    whole = torch.cat([w, smooth[None]])
+    del w, smooth
+    plan = ia.launch_plan(n_lo, IUWT_SIZE, IUWT_SIZE)
+    # Each launch's input, and the plane it carries on: the smooth plane
+    # of the scales before it.
+    carried = [img] + [ia.atrous_decompose_lo(img, s.first_scale)[1]
+                       for s in plan[1:]] + [whole[-1]]
+    rows = IUWT_SIZE // parts
+    worst, launches = 0.0, 0
+    for p in range(parts):
+        r0 = p * rows
+        for i, step in enumerate(plan):
+            reach = ia.launch_reach(step)
+            a, b = max(0, r0 - reach), min(IUWT_SIZE, r0 + rows + reach)
+            block = carried[i][a:b].contiguous()
+            got = {}
+            for which, fn in (("kernel", ia.atrous_rows),
+                              ("plain", ia.atrous_rows_reference)):
+                w = torch.empty((step.n_scales, rows, IUWT_SIZE),
+                                device=img.device)
+                smooth = torch.empty((rows, IUWT_SIZE), device=img.device)
+                fn(block, step, r0 - a, rows, w, smooth)
+                got[which] = (w, smooth)
+            launches += 1
+            (wk, sk), (wp, sp) = got["kernel"], got["plain"]
+            worst = max(worst, float((wk - wp).abs().max()),
+                        float((sk - sp).abs().max()))
+            want = whole[step.first_scale:step.first_scale + step.n_scales,
+                         r0:r0 + rows]
+            if not (torch.equal(wk, wp) and torch.equal(sk, sp)
+                    and torch.equal(wk, want)
+                    and torch.equal(sk, carried[i + 1][r0:r0 + rows])):
+                raise AssertionError(
+                    f"B3's row-block mode, {n_lo} scales, part {p} of "
+                    f"{parts}, launch {i} (scales from {step.first_scale}, "
+                    f"halo {reach} rows): not the plain version's or the "
+                    "whole image's bits")
+    layout = pr.RowLayout(tuple(rows * p for p in range(parts + 1)),
+                          (img.device,) * parts)
+    spread = pr.decompose_rows(pr.Rows.scatter(img, layout), n_lo).gather()
+    gap = float((spread - whole).abs().max())
+    if not torch.equal(spread, whole):
+        raise AssertionError(f"the spread decompose at {n_lo} scales is not "
+                             "the whole image's")
+    say(f"  {n_lo} scales on {parts} row blocks: {launches} launches (every "
+        f"launch of the plan on every block, edge and inner) equal to their "
+        f"plain versions and to the whole image's decompose; the spread "
+        f"decompose over {parts} groups of the card equal to the whole "
+        f"image's; max|kernel - plain| {worst}, max|spread - whole| {gap}")
+    del img, whole, carried, spread
+    torch.cuda.empty_cache()
+    return max(worst, gap)
+
+
+def _row_block_times(n_lo, parts):
+    """B3's row-block mode at IUWT_SIZE^2 cut into ``parts`` row blocks:
+    every launch of the plan on an inner part's block (its rows with the
+    halo each launch reaches) against its plain version (bit-equal, then
+    timed in turns) and cuDNN's dilated cascade on the block's first
+    input; the spread decompose over ``parts`` groups of the card against
+    the whole-image decompose (bit-equal, timed); then
+    :func:`_row_block_checks` at ``n_lo`` and ROW_BLOCK_CHECK_SCALES
+    scales.  Returns (kernel ms, plain ms, library ms, bytes, flops, the
+    largest |kernel - plain| and |spread - whole| of every check)."""
+    from radler_tpu_torch.kernels import iuwt_atrous as ia
+    from radler_tpu_torch.parallel import rows as pr
+
+    rng = np.random.default_rng(SEED)
+    img = torch.as_tensor(
+        rng.standard_normal((IUWT_SIZE, IUWT_SIZE)).astype(np.float32),
+        device=DEVICE)
+    lead = img.device
+    w, smooth = ia.atrous_decompose_lo(img, n_lo)
+    whole = torch.cat([w, smooth[None]])
+    plan = ia.launch_plan(n_lo, IUWT_SIZE, IUWT_SIZE)
+    rows = IUWT_SIZE // parts
+    r0 = rows  # part 1: halos on both sides
+    # Each launch's input: the image, then the plane the launch before it
+    # carried (the smooth plane of the scales so far).
+    inputs = [img] + [ia.atrous_decompose_lo(img, s.first_scale)[1]
+                      for s in plan[1:]]
+    blocks = []
+    for step, plane in zip(plan, inputs):
+        reach = ia.launch_reach(step)
+        a, b = max(0, r0 - reach), min(IUWT_SIZE, r0 + rows + reach)
+        blocks.append((step, plane[a:b].contiguous(), r0 - a))
+    outs = {}
+    for which, fn in (("kernel", ia.atrous_rows),
+                      ("plain", ia.atrous_rows_reference)):
+        got = []
+        for step, block, out0 in blocks:
+            w = torch.empty((step.n_scales, rows, IUWT_SIZE), device=lead)
+            smooth = torch.empty((rows, IUWT_SIZE), device=lead)
+            fn(block, step, out0, rows, w, smooth)
+            got.append((w, smooth))
+        outs[which] = got
+    torch.cuda.synchronize()
+    worst = max(float((a - b).abs().max())
+                for (wk, sk), (wp, sp) in zip(outs["kernel"], outs["plain"])
+                for a, b in ((wk, wp), (sk, sp)))
+    for (step, _, _), (w, _) in zip(blocks, outs["kernel"]):
+        for t in range(step.n_scales):
+            if not torch.equal(w[t], whole[step.first_scale + t,
+                                           r0:r0 + rows]):
+                raise AssertionError("B3's row-block mode is not the "
+                                     "whole image's decompose")
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = ia.atrous_rows if which == "kernel" else ia.atrous_rows_reference
+
+        def launches():
+            for (step, block, out0), (w, smooth) in zip(blocks,
+                                                       outs[which]):
+                fn(block, step, out0, rows, w, smooth)
+
+        times[which].append(_time_ms(launches, 10)[0])
+    taps = torch.tensor(ia.TAPS, dtype=torch.float32, device=lead)
+    kh, kv = taps.reshape(1, 1, 1, 5), taps.reshape(1, 1, 5, 1)
+    torch.backends.cudnn.allow_tf32 = False
+    lib_ms, _ = _time_ms(lambda: _conv_cascade(blocks[0][1], n_lo, kh, kv),
+                         10)
+    n_bytes = sum(block.numel() * 4 + (step.n_scales + 1) * rows
+                  * IUWT_SIZE * 4 for step, block, _ in blocks)
+    n_flops = n_lo * 29 * rows * IUWT_SIZE
+    layout = pr.RowLayout(tuple(rows * p for p in range(parts + 1)),
+                          (lead,) * parts)
+    spread = pr.decompose_rows(pr.Rows.scatter(img, layout), n_lo).gather()
+    torch.cuda.synchronize()
+    if not torch.equal(spread, whole):
+        raise AssertionError("the spread decompose is not the whole image's")
+    spread_ms, _ = _time_ms(
+        lambda: pr.decompose_rows(pr.Rows.scatter(img, layout), n_lo), 5)
+    whole_ms, _ = _time_ms(lambda: ia.atrous_decompose_lo(img, n_lo), 5)
+    # Every launch on every block, at the main path's scale count and at
+    # the most a 4096^2 image has.
+    worst = max([worst] + [_row_block_checks(n, parts)
+                           for n in sorted({n_lo, ROW_BLOCK_CHECK_SCALES})])
+    k_ms, p_ms = sum(times["kernel"]) / 2, sum(times["plain"]) / 2
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    say(f"  {n_lo} scales, part 1 of {parts} ({rows} rows and their halos, "
+        f"{len(plan)} launches): kernel {times['kernel'][0]:.4f}, "
+        f"{times['kernel'][1]:.4f} ms; plain {times['plain'][0]:.4f}, "
+        f"{times['plain'][1]:.4f} ms; cuDNN's cascade on the first block "
+        f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} "
+        f"MB with the halo rows); max|kernel - plain| {worst}; the spread "
+        f"decompose over {parts} groups of the card {spread_ms:.4f} ms "
+        f"(bit-equal) against {whole_ms:.4f} ms whole")
+    return k_ms, p_ms, lib_ms, n_bytes, n_flops, worst
+
+
+def phase_mesh_spread(row_scales):
+    """The batched facets, IUWT and ASP spread over every visible card (up
+    to 8) or, with one card, over MESH_GROUPS_ON_ONE_CARD groups on it,
+    each through Radler.perform against one group on the card: config 5's
+    batched generic and multiscale routes (SPREAD_DEVICES shards, one facet
+    a shard; bit-equal), config 4 cut to SPREAD_IUWT_ITERATIONS structure
+    iterations (the rows over SPREAD_DEVICES shards) and ASP at ASP_SIZE^2
+    (SPREAD_ASP_ITERATIONS iterations; one channel, since with ASP's four
+    the JAX package's rule keeps the rows on chan 0's card up to 4 cards),
+    both within SPREAD_GATE; then B3's row-block mode at IUWT_SIZE^2 on
+    SPREAD_DEVICES blocks at ``row_scales`` scales (config 4's most frequent
+    count).  Returns the cells and B3's row-block numbers."""
+    import radler_tpu_torch as rd
+    from radler_tpu_torch.models import asp as asp_module
+    from radler_tpu_torch.models import generic_clean as gc
+    from radler_tpu_torch.models import multiscale as ms_module
+    from radler_tpu_torch.ops import iuwt as iuwt_ops
+
+    count = torch.cuda.device_count()
+    lead = torch.empty(0, device=DEVICE).device  # with its index
+    one = [lead]
+    spread = None if count > 1 else [lead] * MESH_GROUPS_ON_ONE_CARD
+    say(f"  {count} visible cards: " + (
+        "the workloads spread over them" if spread is None else
+        f"{MESH_GROUPS_ON_ONE_CARD} groups on the one card"))
+    cells = {}
+    facet_loops = {
+        "generic": [
+            (gc, "facet_hogbom_loop", "the lockstep loop"),
+            (gc.GenericClean, "_spread_facet_loops",
+             "the lockstep loops, a card each")],
+        "multiscale": [
+            (ms_module, "facet_fused_multiscale_minor_loop",
+             "the batched loop"),
+            (ms_module.MultiScaleAlgorithm, "_spread_fused_facets",
+             "the batched loops, a card each")]}
+    psfs, base = make_diffuse_problem(F5_SIZE, F5_CHANNELS)
+    for algorithm in ("generic", "multiscale"):
+        def make(algorithm=algorithm):
+            s = _f5_settings(F5_SIZE, algorithm)
+            s.parallel.use_device_mesh = True
+            s.parallel.n_devices = SPREAD_DEVICES
+            return _f5_radler(s, psfs, base, lead)
+
+        with _facet_route("batched"):
+            run, one_run = _spread_cell(
+                f"config 5, {algorithm} batched", make, spread, one, None,
+                timed=facet_loops[algorithm])
+        if run["route"] != "batched" or not run["facet_launches"]:
+            raise AssertionError(f"config 5 {algorithm}: route "
+                                 f"{run['route']}, no facet-mode launch")
+        if set(run["facet_launches"]) != set(d.index or 0 for d in
+                                             run["mesh"].devices):
+            raise AssertionError(f"config 5 {algorithm}: facet-mode launches "
+                                 f"by card {run['facet_launches']}")
+        cells[f"config 5 {algorithm}"] = (run, one_run)
+    del psfs, base
+    ipsfs, iresidual = make_diffuse_problem(IUWT_SIZE, 1)
+    psf_i = torch.as_tensor(ipsfs[0], device=lead)
+    res_i = torch.as_tensor(iresidual[0], device=lead)
+    del ipsfs, iresidual
+
+    def iuwt():
+        s = _iuwt_settings(IUWT_SIZE, SPREAD_IUWT_ITERATIONS, 0.8)
+        s.parallel.use_device_mesh = True
+        s.parallel.n_devices = SPREAD_DEVICES
+        res = res_i.clone()
+        return rd.Radler(s, psf_i, res, torch.zeros_like(res), 0.0)
+
+    run, one_run = _spread_cell(
+        f"config 4 ({SPREAD_IUWT_ITERATIONS} structure iterations)", iuwt,
+        spread, one, SPREAD_GATE,
+        timed=[(iuwt_ops.SpreadOps, "conjugate_gradient_guarded",
+                "the CG with its RMS guard"),
+               (iuwt_ops, "conjugate_gradient_guarded",
+                "the CG with its RMS guard")])
+    if not run["row_launches"] or (count > 1 and run["exchanged"] <= 0):
+        raise AssertionError("config 4 did not run B3's row-block mode and "
+                             "the slab FFTs between the cards")
+    cells["config 4"] = (run, one_run)
+    del psf_i, res_i
+    apsfs, abase = make_point_grid_problem(ASP_SIZE, 1, 8)
+    psf_a = torch.as_tensor(apsfs, device=lead)
+    res_a = torch.as_tensor(abase, device=lead)
+    del apsfs, abase
+
+    def asp():
+        s = _asp_settings(ASP_SIZE, SPREAD_ASP_ITERATIONS)
+        s.spectral_fitting.mode = rd.SpectralFittingMode.NO_FITTING
+        s.parallel.use_device_mesh = True
+        s.parallel.n_devices = SPREAD_DEVICES
+        return rd.Radler(s, psf_a, res_a.clone(), torch.zeros_like(res_a),
+                         0.0)
+
+    cells["ASP"] = _spread_cell(
+        f"ASP ({ASP_SIZE}^2, one channel, {SPREAD_ASP_ITERATIONS} "
+        "iterations)", asp, spread, one, SPREAD_GATE,
+        timed=[(asp_module, "fit_2d_gaussian_full",
+                "Gaussian fits (host, SciPy)"),
+               (asp_module, "padded_convolve",
+                "a component's padded convolution with the PSFs (lead)"),
+               (asp_module, "update_rows",
+                "a component's update shipped to each card's rows")])
+    if cells["ASP"][0]["exchanged"] <= 0 and count > 1:
+        raise AssertionError("ASP's slab FFTs moved nothing between cards")
+    del psf_a, res_a
+    torch.cuda.empty_cache()
+    _slab_times(lead, spread)
+    return cells, _row_block_times(row_scales, SPREAD_DEVICES)
+
+
+def _slab_times(lead, spread):
+    """One slab FFT convolution at IUWT_SIZE^2 over SPREAD_DEVICES row
+    parts on the spread cards (``spread``; None: the visible cards), its
+    bytes across cards and its time against ``convolve_same`` on the lead
+    card (CUDA events on the lead, every card synchronized after), and
+    the agreement of the two."""
+    from radler_tpu_torch.ops.convolution import (convolve_same,
+                                                  prepare_kernel_fft)
+    from radler_tpu_torch.parallel import rows as pr
+
+    cards = spread or [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+    parts = SPREAD_DEVICES
+    devices = tuple(cards[p * len(cards) // parts] for p in range(parts))
+    rows = IUWT_SIZE // parts
+    layout = pr.RowLayout(tuple(rows * p for p in range(parts + 1)), devices)
+    rng = np.random.default_rng(SEED)
+    img = torch.as_tensor(rng.standard_normal(
+        (IUWT_SIZE, IUWT_SIZE)).astype(np.float32), device=lead)
+    ker = torch.as_tensor(rng.standard_normal(
+        (IUWT_SIZE, IUWT_SIZE)).astype(np.float32), device=lead)
+    spec = pr.SlabSpectrum(prepare_kernel_fft(ker), layout)
+    spread_img = pr.Rows.scatter(img, layout)
+    want = convolve_same(img, ker)
+    pr.exchange_bytes[0] = 0
+    got = pr.convolve_rows(spread_img, spec).gather()
+    moved = pr.exchange_bytes[0]
+    gap = float((got - want).abs().max() / want.abs().max())
+
+    def synced(fn):
+        def run():
+            fn()
+            for d in set(devices):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+        return run
+
+    slab_ms, _ = _time_ms(synced(lambda: pr.convolve_rows(spread_img, spec)),
+                          5)
+    one_ms, _ = _time_ms(synced(lambda: convolve_same(img, ker)), 5)
+    say(f"  a slab FFT convolution at {IUWT_SIZE}^2 over {parts} row parts "
+        f"on {[str(d) for d in devices]}: {slab_ms:.4f} ms, "
+        f"{moved / 1e6:.1f} MB between cards, against convolve_same on one "
+        f"card {one_ms:.4f} ms; max|slab - one| {gap:.3g} of max|one|")
+
+
+# ---------------------------------------------------------------------------
 # Facets (config 5)
 # ---------------------------------------------------------------------------
 
@@ -4100,7 +4587,7 @@ def _f5_perform(settings, psfs, base, route, device=None,
     device = device or DEVICE
     on_card = torch.device(device).type == "cuda"
     passes = []
-    lockstep_loop = mf.facet_hogbom_loop
+    lockstep_loop = mf.facet_hogbom_steps
 
     def counted(*args, **kwargs):
         passes.append(1)
@@ -4123,7 +4610,7 @@ def _f5_perform(settings, psfs, base, route, device=None,
             before = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        mf.facet_hogbom_loop = counted
+        mf.facet_hogbom_steps = counted
         try:
             start = time.perf_counter()
             syncs = None
@@ -4135,7 +4622,7 @@ def _f5_perform(settings, psfs, base, route, device=None,
                 torch.cuda.synchronize()
             seconds = time.perf_counter() - start
         finally:
-            mf.facet_hogbom_loop = lockstep_loop
+            mf.facet_hogbom_steps = lockstep_loop
         launches = _f5_launches()
     out_res = torch.stack([e.residual_accessor.array for e in r._table])
     out_mod = torch.stack([e.model_accessor.array for e in r._table])
@@ -4196,7 +4683,7 @@ def _f5_split(settings, psfs, base, route, label):
          "batched multiscale: the loop's host decisions, gathers"),
         (mf, "spectral_scale_maxima", "scale maxima, all facets"),
         (mf, "scale_convolved_cube", "scale-convolved cubes"),
-        (mf, "facet_hogbom_loop",
+        (mf, "facet_hogbom_steps",
          "the lockstep dense loops (B1 facet mode, linear; the fit)"),
         (mf, "correct_small", "corrections, small size"),
         (mf, "correct_large", "corrections, large size"),
@@ -5267,6 +5754,8 @@ def main():
     section("B3 against its plain version at config 4's shapes")
     worst["atrous_decompose_lo"] = max(worst["atrous_decompose_lo"],
                                        phase_atrous_main_shapes(iuwt[2]))
+    # B3 at the case config 4 gave it most often.
+    (shape, n_main), _ = iuwt[2].most_common(1)[0]
     section("the IUWT diffuse-source contract")
     phase_iuwt_contract()
     section("B1 in linear mode at config 3's shape against its plain "
@@ -5307,6 +5796,10 @@ def main():
     facet_linear = phase_facet_b1_times(f5_boxes, "linear", shared=False)
     section("faceted performs on the card against the CPU")
     phase_facets_card_vs_cpu()
+    section("the batched facets, IUWT and ASP spread over the cards (every "
+            f"visible card; one card: {MESH_GROUPS_ON_ONE_CARD} groups on "
+            "it) through Radler.perform")
+    spread_cells, row_block = phase_mesh_spread(n_main)
     section("point-source contract, ASP")
     phase_asp_contract()
     section(f"ASP ({ASP_SIZE}^2 x {ASP_CHANNELS} channels) through "
@@ -5393,8 +5886,6 @@ def main():
         "bound_by": tile_times["bound"][1],
         "library_ms": None,
     })
-    # B3 at the case config 4 gave it most often.
-    (shape, n_main), _ = iuwt[2].most_common(1)[0]
     if shape != (IUWT_SIZE, IUWT_SIZE):
         raise AssertionError(f"config 4 ran B3 mostly at {shape}, which "
                              "phase_atrous_times does not time")
@@ -5412,6 +5903,22 @@ def main():
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": lib_ms,
+    })
+    rk_ms, rp_ms, rlib_ms, r_bytes, r_flops, r_worst = row_block
+    rb_ms, rb_by = bound_ms(r_bytes, r_flops)
+    kernels.append({
+        "name": "atrous_rows (row-block mode, one block of "
+                f"{SPREAD_DEVICES})",
+        "route": "cuda",
+        "source": "radler_tpu_torch/csrc/iuwt_atrous.cu",
+        "replaces": "radler_tpu/ops/pallas/iuwt_atrous.py:74",
+        "launches": sum(spread_cells["config 4"][0]["row_launches"].values()),
+        "max_abs_err": r_worst,
+        "ms": rk_ms,
+        "plain_ms": rp_ms,
+        "bound_ms": rb_ms,
+        "bound_by": rb_by,
+        "library_ms": rlib_ms,
     })
     b4_ms, b4_plain_ms, (b4_bound_ms, b4_bound_by) = b4_times
     kernels.append({
@@ -5540,6 +6047,16 @@ def main():
         f"{cell['single_ms']:.4f}), launches by card "
         f"{dict(sorted(cell['launches'].items()))}"
         for label, cell in cards.items()))
+    say("spread over the cards: " + "; ".join(
+        f"{label} {run['seconds']:.3f} s a perform over "
+        f"{len(run['mesh'].devices)} groups (one group {one['seconds']:.3f} "
+        f"s), lockstep {run['lockstep']} ({one['lockstep']}), peak MiB by "
+        f"card {[round(p, 1) for p in run['peaks']]} (one group "
+        f"{[round(p, 1) for p in one['peaks']]})"
+        for label, (run, one) in spread_cells.items())
+        + f"; B3's row-block mode at {IUWT_SIZE}^2, {n_main} scales, one "
+        f"block of {SPREAD_DEVICES}: {rk_ms:.4f} ms against its "
+        f"{rb_ms:.4f} ms bound")
     say(f"ASP: {asp_run['rate']:.1f} minor iterations/s through perform "
         f"({ASP_CHANNELS} x {ASP_SIZE}^2, point grid), {asp_run['syncs']} "
         f"host syncs, {asp_run['peak_mib']:.1f} MiB")

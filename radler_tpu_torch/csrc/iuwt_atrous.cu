@@ -121,12 +121,16 @@ __device__ __forceinline__ float taps(const Products& m2, const Products& m1,
 // y0 + r * ystep.  Column c is image column x0 + c on a contiguous tile; on
 // a lattice tile, whose columns come in groups of px phases per lattice
 // step, it is x0 + (c / px) * xstep + c % px, and only the first pvalid
-// phases of a group exist.
+// phases of a group exist.  Only rows [out0, out1) are written, row y at
+// row y - out0 of the outputs: the whole image, or in row-block mode the
+// rows a block of the image owns (its input holds them with the halo that
+// the launch's scales reach, and the zero boundary lies at its edges).
 struct Map {
   int y0, ystep;
   int x0, xstep;
   int px, pvalid;
   int height, width;
+  int out0, out1;
 };
 
 // The image pixel (y, x) of buffer position (r, c); false outside the image.
@@ -315,7 +319,8 @@ __device__ __forceinline__ void tile_scales(float* __restrict__ cur,
       tmp, [&](int o, int a, float v) {
         int y, x;
         if (!locate<lattice>(map, o, a, y, x) && !kInterior) return;
-        const size_t at = static_cast<size_t>(y) * map.width + x;
+        if (!kInterior && (y < map.out0 || y >= map.out1)) return;
+        const size_t at = static_cast<size_t>(y - map.out0) * map.width + x;
         w[at] = __fsub_rn(cur[o * stride + a], v);
         if (kT == G::kScales - 1) smooth[at] = nxt[o * stride + a];
       });
@@ -397,45 +402,50 @@ __device__ __forceinline__ void run_tile(const Map& map, bool interior,
 // The fused low scales, on contiguous tiles
 // ---------------------------------------------------------------------------
 
-// blockIdx.x and .y count cores, blockIdx.z the planes.
+// blockIdx.x and .y count cores (from row out0 on), blockIdx.z the planes.
 template <int kScales>
 __global__ void __launch_bounds__(kThreads, 2)
     atrous_fused_kernel(const float* __restrict__ in, float* __restrict__ w,
                         float* __restrict__ smooth, int height, int width,
-                        int64_t scale_stride) {
+                        int64_t scale_stride, int out0, int out_rows) {
   using G = Fused<kScales>;
   using B = Buffers<G>;
   Map map;
   map.height = height;
   map.width = width;
+  map.out0 = out0;
+  map.out1 = out0 + out_rows;
   map.ystep = 1;
-  map.y0 = blockIdx.y * G::kRows - B::kHaloY;
+  map.y0 = out0 + blockIdx.y * G::kRows - B::kHaloY;
   map.xstep = 0;
   map.x0 = blockIdx.x * G::kCols - B::kHaloX;
   map.px = map.pvalid = B::kBufCols;
   const size_t plane = static_cast<size_t>(height) * width;
+  const size_t out_plane = static_cast<size_t>(out_rows) * width;
   const bool interior = map.y0 >= 0 && map.x0 >= 0 &&
                         map.y0 + B::kBufRows <= height &&
-                        map.x0 + B::kBufCols <= width;
-  run_tile<G>(map, interior, in + blockIdx.z * plane, w + blockIdx.z * plane,
-              smooth + blockIdx.z * plane, scale_stride);
+                        map.x0 + B::kBufCols <= width &&
+                        map.y0 + B::kHaloY + G::kRows <= map.out1;
+  run_tile<G>(map, interior, in + blockIdx.z * plane,
+              w + blockIdx.z * out_plane, smooth + blockIdx.z * out_plane,
+              scale_stride);
 }
 
 template <int kScales>
 int launch_fused(const float* in, float* w, float* smooth, int batch,
-                 int height, int width, int64_t scale_stride,
-                 cudaStream_t stream) {
+                 int height, int width, int64_t scale_stride, int out0,
+                 int out_rows, cudaStream_t stream) {
   using G = Fused<kScales>;
   const int shared_bytes = Buffers<G>::kBytes;
   const dim3 grid((width + G::kCols - 1) / G::kCols,
-                  (height + G::kRows - 1) / G::kRows, batch);
+                  (out_rows + G::kRows - 1) / G::kRows, batch);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       atrous_fused_kernel<kScales>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   atrous_fused_kernel<kScales><<<grid, kThreads, shared_bytes, stream>>>(
-      in, w, smooth, height, width, scale_stride);
+      in, w, smooth, height, width, scale_stride, out0, out_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -453,7 +463,8 @@ template <int kPx, int kSide>
 __global__ void __launch_bounds__(kThreads, 2)
     atrous_lattice_kernel(const float* __restrict__ in, float* __restrict__ w,
                           float* __restrict__ smooth, int height, int width,
-                          int d, int groups_x, int phases_y) {
+                          int d, int groups_x, int phases_y, int out0,
+                          int out_rows) {
   const int group = blockIdx.x % groups_x;
   const int tile_x = blockIdx.x / groups_x;
   const int phase_y = blockIdx.y % phases_y;
@@ -461,28 +472,39 @@ __global__ void __launch_bounds__(kThreads, 2)
   Map map;
   map.height = height;
   map.width = width;
+  map.out0 = out0;
+  map.out1 = out0 + out_rows;
   map.ystep = d;
   map.y0 = phase_y + (tile_y * kSide - 4) * d;
   map.xstep = d;
   map.x0 = group * kPx + (tile_x * kSide - 4) * d;
   map.px = kPx;
   map.pvalid = min(kPx, d - group * kPx);
-  // A core that starts beyond the image holds no pixel.
-  if (map.y0 + 4 * d >= height || map.x0 + 4 * d >= width) return;
+  // A core that starts beyond the image, or whose rows all lie outside
+  // [out0, out1), writes no pixel.
+  const int core_y0 = map.y0 + 4 * d;
+  const int core_y1 = core_y0 + (kSide - 1) * d;  // its last row
+  if (core_y0 >= height || map.x0 + 4 * d >= width || core_y1 < map.out0 ||
+      core_y0 >= map.out1)
+    return;
   // Whether the last pixel of the buffer's last row, lattice column and
-  // phase, and so the whole tile with its halo, lies inside the image.
+  // phase, and so the whole tile with its halo, lies inside the image, and
+  // the core inside the rows written.
   const bool interior = map.pvalid == kPx && map.y0 >= 0 && map.x0 >= 0 &&
                         map.y0 + (kSide + 7) * d < height &&
-                        map.x0 + (kSide + 7) * d + kPx - 1 < width;
+                        map.x0 + (kSide + 7) * d + kPx - 1 < width &&
+                        core_y0 >= map.out0 && core_y1 < map.out1;
   const size_t plane = static_cast<size_t>(height) * width;
+  const size_t out_plane = static_cast<size_t>(out_rows) * width;
   run_tile<LatticeTile<kPx, kSide>>(map, interior, in + blockIdx.z * plane,
-                                    w + blockIdx.z * plane,
-                                    smooth + blockIdx.z * plane, 0);
+                                    w + blockIdx.z * out_plane,
+                                    smooth + blockIdx.z * out_plane, 0);
 }
 
 template <int kPx, int kSide>
 int launch_lattice(const float* in, float* w, float* smooth, int batch,
-                   int height, int width, int d, cudaStream_t stream) {
+                   int height, int width, int d, int out0, int out_rows,
+                   cudaStream_t stream) {
   // Phases at or past the image's edge hold no pixel and get no block.
   const int phases_y = d < height ? d : height;
   const int groups_x = ((d < width ? d : width) + kPx - 1) / kPx;
@@ -497,7 +519,7 @@ int launch_lattice(const float* in, float* w, float* smooth, int batch,
       cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   atrous_lattice_kernel<kPx, kSide><<<grid, kThreads, shared_bytes, stream>>>(
-      in, w, smooth, height, width, d, groups_x, phases_y);
+      in, w, smooth, height, width, d, groups_x, phases_y, out0, out_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -505,45 +527,47 @@ int launch_lattice(const float* in, float* w, float* smooth, int batch,
 
 extern "C" {
 
-// Scales 0..n_scales-1 of `in` in one launch on contiguous tiles: w[t] at
-// w + t * scale_stride, the carried plane into `smooth`.
+// Scales 0..n_scales-1 of `in` (batch planes of height x width) in one
+// launch on contiguous tiles: rows [out0, out0 + out_rows) of w[t] at
+// w + t * scale_stride and of the carried plane into `smooth`, each plane
+// of the batch out_rows x width.  The whole image is out0 = 0, out_rows =
+// height; a row block passes its rows with their halo as the image.
 int atrous_fused(const float* in, float* w, float* smooth, int batch,
                  int height, int width, int64_t scale_stride, int n_scales,
-                 cudaStream_t stream) {
-  if (batch < 1 || batch > 65535 || height < 1 || width < 1)
+                 int out0, int out_rows, cudaStream_t stream) {
+  if (batch < 1 || batch > 65535 || height < 1 || width < 1 || out0 < 0 ||
+      out_rows < 1 || out0 + out_rows > height)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (n_scales) {
     case 1:
       return launch_fused<1>(in, w, smooth, batch, height, width,
-                             scale_stride, stream);
+                             scale_stride, out0, out_rows, stream);
     case 2:
       return launch_fused<2>(in, w, smooth, batch, height, width,
-                             scale_stride, stream);
+                             scale_stride, out0, out_rows, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // One scale at dilation d on lattice tiles of side x side points and px
-// neighbouring x-phases: one of kernels/iuwt_atrous.py::LATTICE_TILES.
+// neighbouring x-phases (one of kernels/iuwt_atrous.py::LATTICE_TILES),
+// writing rows [out0, out0 + out_rows) as atrous_fused does.
 int atrous_scale(const float* in, float* w, float* smooth, int batch,
-                 int height, int width, int d, int px, int side,
-                 cudaStream_t stream) {
+                 int height, int width, int d, int px, int side, int out0,
+                 int out_rows, cudaStream_t stream) {
   if (d < 1 || px > d || batch < 1 || batch > 65535 || height < 1 ||
-      width < 1)
+      width < 1 || out0 < 0 || out_rows < 1 || out0 + out_rows > height)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (px == 7 && side == 28)
-    return launch_lattice<7, 28>(in, w, smooth, batch, height, width, d,
-                                 stream);
-  if (px == 15 && side == 17)
-    return launch_lattice<15, 17>(in, w, smooth, batch, height, width, d,
-                                  stream);
-  if (px == 16 && side == 16)
-    return launch_lattice<16, 16>(in, w, smooth, batch, height, width, d,
-                                  stream);
-  if (px == 32 && side == 9)
-    return launch_lattice<32, 9>(in, w, smooth, batch, height, width, d,
-                                 stream);
+#define RADLER_LATTICE(PX, SIDE)                                         \
+  if (px == PX && side == SIDE)                                          \
+    return launch_lattice<PX, SIDE>(in, w, smooth, batch, height, width, \
+                                    d, out0, out_rows, stream);
+  RADLER_LATTICE(7, 28)
+  RADLER_LATTICE(15, 17)
+  RADLER_LATTICE(16, 16)
+  RADLER_LATTICE(32, 9)
+#undef RADLER_LATTICE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -787,10 +787,13 @@ def hogbom_step_facets(
         )
     _raise_on(err, "hogbom_step_facets")
     hogbom_step_facets.launches += -(-n_facets // FACETS_PER_LAUNCH)
+    hogbom_step_facets.launches_by_card[dev.index] += -(
+        -n_facets // FACETS_PER_LAUNCH)
     return ws.part_cmp, ws.part_idx, ws.part_integ
 
 
 hogbom_step_facets.launches = 0
+hogbom_step_facets.launches_by_card = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -1025,7 +1028,22 @@ def facet_fitted_values(fitter, raw: torch.Tensor, index: torch.Tensor,
     ]) * gain
 
 
-def facet_hogbom_loop(
+def drive(loop):
+    """Run a generator loop (:func:`facet_hogbom_steps`) to its end and
+    return its result."""
+    while True:
+        try:
+            next(loop)
+        except StopIteration as stop:
+            return stop.value
+
+
+def facet_hogbom_loop(*args, **kwargs) -> FacetLoopResult:
+    """:func:`facet_hogbom_steps` run to its end on one device."""
+    return drive(facet_hogbom_steps(*args, **kwargs))
+
+
+def facet_hogbom_steps(
     residual: torch.Tensor,  # [F, N, H, W], updated in place
     model: torch.Tensor,  # [F, N, H, W] (or [F, T*P, H, W]), in place
     psfs: torch.Tensor,  # [C, H, W] shared, or [F, C, H, W]
@@ -1062,7 +1080,12 @@ def facet_hogbom_loop(
     space (``model`` then holds each facet's ``[T*P, H, W]`` coefficient
     cube; each facet's fit is :class:`CoefficientFit` on its own views, so
     that a facet's bits are its single loop's).  ``params`` may give each
-    facet its own gain."""
+    facet its own gain.
+
+    A generator: it yields after enqueuing each chunk, before the host
+    read of the state, so that one host can keep several cards' loops
+    going (:func:`radler_tpu_torch.parallel.mesh.run_together`); its
+    value is the :class:`FacetLoopResult`."""
     dev = residual.device
     n_facets = residual.shape[0]
     if integration is None:
@@ -1136,6 +1159,7 @@ def facet_hogbom_loop(
         for _ in range(min(CHUNK, left)):
             iterate()
             lockstep += 1
+        yield
         host = buffers.state.tolist()
         iterations = [h[ITERATION] for h in host]
         active = [bool(h[ACTIVE]) for h in host]

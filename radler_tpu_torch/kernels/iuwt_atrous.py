@@ -16,6 +16,7 @@ the top of the CUDA source.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -194,10 +195,28 @@ def _entries():
 
     lib = _build.library()
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.atrous_fused.argtypes = [ptr] * 3 + [i32] * 3 + [i64, i32, ptr]
-    lib.atrous_scale.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+    lib.atrous_fused.argtypes = [ptr] * 3 + [i32] * 3 + [i64] + [i32] * 3 + [
+        ptr]
+    lib.atrous_scale.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
     lib.atrous_fused.restype = lib.atrous_scale.restype = i32
     return lib.atrous_fused, lib.atrous_scale
+
+
+def _launch(step: Launch, image: torch.Tensor, w: torch.Tensor,
+            smooth: torch.Tensor, scale_stride: int, batch: int, height: int,
+            width: int, out0: int, out_rows: int, stream) -> int:
+    """One launch of the plan: its scales of ``image`` (``batch`` planes of
+    ``height x width``), rows ``[out0, out0 + out_rows)`` written into
+    ``w`` (the first scale's plane; the others ``scale_stride`` apart) and
+    ``smooth``.  Returns the entry point's CUDA error code."""
+    fused, per_scale = _entries()
+    if step.lattice:
+        return per_scale(image.data_ptr(), w.data_ptr(), smooth.data_ptr(),
+                         batch, height, width, dilation(step.first_scale),
+                         step.phases, step.rows, out0, out_rows, stream)
+    return fused(image.data_ptr(), w.data_ptr(), smooth.data_ptr(), batch,
+                 height, width, scale_stride, step.n_scales, out0, out_rows,
+                 stream)
 
 
 def atrous_decompose_lo(
@@ -238,7 +257,6 @@ def atrous_decompose_lo(
         smooth = torch.empty_like(image)
     _check(w, "w", dev, (n_lo, *image.shape), f32)
     _check(smooth, "smooth", dev, image.shape, f32)
-    fused, per_scale = _entries()
     plan = launch_plan(n_lo, height, width)
     # Each launch reads the plane the one before it carried: the last
     # writes `smooth`, the others two planes in turn.
@@ -249,15 +267,8 @@ def atrous_decompose_lo(
         for i, step in enumerate(plan):
             dst = smooth if i == len(plan) - 1 else carried[i % 2]
             first = w[step.first_scale]
-            if step.lattice:
-                err = per_scale(cur.data_ptr(), first.data_ptr(),
-                                dst.data_ptr(), batch, height, width,
-                                dilation(step.first_scale), step.phases,
-                                step.rows, stream)
-            else:
-                err = fused(cur.data_ptr(), first.data_ptr(), dst.data_ptr(),
-                            batch, height, width, w.stride(0), step.n_scales,
-                            stream)
+            err = _launch(step, cur, w[step.first_scale], dst, w.stride(0),
+                          batch, height, width, 0, height, stream)
             _raise_on(err, "atrous_decompose_lo")
             atrous_decompose_lo.launches += 1
             cur = dst
@@ -265,3 +276,76 @@ def atrous_decompose_lo(
 
 
 atrous_decompose_lo.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Row-block mode
+# ---------------------------------------------------------------------------
+
+
+def launch_reach(step: Launch) -> int:
+    """The rows of halo a launch's block needs on each side of the rows it
+    writes: the cascade's reach of a fused launch, four taps at the
+    dilation of a lattice launch (two convolutions of reach 2d each)."""
+    if step.lattice:
+        return 4 * dilation(step.first_scale)
+    return cascade_reach(step.n_scales)
+
+
+def atrous_rows_reference(block: torch.Tensor, step: Launch, out0: int,
+                          out_rows: int, w: torch.Tensor,
+                          smooth: torch.Tensor) -> None:
+    """Plain version of :func:`atrous_rows`: the launch's scales of the
+    block taken as an image (zero beyond its edges), rows ``[out0, out0 +
+    out_rows)`` copied out.  Each of those rows reads only the block's rows
+    within :func:`launch_reach`, through the taps of the whole-image
+    decompose in the same order, so it holds the whole image's bits."""
+    cur = block
+    for t, s in enumerate(range(step.first_scale,
+                                step.first_scale + step.n_scales)):
+        i1 = iuwt_convolve(cur, s + 1)
+        w[t].copy_(torch.sub(cur, iuwt_convolve(i1, s + 1)).narrow(
+            -2, out0, out_rows))
+        cur = i1
+    smooth.copy_(cur.narrow(-2, out0, out_rows))
+
+
+def atrous_rows(block: torch.Tensor, step: Launch, out0: int, out_rows: int,
+                w: torch.Tensor, smooth: torch.Tensor) -> None:
+    """B3's row-block mode: one launch of the plan (:func:`launch_plan` of
+    the whole image) on ``block``, a ``[*lead, Hb, W]`` block of an image's
+    rows, writing its rows ``[out0, out0 + out_rows)``: each scale's plane
+    into ``w`` (``[n_scales, *lead, out_rows, W]``, contiguous planes) and
+    the carried plane into ``smooth`` (``[*lead, out_rows, W]``).  The
+    block holds those rows with :func:`launch_reach` rows on each side,
+    clipped to the image, so that the zero boundary lies at the image's
+    true top and bottom and nowhere else.  On CPU tensors it runs
+    :func:`atrous_rows_reference`."""
+    if block.device.type == "cpu":
+        atrous_rows_reference(block, step, out0, out_rows, w, smooth)
+        return
+    if block.device.type != "cuda":
+        raise ValueError(f"atrous_rows: unsupported device {block.device}")
+    height, width = block.shape[-2:]
+    batch = block.shape[0] if block.ndim == 3 else 1
+    if not (block.ndim in (2, 3) and 0 < batch <= 65535
+            and height * width * batch < 2**31 and 0 <= out0
+            and 0 < out_rows and out0 + out_rows <= height):
+        raise ValueError(f"atrous_rows: bad block {tuple(block.shape)} or "
+                         f"rows [{out0}, {out0 + out_rows})")
+    dev, f32 = block.device, torch.float32
+    out_shape = (*block.shape[:-2], out_rows, width)
+    _check(block, "block", dev, block.shape, f32)
+    _check(w, "w", dev, (step.n_scales, *out_shape), f32)
+    _check(smooth, "smooth", dev, out_shape, f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launch(step, block, w[0], smooth, w.stride(0), batch, height,
+                      width, out0, out_rows, stream)
+    _raise_on(err, "atrous_rows")
+    atrous_rows.launches += 1
+    atrous_rows.launches_by_card[dev.index] += 1
+
+
+atrous_rows.launches = 0
+atrous_rows.launches_by_card = collections.Counter()

@@ -32,6 +32,7 @@ from ..kernels.hogbom_step import (
     FacetLoopParams,
     LoopParams,
     facet_hogbom_loop,
+    facet_hogbom_steps,
     hogbom_loop,
 )
 from ..kernels.subminor_loop import SubminorParams
@@ -39,9 +40,12 @@ from ..ops.component_optimization import run_component_optimization
 from ..ops.convolution import untrim
 from ..ops.peak_finder import border_from_ratio, find_peak, window_mask
 from ..parallel.mesh import (
+    CardCopies,
+    facet_runs,
     mesh_hogbom_loop,
     mesh_pallas_eligible,
     mesh_subminor_clean,
+    run_together,
 )
 from ..settings import OptimizationAlgorithm, SpectralFittingMode
 from .base import DeconvolutionAlgorithm, DeconvolutionResult
@@ -70,6 +74,8 @@ class GenericClean(DeconvolutionAlgorithm):
         super().__init__()
         self.convolution_padding = 1.1
         self.use_sub_minor_optimization = use_sub_minor_optimization
+        # The batched facets' shared PSFs on the mesh's other cards.
+        self._card_copies = CardCopies()
 
     # ------------------------------------------------------------------
     def _find_peak(self, integrated: torch.Tensor):
@@ -401,9 +407,11 @@ class GenericClean(DeconvolutionAlgorithm):
         valid window (the border of its true box and its mask; the padding
         is never searched), its major-iteration threshold, then the loop
         (:func:`facet_hogbom_loop`) over the true boxes: the padding is
-        neither read nor written.  Returns ``(results, iterations,
-        lockstep)``: a :class:`DeconvolutionResult` and the iteration count
-        of each facet, and the loop's lockstep iterations."""
+        neither read nor written.  On a mesh of several groups the facets'
+        loops spread over the groups' cards (:meth:`_spread_facet_loops`).
+        Returns ``(results, iterations, lockstep)``: a
+        :class:`DeconvolutionResult` and the iteration count of each facet,
+        and the loop's lockstep iterations (the most of a card's)."""
         n_facets, _, box_h, box_w = facet_residual.shape
         dev = facet_residual.device
         valid = np.zeros((n_facets, box_h, box_w), dtype=bool)
@@ -434,39 +442,58 @@ class GenericClean(DeconvolutionAlgorithm):
 
         iterations = [int(s) for s in start_iterations]
         lockstep = 0
-        loop = None
+        outs = None
         if not find_peak_only and any(p[1] for p in host_peaks):
             weight = torch.as_tensor(valid.astype(np.float32), device=dev)
             if facet_rms is not None:
                 weight = weight * facet_rms
+            peaks0 = [(v, int(x), int(y), bool(found))
+                      for v, found, x, y in host_peaks]
+            boxes = torch.tensor([(sh, sw) for sw, sh in facet_boxes],
+                                 dtype=torch.int32)
             fit = (
                 self.spectral_fitter
                 if self.spectral_fitter is not None
                 and self.spectral_fitter.is_active
                 else None
             )
-            loop = facet_hogbom_loop(
-                facet_residual,
-                facet_model,
-                psfs.contiguous(),
-                weight.contiguous(),
-                facet_rms.contiguous() if facet_rms is not None else None,
-                [(v, int(x), int(y), bool(found))
-                 for v, found, x, y in host_peaks],
-                FacetLoopParams.make(
-                    self.minor_loop_gain, first,
-                    [abs(p[0]) for p in host_peaks], self.divergence_limit,
-                    [self.max_iterations] * n_facets,
-                    self.stop_on_negative_components, dev),
-                iterations,
-                meta=meta,
-                allow_negative=self.allow_negative_components,
-                fitter=fit,
-                forced_terms=facet_forced_terms,
-                boxes=torch.tensor([(sh, sw) for sw, sh in facet_boxes],
-                                   dtype=torch.int32),
-            )
-            lockstep = loop.lockstep
+
+            def loop_args(f0, f1, card):
+                """The lockstep loop of facets ``[f0, f1)`` on ``card``:
+                views of the stacks on their own device, copies
+                elsewhere."""
+                def part(t):
+                    return None if t is None else t[f0:f1].to(card)
+
+                shared = psfs.dim() == 3
+                return dict(
+                    residual=part(facet_residual), model=part(facet_model),
+                    psfs=(self._card_copies.on("psfs", psfs, card)
+                          if shared else part(psfs)),
+                    weight=part(weight), rms=part(facet_rms),
+                    peaks0=peaks0[f0:f1],
+                    params=FacetLoopParams.make(
+                        self.minor_loop_gain, first[f0:f1],
+                        [abs(p[0]) for p in host_peaks[f0:f1]],
+                        self.divergence_limit,
+                        [self.max_iterations] * (f1 - f0),
+                        self.stop_on_negative_components, card),
+                    start_iterations=iterations[f0:f1], meta=meta,
+                    allow_negative=self.allow_negative_components,
+                    fitter=fit, forced_terms=part(facet_forced_terms),
+                    boxes=boxes[f0:f1])
+
+            psfs = psfs.contiguous()
+            weight = weight.contiguous()
+            facet_rms = (facet_rms.contiguous() if facet_rms is not None
+                         else None)
+            runs = facet_runs(self.device_mesh, n_facets)
+            if len(runs) == 1:
+                loop = facet_hogbom_loop(**loop_args(0, n_facets, dev))
+                outs, lockstep = loop.results, loop.lockstep
+            else:
+                outs, lockstep = self._spread_facet_loops(
+                    runs, loop_args, facet_residual, facet_model)
         results = []
         for f, (value, found, _, _) in enumerate(host_peaks):
             result = DeconvolutionResult()
@@ -475,10 +502,10 @@ class GenericClean(DeconvolutionAlgorithm):
                 continue
             result.starting_peak_value = value
             result.final_peak_value = value
-            if loop is None:
+            if outs is None:
                 results.append(result)
                 continue
-            out = loop.results[f]
+            out = outs[f]
             iterations[f] = out.iteration
             saved = self.iteration_number
             self.iteration_number = out.iteration
@@ -487,6 +514,30 @@ class GenericClean(DeconvolutionAlgorithm):
                 int(start_iterations[f]), m_thr[f]))
             self.iteration_number = saved
         return results, iterations, lockstep
+
+    def _spread_facet_loops(self, runs, loop_args, facet_residual,
+                            facet_model):
+        """The lockstep loops of ``runs`` (``(group, facets)``, each a
+        contiguous run) on their groups' devices at once
+        (:func:`~radler_tpu_torch.parallel.mesh.run_together`), each card
+        stopping when its own facets stop; the stacks come back to the
+        lead.  Returns every facet's :class:`LoopResult` in facet order and
+        the most lockstep iterations of a card."""
+        mesh = self.device_mesh
+        parts = []
+        for group, facets in runs:
+            f0, f1 = facets[0], facets[-1] + 1
+            parts.append((f0, f1, loop_args(f0, f1, mesh.card(group))))
+        done = run_together(facet_hogbom_steps(**args)
+                            for _, _, args in parts)
+        outs = []
+        for (f0, f1, args), loop in zip(parts, done):
+            for stack, name in ((facet_residual, "residual"),
+                                (facet_model, "model")):
+                if args[name].data_ptr() != stack[f0:f1].data_ptr():
+                    stack[f0:f1].copy_(args[name])
+            outs += loop.results
+        return outs, max(loop.lockstep for loop in done)
 
     def _fit_model_spectra(self, model_set) -> None:
         """``GenericClean::FitSpectra`` (``generic_clean.cc:278-297``): every

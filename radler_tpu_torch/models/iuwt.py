@@ -19,11 +19,20 @@ reads the device twice per structure iteration, as the JAX package does
 iteration.  Nothing inside a structure iteration copies host data to the
 device, except the label map of the multi-image refit: the windows, the
 prior mask and the PSF's per-scale RMS are made on the device, or copied
-once per run before the structure loop.  The JAX package lays IUWT's rows
-over a device mesh (``models/iuwt.py:107-132``), a placement only with the
-same results; on a mesh the port runs IUWT on the mesh's lead device as
-on one device, bit for bit (spreading its FFT work over the cards is
-later work).
+once per run before the structure loop.
+
+On a mesh of several groups the images spread by rows over the groups'
+devices by the JAX package's rule (``models/iuwt.py:107-132``:
+:func:`~radler_tpu_torch.parallel.rows.mesh_rows`), the cubes for the
+major iteration and every image derived from them: the decompose runs
+kernel B3 in its row-block mode on each card's rows with the halo its
+launches reach, masks, stats and the selection on each card's rows, the
+FFT convolutions of the CG, the RMS guard and the update as slab FFTs,
+the reductions as partials combined on the lead
+(:class:`~radler_tpu_torch.ops.iuwt.SpreadOps`); a trimmed box whose
+rows the rule does not divide runs on the lead, and so does the
+per-image refit of several images.  The host reads the device as often
+as on one device.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 from ..image_set import get_integrated_psf, get_linear_integrated
 from ..ops import iuwt as iuwt_ops
 from ..ops.convolution import convolve_same
+from ..parallel.rows import Rows, convolve_rows, full
 from ..utils import logging as log
 from .base import DeconvolutionAlgorithm, DeconvolutionResult
 
@@ -47,10 +57,22 @@ except Exception:  # pragma: no cover
 
 
 def _apply_structure_update(model_data, dirty_data, structure, psfs, gain,
-                            meta):
+                            meta, planes_kernel=None):
     """Accepted-structure update (``iuwt_deconvolution_algorithm.cc:862-877``):
     model += gain*structure; dirty -= (gain*structure) ⊛ psf per channel;
-    returns the new model, dirty and re-integrated dirty."""
+    returns the new model, dirty and re-integrated dirty.  Spread cubes
+    (:class:`~radler_tpu_torch.parallel.rows.Rows`) convolve by slab FFTs
+    with ``planes_kernel``, the slab multiplier of ``psfs[:, None]``."""
+    if isinstance(dirty_data, Rows):
+        c, p = meta.n_channels, meta.n_polarizations
+        scaled = structure.map(lambda s: s * gain)
+        conv = convolve_rows(
+            scaled.map(lambda s: s.reshape(c, p, *s.shape[-2:])),
+            planes_kernel)
+        dirty_data = dirty_data.map(
+            lambda d, v: d - v.reshape(d.shape), conv)
+        return (model_data.map(torch.add, scaled), dirty_data,
+                dirty_data.map(get_linear_integrated, meta))
     structure_scaled = structure * gain
     model_data = model_data + structure_scaled
     n, height, width = dirty_data.shape
@@ -60,6 +82,15 @@ def _apply_structure_update(model_data, dirty_data, structure, psfs, gain,
     )
     dirty_data = dirty_data - conv.reshape(n, height, width)
     return model_data, dirty_data, get_linear_integrated(dirty_data, meta)
+
+
+class _Gathered:
+    """An image set whose spread cube reads as the full cube on the lead
+    (for the host-side refit of several images)."""
+
+    def __init__(self, image_set):
+        self.meta = image_set.meta
+        self.data = full(image_set.data)
 
 
 class _IuwtEngine:
@@ -78,7 +109,13 @@ class _IuwtEngine:
         absolute_threshold: float,
         threshold_sigma_level: float = 4.0,
         tolerance: float = 0.75,
+        mesh=None,
     ):
+        # On a mesh of several groups the images spread by rows over its
+        # cards (iuwt_ops.SpreadOps); else every step runs on one device.
+        self.spread_ops = (iuwt_ops.SpreadOps(mesh)
+                           if mesh is not None and mesh.groups > 1 else None)
+        self.ops = self.spread_ops or iuwt_ops
         self.width = width
         self.height = height
         self.minor_loop_gain = minor_loop_gain
@@ -216,7 +253,7 @@ class _IuwtEngine:
         max_components.clear()
         S = cur_end_scale
         coeffs, mask_pre, blob_dev, thresholds_dev = (
-            iuwt_ops.structure_stats_select(
+            self.ops.structure_stats_select(
                 dirty,
                 self._search_window(width, height, dev),
                 self._select_window(self.mask is not None, width, height, dev),
@@ -307,7 +344,7 @@ class _IuwtEngine:
         if precomputed is not None:
             mask, raw_box, area_size = precomputed
         else:
-            mask, area_size = iuwt_ops.select_structures(
+            mask, area_size = self.ops.select_structures(
                 coeffs,
                 thresholds[:cur_end_scale],
                 self._select_window(prior, width, height, dev),
@@ -322,7 +359,7 @@ class _IuwtEngine:
         if allow_trimming:
             if raw_box is None:
                 raw_box = tuple(
-                    iuwt_ops.masked_recompose_bbox(
+                    self.ops.masked_recompose_bbox(
                         coeffs, mask, cur_end_scale).tolist())
             x1, y1, x2, y2 = self._adjust_box(
                 *raw_box, width, height, max_comp[2] + 1
@@ -332,7 +369,7 @@ class _IuwtEngine:
         if allow_trimming and ((x2 - x1) < width or (y2 - y1) < height):
             self.box = (x1, y1, x2, y2)
             new_width, new_height = x2 - x1, y2 - y1
-            small_dirty = iuwt_ops.slice_box2(
+            small_dirty = self.ops.slice_box2(
                 dirty, y1, x1, new_height, new_width
             )
             small_psf = self._trim_psf(psf, new_width, new_height)
@@ -346,10 +383,10 @@ class _IuwtEngine:
                     f"{cur_end_scale} -- ignoring scales>={max_scale}."
                 )
                 cur_end_scale = max_scale
-            trimmed_coeffs = iuwt_ops.trim_coeffs_box(
+            trimmed_coeffs = self.ops.trim_coeffs_box(
                 coeffs, y1, x1, cur_end_scale, new_height, new_width
             )
-            trimmed_model = iuwt_ops.slice_box3(
+            trimmed_model = self.ops.slice_box3(
                 structure_model_full, y1, x1, new_height, new_width
             )
             success, trimmed_model = self._fill_and_deconvolve_structure(
@@ -368,7 +405,7 @@ class _IuwtEngine:
                 allow_trimming=False,
                 prior=prior,
             )
-            padded = iuwt_ops.embed_box3_zeros(
+            padded = self.ops.embed_box3_zeros(
                 trimmed_model, y1, x1, height, width
             )
             self.box = (0, 0, width, height)
@@ -376,10 +413,10 @@ class _IuwtEngine:
 
         # Un-trimmed path: the masked CG solve and the RMS guard, with one
         # host read for both decisions.
-        masked_dirty_scales, masked_dirty = iuwt_ops.masked_dirty_of(
+        masked_dirty_scales, masked_dirty = self.ops.masked_dirty_of(
             dirty, mask, cur_end_scale
         )
-        structure_model, status = iuwt_ops.conjugate_gradient_guarded(
+        structure_model, status = self.ops.conjugate_gradient_guarded(
             masked_dirty_scales,
             mask,
             masked_dirty,
@@ -443,8 +480,15 @@ class _IuwtEngine:
         x1, y1, x2, y2 = self.box
         n_images = fitted_model_full.shape[0]
         if n_images == 1:
-            return iuwt_ops.expand_single_plane(structure_model, 1)
+            return self.ops.expand_single_plane(structure_model, 1)
 
+        if isinstance(structure_model, Rows):
+            # The per-image refit reads the components on the host: it runs
+            # on the lead, and its result is spread again.
+            return self.spread_ops.spread(self._perform_sub_image_fit_all(
+                full(mask), full(structure_model), max_comp,
+                full(fitted_model_full), psf, psfs, full(dirty),
+                _Gathered(dirty_set), n_scales, width, height))
         components = self._label_components(
             structure_model, max_comp, n_scales, width, height
         )
@@ -544,7 +588,7 @@ class _IuwtEngine:
         (``PerformSubImageComponentFitBoxed`` + ``...Fit``,
         ``iuwt_deconvolution_algorithm.cc:744-801``), one batch and one host
         read per box-size bucket."""
-        _, masked_dirty = iuwt_ops.masked_dirty_of(sub_dirty, mask, n_scales)
+        _, masked_dirty = self.ops.masked_dirty_of(sub_dirty, mask, n_scales)
         factors = [0.0] * len(components)
         buckets: Dict[Tuple[int, int], List[int]] = {}
         for idx, comp in enumerate(components):
@@ -594,15 +638,38 @@ class _IuwtEngine:
         """``PerformMajorIteration``
         (``iuwt_deconvolution_algorithm.cc:803-918``).
         Returns (max_value, reached_major_threshold, iter_counter)."""
-        reached_major_threshold = False
         if iter_counter == n_iter:
             return 0.0, False, iter_counter
+        psf = get_integrated_psf(psfs, dirty_set.meta).contiguous()
+        self.prepare(psf.device)
+        if self.spread_ops is not None:
+            # The cubes and every image derived from them spread by rows
+            # over the mesh's cards for the structure loop, and come back
+            # to the lead at its end.
+            dirty_set.data = self.spread_ops.spread(dirty_set.data)
+            model_set.data = self.spread_ops.spread(model_set.data)
+            try:
+                return self._structure_loop(iter_counter, n_iter, model_set,
+                                            dirty_set, psfs, psf)
+            finally:
+                dirty_set.data = full(dirty_set.data)
+                model_set.data = full(model_set.data)
+        return self._structure_loop(iter_counter, n_iter, model_set,
+                                    dirty_set, psfs, psf)
+
+    def _structure_loop(self, iter_counter, n_iter, model_set, dirty_set,
+                        psfs, psf):
+        """The structure iterations of :meth:`perform_major_iteration`."""
+        reached_major_threshold = False
         meta = dirty_set.meta
         width, height = self.width, self.height
-
-        dirty = get_linear_integrated(dirty_set.data, meta)
-        psf = get_integrated_psf(psfs, meta).contiguous()
-        self.prepare(dirty.device)
+        planes_kernel = None
+        if isinstance(dirty_set.data, Rows):
+            dirty = dirty_set.data.map(get_linear_integrated, meta)
+            planes_kernel = self.spread_ops.spectrum(psfs[:, None],
+                                                     dirty_set.data.layout)
+        else:
+            dirty = get_linear_integrated(dirty_set.data, meta)
 
         max_scale = iuwt_ops.end_scale(min(width, height))
         cur_end_scale = 2
@@ -610,7 +677,9 @@ class _IuwtEngine:
         log.debug("Measuring PSF...")
         self.measure_rms_per_scale(psf, max_scale)
 
-        structure_model = torch.zeros_like(dirty_set.data)
+        structure_model = (dirty_set.data.like(0.0)
+                           if isinstance(dirty_set.data, Rows)
+                           else torch.zeros_like(dirty_set.data))
         max_value = 0.0
         cur_min_scale = 0
         do_continue = True
@@ -638,6 +707,7 @@ class _IuwtEngine:
                         psfs,
                         float(np.float32(self.minor_loop_gain)),
                         meta,
+                        planes_kernel,
                     )
                 )
 
@@ -707,6 +777,7 @@ class IuwtDeconvolution(DeconvolutionAlgorithm):
             self.allow_negative_components,
             self.clean_mask,
             self.threshold,
+            mesh=self.device_mesh,
         )
         final_peak, another, iters = engine.perform_major_iteration(
             self.iteration_number,

@@ -61,9 +61,14 @@ from ..ops.multiscale_kernels import (
     kernel_peak_value,
     make_shape_function,
 )
-from ..ops.peak_finder import FLT_MIN, find_peak, window_mask
+from ..ops.peak_finder import FLT_MIN, find_peak, masked_peaks, window_mask
 from ..ops.psf_subtract import subtract_psf_from_cube
-from ..parallel.mesh import shard_multiscale_inputs
+from ..parallel.mesh import (
+    CardCopies,
+    facet_runs,
+    run_together,
+    shard_multiscale_inputs,
+)
 from ..settings import (
     MultiscaleSettings,
     MultiscaleShape,
@@ -74,8 +79,10 @@ from ..utils import logging as log
 from ..utils.fft_size import get_convolution_size
 from .base import DeconvolutionAlgorithm, DeconvolutionResult
 from .multiscale_fused import (
+    FacetFusedResult,
     dense_subminor_loop,
     facet_fused_multiscale_minor_loop,
+    facet_fused_multiscale_steps,
     fused_multiscale_minor_loop,
     mesh_subminor_eligible,
 )
@@ -219,24 +226,36 @@ def scale_maxima(
         sources = torch.cat([integrated[None], conv])
     else:
         sources = integrated[None]
-    n = perm.shape[0]
     images = sources.index_select(0, perm)  # [S, H, W], scale_infos order
+    best, signed, idx, normalized = scale_peaks(images, valid, rms_factor,
+                                                allow_negative)
+    rms = torch.sqrt(torch.mean(images * images, dim=(1, 2)))
+    return maxima_blob(best, idx, signed, normalized, rms, w)
+
+
+def scale_peaks(images: torch.Tensor, valid: torch.Tensor,
+                rms_factor: Optional[torch.Tensor], allow_negative: bool):
+    """Every plane's masked argmax of ``images`` weighted by the rms factor
+    (:func:`~radler_tpu_torch.ops.peak_finder.masked_peaks`): ``(best,
+    signed, idx, normalized)``, the signed value also divided by the rms
+    factor at its pixel."""
     weighted = images * rms_factor if rms_factor is not None else images
-    cmp = weighted.abs() if allow_negative else weighted
-    masked = torch.where(valid, cmp, -math.inf).reshape(n, h * w)
-    idx = torch.argmax(masked, dim=1, keepdim=True)
-    found = torch.gather(masked, 1, idx)[:, 0] > FLT_MIN
-    signed = torch.gather(weighted.reshape(n, h * w), 1, idx)[:, 0]
-    idx = idx[:, 0]
+    best, signed, idx = masked_peaks(weighted, valid, allow_negative)
     normalized = (
         signed / rms_factor.reshape(-1).index_select(0, idx)
         if rms_factor is not None
         else signed
     )
-    rms = torch.sqrt(torch.mean(images * images, dim=(1, 2)))
+    return best, signed, idx, normalized
+
+
+def maxima_blob(best, idx, signed, normalized, rms,
+                width: int) -> torch.Tensor:
+    """:func:`scale_maxima`'s ``[6, S]`` float64 tensor (value, x, y,
+    found, normalized, rms) from the peaks' parts."""
     return torch.stack([
-        signed.double(), (idx % w).double(), (idx // w).double(),
-        found.double(), normalized.double(), rms.double(),
+        signed.double(), (idx % width).double(), (idx // width).double(),
+        (best > FLT_MIN).double(), normalized.double(), rms.double(),
     ])
 
 
@@ -293,6 +312,8 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         # 0 here and the others in _slot_banks.
         self._fused_banks: Optional[tuple] = None
         self._slot_banks: Dict[int, tuple] = {}
+        # The batched facets' banks on the mesh's other cards.
+        self._card_copies = CardCopies()
 
     # -- plumbing used by ParallelDeconvolution ------------------------
     def set_auto_mask_mode(self, track: bool, use: bool) -> None:
@@ -342,6 +363,7 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         c._comp_acc = {}
         c._fused_banks = None
         c._slot_banks = {}
+        c._card_copies = CardCopies()
         return c
 
     # -- kernels -------------------------------------------------------
@@ -454,10 +476,9 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
             self._kernel_cache[bank_key] = (
                 bank, torch.as_tensor(perm, device=dev))
         bank_f, perm = self._kernel_cache[bank_key]
-        out = scale_maxima(
-            integrated, bank_f, self._scale_valid_stack(h, w, dev),
-            self.rms_factor_image, perm, self.allow_negative_components,
-        ).tolist()
+        out = self._scale_maxima(integrated, bank_f,
+                                 self._scale_valid_stack(h, w, dev),
+                                 perm).tolist()
         for i, entry in enumerate(entries):
             value, x, y, found, normalized, rms = (row[i] for row in out)
             if report_rms:
@@ -470,6 +491,13 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
             else:
                 entry.max_unnormalized_image_value = 0.0
                 entry.max_normalized_image_value = 0.0
+
+    def _scale_maxima(self, integrated, bank_f: torch.Tensor,
+                      valid: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+        """:func:`scale_maxima` of ``integrated`` with this algorithm's rms
+        factor and sign rule."""
+        return scale_maxima(integrated, bank_f, valid, self.rms_factor_image,
+                            perm, self.allow_negative_components)
 
     def _activate_scales(self, scale_with_last_peak: int) -> None:
         """``multiscale_algorithm.cc:636-656``."""
@@ -1003,9 +1031,12 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         ``multiscale_algorithm.cc:597-603``) and its mask, ANDed with the
         loaded per-scale masks when they are used.  The peak-only pass
         (``find_peak_only``) runs no iteration and leaves the stacks as
-        they were.  Returns ``(results, iterations, lockstep, mask_acc,
-        comp_acc)``: a :class:`DeconvolutionResult` and the iteration count
-        of each facet, the lockstep iterations of the dense loops, and the
+        they were.  On a mesh of several groups the facets' loops spread
+        over the groups' cards (:meth:`_spread_fused_facets`), the banks
+        copied once to each card and kept there.  Returns ``(results,
+        iterations, lockstep, mask_acc, comp_acc)``: a
+        :class:`DeconvolutionResult` and the iteration count of each
+        facet, the lockstep iterations of the dense loops, and the
         per-facet accumulators (``[F, S, Hb, Wb]`` bool, and scale -> ``[F,
         N, Hb, Wb]``) of the per-scale masks and components."""
         fitter = self.spectral_fitter
@@ -1036,13 +1067,6 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         (kernel_f, _, _, kernel_f_large, _, _, _, split, padded_small,
          padded_large) = per_slot[-1]
 
-        def stacked(i):
-            if per_slot[0][i] is None:
-                return None
-            if len(per_slot) == 1:
-                return per_slot[0][i][None]
-            return torch.stack([b[i] for b in per_slot])
-
         bias = np.stack([per_slot[u][5] for u in slots])  # [F, S]
         gain_arr = np.stack([per_slot[u][6] for u in slots])
 
@@ -1067,25 +1091,58 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
                 np.ascontiguousarray(facet_scale_masks[:, :S]), device=dev)
 
         starts = [int(v) for v in start_iterations]
-        out = facet_fused_multiscale_minor_loop(
-            facet_residual, facet_model, kernel_f, stacked(1), stacked(2),
-            kernel_f_large, stacked(4), slots, stacks,
-            facet_rms, bias, gain_arr, self.threshold,
-            major_iteration_threshold, self.major_loop_gain,
-            self.ms_settings.sub_minor_loop_gain, self.minor_loop_gain,
-            self.divergence_limit, starts,
-            starts if find_peak_only else [self.max_iterations] * n_facets,
-            max(8, S * 3 // 2),
-            meta=meta,
-            allow_negative=self.allow_negative_components,
-            stop_on_negative=self.stop_on_negative_components,
-            fitter=fitter, split=split, padded_small=padded_small,
-            padded_large=padded_large,
-            boxes=[(sh, sw) for sw, sh in facet_boxes],
-            forced_terms=facet_forced_terms,
-            track_masks=self.track_per_scale_masks,
-            track_components=self.track_components,
-        )
+        limits = starts if find_peak_only else [self.max_iterations] * n_facets
+
+        def bank(i, card):
+            """Bank ``i`` of :meth:`_prepare_fused_banks` on ``card``, a
+            copy of each slot's kept a card: the scale kernels (0, 3)
+            shared, the PSF banks stacked a slot."""
+            if per_slot[0][i] is None:
+                return None
+            if i in (0, 3):
+                return self._card_copies.on(i, per_slot[-1][i], card)
+            banks = [self._card_copies.on((i, u), b[i], card)
+                     for u, b in enumerate(per_slot)]
+            return banks[0][None] if len(banks) == 1 else torch.stack(banks)
+
+        def loop_args(f0, f1, card):
+            """The loop of facets ``[f0, f1)`` on ``card``: views of the
+            stacks on their own device, copies elsewhere; the banks' copies
+            are kept a card."""
+            def part(t):
+                return None if t is None else t[f0:f1].to(card)
+
+            return dict(
+                residual=part(facet_residual), model=part(facet_model),
+                kernel_f=bank(0, card), twice_psfs=bank(1, card),
+                psf_f=bank(2, card), kernel_f_large=bank(3, card),
+                psf_f_large=bank(4, card),
+                slots=slots[f0:f1], valid_stack=part(stacks),
+                rms_factor=part(facet_rms), bias=bias[f0:f1],
+                gain_arr=gain_arr[f0:f1], threshold=self.threshold,
+                major_iteration_threshold=major_iteration_threshold,
+                major_loop_gain=self.major_loop_gain,
+                sub_loop_gain=self.ms_settings.sub_minor_loop_gain,
+                minor_loop_gain=self.minor_loop_gain,
+                divergence_limit=self.divergence_limit,
+                start_iterations=starts[f0:f1],
+                max_iterations=limits[f0:f1], countdown0=max(8, S * 3 // 2),
+                meta=meta, allow_negative=self.allow_negative_components,
+                stop_on_negative=self.stop_on_negative_components,
+                fitter=fitter, split=split, padded_small=padded_small,
+                padded_large=padded_large,
+                boxes=[(sh, sw) for sw, sh in facet_boxes[f0:f1]],
+                forced_terms=part(facet_forced_terms),
+                track_masks=self.track_per_scale_masks,
+                track_components=self.track_components,
+            )
+
+        runs = facet_runs(self.device_mesh, n_facets)
+        if len(runs) == 1:
+            out = facet_fused_multiscale_minor_loop(
+                **loop_args(0, n_facets, dev))
+        else:
+            out = self._spread_fused_facets(runs, loop_args, dev)
         if not find_peak_only:
             facet_residual.copy_(out.residual)
             facet_model.copy_(out.model)
@@ -1118,6 +1175,52 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
             results.append(result)
         return (results, out.iteration_number, out.lockstep, out.mask_acc,
                 out.comp_acc)
+
+    def _spread_fused_facets(self, runs, loop_args, lead):
+        """The batched loops of ``runs`` (``(group, facets)``, each a
+        contiguous run) on their groups' devices at once
+        (:func:`~radler_tpu_torch.parallel.mesh.run_together`): every card
+        reads its facets' maxima once a pass and its dense loops' states
+        once a chunk.  Returns one :class:`FacetFusedResult` on the lead,
+        in facet order, with the most lockstep iterations of a card."""
+        mesh = self.device_mesh
+        parts = []
+        for group, facets in runs:
+            f0, f1 = facets[0], facets[-1] + 1
+            parts.append((f0, f1, loop_args(f0, f1, mesh.card(group))))
+        done = run_together(facet_fused_multiscale_steps(**args)
+                            for _, _, args in parts)
+
+        def joined(name):
+            return [v for out in done for v in getattr(out, name)]
+
+        def on_lead(tensors):
+            return torch.cat([t.to(lead) for t in tensors])
+
+        comp_acc = {}
+        n_facets = parts[-1][1]
+        for (f0, f1, args), out in zip(parts, done):
+            for scale, acc in out.comp_acc.items():
+                if scale not in comp_acc:
+                    comp_acc[scale] = torch.zeros(
+                        (n_facets, *acc.shape[1:]), device=lead)
+                comp_acc[scale][f0:f1] = acc.to(lead)
+        return FacetFusedResult(
+            residual=on_lead([out.residual for out in done]),
+            model=on_lead([out.model for out in done]),
+            iteration_number=joined("iteration_number"),
+            final_biased_peak=joined("final_biased_peak"),
+            any_peak_found=joined("any_peak_found"),
+            diverging=joined("diverging"),
+            no_components=joined("no_components"),
+            is_final_threshold=joined("is_final_threshold"),
+            components_per_scale=np.concatenate(
+                [out.components_per_scale for out in done]),
+            mask_acc=(None if done[0].mask_acc is None
+                      else on_lead([out.mask_acc for out in done])),
+            comp_acc=comp_acc,
+            lockstep=max(out.lockstep for out in done),
+        )
 
     def _flush_device_tracking(self) -> None:
         """Bring the device-accumulated auto-mask and component updates to
@@ -1472,10 +1575,17 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
             if rms is not None
             else torch.ones((), device=image.device)
         )
-        value, x, y, found, rms_at = torch.stack([
+        self._set_peak(entry, *torch.stack([
             pk.value.double(), pk.x.double(), pk.y.double(),
             pk.found.double(), at_peak.double(),
-        ]).tolist()
+        ]).tolist())
+
+    @staticmethod
+    def _set_peak(entry, value: float, x: float, y: float, found: float,
+                  rms_at: float) -> None:
+        """A scale's peak from :meth:`_find_peak_direct`'s one host read:
+        its value, normalized by the rms factor at its pixel, and its
+        position, or no peak."""
         if found:
             entry.max_unnormalized_image_value = value
             entry.max_normalized_image_value = value / rms_at

@@ -56,7 +56,8 @@ from ..image_set import CubeMeta, linear_integration_coefficients
 from ..kernels.hogbom_step import (
     FacetLoopParams,
     LoopParams,
-    facet_hogbom_loop,
+    drive,
+    facet_hogbom_steps,
     hogbom_loop,
 )
 from ..ops.convolution import forward_fft2_padded, inverse_fft2_real_trimmed
@@ -215,7 +216,7 @@ def spectral_scale_maxima(res_f: torch.Tensor, lin: torch.Tensor,
                           kernel_f: torch.Tensor, padded: Tuple[int, int],
                           valid_stack: torch.Tensor,
                           rms_factor: Optional[torch.Tensor],
-                          allow_negative: bool):
+                          allow_negative: bool, read: bool = True):
     """Every scale's masked, weighted peak (``FindActiveScaleConvolved
     Maxima``, ``multiscale_algorithm.cc:578-634``) from the integrated
     spectrum: S inverse transforms and no forward one, then one host read.
@@ -223,7 +224,8 @@ def spectral_scale_maxima(res_f: torch.Tensor, lin: torch.Tensor,
 
     Batched over facets, ``res_f`` is ``[F, N, ...]``, ``valid_stack``
     ``[F, S, H, W]``, ``rms_factor`` ``[F, H, W]``, and each output ``[F,
-    S]``, still one host read."""
+    S]``, still one host read.  With ``read`` false it returns the
+    ``[4, ...]`` float64 tensor on the device for :func:`maxima_on_host`."""
     S, (H, W) = kernel_f.shape[0], valid_stack.shape[-2:]
     batched = res_f.dim() == 4
     integ_f = torch.einsum("n,fnhw->fhw" if batched else "n,nhw->hw",
@@ -241,8 +243,15 @@ def spectral_scale_maxima(res_f: torch.Tensor, lin: torch.Tensor,
         found, torch.gather(weighted.reshape(lead + (H * W,)), -1,
                             idx)[..., 0], 0.0)
     idx = idx[..., 0]
-    host = torch.stack([vals.double(), (idx % W).double(),
-                        (idx // W).double(), found.double()]).cpu().numpy()
+    out = torch.stack([vals.double(), (idx % W).double(),
+                       (idx // W).double(), found.double()])
+    return maxima_on_host(out) if read else out
+
+
+def maxima_on_host(maxima: torch.Tensor):
+    """:func:`spectral_scale_maxima`'s device tensor, read: float32 values,
+    x, y and found."""
+    host = maxima.cpu().numpy()
     return (host[0].astype(f32), host[1].astype(np.int64),
             host[2].astype(np.int64), host[3] != 0.0)
 
@@ -501,13 +510,6 @@ def _take(t: torch.Tensor, rows) -> torch.Tensor:
     return torch.stack([t[i] for i in rows])
 
 
-def _put(t: torch.Tensor, rows, part: torch.Tensor) -> None:
-    """Write :func:`_take`'s ``part`` back into ``t``'s ``rows``."""
-    if part is not t:
-        for j, i in enumerate(rows):
-            t[i].copy_(part[j])
-
-
 def _pick(bank: torch.Tensor, keys) -> torch.Tensor:
     """``bank[key]`` shared when every key is the same, else stacked one a
     key."""
@@ -516,7 +518,12 @@ def _pick(bank: torch.Tensor, keys) -> torch.Tensor:
     return torch.stack([bank[k] for k in keys])
 
 
-def facet_fused_multiscale_minor_loop(
+def facet_fused_multiscale_minor_loop(*args, **kwargs) -> FacetFusedResult:
+    """:func:`facet_fused_multiscale_steps` run to its end on one device."""
+    return drive(facet_fused_multiscale_steps(*args, **kwargs))
+
+
+def facet_fused_multiscale_steps(
     residual: torch.Tensor,  # [F, N, H, W]
     model: torch.Tensor,  # [F, N, H, W]
     kernel_f: torch.Tensor,  # [S, Ph, Pw//2+1] scale-kernel spectra, small
@@ -564,7 +571,12 @@ def facet_fused_multiscale_minor_loop(
     The banks are shared (``U`` = 1) or, with direction-dependent PSFs,
     one a unique PSF, each facet's picked by ``slots``.  The spectral
     residual covers the common box; its padding, outside every search
-    window, gathers the wrapped tails as the single cube's margin does."""
+    window, gathers the wrapped tails as the single cube's margin does.
+
+    A generator, as :func:`~radler_tpu_torch.kernels.hogbom_step.
+    facet_hogbom_steps` is: it yields before each host read (the scale
+    maxima and the dense loops' states), so that the host keeps several
+    cards' loops going; its value is the :class:`FacetFusedResult`."""
     F, N, H, W = residual.shape
     S = kernel_f.shape[0]
     dev = residual.device
@@ -599,24 +611,36 @@ def facet_fused_multiscale_minor_loop(
     psf_planes = per_plane(psf_f)  # [U, N, ...]
     psf_planes_large = per_plane(psf_f_large) if split < S else None
 
-    res_f = forward_fft2_padded(residual, padded_small)  # [F, N, ...]
+    # Every transform and spectral product runs a facet at a time, so that
+    # a facet's bits do not depend on the facets beside it and are the
+    # same on one device and spread over several: on the CPU a batch's
+    # bits depend on its size (pocketfft and the vectorized kernels take
+    # some lines in vector lanes and the rest alone, which round apart).
+    # On an H100 a batch gives each facet its bits, but a facet at a time
+    # holds one facet's FFT transients: 9.75 GB at config 5 against 13.9
+    # GB batched, for 0-8.5% more time in the loop's own steps (PERF.md,
+    # PR 15).
+    res_f = torch.cat([forward_fft2_padded(residual[f:f + 1], padded_small)
+                       for f in every])  # [F, N, ...]
     mod = model.clone()
     vals = np.zeros((F, S), f32)
     xs = np.zeros((F, S), np.int64)
     ys = np.zeros((F, S), np.int64)
     found = np.zeros((F, S), bool)
 
-    def find_maxima(facets) -> None:
-        out = spectral_scale_maxima(
-            _take(res_f, facets), lin, kernel_f, padded_small,
-            _take(valid_stack, facets),
-            None if rms_factor is None else _take(rms_factor, facets),
-            allow_negative)
+    def find_maxima(facets):
+        maxima = torch.cat([spectral_scale_maxima(
+            res_f[f:f + 1], lin, kernel_f, padded_small,
+            valid_stack[f:f + 1],
+            None if rms_factor is None else rms_factor[f:f + 1],
+            allow_negative, read=False) for f in facets], dim=1)
+        yield
+        out = maxima_on_host(maxima)
         for i, f in enumerate(facets):
             vals[f], xs[f], ys[f], found[f] = (o[i] for o in out)
 
     # Thresholds (multiscale_algorithm.cc:286-321), in float32.
-    find_maxima(every)
+    yield from find_maxima(every)
     biased0 = np.abs(vals * bias)
     initial_peak = biased0[np.arange(F), np.argmax(biased0, axis=1)]
     m_gain_threshold = np.maximum(initial_peak * (one - major_loop_gain),
@@ -660,9 +684,9 @@ def facet_fused_multiscale_minor_loop(
             thr_sub.append(max(sub_gain_threshold, first_threshold[f])
                            / bias[f, s])
 
-        conv_res = scale_convolved_cube(_take(res_f, run),
-                                        _pick(kernel_f, scales),
-                                        padded_small, (H, W))
+        conv_res = torch.cat([
+            scale_convolved_cube(res_f[f:f + 1], kernel_f[s], padded_small,
+                                 (H, W)) for f, s in zip(run, scales)])
         psfs = _pick(twice_psfs, [(slots[f], s) for f, s in zip(run, scales)])
         weight = torch.stack([valid_stack[f, s] for f, s in zip(run, scales)]
                              ).to(torch.float32)
@@ -673,7 +697,7 @@ def facet_fused_multiscale_minor_loop(
         comp = torch.zeros((len(run), n_comp, H, W), dtype=conv_res.dtype,
                            device=dev)
         it_before = [it[f] for f in run]
-        loop = facet_hogbom_loop(
+        loop = yield from facet_hogbom_steps(
             conv_res, comp,
             psfs if psfs.dim() == 3 else psfs.contiguous(),
             weight.contiguous(), rms_run,
@@ -701,29 +725,17 @@ def facet_fused_multiscale_minor_loop(
                 and abs(f32(out.value)) > initial_peak[f] * divergence_limit)
             ncomp[f, s] += it[f] - it_before[i]
 
-        # The corrections, the small-size scales' facets together and the
-        # large-size ones' together.
-        for group in ([i for i, s in enumerate(scales) if s < split],
-                      [i for i, s in enumerate(scales) if s >= split]):
-            if not group:
-                continue
-            facets = [run[i] for i in group]
-            res_g, mod_g = _take(res_f, facets), _take(mod, facets)
-            comp_g = _take(comp, group)
-            bank_slots = [slots[f] for f in facets]
-            if scales[group[0]] < split:
-                correct_small(res_g, mod_g, comp_g,
-                              _pick(kernel_f, [scales[i] for i in group]),
-                              _pick(psf_planes, bank_slots), padded_small,
-                              expand)
+        # The corrections, in place on each facet's views.
+        for i, (f, s) in enumerate(zip(run, scales)):
+            if s < split:
+                correct_small(res_f[f:f + 1], mod[f:f + 1], comp[i:i + 1],
+                              kernel_f[s], psf_planes[slots[f]],
+                              padded_small, expand)
             else:
-                correct_large(res_g, mod_g, comp_g,
-                              _pick(kernel_f_large,
-                                    [scales[i] - split for i in group]),
-                              _pick(psf_planes_large, bank_slots),
-                              padded_small, padded_large, expand)
-            _put(res_f, facets, res_g)
-            _put(mod, facets, mod_g)
+                correct_large(res_f[f:f + 1], mod[f:f + 1], comp[i:i + 1],
+                              kernel_f_large[s - split],
+                              psf_planes_large[slots[f]], padded_small,
+                              padded_large, expand)
 
         if track_masks:
             for i, (f, s) in enumerate(zip(run, scales)):
@@ -742,10 +754,11 @@ def facet_fused_multiscale_minor_loop(
             active[f] = (np.arange(S) == s) | (np.abs(vals[f] * bias[f])
                                                > act_thr)
         # ... then the running facets' maxima are refreshed.
-        find_maxima(run)
+        yield from find_maxima(run)
 
-    res_out = inverse_fft2_real_trimmed(res_f, padded_small,
-                                        (H, W)).contiguous()
+    res_out = torch.cat([
+        inverse_fft2_real_trimmed(res_f[f:f + 1], padded_small, (H, W))
+        for f in every]).contiguous()
     s_final = [_select_scale(vals[f], active[f], bias[f]) for f in every]
     return FacetFusedResult(
         residual=res_out,

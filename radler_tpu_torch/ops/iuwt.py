@@ -23,8 +23,20 @@ import numpy as np
 import torch
 
 from ..kernels.iuwt_atrous import atrous_decompose_lo, iuwt_convolve
+from ..parallel.rows import (
+    RowCache,
+    Rows,
+    SlabSpectrum,
+    convolve_rows,
+    decompose_rows,
+    full,
+    mesh_rows,
+    recompose_rows,
+    spread,
+)
 from .convolution import convolve_same, convolve_same_prefft, prepare_kernel_fft
 from .noise import mad_sigma_batched
+from .peak_finder import masked_peaks
 
 
 # ---------------------------------------------------------------------------
@@ -83,11 +95,8 @@ def scale_peak_stats(
     ``(vals, xs, ys)`` with ``vals[s]`` the max over the window of
     ``|coeffs[s]|``, or of the signed value when negatives are not allowed
     (``iuwt_deconvolution_algorithm.cc:112-167``)."""
-    n, _, width = coeffs.shape
-    value = coeffs.abs() if allow_negative else coeffs
-    flat = torch.where(window[None], value, -math.inf).reshape(n, -1)
-    idx = torch.argmax(flat, dim=1)
-    vals = torch.gather(flat, 1, idx[:, None])[:, 0]
+    width = coeffs.shape[-1]
+    vals, _, idx = masked_peaks(coeffs, window[None], allow_negative)
     return vals, (idx % width).int(), (idx // width).int()
 
 
@@ -114,13 +123,17 @@ def bounding_box(image: torch.Tensor) -> torch.Tensor:
     """1%-of-max support box (``BoundingBox``,
     ``iuwt_deconvolution_algorithm.cc:180-215``) as an int32 tensor
     ``(x1, y1, x2, y2)``; the full image when no pixel is significant."""
-    height, width = image.shape
     a = image.abs()
     significant = a > a.max() * 0.01
-    rows = significant.any(dim=1)
-    cols = significant.any(dim=0)
-    ridx = torch.arange(height, device=image.device)
-    cidx = torch.arange(width, device=image.device)
+    return _box_of(significant.any(dim=1), significant.any(dim=0))
+
+
+def _box_of(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """:func:`bounding_box` from the rows and the columns that hold a
+    significant pixel."""
+    height, width = rows.shape[0], cols.shape[0]
+    ridx = torch.arange(height, device=rows.device)
+    cidx = torch.arange(width, device=rows.device)
     any_sig = rows.any()
     return torch.stack([
         torch.where(any_sig, torch.where(cols, cidx, width).min(), 0),
@@ -140,13 +153,16 @@ def structure_stats(image: torch.Tensor, window: torch.Tensor, n_scales: int,
     coeffs = decompose(image, n_scales)
     planes = coeffs[:n_scales]
     mad_src = planes[:, ::4, :] if image.shape[-2] >= 2048 else planes
-    vals, xs, ys = scale_peak_stats(planes, window, allow_negative)
-    idx = ys.long() * image.shape[-1] + xs.long()
-    signed = torch.gather(planes.reshape(n_scales, -1), 1, idx[:, None])[:, 0]
-    stats = torch.stack(
-        [mad_sigma_batched(mad_src), vals, xs.float(), ys.float(), signed]
-    )
-    return coeffs, stats
+    vals, signed, idx = masked_peaks(planes, window[None], allow_negative)
+    return coeffs, _peak_stats(mad_sigma_batched(mad_src), vals, idx, signed,
+                               image.shape[-1])
+
+
+def _peak_stats(sigma, vals, idx, signed, width: int) -> torch.Tensor:
+    """The ``[5, S]`` stats of :func:`structure_stats` from the peaks' flat
+    indices."""
+    return torch.stack([sigma, vals, (idx % width).int().float(),
+                        (idx // width).int().float(), signed])
 
 
 def psf_response_stats(psf: torch.Tensor, n_scales: int) -> torch.Tensor:
@@ -205,6 +221,19 @@ def structure_stats_select(
     trimmed re-selection.  The scalars are rounded to float32, as the JAX
     package takes them."""
     coeffs, stats = structure_stats(image, window, n_scales, allow_negative)
+    thr, sel, signed_max = _significant_scale(
+        stats, psf_rms, scale0_factor, sigma_level, absolute_threshold,
+        tolerance, min_scale, n_scales)
+    mask, count = select_structures(coeffs, thr, select_window, min_scale)
+    bbox = masked_recompose_bbox(coeffs, mask, n_scales)
+    return coeffs, mask, _stats_blob(stats, count, bbox, sel, signed_max), thr
+
+
+def _significant_scale(stats, psf_rms, scale0_factor, sigma_level,
+                       absolute_threshold, tolerance, min_scale, n_scales):
+    """The significant-scale choice of :func:`structure_stats_select` from
+    the ``[5, S]`` stats: the signed thresholds of the selection, the
+    scale (-1: none) and its signed peak."""
     rmses, vals = stats[0], stats[1]
     # Python scalars reach the device as float32 kernel arguments, not as
     # copies.
@@ -230,15 +259,17 @@ def structure_stats_select(
     factor = _f32(np.float32(sigma_level * np.float32(4.0)) / np.float32(5.0))
     thr = torch.maximum(rmses * factor, _f32(tolerance) * signed_max.abs())
     thr = torch.where(signed_max < 0.0, -thr, thr)
-    mask, count = select_structures(coeffs, thr, select_window, min_scale)
-    bbox = masked_recompose_bbox(coeffs, mask, n_scales)
-    blob = torch.cat([
+    return thr, sel, signed_max
+
+
+def _stats_blob(stats, count, bbox, sel, signed_max) -> torch.Tensor:
+    """The one tensor :func:`structure_stats_select` reads to the host."""
+    return torch.cat([
         stats.reshape(-1),
         count[None].float(),
         bbox.float(),
         torch.stack([sel.float(), signed_max]),
     ])
-    return coeffs, mask, blob, thr
 
 
 # ---------------------------------------------------------------------------
@@ -246,59 +277,91 @@ def structure_stats_select(
 # ---------------------------------------------------------------------------
 
 
-def conjugate_gradient(
-    initial_dirty_scales: torch.Tensor,  # masked IUWT of the dirty [S+1,H,W]
-    mask: torch.Tensor,  # [S,H,W] bool
-    masked_dirty: torch.Tensor,  # [H,W]
-    psf_kernel_image: torch.Tensor,  # [H,W] (kernel centre at H/2, W/2)
-    n_scales: int,
-    max_iterations: int = 20,
-):
+class ImageSteps:
+    """The operations :func:`solve` and :func:`guard` take, on whole images
+    on one device: the forward operator (the FFT convolution with the PSF
+    spectrum, the decompose, the mask), the recompose, dot products and
+    scaled sums."""
+
+    def __init__(self, psf_kernel_image: torch.Tensor, mask: torch.Tensor,
+                 n_scales: int):
+        self.ker_f = prepare_kernel_fft(psf_kernel_image)
+        self.mask, self.n_scales = mask, n_scales
+        self.device = psf_kernel_image.device
+
+    def convolve(self, img):
+        return convolve_same_prefft(img, self.ker_f)
+
+    def forward(self, img):
+        return apply_mask(decompose(self.convolve(img), self.n_scales),
+                          self.mask)
+
+    def recompose(self, scales):
+        return recompose(scales, self.n_scales, False)
+
+    @staticmethod
+    def dot(a, b):
+        return torch.vdot(a.reshape(-1), b.reshape(-1))
+
+    @staticmethod
+    def sum_sq(x):
+        return torch.sum(x * x)
+
+    @staticmethod
+    def rms(x):
+        return torch.sqrt(torch.mean(x * x))
+
+    @staticmethod
+    def sub(x, y):
+        return x - y
+
+    @staticmethod
+    def add_scaled(x, factor, y):
+        return x + factor * y
+
+    @staticmethod
+    def sub_scaled(x, factor, y):
+        return x - factor * y
+
+    @staticmethod
+    def zeros_like(x):
+        return torch.zeros_like(x)
+
+
+def solve(steps, initial_dirty_scales, masked_dirty, max_iterations: int):
     """``RunConjugateGradient`` (``iuwt_deconvolution_algorithm.cc:326-407``)
-    with the JAX package's economies: one FFT convolution and one transform
-    per iteration (the forward operator is linear, so the model's response
-    is accumulated from the gradient's), the PSF spectrum computed once.
-    A host loop that reads its ``done`` flag once per iteration.  Returns
-    ``(structure_model, status)`` with ``status`` = ``[success, snr]``
-    (float32, on the device)."""
-    ker_f = prepare_kernel_fft(psf_kernel_image)
-
-    def forward(img):
-        conv = convolve_same_prefft(img, ker_f)
-        return apply_mask(decompose(conv, n_scales), mask)
-
+    on ``steps``' operations (:class:`ImageSteps` or their spread form),
+    with the JAX package's economies: one FFT convolution and one
+    transform per iteration (the forward operator is linear, so the
+    model's response is accumulated from the gradient's).  A host loop
+    that reads its ``done`` flag once per iteration.  Returns
+    ``(structure_model, [success, snr])`` (float32, on the device)."""
     m = initial_dirty_scales
-    m_sum = torch.sum(m * m)
+    m_sum = steps.sum_sq(m)
 
     def snr_of(model_scales):
-        diff = m - model_scales
-        n_sum = torch.sum(diff * diff)
+        n_sum = steps.sum_sq(steps.sub(m, model_scales))
         return torch.where(n_sum != 0.0, m_sum / n_sum, math.inf)
 
-    model = torch.zeros_like(masked_dirty)
-    model_fwd = torch.zeros_like(initial_dirty_scales)
-    gradient = masked_dirty
-    residual = masked_dirty
-    snr = torch.zeros((), device=masked_dirty.device)
-    done = success = torch.zeros((), dtype=torch.bool,
-                                 device=masked_dirty.device)
+    model = steps.zeros_like(masked_dirty)
+    model_fwd = steps.zeros_like(m)
+    gradient = residual = masked_dirty
+    snr = torch.zeros((), device=steps.device)
+    done = success = torch.zeros((), dtype=torch.bool, device=steps.device)
     it = 0
     while it < max_iterations:
-        grad_fwd = forward(gradient)
-        scratch = recompose(grad_fwd, n_scales, False)
-        gds = torch.vdot(gradient.reshape(-1), scratch.reshape(-1))
-        rd = torch.vdot(residual.reshape(-1), residual.reshape(-1))
+        grad_fwd = steps.forward(gradient)
+        scratch = steps.recompose(grad_fwd)
+        gds = steps.dot(gradient, scratch)
+        rd = steps.dot(residual, residual)
         fail = (gds == 0.0) | (rd == 0.0)
         step = torch.where(gds != 0.0, rd / gds, 0.0)
-        model = model + step * gradient
-        model_fwd = model_fwd + step * grad_fwd
-        residual2 = residual - step * scratch
-        gstep = torch.where(
-            rd != 0.0,
-            torch.vdot(residual2.reshape(-1), residual2.reshape(-1)) / rd,
-            0.0,
-        )
-        gradient = residual2 + gstep * gradient
+        model = steps.add_scaled(model, step, gradient)
+        model_fwd = steps.add_scaled(model_fwd, step, grad_fwd)
+        residual2 = steps.sub_scaled(residual, step, scratch)
+        gstep = torch.where(rd != 0.0, steps.dot(residual2, residual2) / rd,
+                            0.0)
+        gradient = steps.add_scaled(residual2, gstep, gradient)
         residual = residual2
         prev_snr = snr
         snr = snr_of(model_fwd)
@@ -315,15 +378,31 @@ def conjugate_gradient(
     return model, torch.stack([success.float(), snr])
 
 
+def guard(steps, dirty, structure_model, gain: float) -> torch.Tensor:
+    """RMS before and after a gain-scaled subtraction of the model's
+    convolution with the PSF (``iuwt_deconvolution_algorithm.cc:608-618``)
+    on ``steps``' operations: ``[rms_before, rms_after]``."""
+    conv = steps.convolve(structure_model)
+    return torch.stack([steps.rms(dirty),
+                        steps.rms(steps.sub_scaled(dirty, gain, conv))])
+
+
+def conjugate_gradient(
+    initial_dirty_scales: torch.Tensor,  # masked IUWT of the dirty [S+1,H,W]
+    mask: torch.Tensor,  # [S,H,W] bool
+    masked_dirty: torch.Tensor,  # [H,W]
+    psf_kernel_image: torch.Tensor,  # [H,W] (kernel centre at H/2, W/2)
+    n_scales: int,
+    max_iterations: int = 20,
+):
+    """:func:`solve` on one device: ``(structure_model, [success, snr])``."""
+    return solve(ImageSteps(psf_kernel_image, mask, n_scales),
+                 initial_dirty_scales, masked_dirty, max_iterations)
+
+
 def rms_guard(dirty, structure_model, psf, gain: float) -> torch.Tensor:
-    """RMS before and after a gain-scaled subtraction
-    (``iuwt_deconvolution_algorithm.cc:608-618``): ``[rms_before,
-    rms_after]``."""
-    conv = convolve_same(structure_model, psf)
-    rb = torch.sqrt(torch.mean(dirty * dirty))
-    d2 = dirty - gain * conv
-    ra = torch.sqrt(torch.mean(d2 * d2))
-    return torch.stack([rb, ra])
+    """:func:`guard` on one device: ``[rms_before, rms_after]``."""
+    return guard(ImageSteps(psf, None, 0), dirty, structure_model, gain)
 
 
 def conjugate_gradient_guarded(
@@ -336,15 +415,13 @@ def conjugate_gradient_guarded(
     n_scales: int,
     max_iterations: int = 20,
 ):
-    """:func:`conjugate_gradient` then :func:`rms_guard`; returns
+    """:func:`solve` then :func:`guard` with one PSF spectrum; returns
     ``(model, [success, snr, rms_before, rms_after])`` for one host read of
     both decisions (``iuwt_deconvolution_algorithm.cc:604-618``)."""
-    model, status = conjugate_gradient(
-        initial_dirty_scales, mask, masked_dirty, psf_kernel_image,
-        n_scales, max_iterations,
-    )
-    guard = rms_guard(dirty, model, psf_kernel_image, gain)
-    return model, torch.cat([status, guard])
+    steps = ImageSteps(psf_kernel_image, mask, n_scales)
+    model, status = solve(steps, initial_dirty_scales, masked_dirty,
+                          max_iterations)
+    return model, torch.cat([status, guard(steps, dirty, model, gain)])
 
 
 # ---------------------------------------------------------------------------
@@ -426,3 +503,214 @@ def end_scale(max_image_dimension: int) -> int:
 def min_image_dimension(end_scale_value: int) -> int:
     """``iuwt_decomposition.h:186-188``."""
     return 1 << (end_scale_value + 3)
+
+
+# ---------------------------------------------------------------------------
+# The same steps on images spread by rows over a mesh's cards
+# ---------------------------------------------------------------------------
+
+
+class SpreadOps:
+    """The functions of this module that the IUWT model calls, for images
+    spread by rows over ``mesh``'s cards by the JAX package's rule
+    (:func:`radler_tpu_torch.parallel.rows.mesh_rows`).  A
+    :class:`~radler_tpu_torch.parallel.rows.Rows` image runs each step on
+    every part (the decompose in B3's row-block mode, the FFT convolutions
+    as slab FFTs, the reductions as partials combined on the lead in part
+    order); a plain tensor, an image whose rows the rule leaves on the
+    lead, runs this module's function.  The decompose, the masks, the
+    stats and the selection keep the single device's bits; the slab FFTs
+    and the partial sums round apart from it."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self._cache = RowCache()
+
+    # -- layout ----------------------------------------------------------
+    def spread(self, image: torch.Tensor):
+        """``image`` laid out by the rule for its height (or itself)."""
+        return spread(image, mesh_rows(self.mesh, image.shape[-2]))
+
+    def _like(self, t, image):
+        """A fixed full-size tensor (a window) laid out as ``image``."""
+        if not isinstance(image, Rows):
+            return t
+        return self._cache.rows(t, image.layout)
+
+    def spectrum(self, kernel: torch.Tensor, layout):
+        """The slab multiplier of a fixed full-size kernel on the lead
+        (its spectrum made once while ``kernel`` lives)."""
+        return self._cache.keep(("kernel", id(kernel), layout), kernel,
+                                lambda: SlabSpectrum(
+                                    prepare_kernel_fft(kernel), layout))
+
+    # -- boxes -------------------------------------------------------------
+    def slice_box2(self, img, y1: int, x1: int, h: int, w: int):
+        if not isinstance(img, Rows):
+            return slice_box2(img, y1, x1, h, w)
+        return self.spread(img.box(y1, x1, h, w))
+
+    slice_box3 = slice_box2
+
+    def trim_coeffs_box(self, coeffs, y1: int, x1: int, end_scale_n: int,
+                        new_h: int, new_w: int):
+        return self.spread(trim_coeffs_box(
+            self.box_of(coeffs, y1, x1, new_h, new_w), 0, 0, end_scale_n,
+            new_h, new_w))
+
+    @staticmethod
+    def box_of(img, y1: int, x1: int, h: int, w: int) -> torch.Tensor:
+        """``img[..., box]`` on the lead, a Rows or a tensor."""
+        if isinstance(img, Rows):
+            return img.box(y1, x1, h, w)
+        return img[..., y1:y1 + h, x1:x1 + w]
+
+    def embed_box3_zeros(self, small, y1: int, x1: int, full_h: int,
+                         full_w: int):
+        return self.spread(embed_box3_zeros(full(small), y1, x1, full_h,
+                                            full_w))
+
+    def expand_single_plane(self, structure_model, n_planes: int):
+        if not isinstance(structure_model, Rows):
+            return expand_single_plane(structure_model, n_planes)
+        return structure_model.map(expand_single_plane, n_planes)
+
+    # -- the steps -----------------------------------------------------------
+    def structure_stats_select(self, image, window, select_window, psf_rms,
+                               scale0_factor, sigma_level, absolute_threshold,
+                               tolerance, min_scale, n_scales,
+                               allow_negative):
+        """:func:`structure_stats_select` of a spread image."""
+        if not isinstance(image, Rows):
+            return structure_stats_select(
+                image, window, select_window, psf_rms, scale0_factor,
+                sigma_level, absolute_threshold, tolerance, min_scale,
+                n_scales, allow_negative)
+        S, lead = n_scales, image.lead
+        height, width = image.layout.height, image.parts[0].shape[-1]
+        coeffs = decompose_rows(image, S)
+        # The MAD's source rows gathered on the lead (every 4th image row
+        # from 2048 rows on): the order statistics are exact.
+        step = 4 if height >= 2048 else 1
+        mad_src = torch.cat([
+            c[:S, (-r0) % step::step, :].to(lead)
+            for c, (r0, _) in zip(coeffs.parts,
+                                  map(image.layout.rows,
+                                      range(image.layout.parts)))], dim=-2)
+
+        def search(c, w):
+            best, signed, idx = masked_peaks(c[:S], w[None], allow_negative)
+            return best, idx, signed
+
+        vals, at, signed = coeffs.peaks(search, self._like(window, image))
+        stats = _peak_stats(mad_sigma_batched(mad_src), vals, at, signed,
+                            width)
+        thr, sel, signed_max = _significant_scale(
+            stats, psf_rms, scale0_factor, sigma_level, absolute_threshold,
+            tolerance, min_scale, n_scales)
+        mask, count = self.select_structures(coeffs, thr, select_window,
+                                             min_scale)
+        bbox = self.masked_recompose_bbox(coeffs, mask, n_scales)
+        return (coeffs, mask, _stats_blob(stats, count, bbox, sel,
+                                          signed_max), thr)
+
+    def select_structures(self, coeffs, thresholds, window, min_scale: int):
+        if not isinstance(coeffs, Rows):
+            return select_structures(coeffs, thresholds, window, min_scale)
+        win = self._like(window, coeffs)
+        mask = coeffs.map(lambda c, w: select_structures(
+            c, thresholds.to(c.device), w, min_scale)[0], win)
+        return mask, mask.sum()
+
+    def masked_recompose_bbox(self, coeffs, mask, n_scales: int):
+        if not isinstance(coeffs, Rows):
+            return masked_recompose_bbox(coeffs, mask, n_scales)
+        image = recompose_rows(coeffs.map(apply_mask, mask), n_scales, False)
+        a = image.map(torch.abs)
+        top = torch.stack([p.max().to(image.lead) for p in a.parts]).max()
+        significant = a.map(lambda p: p > top.to(p.device) * 0.01)
+        rows = torch.cat([p.any(dim=1).to(image.lead)
+                          for p in significant.parts])
+        cols = significant.parts[0].any(dim=0)
+        for p in significant.parts[1:]:
+            cols = cols | p.any(dim=0).to(image.lead)
+        return _box_of(rows, cols)
+
+    def masked_dirty_of(self, dirty, mask, n_scales: int):
+        if not isinstance(dirty, Rows):
+            return masked_dirty_of(dirty, mask, n_scales)
+        mds = decompose_rows(dirty, n_scales).map(apply_mask, mask)
+        return mds, recompose_rows(mds, n_scales, False)
+
+    def conjugate_gradient_guarded(self, initial_dirty_scales, mask,
+                                   masked_dirty, dirty, psf_kernel_image,
+                                   gain: float, n_scales: int,
+                                   max_iterations: int = 20):
+        """:func:`conjugate_gradient_guarded` of spread images
+        (:class:`RowSteps`)."""
+        if not isinstance(dirty, Rows):
+            return conjugate_gradient_guarded(
+                initial_dirty_scales, mask, masked_dirty, dirty,
+                psf_kernel_image, gain, n_scales, max_iterations)
+        steps = RowSteps(self.spectrum(psf_kernel_image, dirty.layout), mask,
+                         n_scales, dirty.lead)
+        model, status = solve(steps, initial_dirty_scales, masked_dirty,
+                              max_iterations)
+        return model, torch.cat([status, guard(steps, dirty, model, gain)])
+
+
+def _on(factor, device):
+    """A float, or a 0-d tensor copied to ``device``."""
+    return factor.to(device) if torch.is_tensor(factor) else factor
+
+
+class RowSteps:
+    """:class:`ImageSteps` on images spread by rows: the FFT convolutions
+    as slab FFTs (``ker``, a :class:`~radler_tpu_torch.parallel.rows.
+    SlabSpectrum`), the decompose in B3's row-block mode, the dot products
+    as each part's, added on the lead in part order, the scaled sums on
+    each part with the factor copied to its device."""
+
+    def __init__(self, ker, mask, n_scales: int, lead: torch.device):
+        self.ker, self.mask, self.n_scales = ker, mask, n_scales
+        self.device = lead
+
+    def convolve(self, img):
+        return convolve_rows(img, self.ker)
+
+    def forward(self, img):
+        return decompose_rows(self.convolve(img), self.n_scales).map(
+            apply_mask, self.mask)
+
+    def recompose(self, scales):
+        return recompose_rows(scales, self.n_scales, False)
+
+    def dot(self, a, b):
+        total = torch.vdot(a.parts[0].reshape(-1), b.parts[0].reshape(-1))
+        for p, q in zip(a.parts[1:], b.parts[1:]):
+            total = total + torch.vdot(p.reshape(-1),
+                                       q.reshape(-1)).to(self.device)
+        return total
+
+    def sum_sq(self, x):
+        return self.dot(x, x)
+
+    def rms(self, x):
+        return torch.sqrt(self.dot(x, x)
+                          / (x.layout.height * x.parts[0].shape[-1]))
+
+    @staticmethod
+    def sub(x, y):
+        return x.map(torch.sub, y)
+
+    @staticmethod
+    def add_scaled(x, factor, y):
+        return x.map(lambda xp, yp: xp + _on(factor, xp.device) * yp, y)
+
+    @staticmethod
+    def sub_scaled(x, factor, y):
+        return x.map(lambda xp, yp: xp - _on(factor, xp.device) * yp, y)
+
+    @staticmethod
+    def zeros_like(x):
+        return x.like(0.0)

@@ -15,6 +15,7 @@ Semantics preserved from the reference:
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -89,3 +90,20 @@ def find_peak(
         y=flat_idx // width,
         found=masked[flat_idx] > FLT_MIN,
     )
+
+
+def masked_peaks(images: torch.Tensor, valid: torch.Tensor,
+                 allow_negative: bool):
+    """Each plane's windowed argmax of ``images`` (``[n, H, W]``), the first
+    index among equal maxima: of the absolute values with
+    ``allow_negative``, else of the signed ones, over ``valid`` (bool,
+    broadcast against the planes).  Returns ``(best, signed, idx)``, each
+    ``[n]``: the compared value (``-inf`` for an empty window), the signed
+    value there and its flat index within the plane."""
+    n = images.shape[0]
+    cmp = images.abs() if allow_negative else images
+    masked = torch.where(valid, cmp, -math.inf).reshape(n, -1)
+    idx = torch.argmax(masked, dim=1, keepdim=True)
+    best = torch.gather(masked, 1, idx)[:, 0]
+    signed = torch.gather(images.reshape(n, -1), 1, idx)[:, 0]
+    return best, signed, idx[:, 0]

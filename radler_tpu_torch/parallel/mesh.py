@@ -1,12 +1,12 @@
-"""The ("chan", "tile") mesh, the mesh-partitioned Högbom minor loop and the
-mesh's Clark subminor loop.
+"""The ("chan", "tile") mesh, the mesh-partitioned Högbom minor loop, the
+mesh's Clark subminor loop and the batched facets' placement.
 
 Port of ``radler_tpu.parallel.mesh`` (``make_mesh``, ``mesh_pallas_eligible``,
-``mesh_hogbom_loop`` and ``mesh_subminor_clean``).  The ``[N, H, W]`` cube is laid out over
-``chan x tile`` shards: the planes over ``"chan"``, the image rows over
-``"tile"``.  Each minor iteration runs one kernel launch per shard, and the
-reference's thread-pool exchanges (``parallel_deconvolution.cc:592-617``)
-become the collectives below:
+``mesh_hogbom_loop``, ``mesh_subminor_clean`` and ``facet_axis_spec``).  The
+``[N, H, W]`` cube is laid out over ``chan x tile`` shards: the planes over
+``"chan"``, the image rows over ``"tile"``.  Each minor iteration runs one
+kernel launch per shard, and the reference's thread-pool exchanges
+(``parallel_deconvolution.cc:592-617``) become the collectives below:
 
 * with a channel split (``chan > 1``) every shard runs kernel B4
   (:mod:`radler_tpu_torch.kernels.subtract_integrate`), and the joined
@@ -32,6 +32,12 @@ depend on the groups.  Copies between cards are PyTorch's peer copies,
 ordered against both cards' current streams: no host synchronize, and
 one host read per ``CHUNK`` iterations, as on one device.  The cube, the
 model and the loop state live on the lead, ``devices[0]``.
+
+The batched facets spread over the groups too (:func:`facet_groups`, the
+JAX package's ``facet_axis_spec``): each group's lockstep loop runs on its
+card, the host keeping every card's loop going (:func:`run_together`), and
+IUWT and ASP spread their images by rows (:mod:`radler_tpu_torch.parallel.
+rows`).
 
 The Clark subminor loop on the mesh (:func:`mesh_subminor_clean`) is each
 tile cleaning its own candidates to the shared threshold; the tiles share
@@ -273,6 +279,100 @@ def _cat_on(parts: List[torch.Tensor], device: torch.device,
     if len(parts) == 1:
         return parts[0]
     return torch.cat([p.to(device) for p in parts], dim)
+
+
+# ---------------------------------------------------------------------------
+# The batched facets' axis
+# ---------------------------------------------------------------------------
+
+
+def facet_axis_spec(mesh: Mesh, n_facets: int):
+    """The mesh axes the facet axis lies over (``facet_axis_spec``,
+    ``mesh.py:842-855`` of the JAX package): the whole mesh when the facet
+    count divides its size, else ``"tile"``, else ``"chan"``, else None
+    (every facet on every device)."""
+    if n_facets % mesh.size == 0:
+        return ("chan", "tile")
+    if n_facets % mesh.tile == 0:
+        return "tile"
+    if n_facets % mesh.chan == 0:
+        return "chan"
+    return None
+
+
+def facet_groups(mesh: Mesh, n_facets: int) -> List[int]:
+    """The group that runs each facet, by :func:`facet_axis_spec`: the
+    facets cut into equal blocks along the spec's axes, block ``(c, t)`` on
+    the group that holds shard ``(c, t)``.  A block the JAX package
+    replicates over an axis runs once, on the first such group (``(0, t)``
+    over ``"chan"``, ``(c, 0)`` over ``"tile"``); without a spec every
+    facet runs on the lead."""
+    spec = facet_axis_spec(mesh, n_facets)
+    if spec is None:
+        return [0] * n_facets
+    if spec == "tile":
+        per = n_facets // mesh.tile
+        return [mesh.group_of(0, f // per) for f in range(n_facets)]
+    if spec == "chan":
+        per = n_facets // mesh.chan
+        return [mesh.group_of(f // per, 0) for f in range(n_facets)]
+    per = n_facets // mesh.size
+    return [mesh.group_of(*divmod(f // per, mesh.tile))
+            for f in range(n_facets)]
+
+
+def facet_runs(mesh: Optional[Mesh], n_facets: int
+               ) -> List[Tuple[int, List[int]]]:
+    """``(group, facets)`` of each group that runs facets, in group order
+    (:func:`facet_groups`), each a contiguous run of facets (a facet's
+    group grows with its index); one run of every facet on the lead
+    without a mesh of several groups."""
+    if mesh is None or mesh.groups == 1:
+        return [(0, list(range(n_facets)))]
+    owner = facet_groups(mesh, n_facets)
+    return [(g, [f for f in range(n_facets) if owner[f] == g])
+            for g in sorted(set(owner))]
+
+
+def run_together(loops) -> list:
+    """Drive generator loops, one a card, to their ends; return their
+    results in order.  A loop yields once it has enqueued work and before
+    it reads the device, so each round enqueues every card's next chunk
+    before any card's read waits: the cards run at once, and the host
+    reads each once a round."""
+    loops = list(loops)
+    results = [None] * len(loops)
+    live = list(range(len(loops)))
+    while live:
+        for i in list(live):
+            try:
+                next(loops[i])
+            except StopIteration as stop:
+                results[i] = stop.value
+                live.remove(i)
+    return results
+
+
+class CardCopies:
+    """Copies of read-only tensors (PSF stacks, banks) on the cards that
+    need them, one a name and card, kept across calls while the source is
+    the kept tensor at the kept version (a new tensor, such as a perform's
+    new PSF stack, is copied anew: no compare, no host read)."""
+
+    def __init__(self):
+        self._kept = {}
+
+    def on(self, name, tensor: Optional[torch.Tensor],
+           device: torch.device) -> Optional[torch.Tensor]:
+        """``tensor`` on ``device``: itself there, else the kept copy."""
+        if tensor is None or _index_device(tensor.device) == device:
+            return tensor
+        kept = self._kept.get((name, device))
+        if kept is None or kept[0] is not tensor or (kept[0]._version
+                                                     != kept[1]):
+            kept = self._kept[name, device] = (tensor, tensor._version,
+                                               tensor.to(device))
+        return kept[2]
 
 
 def shard_multiscale_inputs(mesh: Mesh,

@@ -21,11 +21,14 @@ rule (:meth:`ParallelDeconvolution._can_batch_facets`):
   multiscale with ``RADLER_TPU_NO_BATCHED_FACETS`` set or past their
   budgets).
 
-On a device mesh (``mesh.py:842-886`` of the JAX package lays the batched
-facet axis over the mesh's devices, a placement only) the batched routes
-run on the mesh's lead device as on one device; on the serial route each
-facet's clone keeps the mesh and takes the mesh routes by the JAX
-package's rule, applied to the facet's own height.
+On a device mesh of several groups the batched routes spread the facets
+over the groups' devices by the JAX package's rule (``mesh.py:842-886``;
+:func:`~radler_tpu_torch.parallel.mesh.facet_groups`): each group runs
+its facets' lockstep loop on its card, all cards at once, and the stacks
+come back to the lead in facet order, bit for bit the one device's;
+``last_lockstep`` is the most lockstep iterations of a card.  On the
+serial route each facet's clone keeps the mesh and takes the mesh routes
+by the JAX package's rule, applied to the facet's own height.
 """
 
 from __future__ import annotations

@@ -24,6 +24,15 @@ command line, on one NVIDIA GPU.  Run from the root of a checkout:
     python3 scripts/kernel_probe.py cards     # the mesh over every visible
                                               # card (one card: 4 groups on it),
                                               # its 1000-iteration performs profiled
+    python3 scripts/kernel_probe.py spread    # the batched facets, IUWT and
+                                              # ASP over every visible card
+                                              # (one card: 4 groups on it)
+                                              # against one group, B3's
+                                              # row-block mode
+    python3 scripts/kernel_probe.py ms5       # config 5's batched multiscale
+                                              # perform: 3 timed, one split
+                                              # (copy the script into an
+                                              # older checkout to compare)
     python3 scripts/kernel_probe.py b2 b3 check   # against plain only
     python3 scripts/kernel_probe.py registers PARENT_ROOT .
                         # registers of B1's step instantiations in each
@@ -171,6 +180,23 @@ def step_registers(roots=(".",)):
                      if kind == "hogbom_step_kernel" and not any(args[2:])}
 
 
+def config5_batched_multiscale(repeats=3):
+    """Config 5's batched multiscale perform (``phase_config5``'s settings
+    and field) ``repeats`` times on fresh Radlers, then once with its
+    steps' split; prints each perform's seconds, lockstep iterations and
+    passes, and peak device memory above the start."""
+    psfs, base = cs.make_diffuse_problem(cs.F5_SIZE, cs.F5_CHANNELS)
+    settings = cs._f5_settings(cs.F5_SIZE, "multiscale")
+    settings.generic.use_sub_minor_optimization = True
+    for _ in range(repeats):
+        run = cs._f5_perform(settings, psfs, base, "batched")
+        cs.say(f"  multiscale, batched: {run['seconds']:.4f} s, "
+               f"{run['iterations']} iterations, lockstep {run['lockstep']} "
+               f"in {run['passes']} passes, peak {run['peak_mib']} MiB "
+               "above the start")
+    cs._f5_split(settings, psfs, base, "batched", "multiscale, batched")
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("kernel_probe.py needs a CUDA device", file=sys.stderr)
@@ -298,6 +324,13 @@ def main(argv):
         cs.CARDS_PROFILE_ITERATIONS = cs.CARDS_ITERATIONS
         psf, residual = cs.make_problem(cs.SIZE, cs.N_SOURCES)
         cs.phase_mesh_cards(psf, residual)
+    if "ms5" in argv:
+        cs.say("== config 5's batched multiscale perform ==")
+        config5_batched_multiscale()
+    if "spread" in argv:
+        cs.say("== the batched facets, IUWT and ASP spread over the cards ==")
+        # Config 4's most frequent scale count (phase_config4's Counter).
+        cs.phase_mesh_spread(2)
     cs.say("probe done")
     return 0
 

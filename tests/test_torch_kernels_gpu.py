@@ -1953,3 +1953,89 @@ def test_mesh_clark_over_two_cards_bit_equal_to_one(two_cards, mesh_shape):
     assert o1._replace(delta=None) == o2._replace(delta=None)
     assert o1.iteration > 10 and torch.equal(o1.delta, o2.delta)
     assert dict(l1) == {0: 1} and dict(l2) == {0: 1, 1: 1}
+
+
+# ---------------------------------------------------------------------------
+# The spread workloads: B3's row-block mode and the facets over groups
+# ---------------------------------------------------------------------------
+
+from radler_tpu_torch.parallel import rows as pr  # noqa: E402
+
+
+def row_layout(height, parts, device):
+    return pr.RowLayout(tuple(height * p // parts for p in range(parts + 1)),
+                        (device,) * parts)
+
+
+@pytest.mark.parametrize("parts", [2, 4, 8])
+@pytest.mark.parametrize("shape, n_scales", [((600, 300), 9), ((256, 200), 5),
+                                             ((2, 96, 130), 3)])
+def test_atrous_rows_bit_equal_to_plain(cuda, shape, n_scales, parts):
+    """B3's row-block mode on every part's block of every launch (halos
+    of up to 4 x 511 rows, taller than a block) against its plain version
+    on the same block, and the spread decompose against the whole-image
+    plain decompose: bit-equal."""
+    img = np.random.default_rng(parts).standard_normal(shape)
+    img = torch.as_tensor(img.astype(np.float32), device=cuda)
+    layout = row_layout(shape[-2], parts, cuda)
+    cur = pr.Rows.scatter(img, layout)
+    for step in ia.launch_plan(n_scales, *shape[-2:]):
+        reach = ia.launch_reach(step)
+        nxt = []
+        for p in range(parts):
+            block, out0 = cur.block(p, reach)
+            rows = cur.parts[p].shape[-2]
+            out = [torch.full((step.n_scales, *cur.parts[p].shape), np.nan,
+                              device=cuda) for _ in range(2)]
+            smooth = [torch.empty_like(cur.parts[p]) for _ in range(2)]
+            ia.atrous_rows(block, step, out0, rows, out[0], smooth[0])
+            ia.atrous_rows_reference(block, step, out0, rows, out[1],
+                                     smooth[1])
+            torch.cuda.synchronize()
+            assert torch.equal(out[0], out[1])
+            assert torch.equal(smooth[0], smooth[1])
+            nxt.append(smooth[0])
+        cur = pr.Rows(nxt, layout)
+    before = ia.atrous_rows.launches
+    got = pr.decompose_rows(pr.Rows.scatter(img, layout), n_scales).gather()
+    assert ia.atrous_rows.launches - before == parts * len(
+        ia.launch_plan(n_scales, *shape[-2:]))
+    assert torch.equal(got.cpu(), iuwt_ops.decompose(img.cpu(), n_scales))
+
+
+@pytest.mark.parametrize("algorithm", ["GENERIC_CLEAN", "MULTISCALE"])
+def test_batched_facets_over_four_groups_bit_equal_to_one(cuda, algorithm,
+                                                          monkeypatch):
+    """A 2 x 2 facet grid on a mesh of 4 shards: over 4 groups of one card
+    (one facet a group, each group's lockstep loop its own) the cubes and
+    the per-facet counts are those of one group, bit for bit."""
+    monkeypatch.delenv("RADLER_TPU_NO_BATCHED_FACETS", raising=False)
+    psfs, res = multiscale_problem(128, 2)
+    s = rd.Settings()
+    s.algorithm_type = getattr(rd.AlgorithmType, algorithm)
+    s.trimmed_image_width = s.trimmed_image_height = 128
+    s.minor_iteration_count = 150
+    s.minor_loop_gain, s.major_loop_gain = 0.1, 0.85
+    s.parallel.grid_width = s.parallel.grid_height = 2
+    s.parallel.use_device_mesh = True
+    s.parallel.n_devices = 4
+    s.spectral_fitting.mode = rd.SpectralFittingMode.POLYNOMIAL
+    s.spectral_fitting.terms = 2
+    freqs = np.array([[1.0e8, 1.1e8], [1.1e8, 1.2e8]])
+    card = torch.device("cuda", torch.cuda.current_device())
+    runs = []
+    for groups in (1, 4):
+        monkeypatch.setattr(pm, "visible_cards",
+                            lambda device, g=groups: [card] * g)
+        cube, model = res.copy(), np.zeros_like(res)
+        r = rd.Radler(s, psfs, cube, model, 0.0, frequencies=freqs,
+                      device=card)
+        r.perform(0)
+        p = r._parallel
+        assert p.first_algorithm.device_mesh.groups == groups
+        runs.append(([a.iteration_number for a in p.algorithms],
+                     p.last_route, cube, model))
+    (n1, route1, res1, mod1), (n4, route4, res4, mod4) = runs
+    assert route1 == route4 == "batched" and n1 == n4 and sum(n1) > 0
+    np.testing.assert_array_equal(res4, res1)
+    np.testing.assert_array_equal(mod4, mod1)
