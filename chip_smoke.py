@@ -1001,10 +1001,13 @@ def _subminor_plans(n, k, fit=None):
     the plan the wrapper takes by itself, every cluster size (the state in
     shared memory where it fits), the largest cluster with the state in
     global memory, and, where the raw values travel with the argmax, a
-    cluster and one block where they do not."""
+    cluster and one block where they do not; then the grid route (one block
+    a multiprocessor) with the state where it fits, in global memory, and
+    without raw values."""
     from radler_tpu_torch.kernels import subminor_loop as sl
 
-    plans = [sl.cluster_plan(n, k, fit=fit)]
+    sms = sl.sm_count(torch.device(DEVICE))
+    plans = [sl.cluster_plan(n, k, fit=fit, sm_count=sms)]
     plans += [sl.cluster_plan(n, k, fit=fit, cluster_size=r)
               for r in CLUSTER_SIZES]
     plans.append(sl.cluster_plan(n, k, fit=fit, cluster_size=sl.MAX_CLUSTER,
@@ -1014,11 +1017,19 @@ def _subminor_plans(n, k, fit=None):
                                      ship_raw=False))
         plans.append(sl.cluster_plan(n, k, fit=fit, cluster_size=1,
                                      ship_raw=False))
+    plans.append(sl.cluster_plan(n, k, fit=fit, grid_blocks=sms))
+    plans.append(sl.cluster_plan(n, k, fit=fit, grid_blocks=sms,
+                                 on_chip=False))
+    if plans[0].ship_raw:
+        plans.append(sl.cluster_plan(n, k, fit=fit, grid_blocks=sms,
+                                     ship_raw=False))
     return plans
 
 
 def _plan_name(plan):
-    return (f"R={plan.cluster_size}"
+    route = (f"grid {plan.grid_blocks}" if plan.grid_blocks
+             else f"R={plan.cluster_size}")
+    return (f"{route}"
             f" x{plan.threads}"
             f"{'' if plan.on_chip else ' global'}"
             f"{' raw' if plan.ship_raw else ''}")
@@ -1084,9 +1095,13 @@ def phase_subminor_vs_plain():
                 proj, params)
         got_p, plans, d, _ = _subminor_replay_all(
             name, args, dict(n_polarizations=P))
-        if k_target == SUBMINOR_K_GLOBAL and plans[0].on_chip:
-            raise AssertionError(f"{name}: the plan kept K = {state['k']} in "
-                                 "shared memory")
+        if k_target == SUBMINOR_K_GLOBAL and (
+                sl.cluster_plan(C * P, state["k"], fit=proj).on_chip
+                or not (plans[0].grid_blocks and plans[0].on_chip)):
+            raise AssertionError(
+                f"{name}: K = {state['k']} fits one cluster's shared memory, "
+                f"or the plan {_plan_name(plans[0])} does not hold it on the "
+                "grid")
         say(f"  {name:20s} rms={use_rms:d} allow_negative={allow_negative:d} "
             f"{fit:10s} divergence={divergence:g} K={state['k']}: plain "
             f"{got_p}; kernel equal at {_plan_name(plans[0])} (its own plan), "
@@ -1108,8 +1123,8 @@ def phase_subminor_vs_plain():
 
 def _b2_registers():
     """ptxas's registers and spill stores for each instantiation of B2
-    (state place, exchange, fit), from this process's build log; returns
-    {(on_chip, ship_raw, fit): (registers, spill bytes)}."""
+    (route, state place, exchange, fit), from this process's build log;
+    returns {(route, on_chip, ship_raw, fit): (registers, spill bytes)}."""
     import re
 
     from radler_tpu_torch.kernels import _build
@@ -1117,10 +1132,11 @@ def _b2_registers():
     fits = {1: "none/projection", 2: "log-polynomial", 3: "forced terms"}
     out, current = {}, None
     for line in _build.BuildInfo.log.splitlines():
-        m = re.search(r"subminor_loop_kernelILb(\d)ELb(\d)ELi(\d)EE", line)
+        m = re.search(
+            r"subminor_loop_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)EE", line)
         if "Compiling entry function" in line:
-            current = (m.group(1), m.group(2), fits[int(m.group(3))]) if m \
-                else None
+            current = (("cluster", "grid")[int(m.group(1))], m.group(2),
+                       m.group(3), fits[int(m.group(4))]) if m else None
         elif current and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
             out[current] = [None, spill]
@@ -1128,9 +1144,10 @@ def _b2_registers():
             out.setdefault(current, [None, 0])[0] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
             current = None
-    for (on_chip, ship_raw, fit), (regs, spill) in sorted(out.items()):
-        say(f"  B2 on_chip={on_chip} ship_raw={ship_raw} {fit}: {regs} "
-            f"registers, {spill} bytes spill stores")
+    for (route, on_chip, ship_raw, fit), (regs, spill) in sorted(
+            out.items()):
+        say(f"  B2 {route} on_chip={on_chip} ship_raw={ship_raw} {fit}: "
+            f"{regs} registers, {spill} bytes spill stores")
     return out
 
 
@@ -1334,13 +1351,64 @@ def _recording_b2(calls):
         subminor_module.subminor_loop = real
 
 
+def _psf_sector_bytes(args, kwargs, iterations, params):
+    """The bytes of the 32-byte sectors that a B2 run's PSF gathers touch:
+    for each of its ``iterations`` components (found by running the kernel
+    one iteration at a time from the call's state, each launch's component
+    the model column it changed), the sectors that the candidates' row runs
+    reach in a PSF plane (the runs clipped to the PSF), times the PSF
+    planes.  Returns (bytes, mean sectors an iteration and plane)."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+
+    res0, _, rms_k, xs, ys, psfs, coef, fit, _ = args
+    n_psf, height, width = psfs.shape
+    res, model = res0.clone(), torch.zeros_like(res0)
+    xs_l, ys_l = xs.long(), ys.long()
+    sectors = 0
+    for t in range(iterations):
+        before = model.clone()
+        one = params._replace(start_iteration=t, max_iterations=t + 1)
+        sl.subminor_loop(res, model, rms_k, xs, ys, psfs, coef, fit, one,
+                         **kwargs)
+        m = int((model != before).any(0).nonzero()[0, 0])
+        sy = ys_l - ys_l[m] + height // 2
+        sx = xs_l - xs_l[m] + width // 2
+        inside = (sy >= 0) & (sy < height) & (sx >= 0) & (sx < width)
+        sectors += int(torch.unique((sy * width + sx)[inside] // 8).numel())
+    return 32 * n_psf * sectors, sectors / iterations
+
+
+@contextlib.contextmanager
+def _b2_on_the_grid():
+    """Every B2 call of the Clark route on the grid route, whatever its K
+    (``_plan``: one block a multiprocessor)."""
+    from radler_tpu_torch.kernels import subminor_loop as sl
+    from radler_tpu_torch.models import subminor as subminor_module
+
+    real = subminor_module.subminor_loop
+
+    def on_the_grid(*args, **kwargs):
+        res_k, fit = args[0], args[7]
+        kwargs["_plan"] = sl.cluster_plan(
+            res_k.shape[0], res_k.shape[1], fit=fit,
+            grid_blocks=sl.sm_count(res_k.device))
+        return real(*args, **kwargs)
+
+    subminor_module.subminor_loop = on_the_grid
+    try:
+        yield
+    finally:
+        subminor_module.subminor_loop = real
+
+
 def _b2_fit_times(call, fitter_args):
     """B2 at a recorded call's candidate state, FIT_TIMED_ITERATIONS
-    iterations from threshold 0, with the call's fit: kernel against plain
-    first (bit-equal), then timed by CUDA events in turns plain, the fit,
-    the polynomial projection of the same channels, no fit, and back.
-    Returns a dict (ms, plain_ms, projection_ms, none_ms, max|diff|,
-    bound)."""
+    iterations from threshold 0, with the call's fit: the kernel by the
+    wrapper's own plan and forced onto one cluster against plain first
+    (bit-equal), then timed by CUDA events in turns plain, the fit by its
+    plan, the fit on one cluster, the polynomial projection of the same
+    channels, no fit, and back.  Returns a dict (ms, cluster_ms, plain_ms,
+    projection_ms, none_ms, max|diff|, plan, bound, sector_bound)."""
     from radler_tpu_torch.kernels import subminor_loop as sl
     from radler_tpu_torch.ops.spectral_fitting import SpectralFitter
     from radler_tpu_torch.settings import SpectralFittingMode
@@ -1353,31 +1421,39 @@ def _b2_fit_times(call, fitter_args):
     projection = sl.projection_fit(torch.as_tensor(np.asarray(SpectralFitter(
         SpectralFittingMode.POLYNOMIAL, 2, *fitter_args)._projection,
         np.float32), device=DEVICE))
+    plan = sl.cluster_plan(n, k, fit=fit, sm_count=sl.sm_count(res0.device))
+    cluster = sl.cluster_plan(n, k, fit=fit)
     res_k, model_k = res0.clone(), torch.zeros_like(res0)
 
     def run(kind, res=res_k, model=model_k):
-        chosen = {"fit": fit, "plain": fit, "projection": projection,
-                  "none": None}[kind]
+        chosen = {"fit": fit, "cluster": fit, "plain": fit,
+                  "projection": projection, "none": None}[kind]
         a = (res, model, rms_k, xs, ys, psfs, coef, chosen, params)
         if kind == "plain":
             return sl.subminor_loop_reference(*a, **kwargs)
-        return sl.subminor_loop(*a, **kwargs)
+        return sl.subminor_loop(*a, **kwargs,
+                                _plan=cluster if kind == "cluster" else None)
 
     finals = []
-    for kind in ("fit", "plain"):
+    for kind in ("fit", "cluster", "plain"):
         res, model = res0.clone(), torch.zeros_like(res0)
         out = run(kind, res, model)
         torch.cuda.synchronize()
         finals.append((out, res, model))
-    (ok, rk, mk), (op, rp, mp) = finals
-    d = max(float((rk - rp).abs().max()), float((mk - mp).abs().max()))
-    if not (torch.equal(ok, op) and d == 0.0):
-        raise AssertionError(f"B2 with its fit and plain disagree at the "
-                             f"recorded state: kernel {sl.read_result(ok)}, "
-                             f"plain {sl.read_result(op)}")
-    readings = {"plain": [], "fit": [], "projection": [], "none": []}
-    for kind in ("plain", "fit", "projection", "none", "none", "projection",
-                 "fit", "plain"):
+    op, rp, mp = finals[-1]
+    d = 0.0
+    for kind, (ok, rk, mk) in zip(("its plan", "one cluster"), finals):
+        d = max(d, float((rk - rp).abs().max()), float((mk - mp).abs().max()))
+        if not (torch.equal(ok, op) and torch.equal(rk, rp)
+                and torch.equal(mk, mp)):
+            raise AssertionError(
+                f"B2 with its fit ({kind}) and plain disagree at the "
+                f"recorded state: kernel {sl.read_result(ok)}, plain "
+                f"{sl.read_result(op)}")
+    readings = {"plain": [], "fit": [], "cluster": [], "projection": [],
+                "none": []}
+    for kind in ("plain", "fit", "cluster", "projection", "none", "none",
+                 "projection", "cluster", "fit", "plain"):
         ms, _ = _time_ms(lambda: run(kind), 1 if kind == "plain" else 5)
         readings[kind].append(ms)
     mean = {kind: sum(v) / len(v) for kind, v in readings.items()}
@@ -1389,15 +1465,22 @@ def _b2_fit_times(call, fitter_args):
     # The PSF values are gathered, one a candidate and a channel each
     # iteration: at most the run's iterations times K times the channels,
     # never more than the whole PSF.
-    iterations = sl.read_result(ok)[0]
+    iterations = sl.read_result(op)[0]
     rows = fit.forced_rows
     psf_values = min(psfs.numel(), iterations * k * psfs.shape[0])
-    n_bytes = 4 * (3 * n * k + 2 * k + (k if rms_k is not None else 0)
-                   + rows * k + n + fit.shared_floats(n) + psf_values)
-    bound = bound_ms(n_bytes, iterations * k * 4 * n)
-    return dict(ms=mean["fit"], plain_ms=mean["plain"],
-                projection_ms=mean["projection"], none_ms=mean["none"],
-                readings=readings, worst=d, bound=bound)
+    state_bytes = 4 * (3 * n * k + 2 * k + (k if rms_k is not None else 0)
+                       + rows * k + n + fit.shared_floats(n))
+    bound = bound_ms(state_bytes + 4 * psf_values, iterations * k * 4 * n)
+    # The same with the PSF read as the 32-byte sectors the candidates' row
+    # runs touch, which is what the memory moves.
+    sector_bytes, sectors = _psf_sector_bytes(args, kwargs, iterations,
+                                              params)
+    sector_bound = bound_ms(state_bytes + sector_bytes)
+    return dict(ms=mean["fit"], cluster_ms=mean["cluster"],
+                plain_ms=mean["plain"], projection_ms=mean["projection"],
+                none_ms=mean["none"], readings=readings, worst=d,
+                plan=_plan_name(plan), bound=bound,
+                sector_bound=sector_bound, sectors=sectors)
 
 
 def phase_spectral_performs():
@@ -1468,7 +1551,10 @@ def phase_spectral_performs():
                 raise AssertionError(f"{mode}: the split perform differs")
             args = calls[0][0]
             k, fit = args[0].shape[1], args[7]
-            plan = sl.cluster_plan(args[0].shape[0], k, fit=fit)
+            plan = sl.cluster_plan(args[0].shape[0], k, fit=fit,
+                                   sm_count=sl.sm_count(args[0].device))
+            if not plan.grid_blocks:
+                raise AssertionError(f"{mode}: K = {k} did not take the grid")
             best = min(r[1] for r in runs)
             out_res = first[4]
             say(f"  {mode}: {n} iterations, K = {k}, plan "
@@ -1490,18 +1576,23 @@ def phase_spectral_performs():
             del first, runs, timed, out_res
             times = _b2_fit_times(calls[0], (freqs.mean(axis=1),
                                              np.ones(len(freqs))))
+            per = 1e3 / FIT_TIMED_ITERATIONS
             say(f"  B2 at the recorded state, {FIT_TIMED_ITERATIONS} "
-                f"iterations from threshold 0: kernel equal to plain "
+                f"iterations from threshold 0: kernel by its plan "
+                f"({times['plan']}) and on one cluster equal to plain "
                 f"(max|diff| {times['worst']:.3g}); ms " + "; ".join(
                     f"{kind} {', '.join(f'{v:.4f}' for v in values)}"
                     for kind, values in times["readings"].items())
-                + f"; {times['ms'] * 1e3 / FIT_TIMED_ITERATIONS:.2f} us "
-                f"an iteration with the fit, "
-                f"{times['projection_ms'] * 1e3 / FIT_TIMED_ITERATIONS:.2f}"
-                f" with the projection; bound {times['bound'][0]:.4f} ms "
-                f"({times['bound'][1]})")
+                + f"; {times['ms'] * per:.2f} us an iteration with the fit "
+                f"by its plan, {times['cluster_ms'] * per:.2f} on one "
+                f"cluster, {times['projection_ms'] * per:.2f} with the "
+                f"projection; bound {times['bound'][0]:.4f} ms "
+                f"({times['bound'][1]}, 4 bytes a PSF value), "
+                f"{times['sector_bound'][0]:.4f} ms counting the PSF's "
+                f"32-byte sectors ({times['sectors']:.1f} a plane an "
+                "iteration)")
             out[mode] = dict(rate=n / best, launches=launches[0][0], k=k,
-                             plan=_plan_name(plan), split=split, **times)
+                             split=split, **times)
             del calls
             torch.cuda.empty_cache()
     del psfs, res, index_map
@@ -1552,7 +1643,8 @@ def phase_spectral_card_vs_cpu():
     size limit set to 0 for the run) against the port's CPU run (its plain
     version): equal ``perform()`` results and iteration counts, the
     residual within FIT_RESIDUAL_ATOL, the model within FIT_MODEL_RTOL of
-    its peak."""
+    its peak.  The card runs twice: by the plan (one cluster at this K) and
+    with B2 forced onto the grid route."""
     from radler_tpu_torch.models import generic_clean as gc
     from radler_tpu_torch.utils.fits import write_fits_image
     import tempfile
@@ -1570,24 +1662,32 @@ def phase_spectral_card_vs_cpu():
                     SPECTRAL_CHECK_SIZE, SPECTRAL_CHECK_ITERATIONS, mode,
                     forced)
                 start = time.perf_counter()
-                card = _spectral_perform_on(DEVICE, settings, psfs, res,
-                                            freqs)
-                t_card = time.perf_counter() - start
-                start = time.perf_counter()
                 cpu = _spectral_perform_on("cpu", settings, psfs, res, freqs)
                 t_cpu = time.perf_counter() - start
-                d_res = float((card[2] - cpu[2]).abs().max())
                 peak = float(cpu[3].abs().max())
-                d_mod = float((card[3] - cpu[3]).abs().max())
-                say(f"  {mode}: card {card[1]} iterations ({t_card:.2f} s, "
-                    f"{card[4]} B2 launches), CPU {cpu[1]} ({t_cpu:.2f} s); "
-                    f"perform() {card[0]} / {cpu[0]}; max|dres| {d_res:.3g}, "
-                    f"max|dmodel| {d_mod:.3g} of the model peak {peak:.4g}")
-                if not (card[:2] == cpu[:2] and card[1] > 0 and card[4] >= 1
-                        and d_res <= FIT_RESIDUAL_ATOL
-                        and d_mod <= FIT_MODEL_RTOL * peak):
-                    raise AssertionError(f"{mode}: the card and the CPU "
-                                         "disagree")
+                for route in ("its plan", "the grid"):
+                    start = time.perf_counter()
+                    if route == "the grid":
+                        with _b2_on_the_grid():
+                            card = _spectral_perform_on(DEVICE, settings,
+                                                        psfs, res, freqs)
+                    else:
+                        card = _spectral_perform_on(DEVICE, settings, psfs,
+                                                    res, freqs)
+                    t_card = time.perf_counter() - start
+                    d_res = float((card[2] - cpu[2]).abs().max())
+                    d_mod = float((card[3] - cpu[3]).abs().max())
+                    say(f"  {mode}, B2 by {route}: card {card[1]} "
+                        f"iterations ({t_card:.2f} s, {card[4]} B2 "
+                        f"launches), CPU {cpu[1]} ({t_cpu:.2f} s); perform() "
+                        f"{card[0]} / {cpu[0]}; max|dres| {d_res:.3g}, "
+                        f"max|dmodel| {d_mod:.3g} of the model peak "
+                        f"{peak:.4g}")
+                    if not (card[:2] == cpu[:2] and card[1] > 0
+                            and card[4] >= 1 and d_res <= FIT_RESIDUAL_ATOL
+                            and d_mod <= FIT_MODEL_RTOL * peak):
+                        raise AssertionError(f"{mode}, B2 by {route}: the "
+                                             "card and the CPU disagree")
     finally:
         gc._HOGBOM_FALLBACK_PIXELS = limit
 
@@ -1743,11 +1843,11 @@ def phase_subminor_times(psf, residual):
     its own copy of the selected state: equal output, residual and model.
     Then both timed in turns plain, kernel, kernel, plain, one launch of
     SUBMINOR_TIMED_ITERATIONS iterations each; the kernel at every cluster
-    size, and with and without the raw values in the first exchange, at
-    config 2's set and at the counts of SUBMINOR_TIMED_K, each list run
+    size, with and without the raw values in the first exchange, and on the
+    grid route (one block a multiprocessor), at config 2's set and at the counts of SUBMINOR_TIMED_K, each list run
     forward and then backward; and the PSF gather that replaces the TPU's
     interaction matrix, alone.  Returns (max |difference|, kernel ms, plain
-    ms, bound, cluster size of the plan)."""
+    ms, bound, the plan's name)."""
     from radler_tpu_torch.image_set import (
         CubeMeta,
         linear_integration_coefficients,
@@ -1770,7 +1870,8 @@ def phase_subminor_times(psf, residual):
             return sl.subminor_loop_reference(*args, n_polarizations=1)
         return sl.subminor_loop(*args, n_polarizations=1, _plan=plan)
 
-    own = sl.cluster_plan(1, k)
+    sms = sl.sm_count(dev)
+    own = sl.cluster_plan(1, k, sm_count=sms)
     perform_params = sl.SubminorParams.make(
         loop.threshold, loop.gain, loop.current_iteration, loop.max_iterations,
         loop.divergence_limit, loop.allow_negative_components,
@@ -1793,8 +1894,9 @@ def phase_subminor_times(psf, residual):
         raise AssertionError("subminor kernel and plain disagree at config 2")
     if sl.read_result(out_k)[0] == 0:
         raise AssertionError("config 2's subminor run made no iteration")
-    if own.cluster_size < 2:
-        raise AssertionError("config 2 does not run on a cluster")
+    if own.grid_blocks != (sms if k > sl.GRID_VALUES else 0):
+        raise AssertionError(f"config 2's plan {_plan_name(own)} is not "
+                             "its route by GRID_VALUES")
 
     params = sl.SubminorParams.make(0.0, GAIN, 0, SUBMINOR_TIMED_ITERATIONS,
                                     0.0, True, False)
@@ -1811,7 +1913,8 @@ def phase_subminor_times(psf, residual):
             f"{ms * 1e3 / SUBMINOR_TIMED_ITERATIONS:.2f} us per iteration "
             f"(host enqueue {host_ms:.4f} ms)")
 
-    # Every cluster size, and both exchanges, at four candidate counts.
+    # Every cluster size, both exchanges and the grid route, at four
+    # candidate counts.
     integrated = res_d[0].abs().flatten().sort().values
     for k_target in (*SUBMINOR_TIMED_K[:2], None, *SUBMINOR_TIMED_K[2:]):
         timed = loop
@@ -1821,10 +1924,11 @@ def phase_subminor_times(psf, residual):
             timed.set_threshold(float(integrated[-k_target]), 0.0)
             timed.find_peak_positions(res_d, meta)
         k_timed = timed._residual_k.shape[1]
-        chosen = sl.cluster_plan(1, k_timed)
+        chosen = sl.cluster_plan(1, k_timed, sm_count=sms)
         plans = [sl.cluster_plan(1, k_timed, cluster_size=r)
                  for r in CLUSTER_SIZES]
-        plans.append(chosen._replace(ship_raw=False))
+        plans.append(sl.cluster_plan(1, k_timed)._replace(ship_raw=False))
+        plans.append(sl.cluster_plan(1, k_timed, grid_blocks=sms))
         res_t = timed._residual_k.clone()
         model_t = torch.zeros_like(res_t)
         readings = {i: [] for i in range(len(plans))}
@@ -1862,7 +1966,7 @@ def phase_subminor_times(psf, residual):
     n_bytes = 4 * (4 * k + 2 * k + 1 + psfs.numel())
     n_flops = SUBMINOR_TIMED_ITERATIONS * k * 4
     return d, sum(times[False]) / 2, sum(times[True]) / 2, bound_ms(
-        n_bytes, n_flops), own.cluster_size
+        n_bytes, n_flops), _plan_name(own)
 
 
 def phase_config2(psf, residual):
@@ -3217,8 +3321,8 @@ def _check_config3_b2(calls):
         f"{'2-term fit' if calls[0][0][7] is not None else 'no fit'}), "
         f"K {min(ks)}..{max(ks)}, {sum(done)} iterations in all: kernel "
         f"equal to plain at each pass's own plan ({', '.join(sorted(own))}), "
-        f"every cluster size, the state in global memory and the exchange "
-        f"without raw values; max|diff| {worst:.3g} "
+        f"every cluster size, the state in global memory, the exchange "
+        f"without raw values and the grid route; max|diff| {worst:.3g} "
         f"({time.perf_counter() - start:.1f} s)")
     if sum(done) == 0:
         raise AssertionError("config 3's Clark passes made no iterations")
@@ -5717,7 +5821,7 @@ def main():
     section("the 2048^2 problem (seed 7, 300 sources)")
     psf2, residual2 = make_problem(CLARK_SIZE, N_SOURCES)
     section("the subminor kernel at config 2's shapes")
-    worst_config2, kernel_ms, plain_ms, b2_bound, b2_cluster = (
+    worst_config2, kernel_ms, plain_ms, b2_bound, b2_plan = (
         phase_subminor_times(psf2, residual2))
     worst["subminor_loop"] = max(worst_small, worst_config2)
     times["subminor_loop"] = (kernel_ms, plain_ms)
@@ -5844,7 +5948,7 @@ def main():
         "library_ms": None,
     })
     kernels.append({
-        "name": "subminor_loop",
+        "name": f"subminor_loop ({b2_plan})",
         "route": "cuda",
         "source": "radler_tpu_torch/csrc/subminor_loop.cu",
         "replaces": "radler_tpu/ops/pallas/subminor_fused.py:89",
@@ -5860,7 +5964,7 @@ def main():
                        ("FORCED_TERMS", "forced terms")):
         cell = spectral[mode]
         kernels.append({
-            "name": f"subminor_loop ({name})",
+            "name": f"subminor_loop ({name}, {cell['plan']})",
             "route": "cuda",
             "source": "radler_tpu_torch/csrc/subminor_loop.cu",
             "replaces": "radler_tpu/ops/pallas/subminor_fused.py:89",
@@ -5874,7 +5978,7 @@ def main():
         })
     tile_times = mesh_clark["times"]
     kernels.append({
-        "name": "subminor_loop (tile axis)",
+        "name": "subminor_loop (tile axis, a cluster a tile)",
         "route": "cuda",
         "source": "radler_tpu_torch/csrc/subminor_loop.cu",
         "replaces": "radler_tpu/ops/pallas/subminor_fused.py:89",
@@ -5983,7 +6087,7 @@ def main():
         f"{times['alone']:.4f} ms, against its "
         f"{bound_ms(times['bytes']['hogbom_step'])[0]:.4f} ms bound")
     say(f"config 2: {clark[1]:.1f} minor iterations/s through perform "
-        f"(Clark); B2 on a cluster of {b2_cluster} blocks, "
+        f"(Clark); B2 by its plan {b2_plan}, "
         f"{kernel_ms * 1e3 / SUBMINOR_TIMED_ITERATIONS:.2f} us per iteration")
     say(f"mesh Clark: config 2 on chan 1 x tile 8 {mesh_clark['rate']:.1f} "
         f"minor iterations/s through perform (single device "

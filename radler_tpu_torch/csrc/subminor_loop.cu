@@ -1,5 +1,6 @@
-// The Clark subminor loop for Hopper (sm_90a), in one launch of one
-// thread-block cluster.
+// The Clark subminor loop for Hopper (sm_90a), in one launch: one
+// thread-block cluster, or a cooperative grid of one block a multiprocessor
+// where one cluster cannot hold the candidates (the grid route, below).
 //
 // Replaces radler_tpu/ops/pallas/subminor_fused.py::_loop_kernel (reached
 // through subminor_loop_fused): the whole SubMinorLoop::Run while-loop
@@ -36,9 +37,11 @@
 //
 // The TPU kernel read one row of a prebuilt [C, K, K] interaction matrix
 // per iteration, because it could not gather inside the kernel.  Here the
-// PSF is read directly at image size: its [C, H, W] float32 planes (16.8 MB
-// at 2048^2) stay in the 50 MB L2, so there is no O(K^2) table to build and
-// no memory budget that bounds K.
+// PSF is read directly at image size, so there is no O(K^2) table to build
+// and no memory budget that bounds K.  At 2048^2 its [C, H, W] float32
+// planes (16.8 MB a plane) stay in the 50 MB L2; at 8192^2 x 4 (1.07 GB)
+// they do not, and every iteration gathers its K x C values mostly from
+// HBM.
 //
 // Design.  The launch is one cluster of R blocks (R a power of two up to
 // 16, chosen by kernels/subminor_loop.py::cluster_plan from N and K: one
@@ -109,13 +112,63 @@
 // into a block that has not started; after a block's last barrier it
 // touches no other block's memory, so blocks may exit in any order.
 //
+// Grid route (kGrid; kernels/subminor_loop.py::cluster_plan takes it where
+// N * K is above GRID_VALUES).  A cluster is at most 16 blocks, so at K =
+// 168,945 (the 8192^2 x 4 spectral-fit performs) 16 multiprocessors gather
+// every iteration's K x C PSF values from HBM and the state (4.7 MB) does
+// not fit in their shared memory.  The grid route launches G blocks, one a
+// multiprocessor (G is the plan's: the card's multiprocessor count; the
+// entry point checks with cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// that the card holds them all, and launches with
+// cudaLaunchAttributeCooperative, which fails rather than start a grid
+// whose blocks could not all be resident).  Block b owns [b * slice,
+// (b + 1) * slice), its state in shared memory where the capacity rule
+// holds at G blocks (a slice of K / G candidates beside the copy of G
+// slots), else in global memory.  Per iteration:
+//   1. The block reduces its best as above; the lanes of warp 0 write its
+//      slot (cmp, idx, val, and with kShipRaw x, y, the N raw values and the
+//      forced terms) as words [parity][field][b] of a global slot array in
+//      the launch's workspace, where the cluster route writes into every
+//      block's shared memory.
+//   2. One grid barrier, cooperative groups' this_grid().sync(): each
+//      block's thread 0 fences (__threadfence()) and arrives on a word of
+//      the cooperative launch's own, so every slot written before the
+//      barrier is visible after it; the slots are then read with
+//      ld.global.cg (L1 is not coherent across multiprocessors).
+//   3. Every block copies the iteration's G slots into shared memory in one
+//      coalesced round and every warp reduces them with warp_best to the same
+//      winner (the largest ordered bits, then the smallest index); with
+//      kShipRaw each warp then computes cv from the winner's raw values with
+//      the code and order of the cluster route, so every block holds the
+//      same bits without a broadcast, and the block that owns the winner
+//      adds cv to the model.
+//   4. Without raw values (N > 8, or more than 4 forced terms) the owner
+//      writes cv and the position to the workspace, and a second grid
+//      barrier publishes them.
+// The parity argument above holds word for word with "grid barrier" in
+// place of "cluster barrier"; no block writes into another's memory, so no
+// barrier is needed before the loop.  Three other barriers gave the same
+// bits and were slower on an H100 (PERF.md): an arrival count and a
+// generation word of the kernel's own; the same in two levels (clusters of
+// 2 or 4 blocks meeting at the cluster barrier, their first blocks on the
+// count; the card also refuses clusters of 4 at one 928-thread block a
+// multiprocessor); and a stamp beside each slot that every block polls.
+// The pass gathers the PSF values of four planes at once
+// (kPlanes): at one block a multiprocessor a thread has one or two
+// candidates, and a plane at a time would pay a round trip to HBM per
+// plane.
+//
 // What bounds it: not bytes (the bound over device memory is the state and
-// the PSF once, microseconds for the whole run) but latency per iteration:
-// one or two cluster barriers (about 0.3 us each on an H100), one block
-// barrier, three warp reductions and one round of L2 gathers, about 2.3 us
-// in all; and, per block, L2 sector throughput for the gathers (one 32-byte
-// sector per candidate and PSF plane at worst), about 0.35 us per 1000
-// candidates of a block.
+// the PSF once, microseconds for the whole run, or, where fewer, the PSF
+// values the iterations gather) but latency per iteration.  On the cluster
+// route: one or two cluster barriers (about 0.3 us each on an H100), one
+// block barrier, three warp reductions and one round of L2 gathers, about
+// 2.3 us in all; and, per block, L2 sector throughput for the gathers (one
+// 32-byte sector per candidate and PSF plane at worst), about 0.35 us per
+// 1000 candidates of a block.  On the grid route: one grid barrier, four
+// block barriers, the slots' round trip through L2 and the reductions, a
+// floor of about 4 us at a few candidates a block, then the round of
+// gathers, mostly from HBM at 8192^2 (PERF.md).
 //
 // Tile axis (the device mesh's Clark subminor, parallel/mesh.py::
 // mesh_subminor_clean; radler_tpu/parallel/mesh.py:488-676 in the JAX
@@ -154,7 +207,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (see
 // kernels/_build.py).  Plain C entry point for ctypes; it returns the first
 // CUDA error of its set-up and launch, and does not fall back: a cluster
-// the card cannot schedule is an error.
+// or a grid the card cannot schedule is an error.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -181,6 +234,8 @@ constexpr int kShipMax = 8;
 // Forced terms that travel in a slot;
 // kernels/subminor_loop.py::SHIP_RAW_MAX_TERMS.
 constexpr int kShipTerms = 4;
+// Planes whose PSF values a thread of the grid route gathers at once.
+constexpr int kGridPlanes = 4;
 
 // Output slots, shared with kernels/subminor_loop.py.
 enum OutSlot { kIteration = 0, kDiverging = 1, kValueBits = 2 };
@@ -262,6 +317,10 @@ struct Slot {
   float raw[kShipMax];
   float terms[kShipTerms];  // the best's forced terms (kFitForced)
 };
+
+// Words of a slot; kernels/subminor_loop.py::SLOT_WORDS.
+constexpr int kSlotWords = sizeof(Slot) / 4;
+static_assert(kSlotWords == 5 + kShipMax + kShipTerms, "Slot is packed");
 
 struct Shared {
   float warp_cmp[kWarps];
@@ -411,8 +470,11 @@ struct State {
 
 // One pass over the slice: with kSubtract step 6, then steps 1-2 for every
 // candidate; returns this thread's best.  (oy, ox) is the PSF centre minus
-// the component's position.
-template <bool kSubtract>
+// the component's position.  The PSF values of kPlanes planes are gathered
+// before any of them is used; each candidate's planes are still taken in
+// plane order.  The cluster route (kPlanes 1) keeps a loop of its own: in
+// the general form its tile axis ran 4-5% slower (PERF.md).
+template <bool kSubtract, int kPlanes>
 __device__ __forceinline__ Best sweep(const State& st,
                                       const float* __restrict__ psf,
                                       int64_t plane,
@@ -442,25 +504,58 @@ __device__ __forceinline__ Best sweep(const State& st,
         src[u] = static_cast<int64_t>(sy) * width + sx;
       }
     }
-    for (int i = 0; i < n_images; ++i) {
-      float p[kUnroll];
-      if (kSubtract) {
-        const float* psf_plane = psf + (i / n_pols) * plane;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          p[u] = inside[u] ? psf_plane[src[u]] : 0.0f;
-      }
-      const float c = s_coef[i];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (!live[u]) continue;
-        float* r = st.res + i * st.stride + (base + u * n_threads);
-        float v = *r;
+    if constexpr (kPlanes == 1) {
+      for (int i = 0; i < n_images; ++i) {
+        float p[kUnroll];
         if (kSubtract) {
-          v = __fmaf_rn(-p[u], cv[i], v);
-          *r = v;
+          const float* psf_plane = psf + (i / n_pols) * plane;
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u)
+            p[u] = inside[u] ? psf_plane[src[u]] : 0.0f;
         }
-        s[u] = i == 0 ? __fmul_rn(v, c) : __fmaf_rn(v, c, s[u]);
+        const float c = s_coef[i];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (!live[u]) continue;
+          float* r = st.res + i * st.stride + (base + u * n_threads);
+          float v = *r;
+          if (kSubtract) {
+            v = __fmaf_rn(-p[u], cv[i], v);
+            *r = v;
+          }
+          s[u] = i == 0 ? __fmul_rn(v, c) : __fmaf_rn(v, c, s[u]);
+        }
+      }
+    } else {
+      for (int i0 = 0; i0 < n_images; i0 += kPlanes) {
+        float p[kPlanes][kUnroll];
+        if (kSubtract) {
+#pragma unroll
+          for (int q = 0; q < kPlanes; ++q) {
+            if (i0 + q >= n_images) break;
+            const float* psf_plane = psf + ((i0 + q) / n_pols) * plane;
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u)
+              p[q][u] = inside[u] ? psf_plane[src[u]] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kPlanes; ++q) {
+          const int i = i0 + q;
+          if (i >= n_images) break;
+          const float c = s_coef[i];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            if (!live[u]) continue;
+            float* r = st.res + i * st.stride + (base + u * n_threads);
+            float v = *r;
+            if (kSubtract) {
+              v = __fmaf_rn(-p[q][u], cv[i], v);
+              *r = v;
+            }
+            s[u] = i == 0 ? __fmul_rn(v, c) : __fmaf_rn(v, c, s[u]);
+          }
+        }
       }
     }
 #pragma unroll
@@ -484,7 +579,7 @@ __device__ __forceinline__ void cluster_barrier(cg::cluster_group& cluster,
     cluster.sync();
 }
 
-template <bool kOnChip, bool kShipRaw, int kFit>
+template <bool kGrid, bool kOnChip, bool kShipRaw, int kFit>
 __global__ void __launch_bounds__(kMaxThreads)
     subminor_loop_kernel(float* __restrict__ res, float* __restrict__ model,
                          const float* __restrict__ rms,
@@ -496,19 +591,26 @@ __global__ void __launch_bounds__(kMaxThreads)
                          int n_terms,
                          const float* __restrict__ terms,
                          const int* __restrict__ offsets,
+                         int* __restrict__ workspace,
                          int* __restrict__ out, int n_images, int n_pols,
                          int k, int slice, int height, int width,
                          float threshold, float gain, int start_iteration,
                          int max_iterations, float divergence_limit,
                          int allow_negative, int stop_on_negative) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
   const int n_ranks = static_cast<int>(cluster.num_blocks());
+  // The block's slice and the slices of the loop: the cluster's ranks, or
+  // on the grid route every block of the launch.
+  const int rank = kGrid ? static_cast<int>(blockIdx.x)
+                         : static_cast<int>(cluster.block_rank());
+  const int n_slices = kGrid ? static_cast<int>(gridDim.x) : n_ranks;
+  constexpr int kPlanes = kGrid ? kGridPlanes : 1;
   __shared__ Shared sh;
   // Per plane: the integration coefficient, the gain-scaled residual value
   // at the component and the component value after the spectral fit; the
-  // fit's constants and the owner's scratch; then, with kOnChip, the
-  // slice's residual [N, slice], xs, ys, rms and forced terms [T-1, slice].
+  // fit's constants and the owner's scratch; with kGrid the copy of an
+  // iteration's G slots; then, with kOnChip, the slice's residual [N,
+  // slice], xs, ys, rms and forced terms [T-1, slice].
   extern __shared__ float dyn[];
   const int n_chan = n_images / n_pols;
   const int n_forced = kFit == kFitForced ? n_terms - 1 : 0;
@@ -518,6 +620,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   // kFit above the projection: the constants, then the scratch.
   float* const s_fit = dyn + 3 * n_images;
   float* const s_scratch = s_fit + fit_constant_floats(kFit, n_chan, n_terms);
+  Slot* const s_slots = reinterpret_cast<Slot*>(
+      s_fit + fit_shared_floats(kFit, n_images, n_chan, n_terms));
   // The projection, read from global memory, or null.
   const float* const proj = kFit == kFitProjection ? fit_consts : nullptr;
   const int tid = threadIdx.x;
@@ -526,6 +630,14 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int warp = tid >> 5;
   const int n_warps = n_threads >> 5;
   const int64_t plane = static_cast<int64_t>(height) * width;
+  // The grid route's workspace (kernels/subminor_loop.py::
+  // grid_workspace_words): the slots [2][kSlotWords][G], the owner's cv [N]
+  // and the winner's (x, y); and the words of a slot that travel.
+  int* const g_slots = workspace;
+  float* const g_cv =
+      reinterpret_cast<float*>(g_slots + 2 * kSlotWords * n_slices);
+  int* const g_pos = reinterpret_cast<int*>(g_cv + n_images);
+  const int slot_words = kShipRaw ? 5 + n_images + n_forced : 3;
 
   // This cluster's segment of the tile axis: k stays the state's row
   // stride, seg its candidate count.
@@ -548,8 +660,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   st.len = min(slice, seg - st.first);
   if (st.len < 0) st.len = 0;
   if constexpr (kOnChip) {
-    float* const c_res =
-        s_fit + fit_shared_floats(kFit, n_images, n_chan, n_terms);
+    float* const c_res = reinterpret_cast<float*>(s_slots) +
+                         (kGrid ? kSlotWords * n_slices : 0);
     int* const c_xs = reinterpret_cast<int*>(
         c_res + static_cast<int64_t>(n_images) * slice);
     int* const c_ys = c_xs + slice;
@@ -586,12 +698,17 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int n_consts = fit_constant_floats(kFit, n_chan, n_terms);
     for (int i = tid; i < n_consts; i += n_threads) s_fit[i] = fit_consts[i];
   }
-  // Every block of the cluster runs before any writes into another.
-  cluster_barrier(cluster, n_ranks);
+  // Every block of the cluster runs before any writes into another; the
+  // grid route writes into no other block.
+  if constexpr (kGrid)
+    __syncthreads();
+  else
+    cluster_barrier(cluster, n_ranks);
 
   // The first argmax, over the unchanged state.
-  Best best = sweep<false>(st, psf, plane, s_coef, nullptr, n_images, n_pols,
-                           0, 0, height, width, allow_negative);
+  Best best = sweep<false, kPlanes>(st, psf, plane, s_coef, nullptr,
+                                    n_images, n_pols, 0, 0, height, width,
+                                    allow_negative);
   Loop lp{start_iteration, false, true, 0.0f, 0.0f};
   for (int parity = 0;; parity ^= 1) {
     // This block's argmax: each warp's, then warp 0 over the warps.
@@ -607,8 +724,33 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (lane < n_warps)
         best = Best{sh.warp_cmp[lane], sh.warp_idx[lane], sh.warp_val[lane]};
       best = warp_best(best);
-      // Lane r writes it into block r's slot for this block.
-      if (lane < n_ranks) {
+      if constexpr (kGrid) {
+        // Lane f writes word f of this block's slot into the workspace:
+        // cmp, idx, val, then x, y, the raw values and the forced terms.
+        if (lane < slot_words) {
+          int word = 0;
+          if (lane == 0) {
+            word = __float_as_int(best.cmp);
+          } else if (lane == 1) {
+            word = best.idx;
+          } else if (lane == 2) {
+            word = __float_as_int(best.val);
+          } else if (st.len > 0) {
+            const int at = best.idx == INT_MAX ? 0 : best.idx - st.first;
+            if (lane == 3)
+              word = st.xs[at];
+            else if (lane == 4)
+              word = st.ys[at];
+            else if (lane < 5 + n_images)
+              word = __float_as_int(st.res[(lane - 5) * st.stride + at]);
+            else
+              word = __float_as_int(
+                  st.terms[(lane - 5 - n_images) * st.stride + at]);
+          }
+          g_slots[(parity * kSlotWords + lane) * n_slices + rank] = word;
+        }
+      } else if (lane < n_ranks) {
+        // Lane r writes it into block r's slot for this block.
         Slot* slot = cluster.map_shared_rank(&sh.slots[parity][rank], lane);
         slot->cmp = best.cmp;
         slot->idx = best.idx;
@@ -624,14 +766,38 @@ __global__ void __launch_bounds__(kMaxThreads)
         }
       }
     }
-    cluster_barrier(cluster, n_ranks);
+    const Slot* slots;
+    if constexpr (kGrid) {
+      cg::this_grid().sync();
+      // The iteration's G slots into this block's copy, in one coalesced
+      // round of L2 reads: word f of slot g to its place in Slot g.
+      const int* from = g_slots + parity * kSlotWords * n_slices;
+      int* const to = reinterpret_cast<int*>(s_slots);
+      for (int w = tid; w < slot_words * n_slices; w += n_threads) {
+        const int f = w / n_slices;
+        const int g = w - f * n_slices;
+        const int field =
+            f < 5 + n_images ? f : f - n_images + kShipMax;
+        to[g * kSlotWords + field] = __ldcg(from + f * n_slices + g);
+      }
+      __syncthreads();
+      slots = s_slots;
+    } else {
+      cluster_barrier(cluster, n_ranks);
+      slots = sh.slots[parity];
+    }
 
-    // The cluster's argmax from the R slots; the same in every block.
+    // The loop's argmax from the slots; the same in every block.
     const float* cv;
     int wx, wy;
     if (kShipRaw || warp == 0) {
       Best win{-INFINITY, INT_MAX, 0.0f};
-      if (lane < n_ranks) {
+      if constexpr (kGrid) {
+        for (int r = lane; r < n_slices; r += 32) {
+          const Slot& s = slots[r];
+          if (better(s.cmp, s.idx, win)) win = Best{s.cmp, s.idx, s.val};
+        }
+      } else if (lane < n_ranks) {
         const Slot& s = sh.slots[parity][lane];
         win = Best{s.cmp, s.idx, s.val};
       }
@@ -643,7 +809,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       const int owner = m / slice;
       if constexpr (kShipRaw) {
         if (!go) break;
-        const Slot& ws = sh.slots[parity][owner];
+        const Slot& ws = kGrid ? slots[owner] : sh.slots[parity][owner];
         if (lane < n_images) {
           const auto scaled = [&](int q) { return __fmul_rn(ws.raw[q], gain); };
           float v;
@@ -738,10 +904,19 @@ __global__ void __launch_bounds__(kMaxThreads)
             }
             float* mo = model + static_cast<int64_t>(i) * k + m;
             *mo = __fadd_rn(*mo, v);
-            for (int r = 0; r < n_ranks; ++r)
-              cluster.map_shared_rank(s_cv, r)[i] = v;
+            if constexpr (kGrid) {
+              g_cv[i] = v;
+            } else {
+              for (int r = 0; r < n_ranks; ++r)
+                cluster.map_shared_rank(s_cv, r)[i] = v;
+            }
           }
-          if (lane < n_ranks) {
+          if constexpr (kGrid) {
+            if (lane == 0) {
+              g_pos[0] = st.xs[at];
+              g_pos[1] = st.ys[at];
+            }
+          } else if (lane < n_ranks) {
             Shared* other = cluster.map_shared_rank(&sh, lane);
             other->x = st.xs[at];
             other->y = st.ys[at];
@@ -751,8 +926,20 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
     if constexpr (!kShipRaw) {
-      cluster_barrier(cluster, n_ranks);
-      if (!sh.go) break;
+      if constexpr (kGrid) {
+        cg::this_grid().sync();
+        if (!sh.go) break;
+        for (int i = tid; i < n_images; i += n_threads)
+          s_cv[i] = __ldcg(g_cv + i);
+        if (tid == 0) {
+          sh.x = __ldcg(g_pos);
+          sh.y = __ldcg(g_pos + 1);
+        }
+        __syncthreads();
+      } else {
+        cluster_barrier(cluster, n_ranks);
+        if (!sh.go) break;
+      }
       cv = s_cv;
       wx = sh.x;
       wy = sh.y;
@@ -760,9 +947,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 
     // Steps 6 and 1-2: subtract the component's PSF at every candidate of
     // the slice and integrate the new values.
-    best = sweep<true>(st, psf, plane, s_coef, cv, n_images, n_pols,
-                       height / 2 - wy, width / 2 - wx, height, width,
-                       allow_negative);
+    best = sweep<true, kPlanes>(st, psf, plane, s_coef, cv, n_images, n_pols,
+                                height / 2 - wy, width / 2 - wx, height,
+                                width, allow_negative);
   }
 
   if constexpr (kOnChip) {
@@ -778,33 +965,44 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// The instantiation for a launch's state place, exchange and fit.
-template <bool kOnChip, bool kShipRaw>
+// The instantiation for a launch's route, state place, exchange and fit.
+template <bool kGrid, bool kOnChip, bool kShipRaw>
 const void* kernel_for(int fit_mode) {
   switch (fit_mode) {
     case kFitLogPolynomial:
       return reinterpret_cast<const void*>(
-          &subminor_loop_kernel<kOnChip, kShipRaw, kFitLogPolynomial>);
+          &subminor_loop_kernel<kGrid, kOnChip, kShipRaw, kFitLogPolynomial>);
     case kFitForced:
       return reinterpret_cast<const void*>(
-          &subminor_loop_kernel<kOnChip, kShipRaw, kFitForced>);
+          &subminor_loop_kernel<kGrid, kOnChip, kShipRaw, kFitForced>);
     default:
       return reinterpret_cast<const void*>(
-          &subminor_loop_kernel<kOnChip, kShipRaw, kFitProjection>);
+          &subminor_loop_kernel<kGrid, kOnChip, kShipRaw, kFitProjection>);
   }
+}
+
+template <bool kGrid>
+const void* kernel_for(bool on_chip, bool ship_raw, int fit_mode) {
+  return on_chip ? (ship_raw ? kernel_for<kGrid, true, true>(fit_mode)
+                             : kernel_for<kGrid, true, false>(fit_mode))
+                 : (ship_raw ? kernel_for<kGrid, false, true>(fit_mode)
+                             : kernel_for<kGrid, false, false>(fit_mode));
 }
 
 }  // namespace
 
 extern "C" {
 
-// cluster_size, threads, slice, on_chip, ship_raw and shared_bytes are the
-// plan of kernels/subminor_loop.py::cluster_plan.  fit_mode is a FitMode;
-// fit_consts is the projection [C, C] (or null: no fit) or the other fits'
-// packed constants, n_terms their T, and terms the forced terms [T-1, k]
-// of the candidates.  offsets, null for one segment of k candidates, holds
-// the n_tiles + 1 segment bounds of the tile axis; k is then their total,
-// and out holds n_tiles results.
+// cluster_size, threads, slice, on_chip, ship_raw, shared_bytes and
+// grid_blocks are the plan of kernels/subminor_loop.py::cluster_plan.
+// fit_mode is a FitMode; fit_consts is the projection [C, C] (or null: no
+// fit) or the other fits' packed constants, n_terms their T, and terms the
+// forced terms [T-1, k] of the candidates.  offsets, null for one segment
+// of k candidates, holds the n_tiles + 1 segment bounds of the tile axis; k
+// is then their total, and out holds n_tiles results.  grid_blocks > 0
+// takes the grid route: that many blocks (cluster_size 1) in one
+// cooperative launch, with workspace the grid's words (2 * kSlotWords *
+// grid_blocks + n_images + 2 ints).
 int subminor_loop(float* res, float* model, const float* rms, const int* xs,
                   const int* ys, const float* psf, const float* coef,
                   int fit_mode, const float* fit_consts, int n_terms,
@@ -815,22 +1013,25 @@ int subminor_loop(float* res, float* model, const float* rms, const int* xs,
                   float divergence_limit, int allow_negative,
                   int stop_on_negative, int cluster_size, int threads,
                   int slice, int on_chip, int ship_raw, int shared_bytes,
-                  void* stream) {
+                  int grid_blocks, int* workspace, void* stream) {
+  const bool grid = grid_blocks > 0;
   const bool fitted = fit_mode == kFitLogPolynomial || fit_mode == kFitForced;
   const int n_forced = fit_mode == kFitForced ? n_terms - 1 : 0;
   const int n_chan = n_pols > 0 ? n_images / n_pols : 0;
   const int64_t needed =
       4 * (3 * static_cast<int64_t>(n_images) +
            fit_shared_floats(fit_mode, n_images, n_chan, n_terms) +
+           (grid ? static_cast<int64_t>(kSlotWords) * grid_blocks : 0) +
            (on_chip ? static_cast<int64_t>(slice) *
                           (n_images + 3 + n_forced)
                     : 0));
+  const int blocks = grid ? grid_blocks : cluster_size;
   if (n_images < 1 || n_images > kMaxImages || n_pols < 1 ||
       n_images % n_pols != 0 || k < 1 || cluster_size < 1 ||
       cluster_size > kMaxCluster || (cluster_size & (cluster_size - 1)) ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
       slice < 1 ||
-      (!offsets && static_cast<int64_t>(slice) * cluster_size < k) ||
+      (!offsets && static_cast<int64_t>(slice) * blocks < k) ||
       fit_mode < kFitNone || fit_mode > kFitForced ||
       (fit_mode == kFitNone && fit_consts) ||
       (fitted && (n_terms < 1 || !fit_consts)) ||
@@ -838,13 +1039,12 @@ int subminor_loop(float* res, float* model, const float* rms, const int* xs,
       (ship_raw && (n_images > kShipMax || n_forced > kShipTerms)) ||
       shared_bytes < needed ||
       n_tiles < 1 || (!offsets && n_tiles != 1) ||
-      static_cast<int64_t>(n_tiles) * cluster_size > INT_MAX)
+      static_cast<int64_t>(n_tiles) * cluster_size > INT_MAX ||
+      grid_blocks < 0 ||
+      (grid && (offsets || !workspace || cluster_size != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel =
-      on_chip ? (ship_raw ? kernel_for<true, true>(fit_mode)
-                          : kernel_for<true, false>(fit_mode))
-              : (ship_raw ? kernel_for<false, true>(fit_mode)
-                          : kernel_for<false, false>(fit_mode));
+  const void* kernel = grid ? kernel_for<true>(on_chip, ship_raw, fit_mode)
+                            : kernel_for<false>(on_chip, ship_raw, fit_mode);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -854,30 +1054,51 @@ int subminor_loop(float* res, float* model, const float* rms, const int* xs,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   cudaLaunchAttribute attribute;
-  attribute.id = cudaLaunchAttributeClusterDimension;
-  attribute.val.clusterDim.x = cluster_size;
-  attribute.val.clusterDim.y = 1;
-  attribute.val.clusterDim.z = 1;
+  if (grid) {
+    // Every block of the grid resident at once, or the launch fails: the
+    // multiprocessors times the blocks each holds at this shared memory
+    // and these threads.
+    int per_sm = 0, device = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, shared_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (static_cast<int64_t>(per_sm) * sms < grid_blocks)
+      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    attribute.id = cudaLaunchAttributeCooperative;
+    attribute.val.cooperative = 1;
+  } else {
+    attribute.id = cudaLaunchAttributeClusterDimension;
+    attribute.val.clusterDim.x = cluster_size;
+    attribute.val.clusterDim.y = 1;
+    attribute.val.clusterDim.z = 1;
+  }
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(cluster_size * n_tiles);
+  config.gridDim = dim3(grid ? grid_blocks : cluster_size * n_tiles);
   config.blockDim = dim3(threads);
   config.dynamicSmemBytes = shared_bytes;
   config.stream = static_cast<cudaStream_t>(stream);
   config.attrs = &attribute;
   config.numAttrs = 1;
-  // The card must be able to run a whole cluster at once (not every
-  // cluster of the tile axis: they wait for one another in nothing).
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  if (!grid) {
+    // The card must be able to run a whole cluster at once (not every
+    // cluster of the tile axis: they wait for one another in nothing).
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  }
 
   void* args[] = {&res,        &model,
                   &rms,        &xs,
                   &ys,         &psf,
                   &coef,       &fit_consts,
                   &n_terms,    &terms,
-                  &offsets,    &out,
+                  &offsets,    &workspace,
+                  &out,
                   &n_images,
                   &n_pols,     &k,
                   &slice,      &height,

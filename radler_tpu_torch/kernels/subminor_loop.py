@@ -7,8 +7,11 @@ candidate state in one launch of ``csrc/subminor_loop.cu`` on CUDA tensors,
 and its plain PyTorch version :func:`subminor_loop_reference` on CPU
 tensors.  The launch is one thread-block cluster (it needs a card of
 compute capability 9.0 or later) whose blocks each keep a slice of the
-candidates in shared memory; :func:`cluster_plan` chooses the cluster's
-size and the state's place from ``N`` and ``K`` alone.  Both versions
+candidates in shared memory, or, where ``N * K`` is above
+``GRID_VALUES``, a cooperative grid of one block a multiprocessor (the
+grid route); :func:`cluster_plan` chooses the route, the cluster's size
+and the state's place from ``N``, ``K`` and the card's multiprocessor
+count (:func:`sm_count`).  Both versions
 update ``residual_k`` and ``model_k`` in place and return a
 small int32 tensor ``(iteration, diverging, bits of the last peak value)``
 on the state's device, which :func:`read_result` brings to the host in one
@@ -92,6 +95,28 @@ STATIC_SHARED_RESERVE = 4096
 # 16 blocks at 100 and at 1000 candidates, 22.1 and 43.6 on one; the 2.5 us
 # at 100 candidates are left to the rule.
 ONE_BLOCK_VALUES = 1024
+# Candidate values (planes times candidates) above which the loop leaves
+# one cluster for the grid route: one block on each multiprocessor, a grid
+# barrier an iteration.  Us per iteration, cluster against grid, at config
+# 2's field (its PSF in L2), one plane: 3.64, 3.67 against 4.17, 4.17 at K
+# = 30,003; 4.47, 4.42 against 4.32, 4.27 at 60,218.  At the 8192^2 x 4
+# field (the PSFs in HBM): one plane 4.43, 4.22 against 4.69, 4.63 at
+# 30,000, 5.15, 4.74 against 4.66, 4.77 at 60,218; four planes 6.70, 6.55
+# against 5.91, 5.88 already at 30,000; 23.88, 23.83 against 7.86, 7.87 at
+# 168,945; 158.17, 158.00 against 17.00, 16.84 at 1,000,000.  The lines
+# cross near 50,000 values.  scripts/subminor_k_times.py routes, NVIDIA
+# H100 80GB HBM3, 700 W.
+GRID_VALUES = 50_000
+# Threads of a grid block at least: with one block a multiprocessor, fewer
+# leave the gathers' latency unhidden.  At 457 to 1280 candidates a block
+# 512 threads were the fastest of 192 to 1024 (at 457 a block: 6.57, 5.96,
+# 5.81, 6.05 us at 192, 256, 512, 1024 threads, one plane); from 2273 a
+# block the rule's own count (928, 1024) won.  scripts/subminor_k_times.py
+# routes, NVIDIA H100 80GB HBM3, 700 W.
+GRID_MIN_THREADS = 512
+# Words of a block's slot on the grid route (csrc/subminor_loop.cu
+# kSlotWords: cmp, idx, val, x, y, 8 raw values, 4 forced terms).
+SLOT_WORDS = 17
 
 
 class SubminorParams(NamedTuple):
@@ -196,57 +221,86 @@ def projection_fit(proj: Optional[torch.Tensor]) -> Optional[SubminorFit]:
 
 
 class ClusterPlan(NamedTuple):
-    """How one launch spreads over its cluster."""
+    """How one launch spreads over its blocks: one cluster of
+    ``cluster_size`` blocks, or (``grid_blocks`` > 0) the grid route's
+    ``grid_blocks`` blocks in one cooperative launch."""
 
-    cluster_size: int  # blocks R, a power of two up to MAX_CLUSTER
+    cluster_size: int  # blocks R, a power of two up to MAX_CLUSTER; 1: grid
     threads: int       # threads per block, a multiple of 32 up to MAX_THREADS
-    slice_len: int     # candidates per block; block r owns [r s, (r + 1) s)
+    slice_len: int     # candidates per block; block b owns [b s, (b + 1) s)
     on_chip: bool      # the slices' state lives in shared memory
     ship_raw: bool     # raw values travel with the argmax: one barrier
     shared_bytes: int  # dynamic shared memory per block
+    grid_blocks: int = 0  # the grid route's blocks; 0: the cluster route
+
+
+def sm_count(device) -> int:
+    """The multiprocessors of the CUDA card ``device``: the grid route's
+    blocks."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def grid_workspace_words(plan: ClusterPlan, n_images: int) -> int:
+    """Words of the grid route's workspace (csrc/subminor_loop.cu): the
+    slots of both parities, cv and the winner's position."""
+    return 2 * SLOT_WORDS * plan.grid_blocks + n_images + 2
 
 
 def cluster_plan(n_images: int, k: int, *, fit: Optional[SubminorFit] = None,
+                 sm_count: Optional[int] = None,
+                 grid_blocks: Optional[int] = None,
                  cluster_size: Optional[int] = None,
                  on_chip: Optional[bool] = None,
                  ship_raw: Optional[bool] = None) -> ClusterPlan:
     """The launch plan for ``n_images`` planes and ``k`` candidates under
-    the spectral fit ``fit``.
+    the spectral fit ``fit``, on a card of ``sm_count`` multiprocessors.
 
-    One block up to ``ONE_BLOCK_VALUES`` values, else ``MAX_CLUSTER``;
-    threads by the candidates of a block; raw values in the exchange up to
+    The grid route above ``GRID_VALUES`` values when ``sm_count`` is given
+    (one block a multiprocessor); else one block up to
+    ``ONE_BLOCK_VALUES`` values, and ``MAX_CLUSTER`` above.  Threads by the
+    candidates of a block; raw values in the exchange up to
     ``SHIP_RAW_MAX_IMAGES`` planes and ``SHIP_RAW_MAX_TERMS`` forced terms.
     The slices' state (``4 * n_images + 12`` bytes per candidate: residual,
     x, y, rms; and ``4 (T - 1)`` with forced terms) lives in shared memory
-    where it fits there beside the per-plane scalars and the fit's
-    constants, else in global memory.  ``cluster_size``, ``on_chip`` and
-    ``ship_raw`` override the choice (tests and timings); a forced choice
-    that the kernel cannot take raises.
+    where it fits there beside the per-plane scalars, the fit's constants
+    and, on the grid route, the copy of an iteration's slots; else in global
+    memory.  ``grid_blocks`` (0: the cluster route), ``cluster_size``,
+    ``on_chip`` and ``ship_raw`` override the choice (tests and timings); a
+    forced choice that the kernel cannot take raises.
     """
     if n_images < 1 or k < 1:
         raise ValueError(f"cluster_plan: {n_images} planes, {k} candidates")
+    if grid_blocks is None:
+        grid_blocks = (sm_count if sm_count and n_images * k > GRID_VALUES
+                       else 0)
     if cluster_size is None:
-        cluster_size = 1 if n_images * k <= ONE_BLOCK_VALUES else MAX_CLUSTER
+        cluster_size = (1 if grid_blocks or n_images * k <= ONE_BLOCK_VALUES
+                        else MAX_CLUSTER)
     if not (1 <= cluster_size <= MAX_CLUSTER
             and cluster_size & (cluster_size - 1) == 0):
         raise ValueError(f"cluster_plan: cluster size {cluster_size}")
-    slice_len = -(-k // cluster_size)
+    if grid_blocks < 0 or (grid_blocks and cluster_size != 1):
+        raise ValueError(f"cluster_plan: {grid_blocks} grid blocks in "
+                         f"clusters of {cluster_size}")
+    slice_len = -(-k // (grid_blocks or cluster_size))
     forced_rows = 0 if fit is None else fit.forced_rows
-    per_plane = 12 * n_images + (
+    fixed = 12 * n_images + 4 * SLOT_WORDS * grid_blocks + (
         0 if fit is None else 4 * fit.shared_floats(n_images))
     state = slice_len * (4 * n_images + 12 + 4 * forced_rows)
-    fits = (per_plane + state + STATIC_SHARED_RESERVE
-            <= SHARED_BYTES_PER_BLOCK)
+    fits = fixed + state + STATIC_SHARED_RESERVE <= SHARED_BYTES_PER_BLOCK
     # About CANDIDATES_PER_THREAD candidates a thread: fewer warps make the
     # block's barrier and reduction cheaper, more hide the gathers.
     warps = math.ceil(slice_len / (32 * CANDIDATES_PER_THREAD))
-    threads = 32 * min(MAX_THREADS // 32, max(MIN_THREADS // 32, warps))
+    least = GRID_MIN_THREADS if grid_blocks else MIN_THREADS
+    threads = 32 * min(MAX_THREADS // 32, max(least // 32, warps))
     if on_chip is None:
         on_chip = fits
     elif on_chip and not fits:
+        blocks = (f"{grid_blocks} grid blocks" if grid_blocks
+                  else f"{cluster_size} blocks")
         raise ValueError(
             f"cluster_plan: {n_images} x {k} values do not fit in the shared "
-            f"memory of {cluster_size} blocks")
+            f"memory of {blocks}")
     can_ship = (n_images <= SHIP_RAW_MAX_IMAGES
                 and forced_rows <= SHIP_RAW_MAX_TERMS)
     if ship_raw is None:
@@ -255,7 +309,8 @@ def cluster_plan(n_images: int, k: int, *, fit: Optional[SubminorFit] = None,
         raise ValueError(f"cluster_plan: {n_images} planes and {forced_rows} "
                          "forced terms cannot ship raw")
     return ClusterPlan(cluster_size, threads, slice_len, bool(on_chip),
-                       bool(ship_raw), per_plane + (state if on_chip else 0))
+                       bool(ship_raw), fixed + (state if on_chip else 0),
+                       grid_blocks)
 
 
 def _decode(row) -> Tuple[int, float, bool]:
@@ -486,7 +541,7 @@ def _entry():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = (
         [ptr] * 7 + [i32, ptr, i32, ptr] + [ptr, i32, ptr] + [i32] * 5
-        + [f32] * 2 + [i32] * 2 + [f32] + [i32] * 8 + [ptr]
+        + [f32] * 2 + [i32] * 2 + [f32] + [i32] * 9 + [ptr, ptr]
     )
     fn.restype = i32
     return fn
@@ -520,6 +575,21 @@ def _fit_pointers(fit: Optional[SubminorFit], n_chan: int, k: int, dev,
     return fit.mode, constants.data_ptr(), t, terms, constants
 
 
+def launch_plan(n_images: int, longest: int, fit: Optional[SubminorFit],
+                sms: int, tiles: bool, plan: Optional[ClusterPlan] = None,
+                name: str = "subminor_loop") -> ClusterPlan:
+    """The plan a launch takes on a card of ``sms`` multiprocessors:
+    ``plan`` where given, else :func:`cluster_plan`'s.  The tile axis
+    (``tiles``) keeps its clusters, since a grid barrier would join its
+    independent loops; a grid plan for it raises."""
+    if plan is None:
+        plan = cluster_plan(n_images, longest, fit=fit,
+                            sm_count=None if tiles else sms)
+    if plan.grid_blocks and tiles:
+        raise ValueError(f"{name}: the tile axis takes no grid plan")
+    return plan
+
+
 def _launch(residual_k, model_k, rms_k, xs, ys, psfs, coef,
             fit: Optional[SubminorFit], params: SubminorParams,
             n_polarizations: int, offsets: Optional[torch.Tensor],
@@ -551,7 +621,12 @@ def _launch(residual_k, model_k, rms_k, xs, ys, psfs, coef,
     mode, constants, n_terms, terms, _keep = _fit_pointers(
         fit, n_psf, k, dev, name)
     offsets_ptr = _check(offsets, "offsets", dev, (n_tiles + 1,), i32)
-    plan = cluster_plan(n, longest, fit=fit) if plan is None else plan
+    plan = launch_plan(n, longest, fit, sm_count(dev), offsets is not None,
+                       plan, name)
+    workspace = None
+    if plan.grid_blocks:
+        workspace = torch.empty(grid_workspace_words(plan, n), dtype=i32,
+                                device=dev)
     launch = _entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -562,7 +637,9 @@ def _launch(residual_k, model_k, rms_k, xs, ys, psfs, coef,
             params.max_iterations, params.divergence_limit,
             int(params.allow_negative), int(params.stop_on_negative),
             plan.cluster_size, plan.threads, plan.slice_len,
-            int(plan.on_chip), int(plan.ship_raw), plan.shared_bytes, stream,
+            int(plan.on_chip), int(plan.ship_raw), plan.shared_bytes,
+            plan.grid_blocks,
+            None if workspace is None else workspace.data_ptr(), stream,
         )
     _raise_on(err, name)
     return out
@@ -591,9 +668,9 @@ def subminor_loop(
     ``n // n_polarizations``), ``coef`` the ``[N]`` linear integration
     coefficients and ``fit`` the optional spectral fit
     (:class:`SubminorFit`).  Returns the output tensor for
-    :func:`read_result`.  The launch follows :func:`cluster_plan` (``_plan``
-    overrides it, for tests and timings); a cluster that the card cannot
-    schedule raises.
+    :func:`read_result`.  The launch follows :func:`cluster_plan` on the
+    card's multiprocessor count (``_plan`` overrides it, for tests and
+    timings); a cluster or a grid that the card cannot schedule raises.
     """
     args = (residual_k, model_k, rms_k, xs, ys, psfs, coef, fit, params)
     if residual_k.device.type == "cpu":

@@ -37,7 +37,9 @@ command line, on one NVIDIA GPU.  Run from the root of a checkout:
     python3 scripts/kernel_probe.py registers PARENT_ROOT .
                         # registers of B1's step instantiations in each
                         # checkout, and whether the single-cube step's SASS
-                        # (the partials-only one) is the first checkout's
+                        # (the partials-only one) is the first checkout's;
+                        # then this checkout's B2 instantiations (cluster
+                        # and grid route): registers and spill stores
 
 ``check`` leaves out the timing phases.  It imports nothing of JAX.
 """
@@ -207,6 +209,9 @@ def main(argv):
     if "registers" in argv:
         cs.say("== B1's step instantiations: registers (cuobjdump) ==")
         step_registers([a for a in argv if Path(a).is_dir()] or ["."])
+        cs.say("== B2's instantiations (route, state place, exchange, fit): "
+               "registers and spills (ptxas) ==")
+        cs._b2_registers()
     if "b2" in argv:
         cs.say("== the subminor kernel against its plain version ==")
         cs.phase_subminor_vs_plain()

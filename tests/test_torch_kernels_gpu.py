@@ -581,6 +581,184 @@ def test_subminor_loop_many_planes(cuda):
     assert sl.read_result(outs[0][0])[0] == 200
 
 
+# ---------------------------------------------------------------------------
+# B2's grid route: one block a multiprocessor, a grid barrier an iteration
+# ---------------------------------------------------------------------------
+
+GRID_SIZE = 1024
+
+
+def grid_case(C, P, k, device, seed, fit_mode="NO_FITTING"):
+    """B2's arguments over the K brightest pixels (raster order) of a
+    GRID_SIZE^2 field of 400 signed Gaussian sources (sigma 3) on noise,
+    each plane the field scaled and with noise of its own at the
+    candidates; Gaussian PSFs with a sidelobe ring at image size, widening
+    with the channel; an rms factor; and the fit of ``fit_mode`` (2 terms;
+    the forced terms a spectral-index image about -0.7)."""
+    rng = np.random.default_rng(seed)
+    n = C * P
+    size = GRID_SIZE
+    sky = np.zeros((size, size))
+    ys, xs = rng.integers(8, size - 8, (2, 400))
+    np.add.at(sky, (ys, xs), rng.uniform(-1.0, 1.0, 400))
+    yy, xx = np.mgrid[0:size, 0:size]
+    r2 = (yy - size // 2) ** 2.0 + (xx - size // 2) ** 2.0
+    blob = np.fft.ifftshift(np.exp(-r2 / 18.0))
+    field = np.fft.irfft2(np.fft.rfft2(sky) * np.fft.rfft2(blob),
+                          s=(size, size))
+    field += rng.normal(scale=0.002, size=field.shape)
+    idx = np.sort(np.argsort(np.abs(field).ravel())[-k:])
+    scale = np.linspace(1.2, 0.8, n)[:, None]
+    state = (field.ravel()[idx][None, :] * scale
+             + rng.normal(scale=0.001, size=(n, k))).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    r2_d = t(r2.astype(np.float32))
+    psfs = torch.stack([
+        torch.exp(-r2_d / (2.0 * (1.5 + 0.1 * c) ** 2))
+        + 0.05 * torch.exp(-(r2_d.sqrt() - 9.0) ** 2 / 4.0)
+        for c in range(C)]).contiguous()
+    xs_d = t((idx % size).astype(np.int32))
+    ys_d = t((idx // size).astype(np.int32))
+    rms_k = t((0.6 + 0.8 * (idx % size) / size).astype(np.float32))
+    coef = torch.full((n,), 1.0 / n, device=device)
+    fit = None
+    if fit_mode != "NO_FITTING":
+        nu = tuple(1.2e8 + 2e7 * c for c in range(C))
+        fitter = SpectralFitter(getattr(rd.SpectralFittingMode, fit_mode), 2,
+                                nu, (1.0,) * C)
+        if fit_mode == "POLYNOMIAL":
+            fit = sl.projection_fit(torch.as_tensor(
+                np.asarray(fitter._projection, np.float32), device=device))
+        else:
+            if fit_mode == "FORCED_TERMS":
+                fitter.set_forced_terms(t(rng.normal(
+                    -0.7, 0.2, (1, size, size)).astype(np.float32)))
+            fit = fit_arguments(fitter, device, xs_d, ys_d)
+    return (t(state), rms_k, xs_d, ys_d, psfs, coef, fit)
+
+
+# (C, P, K, fit): K on both sides of the crossover at one plane; the
+# spectral cells' K at 4 planes with every fit (a ragged last slice: K is
+# no multiple of the multiprocessors); 9 planes (no raw values in the
+# slot) with the fits; 80 planes at a K whose state outgrows every
+# block's shared memory.
+GRID_CASES = [
+    (1, 1, sl.GRID_VALUES - 1, "NO_FITTING"),
+    (1, 1, sl.GRID_VALUES, "NO_FITTING"),
+    (1, 1, sl.GRID_VALUES + 1, "NO_FITTING"),
+    (1, 1, 168_945, "NO_FITTING"),
+    (1, 1, 300_000, "NO_FITTING"),
+    (4, 1, 168_945, "NO_FITTING"),
+    (4, 1, 168_945, "POLYNOMIAL"),
+    (4, 1, 168_945, "LOG_POLYNOMIAL"),
+    (4, 1, 168_945, "FORCED_TERMS"),
+    (4, 1, 300_000, "LOG_POLYNOMIAL"),
+    (9, 1, 168_945, "NO_FITTING"),
+    (9, 1, 168_945, "LOG_POLYNOMIAL"),
+    (3, 3, 168_945, "FORCED_TERMS"),
+    (20, 4, 300_000, "NO_FITTING"),
+]
+
+
+@pytest.mark.parametrize("case", GRID_CASES,
+                         ids=lambda c: "{}x{}-K{}-{}".format(*c))
+def test_subminor_grid_route_bit_equal_to_plain_and_cluster(cuda, case):
+    """The grid route (by the wrapper's own plan above the crossover, and
+    forced by ``_plan`` below it), the cluster route forced by ``_plan``,
+    and the plain version: equal output bits and state."""
+    C, P, k, fit_mode = case
+    n = C * P
+    state, rms_k, xs, ys, psfs, coef, fit = grid_case(C, P, k, cuda,
+                                                      seed=k % 97 + n)
+    sms = sl.sm_count(cuda)
+    own = sl.cluster_plan(n, k, fit=fit, sm_count=sms)
+    assert (own.grid_blocks == sms) == (n * k > sl.GRID_VALUES)
+    if n == 80:  # 96 MB of state: beyond every block's shared memory
+        assert not sl.cluster_plan(n, k, fit=fit, grid_blocks=sms).on_chip
+    params = sl.SubminorParams.make(0.0, 0.1, 0, 60 if n < 20 else 30, 0.0,
+                                    True, False)
+    plans = ["plain", None, sl.cluster_plan(n, k, fit=fit),
+             sl.cluster_plan(n, k, fit=fit, grid_blocks=sms)]
+    outs = []
+    for plan in plans:
+        res = state.clone()
+        model = torch.zeros_like(res)
+        args = (res, model, rms_k, xs, ys, psfs, coef, fit, params)
+        if plan == "plain":
+            out = sl.subminor_loop_reference(*args, n_polarizations=P)
+        else:
+            out = sl.subminor_loop(*args, n_polarizations=P, _plan=plan)
+        torch.cuda.synchronize()
+        outs.append((out, res, model))
+    op, rp, mp = outs[0]
+    for ok, rk, mk in outs[1:]:
+        assert torch.equal(ok, op)
+        assert torch.equal(rk, rp) and torch.equal(mk, mp)
+    assert sl.read_result(op)[0] == params.max_iterations
+
+
+@pytest.mark.parametrize("plan", [
+    dict(on_chip=False), dict(ship_raw=False),
+    dict(on_chip=False, ship_raw=False), dict(grid_blocks=2)],
+    ids=["global", "no-raw", "global-no-raw", "2-a-sm"])
+def test_subminor_grid_forms_bit_equal_to_plain(cuda, plan):
+    """The grid with its state in global memory, without raw values in the
+    slot, both, and at two blocks a multiprocessor, each at the spectral
+    cells' K with the forced-term fit and the threshold, divergence and
+    iteration stops."""
+    state, rms_k, xs, ys, psfs, coef, fit = grid_case(4, 1, 168_945, cuda,
+                                                      seed=3,
+                                                      fit_mode="FORCED_TERMS")
+    sms = sl.sm_count(cuda)
+    kw = dict(plan)
+    kw["grid_blocks"] = kw.get("grid_blocks", 1) * sms
+    forced = sl.cluster_plan(4, 168_945, fit=fit, **kw)
+    peak = float(state.abs().max())
+    for params in (
+            sl.SubminorParams.make(0.3 * peak, 0.1, 0, 500, 0.0, True, False),
+            sl.SubminorParams.make(0.0, 0.1, 0, 500, 1.0001, True, False),
+            sl.SubminorParams.make(0.0, 0.1, 5, 45, 0.0, False, True)):
+        outs = []
+        for run in ("plain", forced):
+            res = state.clone()
+            model = torch.zeros_like(res)
+            args = (res, model, rms_k, xs, ys, psfs, coef, fit, params)
+            if run == "plain":
+                out = sl.subminor_loop_reference(*args, n_polarizations=1)
+            else:
+                out = sl.subminor_loop(*args, n_polarizations=1, _plan=run)
+            torch.cuda.synchronize()
+            outs.append((out, res, model))
+        (op, rp, mp), (ok, rk, mk) = outs
+        assert torch.equal(ok, op)
+        assert torch.equal(rk, rp) and torch.equal(mk, mp)
+
+
+def test_subminor_grid_the_card_cannot_hold_raises(cuda):
+    """A grid of more blocks than the card can hold at once (four a
+    multiprocessor at 1024 threads) raises from the wrapper; nothing falls
+    back to a cluster.  A grid plan on the tile axis raises too."""
+    state, rms_k, xs, ys, psfs, coef, _ = grid_case(1, 1, 120_000, cuda, 4)
+    sms = sl.sm_count(cuda)
+    plan = sl.cluster_plan(1, 120_000, grid_blocks=4 * sms)._replace(
+        threads=1024)
+    params = sl.SubminorParams.make(0.0, 0.1, 0, 10, 0.0, True, False)
+    res = state.clone()
+    before = sl.subminor_loop.launches
+    with pytest.raises(RuntimeError):
+        sl.subminor_loop(res, torch.zeros_like(res), rms_k, xs, ys, psfs,
+                         coef, None, params, n_polarizations=1, _plan=plan)
+    assert sl.subminor_loop.launches == before
+    offsets = torch.tensor([0, 60_000, 120_000], dtype=torch.int32,
+                           device=cuda)
+    with pytest.raises(ValueError):
+        sl.subminor_loop_tiles(
+            res, torch.zeros_like(res), rms_k, xs, ys, psfs, coef, None,
+            params, offsets, [60_000, 60_000], n_polarizations=1,
+            _plan=sl.cluster_plan(1, 60_000, grid_blocks=sms))
+    torch.cuda.synchronize()
+
+
 # Segment lengths of B2's tile axis over a candidate set of K: ragged, one
 # tile empty (the rest goes to the last tile).
 TILE_SEGMENTS = {1: [], 2: [0], 8: [150, 0, 37, 1200, 5, 640, 300]}
