@@ -904,12 +904,19 @@ def run_chunks(iterate, buffers: LoopBuffers, params: LoopParams,
                start_iteration: int, active: bool) -> LoopResult:
     """Call ``iterate()`` (one loop iteration, enqueued on the device and a
     no-op once ``state[ACTIVE]`` is 0) ``CHUNK`` times between two host
-    reads of the state, until the loop stops; return its result."""
+    reads of the state, until the loop stops; return its result.
+
+    ``run_chunks.enqueued`` counts the iterations enqueued, and
+    ``run_chunks.noops`` those of them that ran after the loop had stopped
+    on the device, from the host reads already made."""
     iteration = start_iteration
     while active:
-        for _ in range(min(CHUNK, params.max_iterations - iteration)):
+        n = min(CHUNK, params.max_iterations - iteration)
+        for _ in range(n):
             iterate()
         host = buffers.state.tolist()
+        run_chunks.enqueued += n
+        run_chunks.noops += n - (host[ITERATION] - iteration)
         iteration, active = host[ITERATION], bool(host[ACTIVE])
     host = buffers.state.tolist()
     return LoopResult(
@@ -918,6 +925,10 @@ def run_chunks(iterate, buffers: LoopBuffers, params: LoopParams,
         found=bool(host[FOUND]),
         diverging=bool(host[DIVERGING]),
     )
+
+
+run_chunks.enqueued = 0
+run_chunks.noops = 0
 
 
 def hogbom_loop(

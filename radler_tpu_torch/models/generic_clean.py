@@ -48,6 +48,7 @@ from ..parallel.mesh import (
     run_together,
 )
 from ..settings import OptimizationAlgorithm, SpectralFittingMode
+from ..utils.profiling import annotate
 from .base import DeconvolutionAlgorithm, DeconvolutionResult
 from .subminor import (
     SubMinorLoop,
@@ -121,12 +122,13 @@ class GenericClean(DeconvolutionAlgorithm):
         if self.stop_on_negative_components:
             self.allow_negative_components = True
 
-        integrated = get_linear_integrated(dirty_set.data, meta)
-        pk = self._find_peak(integrated)
-        # One host read for the initial peak.
-        pk_value, pk_found, pk_x, pk_y = torch.stack(
-            [pk.value, pk.found.float(), pk.x.float(), pk.y.float()]
-        ).tolist()
+        with annotate("generic.peak"):
+            integrated = get_linear_integrated(dirty_set.data, meta)
+            pk = self._find_peak(integrated)
+            # One host read for the initial peak.
+            pk_value, pk_found, pk_x, pk_y = torch.stack(
+                [pk.value, pk.found.float(), pk.x.float(), pk.y.float()]
+            ).tolist()
         found = bool(pk_found)
         result = DeconvolutionResult()
         result.starting_peak_value = pk_value if found else None
@@ -344,11 +346,12 @@ class GenericClean(DeconvolutionAlgorithm):
         )
         self.iteration_number = sub.current_iteration
         if max_value is not None:
-            new_residual, full_model = sub.correct_residual_dirty(
-                dirty_set.data, psfs
-            )
-            dirty_set.data = new_residual
-            model_set.data = model_set.data + full_model
+            with annotate("clark.correct"):
+                new_residual, full_model = sub.correct_residual_dirty(
+                    dirty_set.data, psfs
+                )
+                dirty_set.data = new_residual
+                model_set.data = model_set.data + full_model
         # When the subminor loop selected no pixels, the reference's fallback
         # FindPeak runs over a zeroed scratch buffer and finds nothing
         # (generic_clean.cc:156-162): max_value stays unset.

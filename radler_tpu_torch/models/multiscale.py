@@ -77,6 +77,7 @@ from ..settings import (
 )
 from ..utils import logging as log
 from ..utils.fft_size import get_convolution_size
+from ..utils.profiling import annotate
 from .base import DeconvolutionAlgorithm, DeconvolutionResult
 from .multiscale_fused import (
     FacetFusedResult,
@@ -882,10 +883,11 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         the FFT work and the host decisions stay on the lead."""
         meta: CubeMeta = dirty_set.meta
         width, height = dirty_set.width, dirty_set.height
-        (kernel_f, twice, psf_f, kernel_f_large, psf_f_large, bias, gain_arr,
-         split, padded_small, padded_large) = self._prepare_fused_banks(
-            meta, width, height, psfs)
-        valid_stack = self._scale_valid_stack(height, width, psfs.device)
+        with annotate("multiscale.banks"):
+            (kernel_f, twice, psf_f, kernel_f_large, psf_f_large, bias,
+             gain_arr, split, padded_small, padded_large
+             ) = self._prepare_fused_banks(meta, width, height, psfs)
+            valid_stack = self._scale_valid_stack(height, width, psfs.device)
         fitter = self.spectral_fitter
         if fitter is not None and not fitter.is_active:
             fitter = None
@@ -905,22 +907,23 @@ class MultiScaleAlgorithm(DeconvolutionAlgorithm):
         if not mesh_subminor_eligible(mesh, meta, height, fitter):
             mesh = None
 
-        out = fused_multiscale_minor_loop(
-            residual, model, kernel_f, twice, psf_f, kernel_f_large,
-            psf_f_large, valid_stack, rms_factor, bias, gain_arr,
-            self.threshold, self.major_iteration_threshold,
-            self.major_loop_gain, self.ms_settings.sub_minor_loop_gain,
-            self.minor_loop_gain, self.divergence_limit,
-            self.iteration_number, self.max_iterations,
-            max(8, len(self.scale_infos) * 3 // 2),
-            meta=meta,
-            allow_negative=self.allow_negative_components,
-            stop_on_negative=self.stop_on_negative_components,
-            fitter=fitter, split=split, padded_small=padded_small,
-            padded_large=padded_large,
-            track_masks=self.track_per_scale_masks,
-            track_components=self.track_components, mesh=mesh,
-        )
+        with annotate("multiscale.loop"):
+            out = fused_multiscale_minor_loop(
+                residual, model, kernel_f, twice, psf_f, kernel_f_large,
+                psf_f_large, valid_stack, rms_factor, bias, gain_arr,
+                self.threshold, self.major_iteration_threshold,
+                self.major_loop_gain, self.ms_settings.sub_minor_loop_gain,
+                self.minor_loop_gain, self.divergence_limit,
+                self.iteration_number, self.max_iterations,
+                max(8, len(self.scale_infos) * 3 // 2),
+                meta=meta,
+                allow_negative=self.allow_negative_components,
+                stop_on_negative=self.stop_on_negative_components,
+                fitter=fitter, split=split, padded_small=padded_small,
+                padded_large=padded_large,
+                track_masks=self.track_per_scale_masks,
+                track_components=self.track_components, mesh=mesh,
+            )
         dirty_set.data = out.residual
         model_set.data = out.model
         self.iteration_number = out.iteration_number

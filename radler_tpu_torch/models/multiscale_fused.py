@@ -65,6 +65,7 @@ from ..ops.peak_finder import FLT_MIN
 from ..parallel.mesh import mesh_hogbom_loop
 from ..settings import SpectralFittingMode
 from ..utils.device_consts import device_const
+from ..utils.profiling import annotate
 
 f32 = np.float32
 
@@ -379,8 +380,10 @@ def fused_multiscale_minor_loop(
     res_f = forward_fft2_padded(residual, padded_small)
 
     def find_maxima(res_f: torch.Tensor):
-        return spectral_scale_maxima(res_f, lin, kernel_f, padded_small,
-                                     valid_stack, rms_factor, allow_negative)
+        with annotate("multiscale.maxima"):
+            return spectral_scale_maxima(res_f, lin, kernel_f, padded_small,
+                                         valid_stack, rms_factor,
+                                         allow_negative)
 
     # Thresholds (multiscale_algorithm.cc:286-321), in float32.
     vals, xs, ys, found = find_maxima(res_f)
@@ -414,53 +417,60 @@ def fused_multiscale_minor_loop(
             and any_found0
         ):
             break
-        biased_peak = abs(vals[s] * bias[s])
-        sub_gain_threshold = biased_peak * (one - sub_loop_gain)
-        countdown -= int(first_threshold > sub_gain_threshold)
-        thr_sub = max(sub_gain_threshold, first_threshold) / bias[s]
+        # The pass's host decisions, scale convolution and flux sums are
+        # its span's self time.
+        with annotate("multiscale.pass"):
+            biased_peak = abs(vals[s] * bias[s])
+            sub_gain_threshold = biased_peak * (one - sub_loop_gain)
+            countdown -= int(first_threshold > sub_gain_threshold)
+            thr_sub = max(sub_gain_threshold, first_threshold) / bias[s]
 
-        conv_res = scale_convolved_cube(res_f, kernel_f[s], padded_small,
-                                        (H, W))
-        weight = valid_stack[s].to(torch.float32)
-        if rms_factor is not None:
-            weight = weight * rms_factor
+            conv_res = scale_convolved_cube(res_f, kernel_f[s], padded_small,
+                                            (H, W))
+            weight = valid_stack[s].to(torch.float32)
+            if rms_factor is not None:
+                weight = weight * rms_factor
 
-        it_before = it
-        _, comp, it, value, _, sub_div = dense_subminor_loop(
-            conv_res, twice_psfs[s], weight, rms_factor, float(thr_sub),
-            float(gain_arr[s]), it, max_iterations, float(divergence_limit),
-            (float(vals[s]), int(xs[s]), int(ys[s]), bool(found[s])),
-            meta=meta, allow_negative=allow_negative,
-            stop_on_negative=stop_on_negative, fitter=fitter,
-            coefficients=coefficients, mesh=mesh,
-        )
-        nocomp = it == it_before
-        div = bool(sub_div) or bool(
-            divergence_limit != 0.0
-            and abs(f32(value)) > initial_peak * divergence_limit)
+            it_before = it
+            with annotate("multiscale.dense"):
+                _, comp, it, value, _, sub_div = dense_subminor_loop(
+                    conv_res, twice_psfs[s], weight, rms_factor,
+                    float(thr_sub), float(gain_arr[s]), it, max_iterations,
+                    float(divergence_limit),
+                    (float(vals[s]), int(xs[s]), int(ys[s]), bool(found[s])),
+                    meta=meta, allow_negative=allow_negative,
+                    stop_on_negative=stop_on_negative, fitter=fitter,
+                    coefficients=coefficients, mesh=mesh,
+                )
+            nocomp = it == it_before
+            div = bool(sub_div) or bool(
+                divergence_limit != 0.0
+                and abs(f32(value)) > initial_peak * divergence_limit)
 
-        if s < split:
-            correct_small(res_f, mod, comp, kernel_f[s], psf_planes,
-                          padded_small, expand)
-        else:
-            correct_large(res_f, mod, comp, kernel_f_large[s - split],
-                          psf_planes_large, padded_small, padded_large,
-                          expand)
+            with annotate("multiscale.correct"):
+                if s < split:
+                    correct_small(res_f, mod, comp, kernel_f[s], psf_planes,
+                                  padded_small, expand)
+                else:
+                    correct_large(res_f, mod, comp, kernel_f_large[s - split],
+                                  psf_planes_large, padded_small, padded_large,
+                                  expand)
 
-        ncomp[s] += it - it_before
-        flux[s] += expand_planes(comp.sum(dim=(1, 2)), expand).sum()
-        if track_masks:
-            mask_acc[s] |= torch.any(comp != 0.0, dim=0)
-        if track_components:
-            planes = expand_planes(comp, expand)
-            comp_acc[s] = planes if s not in comp_acc else comp_acc[s] + planes
+            ncomp[s] += it - it_before
+            flux[s] += expand_planes(comp.sum(dim=(1, 2)), expand).sum()
+            if track_masks:
+                mask_acc[s] |= torch.any(comp != 0.0, dim=0)
+            if track_components:
+                planes = expand_planes(comp, expand)
+                comp_acc[s] = (planes if s not in comp_acc
+                               else comp_acc[s] + planes)
 
-        # Scale (de)activation uses the maxima before the refresh
-        # (multiscale_algorithm.cc:636-656) ...
-        act_thr = abs(vals[s]) * (one - minor_loop_gain) * bias[s]
-        active = (np.arange(S) == s) | (np.abs(vals * bias) > act_thr)
-        # ... then every scale's maxima are refreshed.
-        vals, xs, ys, found = find_maxima(res_f)
+            # Scale (de)activation uses the maxima before the refresh
+            # (multiscale_algorithm.cc:636-656) ...
+            act_thr = abs(vals[s]) * (one - minor_loop_gain) * bias[s]
+            active = (np.arange(S) == s) | (np.abs(vals * bias) > act_thr)
+            # ... then every scale's maxima are refreshed.
+            vals, xs, ys, found = find_maxima(res_f)
 
     res_out = inverse_fft2_real_trimmed(res_f, padded_small,
                                         (H, W)).contiguous()

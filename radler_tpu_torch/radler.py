@@ -56,6 +56,7 @@ from .parallel import mesh as mesh_module
 from .parallel.mesh import Mesh, make_mesh
 from .parallel.parallel_deconvolution import ParallelDeconvolution
 from .utils import logging as log
+from .utils.profiling import annotate
 
 def _check_image(name: str, array, settings: Settings) -> None:
     if isinstance(array, torch.Tensor):
@@ -105,43 +106,44 @@ class Radler:
         n_deconvolution_groups: int = 0,
         device=None,
     ):
-        settings.validate()
-        self.settings = settings
-        self._parallel = ParallelDeconvolution(settings)
-        self._image_width = settings.trimmed_image_width
-        self._image_height = settings.trimmed_image_height
-        self._pixel_scale_x = settings.pixel_scale.x
-        self._pixel_scale_y = settings.pixel_scale.y
-        self._beam_size = beam_size
-        self._auto_mask_is_finished = False
-        self._auto_mask: Optional[np.ndarray] = None
-        self._auto_mask_finishing_iteration = 0
-        self._clean_mask: Optional[np.ndarray] = None
-        self._table: Optional[WorkTable] = None
+        with annotate("radler.init"):
+            settings.validate()
+            self.settings = settings
+            self._parallel = ParallelDeconvolution(settings)
+            self._image_width = settings.trimmed_image_width
+            self._image_height = settings.trimmed_image_height
+            self._pixel_scale_x = settings.pixel_scale.x
+            self._pixel_scale_y = settings.pixel_scale.y
+            self._beam_size = beam_size
+            self._auto_mask_is_finished = False
+            self._auto_mask: Optional[np.ndarray] = None
+            self._auto_mask_finishing_iteration = 0
+            self._clean_mask: Optional[np.ndarray] = None
+            self._table: Optional[WorkTable] = None
 
-        if isinstance(psf_or_table, WorkTable):
-            if residual is not None or model is not None:
-                raise RuntimeError(
-                    "Pass either a WorkTable or psf/residual/model arrays"
+            if isinstance(psf_or_table, WorkTable):
+                if residual is not None or model is not None:
+                    raise RuntimeError(
+                        "Pass either a WorkTable or psf/residual/model arrays"
+                    )
+                table = psf_or_table
+            else:
+                psf_in = (
+                    psf_or_table
+                    if isinstance(psf_or_table, torch.Tensor)
+                    else np.asarray(psf_or_table)
                 )
-            table = psf_or_table
-        else:
-            psf_in = (
-                psf_or_table
-                if isinstance(psf_or_table, torch.Tensor)
-                else np.asarray(psf_or_table)
-            )
-            table = self._make_table_from_arrays(
-                psf_in,
-                residual,
-                model,
-                polarization,
-                frequencies,
-                weights,
-                n_deconvolution_groups,
-            )
-        self._device = _table_device(table, device)
-        self._initialize_deconvolution_algorithm(table)
+                table = self._make_table_from_arrays(
+                    psf_in,
+                    residual,
+                    model,
+                    polarization,
+                    frequencies,
+                    weights,
+                    n_deconvolution_groups,
+                )
+            self._device = _table_device(table, device)
+            self._initialize_deconvolution_algorithm(table)
 
     # ------------------------------------------------------------------
     def _make_table_from_arrays(
@@ -322,160 +324,167 @@ class Radler:
         Returns ``True`` when the major-iteration threshold was reached and
         the caller should run another predict/invert round.
         """
-        settings = self.settings
-        table = self._table
-        assert table is not None
-        table.validate_psfs()
-        log.info(f" == Deconvolving ({major_iteration_number}) ==")
+        with annotate("radler.perform"):
+            settings = self.settings
+            table = self._table
+            assert table is not None
+            table.validate_psfs()
+            log.info(f" == Deconvolving ({major_iteration_number}) ==")
 
-        def image_set() -> ImageSet:
-            return ImageSet.from_table(
-                table,
-                settings.squared_joins,
-                settings.linked_polarizations,
-                self._image_width,
-                self._image_height,
-                self._device,
+            def image_set() -> ImageSet:
+                return ImageSet.from_table(
+                    table,
+                    settings.squared_joins,
+                    settings.linked_polarizations,
+                    self._image_width,
+                    self._image_height,
+                    self._device,
+                )
+
+            residual_set = image_set()
+            model_set = image_set()
+            with annotate("radler.perform.load"):
+                residual_set.load_and_average(True)
+                model_set.load_and_average(False)
+
+            with annotate("radler.perform.noise"):
+                integrated = get_linear_integrated(residual_set.data,
+                                                   residual_set.meta)
+                median, stddev = median_and_stddev_from_mad(integrated)
+                # One host read for both noise figures.
+                median, stddev = torch.stack([median, stddev]).tolist()
+            log.info(
+                f"Estimated standard deviation of background noise: {stddev:.4g} Jy"
             )
-
-        residual_set = image_set()
-        model_set = image_set()
-        residual_set.load_and_average(True)
-        model_set.load_and_average(False)
-
-        integrated = get_linear_integrated(residual_set.data, residual_set.meta)
-        median, stddev = median_and_stddev_from_mad(integrated)
-        # One host read for both noise figures.
-        median, stddev = torch.stack([median, stddev]).tolist()
-        log.info(
-            f"Estimated standard deviation of background noise: {stddev:.4g} Jy"
-        )
-        auto_mask_is_enabled = (
-            settings.auto_mask_sigma is not None
-            or settings.absolute_auto_mask_threshold is not None
-        )
-        if auto_mask_is_enabled and self._auto_mask_is_finished:
-            # Deeper-cleaning phase: double the gain, drop the RMS weighting
-            # (``cpp/radler.cc:172-185``).
-            self._parallel.set_minor_loop_gain(
-                min(1.0, settings.minor_loop_gain * 2.0)
+            auto_mask_is_enabled = (
+                settings.auto_mask_sigma is not None
+                or settings.absolute_auto_mask_threshold is not None
             )
-            self._parallel.set_rms_factor_image(None)
-            if (
-                settings.component_optimization_algorithm
-                != OptimizationAlgorithm.CLEAN
-            ):
-                self._parallel.set_component_optimization(
+            if auto_mask_is_enabled and self._auto_mask_is_finished:
+                # Deeper-cleaning phase: double the gain, drop the RMS weighting
+                # (``cpp/radler.cc:172-185``).
+                self._parallel.set_minor_loop_gain(
+                    min(1.0, settings.minor_loop_gain * 2.0)
+                )
+                self._parallel.set_rms_factor_image(None)
+                if (
                     settings.component_optimization_algorithm
+                    != OptimizationAlgorithm.CLEAN
+                ):
+                    self._parallel.set_component_optimization(
+                        settings.component_optimization_algorithm
+                    )
+            else:
+                self._parallel.set_minor_loop_gain(settings.minor_loop_gain)
+                rms_image = self._local_rms_image(integrated)
+                if rms_image is not None:
+                    # The lowest local RMS takes the noise estimate's place in
+                    # the thresholds below, as in the JAX package.
+                    factor, stddev = rms_ops.make_rms_factor_image(
+                        rms_image, settings.local_rms.strength
+                    )
+                    self._parallel.set_rms_factor_image(factor)
+
+            # Thresholds (``cpp/radler.cc:222-238``).
+            threshold_bias = median if settings.squared_joins else 0.0
+            if auto_mask_is_enabled and not self._auto_mask_is_finished:
+                combined = max(
+                    stddev * (settings.auto_mask_sigma or 0.0) + threshold_bias,
+                    settings.absolute_auto_mask_threshold or 0.0,
                 )
-        else:
-            self._parallel.set_minor_loop_gain(settings.minor_loop_gain)
-            rms_image = self._local_rms_image(integrated)
-            if rms_image is not None:
-                # The lowest local RMS takes the noise estimate's place in
-                # the thresholds below, as in the JAX package.
-                factor, stddev = rms_ops.make_rms_factor_image(
-                    rms_image, settings.local_rms.strength
+                self._parallel.set_threshold(
+                    max(combined, settings.absolute_threshold)
                 )
-                self._parallel.set_rms_factor_image(factor)
-
-        # Thresholds (``cpp/radler.cc:222-238``).
-        threshold_bias = median if settings.squared_joins else 0.0
-        if auto_mask_is_enabled and not self._auto_mask_is_finished:
-            combined = max(
-                stddev * (settings.auto_mask_sigma or 0.0) + threshold_bias,
-                settings.absolute_auto_mask_threshold or 0.0,
-            )
-            self._parallel.set_threshold(
-                max(combined, settings.absolute_threshold)
-            )
-        elif settings.auto_threshold_sigma is not None:
-            self._parallel.set_threshold(
-                max(
-                    stddev * settings.auto_threshold_sigma + threshold_bias,
-                    settings.absolute_threshold,
+            elif settings.auto_threshold_sigma is not None:
+                self._parallel.set_threshold(
+                    max(
+                        stddev * settings.auto_threshold_sigma + threshold_bias,
+                        settings.absolute_threshold,
+                    )
                 )
-            )
 
-        psf_images = residual_set.load_and_average_psfs()
+            with annotate("radler.perform.load"):
+                psf_images = residual_set.load_and_average_psfs()
 
-        if settings.algorithm_type == AlgorithmType.MULTISCALE:
-            # Multiscale tracks a mask per scale in the first auto-mask
-            # phase and cleans inside them in the second.
-            if auto_mask_is_enabled:
-                finished = self._auto_mask_is_finished
-                self._parallel.set_auto_mask_mode(not finished, finished)
-        elif auto_mask_is_enabled and self._auto_mask_is_finished:
-            if self._auto_mask is None:
-                host_model = model_set.data.cpu().numpy()
-                self._auto_mask = np.any(
-                    np.isfinite(host_model) & (host_model != 0.0), axis=0
+            if settings.algorithm_type == AlgorithmType.MULTISCALE:
+                # Multiscale tracks a mask per scale in the first auto-mask
+                # phase and cleans inside them in the second.
+                if auto_mask_is_enabled:
+                    finished = self._auto_mask_is_finished
+                    self._parallel.set_auto_mask_mode(not finished, finished)
+            elif auto_mask_is_enabled and self._auto_mask_is_finished:
+                if self._auto_mask is None:
+                    host_model = model_set.data.cpu().numpy()
+                    self._auto_mask = np.any(
+                        np.isfinite(host_model) & (host_model != 0.0), axis=0
+                    )
+                self._parallel.set_clean_mask(self._auto_mask)
+
+            with annotate("radler.algorithm"):
+                result = self._parallel.execute_major_iteration(
+                    residual_set,
+                    model_set,
+                    psf_images,
+                    table.psf_offsets,
+                    settings.major_loop_gain,
                 )
-            self._parallel.set_clean_mask(self._auto_mask)
+            another_iteration_required = result.another_iteration_required
 
-        result = self._parallel.execute_major_iteration(
-            residual_set,
-            model_set,
-            psf_images,
-            table.psf_offsets,
-            settings.major_loop_gain,
-        )
-        another_iteration_required = result.another_iteration_required
+            # Auto-mask phase flip + stop criteria (``cpp/radler.cc:276-311``).
+            if (
+                not another_iteration_required
+                and auto_mask_is_enabled
+                and not self._auto_mask_is_finished
+            ):
+                log.info(
+                    "Auto-masking threshold reached; continuing next major "
+                    "iteration with deeper threshold and mask."
+                )
+                self._auto_mask_is_finished = True
+                another_iteration_required = True
+                self._auto_mask_finishing_iteration = major_iteration_number
 
-        # Auto-mask phase flip + stop criteria (``cpp/radler.cc:276-311``).
-        if (
-            not another_iteration_required
-            and auto_mask_is_enabled
-            and not self._auto_mask_is_finished
-        ):
-            log.info(
-                "Auto-masking threshold reached; continuing next major "
-                "iteration with deeper threshold and mask."
-            )
-            self._auto_mask_is_finished = True
-            another_iteration_required = True
-            self._auto_mask_finishing_iteration = major_iteration_number
+            if (
+                another_iteration_required
+                and settings.major_iteration_count != 0
+                and major_iteration_number >= settings.major_iteration_count
+            ):
+                another_iteration_required = False
+                log.info(
+                    "Maximum number of major iterations was reached: not "
+                    "continuing deconvolution."
+                )
 
-        if (
-            another_iteration_required
-            and settings.major_iteration_count != 0
-            and major_iteration_number >= settings.major_iteration_count
-        ):
-            another_iteration_required = False
-            log.info(
-                "Maximum number of major iterations was reached: not "
-                "continuing deconvolution."
-            )
+            if (
+                another_iteration_required
+                and self._auto_mask_is_finished
+                and major_iteration_number - self._auto_mask_finishing_iteration
+                >= settings.major_auto_mask_iteration_count
+            ):
+                another_iteration_required = False
+                log.info(
+                    "Auto-mask iteration limit reached: not continuing "
+                    "deconvolution."
+                )
 
-        if (
-            another_iteration_required
-            and self._auto_mask_is_finished
-            and major_iteration_number - self._auto_mask_finishing_iteration
-            >= settings.major_auto_mask_iteration_count
-        ):
-            another_iteration_required = False
-            log.info(
-                "Auto-mask iteration limit reached: not continuing "
-                "deconvolution."
-            )
+            if (
+                another_iteration_required
+                and settings.minor_iteration_count != 0
+                and self._parallel.first_algorithm.iteration_number
+                >= settings.minor_iteration_count
+            ):
+                another_iteration_required = False
+                log.info(
+                    "Maximum number of minor deconvolution iterations was "
+                    "reached: not continuing deconvolution."
+                )
 
-        if (
-            another_iteration_required
-            and settings.minor_iteration_count != 0
-            and self._parallel.first_algorithm.iteration_number
-            >= settings.minor_iteration_count
-        ):
-            another_iteration_required = False
-            log.info(
-                "Maximum number of minor deconvolution iterations was "
-                "reached: not continuing deconvolution."
-            )
-
-        residual_set.assign_and_store_residual()
-        model_set.interpolate_and_store_model(
-            self._parallel.first_algorithm.spectral_fitter
-        )
-        return another_iteration_required
+            with annotate("radler.perform.store"):
+                residual_set.assign_and_store_residual()
+                model_set.interpolate_and_store_model(
+                    self._parallel.first_algorithm.spectral_fitter
+                )
+            return another_iteration_required
 
     # ------------------------------------------------------------------
     def save_state(self, path: str) -> None:
