@@ -255,18 +255,12 @@ class GenericClean(DeconvolutionAlgorithm):
         (``subminor_loop.cc:195-218``) and the model update."""
         meta = dirty_set.meta
         width, height = dirty_set.width, dirty_set.height
-        dev = dirty_set.data.device
-        window = window_mask(
-            height, width, *border_from_ratio(width, height,
-                                              self.clean_border_ratio))
-        if self.clean_mask is not None:
-            window = window & np.asarray(self.clean_mask, bool)
         out = mesh_subminor_clean(
             self.device_mesh,
             dirty_set.data,
             psfs.contiguous(),
             self.rms_factor_image,
-            torch.as_tensor(window, device=dev),
+            self.clean_mask,
             first_threshold * 0.99,
             SubminorParams.make(
                 first_threshold,
@@ -279,6 +273,7 @@ class GenericClean(DeconvolutionAlgorithm):
             ),
             meta=meta,
             fitter=self.spectral_fitter,
+            borders=border_from_ratio(width, height, self.clean_border_ratio),
         )
         self.iteration_number = out.iteration
         if out.any_selected:

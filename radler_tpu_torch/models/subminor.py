@@ -20,7 +20,7 @@ rates and the local-maximum depth estimate that fed them) is not carried.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,7 +36,7 @@ from ..kernels.subminor_loop import (
     subminor_loop,
 )
 from ..ops.convolution import padded_convolve
-from ..ops.peak_finder import window_mask
+from ..ops.peak_finder import window_bounds
 from ..settings import SpectralFittingMode
 from ..utils.device_consts import device_const
 from ..utils.fft_size import calculate_good_fft_size
@@ -67,24 +67,50 @@ def select_candidates(
     residual_cube: torch.Tensor,
     meta: CubeMeta,
     rms_factor: Optional[torch.Tensor],
-    window: torch.Tensor,
+    mask: Union[torch.Tensor, np.ndarray, None],
     threshold: float,
     allow_negative: bool,
+    borders: Tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """The flat indices, in raster order, of the candidate pixels
     (``subminor_loop.cc:143-184``): the linear integration of the ``[N, H,
     W]`` cube, times the rms factor, its magnitude when negatives are
-    allowed, at or above ``threshold`` (as float32) inside the ``[H, W]``
-    bool ``window``.  ``torch.nonzero`` reads the count to the host."""
-    coef = torch.as_tensor(linear_integration_coefficients(meta),
-                           device=residual_cube.device)
-    value = torch.einsum("i,ihw->hw", coef, residual_cube)
+    allowed, at or above ``threshold`` (as float32) inside the window that
+    the ``(horizontal, vertical)`` ``borders`` leave (``window_bounds``)
+    and, where ``mask`` is not None, where the ``[H, W]`` bool ``mask`` (a
+    tensor, or a NumPy array that is copied to the device a call) is True.
+    The window is a slice of the value plane, so no array of the image's
+    size is made for it.  ``torch.nonzero`` reads the count to the host.
+
+    ``select_candidates.calls`` counts the calls and
+    ``select_candidates.host_masks`` those that copied a NumPy mask."""
+    select_candidates.calls += 1
+    _, height, width = residual_cube.shape
+    dev = residual_cube.device
+    y0, y1, x0, x1 = window_bounds(height, width, *borders)
+    coef = torch.as_tensor(linear_integration_coefficients(meta), device=dev)
+    value = torch.einsum("i,ihw->hw", coef, residual_cube)[y0:y1, x0:x1]
     if rms_factor is not None:
-        value = value * rms_factor
+        value = value * rms_factor[y0:y1, x0:x1]
     if allow_negative:
         value = value.abs()
-    selectable = (value >= float(np.float32(threshold))) & window
-    return torch.nonzero(selectable.reshape(-1))[:, 0]
+    selectable = value >= float(np.float32(threshold))
+    if mask is not None:
+        if not isinstance(mask, torch.Tensor):
+            select_candidates.host_masks += 1
+            # Copied anew each call: multiscale's scale masks change in
+            # place between passes (``update_auto_mask``).
+            mask = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(mask, bool)[y0:y1, x0:x1]))
+        else:
+            mask = mask[y0:y1, x0:x1]
+        selectable &= mask.to(dev)
+    yx = torch.nonzero(selectable)
+    return (yx[:, 0] + y0) * width + (yx[:, 1] + x0)
+
+
+select_candidates.calls = 0
+select_candidates.host_masks = 0
 
 
 def fit_arguments(fitter, device, xs: torch.Tensor,
@@ -177,19 +203,13 @@ class SubMinorLoop:
 
     def _find_peak_positions(self, residual_cube: torch.Tensor,
                              meta: CubeMeta) -> int:
-        dev = residual_cube.device
         n = residual_cube.shape[0]
         # The reference's border loop never clamps yiStart against start_y=0
         # (subminor_loop.cc:151-154), equivalent to the plain window.
-        window = window_mask(
-            self.height, self.width, self.horizontal_border, self.vertical_border
-        )
-        if self.mask is not None:
-            window = window & np.asarray(self.mask, bool)
         flat = select_candidates(
-            residual_cube, meta, self.rms_factor_image,
-            torch.as_tensor(window, device=dev), self.threshold,
-            self.allow_negative_components)
+            residual_cube, meta, self.rms_factor_image, self.mask,
+            self.threshold, self.allow_negative_components,
+            (self.horizontal_border, self.vertical_border))
         count = int(flat.numel())
         self._count = count
         if count == 0:

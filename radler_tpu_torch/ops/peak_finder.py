@@ -16,7 +16,7 @@ Semantics preserved from the reference:
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,17 +46,33 @@ def window_mask(
     start_y: int = 0,
     end_y: Optional[int] = None,
 ) -> np.ndarray:
-    """Static bool mask of the searchable window (``peak_finder.cc:28-32``)."""
+    """Static bool mask of the searchable window (``peak_finder.cc:28-32``):
+    True on :func:`window_bounds`' rectangle."""
+    y0, y1, x0, x1 = window_bounds(height, width, horizontal_border,
+                                   vertical_border, start_y, end_y)
+    mask = np.zeros((height, width), dtype=bool)
+    mask[y0:y1, x0:x1] = True
+    return mask
+
+
+def window_bounds(
+    height: int,
+    width: int,
+    horizontal_border: int,
+    vertical_border: int,
+    start_y: int = 0,
+    end_y: Optional[int] = None,
+) -> Tuple[int, int, int, int]:
+    """The searchable window's rows ``[y0, y1)`` and columns ``[x0, x1)``
+    as ``(y0, y1, x0, x1)`` (``peak_finder.cc:28-32``); a border wider than
+    half the image gives an empty range, never a negative one."""
     if end_y is None:
         end_y = height
-    xi_start, xi_end = horizontal_border, width - horizontal_border
-    yi_start = max(start_y, vertical_border)
-    yi_end = min(end_y, height - vertical_border)
-    xi_end = max(xi_end, xi_start)
-    yi_end = max(yi_end, yi_start)
-    mask = np.zeros((height, width), dtype=bool)
-    mask[yi_start:yi_end, xi_start:xi_end] = True
-    return mask
+    x0 = horizontal_border
+    x1 = max(width - horizontal_border, x0)
+    y0 = max(start_y, vertical_border)
+    y1 = max(min(end_y, height - vertical_border), y0)
+    return y0, y1, x0, x1
 
 
 def find_peak(

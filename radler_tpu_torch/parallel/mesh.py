@@ -718,23 +718,25 @@ def select_tile_candidates(
     mesh: Mesh,
     residual: torch.Tensor,  # [N, H, W]
     rms_factor: Optional[torch.Tensor],  # [H, W] or None
-    window: torch.Tensor,  # [H, W] bool: border window AND mask
+    mask,  # [H, W] bool tensor or NumPy array, or None
     considered_threshold: float,
     *,
     meta,
     allow_negative: bool,
+    borders: Tuple[int, int] = (0, 0),
 ) -> TileCandidates:
     """Each tile's candidates (``mesh.py:521-541`` of the JAX package,
     ``subminor_loop.cc:143-184`` run per row band), selected over the whole
-    image at once (:func:`radler_tpu_torch.models.subminor.select_candidates`):
-    raster order keeps each tile's candidates together, a tile being ``y //
-    H_loc``; the per-tile counts are one ``bincount`` and one host read.  K is the exact count: the
-    JAX package's per-tile capacity clamp (2^20, brightest first) has no
+    image at once (:func:`radler_tpu_torch.models.subminor.select_candidates`,
+    inside ``borders`` and ``mask``): raster order keeps each tile's
+    candidates together, a tile being ``y // H_loc``; the per-tile counts
+    are one ``bincount`` and one host read.  K is the exact count: the JAX
+    package's per-tile capacity clamp (2^20, brightest first) has no
     counterpart."""
     n, height, width = residual.shape
     dev = residual.device
-    flat = select_candidates(residual, meta, rms_factor, window,
-                             considered_threshold, allow_negative)
+    flat = select_candidates(residual, meta, rms_factor, mask,
+                             considered_threshold, allow_negative, borders)
     ys = flat // width
     per_tile = torch.bincount(ys // (height // mesh.tile),
                               minlength=mesh.tile)
@@ -799,16 +801,18 @@ def mesh_subminor_clean(
     residual: torch.Tensor,  # [N, H, W]
     psfs: torch.Tensor,  # [C, H, W] PSFs at image size
     rms_factor: Optional[torch.Tensor],  # [H, W] or None
-    window: torch.Tensor,  # [H, W] bool: border window AND mask
+    mask,  # [H, W] bool tensor or NumPy array, or None
     considered_threshold: float,
     params: SubminorParams,
     *,
     meta,
     fitter=None,
+    borders: Tuple[int, int] = (0, 0),
 ) -> MeshSubminorResult:
     """The Clark subminor loop on ``mesh`` (``mesh_subminor_clean`` and its
     program, ``mesh.py:488-752`` of the JAX package): every tile selects
-    its candidates (:func:`select_tile_candidates`) and cleans them on its
+    its candidates inside ``borders`` and ``mask``
+    (:func:`select_tile_candidates`) and cleans them on its
     own to ``params.threshold``, from ``params.start_iteration`` up to
     ``params.max_iterations`` each (so the total may pass it, as the
     reference's per-sub-image counts do), in one launch of B2 with a tile
@@ -834,8 +838,8 @@ def mesh_subminor_clean(
         raise ValueError(f"mesh_subminor_clean: the cube is on "
                          f"{residual.device}, the mesh on {mesh.device}")
     cand = select_tile_candidates(
-        mesh, residual, rms_factor, window, considered_threshold, meta=meta,
-        allow_negative=params.allow_negative)
+        mesh, residual, rms_factor, mask, considered_threshold, meta=meta,
+        allow_negative=params.allow_negative, borders=borders)
     if sum(cand.counts) == 0:
         # The reference's fallback FindPeak scans a zeroed scratch and finds
         # nothing (generic_clean.cc:156-162).

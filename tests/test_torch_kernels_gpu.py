@@ -19,7 +19,11 @@ from radler_tpu_torch.image_set import CubeMeta, linear_integration_coefficients
 from radler_tpu_torch.kernels import hogbom_step as hs
 from radler_tpu_torch.kernels import iuwt_atrous as ia
 from radler_tpu_torch.kernels import subminor_loop as sl
-from radler_tpu_torch.models.subminor import SubMinorLoop, fit_arguments
+from radler_tpu_torch.models.subminor import (
+    SubMinorLoop,
+    fit_arguments,
+    select_candidates,
+)
 from radler_tpu_torch.ops import iuwt as iuwt_ops
 from radler_tpu_torch.ops.convolution import padded_convolve
 from radler_tpu_torch.ops.spectral_fitting import SpectralFitter
@@ -926,6 +930,47 @@ def test_perform_mesh_clark_on_card_matches_cpu(cuda):
     scale = max(1.0, float(np.abs(res_c).max()))
     assert np.abs(res_g - res_c).max() <= 1e-5 * scale
     assert np.abs(mod_g - mod_c).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("use_mask", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("borders", [(0, 0), (7, 3)],
+                         ids=["no-borders", "borders-7x3"])
+def test_clark_selection_on_card_bit_equal_to_cpu(cuda, borders, use_mask):
+    """The Clark selection at 1024^2 x 4 with an rms factor, on the card
+    and on the CPU: the same flat indices in the same order, the same
+    gathered residuals and rms values, every candidate inside the borders.
+    The residual lies on a grid of 2^-10 and the channels weigh the same,
+    so the integration and the rms product are exact on either device.  A
+    selection copies a NumPy mask once, and none without one."""
+    size, C = 1024, 4
+    rng = np.random.default_rng(11)
+    meta = CubeMeta(C, 1, (1.0,) * C, (True,), 1.0, False,
+                    tuple(1e8 + 1e7 * c for c in range(C)))
+    res = (rng.integers(-2048, 2048, (C, size, size)) / 1024).astype(
+        np.float32)
+    rms = (rng.integers(4, 17, (size, size)) / 8).astype(np.float32)
+    mask = rng.uniform(size=(size, size)) > 0.3 if use_mask else None
+    loops = []
+    for device in (torch.device("cpu"), cuda):
+        loop = SubMinorLoop(size, size, 2 * size, 2 * size)
+        loop.set_threshold(1.5, 1.5)
+        loop.set_clean_borders(*borders)
+        loop.mask = mask
+        loop.rms_factor_image = torch.as_tensor(rms, device=device)
+        calls, copies = select_candidates.calls, select_candidates.host_masks
+        count = loop.find_peak_positions(torch.as_tensor(res, device=device),
+                                         meta)
+        assert select_candidates.calls - calls == 1
+        assert select_candidates.host_masks - copies == int(use_mask)
+        loops.append((count, loop))
+    (n_cpu, cpu), (n_card, card) = loops
+    assert n_card == n_cpu > 10_000
+    hb, vb = borders
+    assert hb <= int(card._xs.min()) and int(card._xs.max()) < size - hb
+    assert vb <= int(card._ys.min()) and int(card._ys.max()) < size - vb
+    for name in ("_flat", "_xs", "_ys", "_residual_k", "_rms_k"):
+        assert getattr(card, name).device.type == "cuda"
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
 
 
 def test_perform_clark_point_source_and_count(cuda):

@@ -2,7 +2,8 @@
 it: ``trace``, ``annotate`` with and without a profiler recording, the
 span tree of a Clark and of a fused multiscale ``Radler.perform`` on the
 CPU, results unchanged under the profiler, the Högbom loop's counters of
-enqueued and no-op iterations, and the module's imports."""
+enqueued and no-op iterations, the Clark selection's counters, and the
+module's imports."""
 
 import json
 import subprocess
@@ -15,6 +16,7 @@ import torch
 
 import radler_tpu_torch as rd
 from radler_tpu_torch.kernels import hogbom_step as hs
+from radler_tpu_torch.models import subminor as sm
 from radler_tpu_torch.utils import profiling
 
 # Several test processes share the machine's cores; one intra-op thread
@@ -174,6 +176,18 @@ def test_clark_perform_spans(tmp_path):
     algorithm = only(spans, "radler.algorithm")
     assert [s[0] for s in children(spans, algorithm)] == [
         "generic.peak", "clark.select", "clark.b2", "clark.correct"]
+
+
+def test_clark_perform_selection_counters():
+    """A Clark perform without a mask selects its candidates once, and that
+    selection copies no host mask: the window is the borders' slice of the
+    card's value plane."""
+    calls, host_masks = (sm.select_candidates.calls,
+                         sm.select_candidates.host_masks)
+    _, _, iterations = perform("clark")
+    assert iterations > 0
+    assert sm.select_candidates.calls - calls == 1
+    assert sm.select_candidates.host_masks - host_masks == 0
 
 
 def test_fused_multiscale_perform_spans_and_counters(tmp_path):

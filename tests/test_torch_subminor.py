@@ -242,8 +242,13 @@ def jax_and_port_loops(C, P, seed, threshold, borders=(0, 0), mask=None,
         dict(C=2, P=2, borders=(6, 9)),
         dict(C=3, P=1, use_rms=True),
         dict(C=1, P=1, mask=True, borders=(3, 3)),
+        dict(C=2, P=1, borders=(5, 11)),
+        dict(C=1, P=1, borders=(40, 2)),
+        dict(C=2, P=1, mask=True),
+        dict(C=3, P=1, mask=True, use_rms=True),
     ],
-    ids=["plain", "borders-2x2", "rms-3ch", "mask"],
+    ids=["plain", "borders-2x2", "rms-3ch", "mask", "borders-asymmetric",
+         "border-past-half", "mask-no-borders", "mask-rms"],
 )
 def test_find_peak_positions_matches_jax(options, allow_negative):
     opts = dict(options)
@@ -256,7 +261,12 @@ def test_find_peak_positions_matches_jax(options, allow_negative):
     count_t = tloop.find_peak_positions(
         torch.as_tensor(residual), CubeMeta(*meta_args)
     )
-    assert count_t == count_j > 0
+    # A border past half the image leaves an empty window (window_mask's
+    # clamps); every other case selects.
+    empty = max(opts.get("borders", (0, 0))) > SIZE // 2
+    assert count_t == count_j and (count_j == 0) == empty
+    if empty:
+        return
     valid_j = np.asarray(jloop._valid)
     assert valid_j[:count_j].all() and not valid_j[count_j:].any()
     np.testing.assert_array_equal(tloop._xs.numpy(), np.asarray(jloop._xs)[:count_j])
